@@ -15,13 +15,25 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    times from CUDA events;
 4. K2, the two backward kernels, against autograd of the plain version on
    the same shapes;
-5. the slice: ``hvd.init()`` (NCCL), ``create_mesh({"dp": 1})``,
+5. K3 and K4, the fused BN + ReLU + 1x1-conv + stats kernels (x- and
+   w-stationary), against their plain PyTorch version at the four ResNet-50
+   stage shapes at B=256, 224x224 (y, s1, s2 at the JAX tests'
+   tolerances), with bitwise-equal stats over two launches; kernel, plain
+   and library (the bf16 product alone, ``torch.matmul``) times at the
+   path shape (stage 1);
+6. the GPT-2 slice: ``hvd.init()`` (NCCL), ``create_mesh({"dp": 1})``,
    GPT-2-small (12 x 768, vocab 50257) with flash attention and bf16
    logits, ``DistributedOptimizer(AdamW)``, parameter broadcast, then 5
    training steps at B=4, S=2048 on seeded synthetic ids. The forward loss
    is first held against the same weights with dense attention; the kernel
    launch counts of the 5 steps must be exactly 12 per kernel per step;
-6. the ``{"kernels": [...]}`` line; then the card line from nvidia-smi and
+7. the ResNet slice: ResNet-50 with ``fuse_bn_conv_stages=(1,)``,
+   ``DistributedOptimizer(SGD(0.01, momentum=0.9))``, 5 steps at B=256,
+   224x224 on bench.py's seeded images and labels. The forward loss is
+   first held against the unfused ResNet-50 carrying the same weights; the
+   5 steps must launch K3 exactly 4 times a step and K4 never; then the
+   unfused model takes the same 5 steps for ``fused_bn_delta_ms``;
+8. the ``{"kernels": [...]}`` line; then the card line from nvidia-smi and
    the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is not available.
@@ -41,18 +53,33 @@ import torch
 # Published H100 SXM peaks (NVIDIA data sheet, dense), used for bound_ms.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
+SOURCE = {
+    "flash_fwd": "horovod_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dkdv": "horovod_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dq": "horovod_tpu_torch/csrc/flash_attention.cu",
+    "fused_bn_conv_scratch": "horovod_tpu_torch/csrc/fused_bn_conv.cu",
+    "fused_bn_conv_revisit": "horovod_tpu_torch/csrc/fused_bn_conv.cu",
+}
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:66",       # _kernel
     "flash_bwd_dkdv": "horovod_tpu/ops/flash_attention.py:267",  # _dqkv_kernel
     "flash_bwd_dq": "horovod_tpu/ops/flash_attention.py:267",
+    # fused_bn_relu_matmul's kernel for accum="scratch" and for "revisit"
+    "fused_bn_conv_scratch": "horovod_tpu/ops/fused_bn_conv.py:99",
+    "fused_bn_conv_revisit": "horovod_tpu/ops/fused_bn_conv.py:166",
 }
 B, S, H, D = 4, 2048, 12, 64
 STEPS = 5
 O_ATOL = 2e-2        # bf16 output: a few ulp at |o| ~ 1
 LSE_ATOL = 1e-3      # f32 logsumexp; the two differ in summation order only
 GRAD_TOL = 2e-2      # bf16 dq/dk/dv, atol and rtol
-LOSS_RTOL = 2e-2     # flash vs dense forward loss, bf16 model
+LOSS_RTOL = 2e-2     # flash vs dense, fused vs unfused forward loss, bf16 models
+# ResNet-50 at B=256, 224x224: (M, Cin, Cout) of the bottleneck's last 1x1
+# conv in each stage; stage 3's M = 12,544 is padded to 12,800 by the module.
+BN_STAGES = [(802816, 64, 256), (200704, 128, 512), (50176, 256, 1024), (12800, 512, 2048)]
+BN_PATH_STAGE = 1
+BN_TOL = {"y": (2e-2, 2e-2), "s1": (2e-2, 2.0), "s2": (3e-2, 3.0)}   # (rtol, atol)
+RESNET_B, RESNET_HW = 256, 224
 
 
 def emit(obj) -> None:
@@ -241,73 +268,239 @@ def phase_k2(fa, gen, dev, fwd_out):
     return rec
 
 
-def phase_slice(fa, dev):
+def bn_inputs(M, cin, cout, gen, dev):
+    """x, mu, var, gamma, beta, w drawn as tests/test_fused_bn_conv.py draws
+    them: bf16 x and w, f32 per-channel vectors."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    return (randn(M, cin).to(torch.bfloat16), randn(cin) * 0.1, rand(cin) + 0.5,
+            rand(cin) + 0.5, randn(cin) * 0.1,
+            (randn(cin, cout) / math.sqrt(cin)).to(torch.bfloat16))
+
+
+def phase_k34(fb, gen, dev):
+    """K3 and K4 against the plain version at the four stage shapes, stats
+    bitwise-equal over two launches; times at the path shape."""
+    rec = {"phase": "k34", "batch": RESNET_B, "image": RESNET_HW,
+           "tolerance": {k: {"rtol": r, "atol": a} for k, (r, a) in BN_TOL.items()},
+           "shapes": []}
+    kernels = {"scratch": fb.fused_bn_conv_scratch_cuda,
+               "revisit": fb.fused_bn_conv_revisit_cuda}
+    for stage, (M, cin, cout) in enumerate(BN_STAGES):
+        args = bn_inputs(M, cin, cout, gen, dev)
+        want = fb._reference_bn_relu_matmul(*args)
+        row = {"stage": stage, "M": M, "Cin": cin, "Cout": cout}
+        for name, fn in kernels.items():
+            got = fn(*args)
+            again = fn(*args)
+            torch.cuda.synchronize()
+            for part, g, w in zip(("y", "s1", "s2"), got, want):
+                rtol, atol = BN_TOL[part]
+                row[f"{name}_{part}_max_abs_err"] = check_close(
+                    f"K{3 if name == 'scratch' else 4} {part} (stage {stage})", g, w, atol, rtol)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} (stage {stage}): two launches differ")
+            row[f"{name}_bitwise_repeat"] = True
+        row["s1_max_abs_ref"] = float(want[1].abs().max())
+        row["s2_max_abs_ref"] = float(want[2].abs().max())
+        rec["shapes"].append(row)
+        if stage == BN_PATH_STAGE:
+            for name, fn in kernels.items():
+                rec[f"{name}_ms"] = time_ms(lambda: fn(*args), 20)
+                rec[f"{name}_max_abs_err"] = row[f"{name}_y_max_abs_err"]
+            rec["plain_ms"] = time_ms(lambda: fb._reference_bn_relu_matmul(*args), 5)
+            x, mu, var, gamma, beta, w = args
+            a = torch.relu((x.float() - mu) * torch.rsqrt(var + 1e-5) * gamma + beta).to(x.dtype)
+            # No one PyTorch call computes the fused function; the product
+            # alone is the least a library takes for part of it.
+            rec["library_ms"] = time_ms(lambda: torch.matmul(a, w), 20)
+            rec["library_is"] = "torch.matmul(a, w): the bf16 product alone"
+            rec["flops"] = 2 * M * cin * cout
+            rec["bytes"] = (M * cin + M * cout + cin * cout) * 2 + 4 * cin * 4 + 2 * cout * 4
+            rec["bound_ms"], rec["bound_by"] = bound(rec["flops"], rec["bytes"])
+            del a
+        del args, want
+        torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+def steps(step_fn, state, inputs, labels):
+    """STEPS training steps; (state, losses, step ms by host clock)."""
+    losses, step_ms = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, inputs, labels)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    return state, losses, step_ms
+
+
+def check_loss(name: str, got: float, want: float):
+    if not (math.isfinite(got) and abs(got - want) <= LOSS_RTOL * abs(want)):
+        raise AssertionError(f"{name}: forward loss {got} vs {want}")
+
+
+def phase_slice(fa, fb):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.registry import get_model
     from horovod_tpu_torch.parallel.mesh import create_mesh
     from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
 
-    hvd.init()
-    try:
-        if hvd.device().type != "cuda":
-            raise AssertionError(f"hvd.init() chose {hvd.device()}")
-        mesh = create_mesh({"dp": 1})
-        spec = get_model("gpt2-small")
-        gen = torch.Generator(device=hvd.device()).manual_seed(0)
-        model = spec.make_model(device=hvd.device(), generator=gen, attn_impl="flash",
-                                logits_dtype=torch.bfloat16, max_len=S)
-        cfg = model.cfg
-        ids = torch.from_numpy(spec.make_batch(B, seed=42, seq_len=S)[0]).to(hvd.device())
+    mesh = create_mesh({"dp": 1})
+    spec = get_model("gpt2-small")
+    gen = torch.Generator(device=hvd.device()).manual_seed(0)
+    model = spec.make_model(device=hvd.device(), generator=gen, attn_impl="flash",
+                            logits_dtype=torch.bfloat16, max_len=S)
+    cfg = model.cfg
+    ids = torch.from_numpy(spec.make_batch(B, seed=42, seq_len=S)[0]).to(hvd.device())
 
-        # The forward loss through the kernels against dense attention on
-        # the same weights.
-        dense = spec.make_model(device=hvd.device(), attn_impl="dense",
-                                logits_dtype=torch.bfloat16, max_len=S)
-        dense.load_state_dict(model.state_dict())
-        with torch.no_grad():
-            loss_flash = float(lm_loss(model(ids), ids))
-            loss_dense = float(lm_loss(dense(ids), ids))
-        del dense
-        if not (math.isfinite(loss_flash)
-                and abs(loss_flash - loss_dense) <= LOSS_RTOL * abs(loss_dense)):
-            raise AssertionError(f"flash loss {loss_flash} vs dense {loss_dense}")
+    # The forward loss through the kernels against dense attention on the
+    # same weights.
+    dense = spec.make_model(device=hvd.device(), attn_impl="dense",
+                            logits_dtype=torch.bfloat16, max_len=S)
+    dense.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        loss_flash = float(lm_loss(model(ids), ids))
+        loss_dense = float(lm_loss(dense(ids), ids))
+    del dense
+    check_loss("gpt2-small flash vs dense", loss_flash, loss_dense)
 
-        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
-            model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8))
-        init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8))
+    init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh)
+    state = init_fn()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+
+    fa.reset_launches()
+    fb.reset_launches()
+    state, losses, step_ms = steps(step_fn, state, ids, ids)
+    launches, other = fa.launches(), fb.launches()
+    want = cfg.n_layers * STEPS
+    if launches != {name: want for name in launches} or any(other.values()):
+        raise AssertionError(f"launch counts {launches} {other}, expected {want} "
+                             "of each flash kernel and no fused-BN launch")
+    steady = statistics.median(step_ms[1:])
+    rec = {"phase": "slice", "model": "gpt2-small", "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads, "vocab": cfg.vocab_size,
+           "batch": B, "seq": S, "world": hvd.size(), "device": str(hvd.device()),
+           "loss_flash_fwd": loss_flash, "loss_dense_fwd": loss_dense,
+           "losses": losses, "step_ms": step_ms, "median_step_ms_2_to_5": steady,
+           "tokens_per_s": B * S / (steady / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "launches_per_step": {
+               k: v / STEPS for k, v in launches.items()}}
+    emit(rec)
+    return rec
+
+
+def phase_resnet(fa, fb):
+    """ResNet-50 with the stage-1 fused tail: forward loss against the
+    unfused model on the same weights, 5 steps through K3, then the unfused
+    model's 5 steps from the same weights for fused_bn_delta_ms."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.convert import resnet_unfused_state_dict
+    from horovod_tpu_torch.models.registry import get_model
+    from horovod_tpu_torch.parallel.mesh import create_mesh
+    from horovod_tpu_torch.parallel.train import make_train_step, softmax_xent
+
+    dev = hvd.device()
+    mesh = create_mesh({"dp": 1})
+    spec = get_model("resnet50")
+    # No device argument: make_model builds on hvd.device().
+    model = spec.make_model(generator=torch.Generator(device=dev).manual_seed(0),
+                            fuse_bn_conv_stages=(1,))
+    if next(model.parameters()).device != dev:
+        raise AssertionError(f"make_model() built on {next(model.parameters()).device}")
+    init_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    # bench.py's synthetic batch: numpy seed 42, images then labels.
+    rng = np.random.RandomState(42)
+    images = torch.from_numpy(
+        rng.rand(RESNET_B, RESNET_HW, RESNET_HW, 3).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(
+        rng.randint(0, 1000, size=(RESNET_B,), dtype=np.int32)).to(dev)
+
+    # Forward loss through K3 against the unfused model on the same weights.
+    # The last norm of each block starts at scale 0, which would hide the
+    # fused tail's output, so both models get scale 0.25 there for this check.
+    unfused = spec.make_model(fuse_bn_conv_stages=())
+    check_sd = {k: v.clone() for k, v in init_sd.items()}
+    for k, v in check_sd.items():
+        if k.endswith("bn3.weight"):
+            v.fill_(0.25)
+    model.load_state_dict(check_sd)
+    unfused.load_state_dict(resnet_unfused_state_dict(check_sd))
+    model.train()
+    unfused.train()
+    fb.reset_launches()
+    with torch.no_grad():
+        logits_fused, logits_unfused = model(images), unfused(images)
+        loss_fused = float(softmax_xent(logits_fused, labels))
+        loss_unfused = float(softmax_xent(logits_unfused, labels))
+    check_launches = fb.launches()["fused_bn_conv_scratch"]
+    if check_launches != 4:
+        raise AssertionError(f"the fused forward launched K3 {check_launches} times, not 4")
+    check_loss("resnet50 fused vs unfused", loss_fused, loss_unfused)
+    logits_diff = max_err(logits_fused, logits_unfused)
+    del logits_fused, logits_unfused
+    model.load_state_dict(init_sd)
+    unfused.load_state_dict(resnet_unfused_state_dict(init_sd))
+
+    def train(net, name):
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(net.parameters(), lr=0.01,
+                                                       momentum=0.9))
+        init_fn, step_fn = make_train_step(net, opt, softmax_xent, mesh=mesh)
         state = init_fn()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
-
         fa.reset_launches()
-        losses, step_ms = [], []
-        for _ in range(STEPS):
-            t0 = time.perf_counter()
-            state, loss = step_fn(state, ids, ids)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(loss))
-        launches = fa.launches()
-        if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"non-finite losses {losses}")
-        want = cfg.n_layers * STEPS
-        if launches != {name: want for name in launches}:
-            raise AssertionError(f"launch counts {launches}, expected {want} each")
+        fb.reset_launches()
+        state, losses, step_ms = steps(step_fn, state, images, labels)
         steady = statistics.median(step_ms[1:])
-        rec = {"phase": "slice", "model": "gpt2-small", "n_layers": cfg.n_layers,
-               "d_model": cfg.d_model, "n_heads": cfg.n_heads, "vocab": cfg.vocab_size,
-               "batch": B, "seq": S, "world": hvd.size(), "device": str(hvd.device()),
-               "loss_flash_fwd": loss_flash, "loss_dense_fwd": loss_dense,
-               "losses": losses, "step_ms": step_ms, "median_step_ms_2_to_5": steady,
-               "tokens_per_s": B * S / (steady / 1e3),
-               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": launches, "launches_per_step": {
-                   k: v / STEPS for k, v in launches.items()}}
-        emit(rec)
-        return rec
-    finally:
-        hvd.shutdown()
+        return {f"{name}_losses": losses, f"{name}_step_ms": step_ms,
+                f"{name}_median_step_ms_2_to_5": steady,
+                f"{name}_images_per_s": RESNET_B / (steady / 1e3),
+                f"{name}_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}, \
+            {**fa.launches(), **fb.launches()}
+
+    del unfused
+    rec = {"phase": "resnet", "model": "resnet50", "fuse_bn_conv_stages": [1],
+           "batch": RESNET_B, "image": RESNET_HW, "world": hvd.size(), "device": str(dev),
+           "loss_fused_fwd": loss_fused, "loss_unfused_fwd": loss_unfused,
+           "logits_max_abs_diff_fwd": logits_diff, "k3_launches_fwd": check_launches}
+    fused_rec, launches = train(model, "fused")
+    want = {name: 0 for name in launches}
+    want["fused_bn_conv_scratch"] = 4 * STEPS
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    rec.update(fused_rec, launches=launches,
+               launches_per_step={k: v / STEPS for k, v in launches.items()})
+    del model
+    torch.cuda.empty_cache()
+
+    unfused = spec.make_model(fuse_bn_conv_stages=())
+    unfused.load_state_dict(resnet_unfused_state_dict(init_sd))
+    unfused_rec, launches = train(unfused, "unfused")
+    if any(launches.values()):
+        raise AssertionError(f"the unfused model launched kernels: {launches}")
+    rec.update(unfused_rec)
+    # bench.py's definition: positive = the fused kernel made the step faster.
+    rec["fused_bn_delta_ms"] = (rec["unfused_median_step_ms_2_to_5"]
+                                - rec["fused_median_step_ms_2_to_5"])
+    emit(rec)
+    del unfused
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> int:
@@ -315,7 +508,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the card",
               file=sys.stderr)
         return 2
+    import horovod_tpu_torch as hvd
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused_bn_conv as fb
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -327,7 +522,17 @@ def main() -> int:
     k2 = phase_k2(fa, gen, dev, fwd_out)
     del fwd_out
     torch.cuda.empty_cache()
-    sl = phase_slice(fa, dev)
+    k34 = phase_k34(fb, gen, dev)
+
+    hvd.init()
+    try:
+        if hvd.device().type != "cuda":
+            raise AssertionError(f"hvd.init() chose {hvd.device()}")
+        sl = phase_slice(fa, fb)
+        torch.cuda.empty_cache()
+        rn = phase_resnet(fa, fb)
+    finally:
+        hvd.shutdown()
 
     kernels = [
         {"name": "flash_fwd", "launches": sl["launches"]["flash_fwd"],
@@ -344,8 +549,14 @@ def main() -> int:
          "plain_ms": k2["plain_ms"], "bound_ms": k2["dq_bound_ms"],
          "bound_by": k2["dq_bound_by"], "library_ms": None},
     ]
+    for accum in ("scratch", "revisit"):
+        name = f"fused_bn_conv_{accum}"
+        kernels.append({"name": name, "launches": rn["launches"][name],
+                        "max_abs_err": k34[f"{accum}_max_abs_err"], "ms": k34[f"{accum}_ms"],
+                        "plain_ms": k34["plain_ms"], "bound_ms": k34["bound_ms"],
+                        "bound_by": k34["bound_by"], "library_ms": k34["library_ms"]})
     for kern in kernels:
-        kern.update(route="cuda", source=SOURCE, replaces=REPLACES[kern["name"]])
+        kern.update(route="cuda", source=SOURCE[kern["name"]], replaces=REPLACES[kern["name"]])
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,8 @@
 """flax parameters -> the port's ``state_dict``.
 
+``resnet_flax_to_torch(params, batch_stats, model)`` does the same for the
+ResNet family (see its docstring).
+
 ``flax_to_torch(params, cfg)`` takes the ``params`` tree of the JAX
 ``TransformerLM`` as nested dicts of numpy arrays (unboxed) and returns the
 ``state_dict`` of ``models.transformer.TransformerLM(cfg)``. flax kernels
@@ -14,6 +17,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from .resnet import BottleneckResNetBlock, ResNet, ResNetBlock
 from .transformer import TransformerConfig
 
 
@@ -30,6 +34,20 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def _dense(kernel: np.ndarray, in_features: int) -> np.ndarray:
     return kernel.reshape(in_features, -1).T
+
+
+def _apply_plan(flat: Dict[str, np.ndarray], plan: Dict, what: str,
+                dtype) -> Dict[str, torch.Tensor]:
+    missing = sorted(set(plan) - set(flat))
+    extra = sorted(set(flat) - set(plan))
+    if missing or extra:
+        raise KeyError(f"flax {what} do not match the model: missing {missing}, "
+                       f"extra {extra}")
+    out = {}
+    for path, (key, fn) in plan.items():
+        arr = flat[path] if fn is None else fn(flat[path])
+        out[key] = torch.from_numpy(np.array(arr, copy=True)).to(dtype)
+    return out
 
 
 def flax_to_torch(params: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
@@ -60,13 +78,81 @@ def flax_to_torch(params: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Te
                 f"{dst}.mlp.{name}.weight", lambda a, n=fan_in: _dense(a, n))
             plan[f"{src}/mlp/{name}/bias"] = (f"{dst}.mlp.{name}.bias", None)
 
-    missing = sorted(set(plan) - set(flat))
-    extra = sorted(set(flat) - set(plan))
-    if missing or extra:
-        raise KeyError(f"flax params do not match the config: missing {missing}, "
-                       f"extra {extra}")
+    return _apply_plan(flat, plan, "params", cfg.param_dtype)
+
+
+def _hwio_to_oihw(kernel: np.ndarray) -> np.ndarray:
+    return kernel.transpose(3, 2, 0, 1)
+
+
+def _resnet_block_names(block) -> Dict[str, str]:
+    """flax auto-names of one block's convs and norms -> the port's names.
+    In a fused bottleneck the block's last norm is the second BatchNorm
+    flax creates, so it is ``BatchNorm_1``; unfused, that is the middle
+    norm and the last is ``BatchNorm_2``."""
+    if isinstance(block, ResNetBlock):
+        return {"Conv_0": "conv1", "Conv_1": "conv2",
+                "BatchNorm_0": "bn1", "BatchNorm_1": "bn2"}
+    if block.fused:
+        return {"Conv_0": "conv1", "Conv_1": "conv2",
+                "BatchNorm_0": "bn1", "BatchNorm_1": "bn3"}
+    return {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3",
+            "BatchNorm_0": "bn1", "BatchNorm_1": "bn2", "BatchNorm_2": "bn3"}
+
+
+def resnet_flax_to_torch(params: Mapping, batch_stats: Mapping,
+                         model: ResNet) -> Dict[str, torch.Tensor]:
+    """The ``params`` and ``batch_stats`` trees of the JAX ResNet (nested
+    dicts of numpy arrays) as the ``state_dict`` of ``model``, a port
+    ResNet of the same configuration. Conv kernels go from HWIO to OIHW,
+    the head's (in, out) kernel is transposed, the fused module's kernel
+    stays (Cin, Cout). A missing or extra key raises."""
+    conv = _hwio_to_oihw
+    plan = {"params/conv_init/kernel": ("conv_init.weight", conv),
+            "params/head/kernel": ("head.weight", lambda a: a.T),
+            "params/head/bias": ("head.bias", None)}
+
+    def norm(src: str, dst: str):
+        plan[f"params/{src}/scale"] = (f"{dst}.weight", None)
+        plan[f"params/{src}/bias"] = (f"{dst}.bias", None)
+        plan[f"batch_stats/{src}/mean"] = (f"{dst}.running_mean", None)
+        plan[f"batch_stats/{src}/var"] = (f"{dst}.running_var", None)
+
+    norm("bn_init", "bn_init")
+    for i, block in enumerate(model.blocks):
+        src, dst = f"{type(block).__name__}_{i}", f"blocks.{i}"
+        names = _resnet_block_names(block)
+        if block.proj:
+            names.update(conv_proj="conv_proj", norm_proj="norm_proj")
+        for flax_name, name in names.items():
+            if flax_name.startswith(("Conv", "conv")):
+                plan[f"params/{src}/{flax_name}/kernel"] = (f"{dst}.{name}.weight", conv)
+            else:
+                norm(f"{src}/{flax_name}", f"{dst}.{name}")
+        if isinstance(block, BottleneckResNetBlock) and block.fused:
+            f_src, f_dst = f"{src}/fused_bn_conv3", f"{dst}.fused_bn_conv3"
+            for leaf in ("scale", "bias", "kernel"):
+                plan[f"params/{f_src}/{leaf}"] = (f"{f_dst}.{leaf}", None)
+            plan[f"batch_stats/{f_src}/mean"] = (f"{f_dst}.running_mean", None)
+            plan[f"batch_stats/{f_src}/var"] = (f"{f_dst}.running_var", None)
+
+    flat = _flatten({"params": params, "batch_stats": batch_stats})
+    return _apply_plan(flat, plan, "params/batch_stats", torch.float32)
+
+
+def resnet_unfused_state_dict(state_dict: Mapping[str, torch.Tensor]
+                              ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of a fused ResNet as that of the same ResNet built
+    without ``fuse_bn_conv_stages``: each ``fused_bn_conv3`` becomes the
+    ``bn2`` (its scale, bias and running stats) and the 1x1 ``conv3`` (its
+    (Cin, Cout) kernel as (Cout, Cin, 1, 1)) it stands for."""
     out = {}
-    for path, (key, fn) in plan.items():
-        arr = flat[path] if fn is None else fn(flat[path])
-        out[key] = torch.from_numpy(np.array(arr, copy=True)).to(cfg.param_dtype)
+    for key, t in state_dict.items():
+        prefix, sep, leaf = key.partition(".fused_bn_conv3.")
+        if not sep:
+            out[key] = t
+        elif leaf == "kernel":
+            out[f"{prefix}.conv3.weight"] = t.t().contiguous()[:, :, None, None]
+        else:
+            out[f"{prefix}.bn2.{'weight' if leaf == 'scale' else leaf}"] = t
     return out

@@ -1,13 +1,21 @@
 """Model registry: name -> (model factory, synthetic-batch factory).
 Counterpart of ``horovod_tpu/models/registry.py``; the port has the GPT-2
-entries so far."""
+and ResNet entries so far.
+
+``make_model(device=None, ...)`` builds on ``hvd.device()`` once
+``hvd.init()`` has run, else on the current CUDA card; without CUDA it
+raises, as ``hvd.init()`` does. The CPU is used only when
+``device="cpu"`` is passed."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict
 
 import numpy as np
+import torch
 
+from ..common import basics
+from .resnet import RESNET_CONFIGS
 from .transformer import GPT2_CONFIGS, TransformerLM
 
 
@@ -16,7 +24,28 @@ class ModelSpec:
     name: str
     make_model: Callable[..., Any]     # (device=None, generator=None, **cfg overrides)
     make_batch: Callable[..., Any]     # batch_size -> example inputs tuple
-    kind: str                          # "lm"
+    kind: str                          # "image" | "lm"
+
+
+def _resolve_device(device):
+    if device is not None:
+        return torch.device(device)
+    if basics.is_initialized():
+        return basics.device()
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_model(): CUDA is not available; pass device='cpu' to build "
+            "the model on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _image_batch(hw: int, channels: int = 3):
+    """Seeded synthetic images, the same numpy draw as the JAX registry."""
+    def make(batch_size: int, seed: int = 0):
+        rng = np.random.RandomState(seed)
+        return (rng.rand(batch_size, hw, hw, channels).astype(np.float32),)
+
+    return make
 
 
 def _token_batch(seq_len: int, vocab: int):
@@ -32,13 +61,22 @@ def _token_batch(seq_len: int, vocab: int):
 def _lm_factory(cfg):
     def make(device=None, generator=None, **overrides):
         c = dataclasses.replace(cfg, **overrides) if overrides else cfg
-        return TransformerLM(c, device=device, generator=generator)
+        return TransformerLM(c, device=_resolve_device(device), generator=generator)
+
+    return make
+
+
+def _resnet_factory(ctor):
+    def make(device=None, generator=None, **overrides):
+        return ctor(device=_resolve_device(device), generator=generator, **overrides)
 
     return make
 
 
 def _registry() -> Dict[str, ModelSpec]:
     reg: Dict[str, ModelSpec] = {}
+    for name, ctor in RESNET_CONFIGS.items():
+        reg[name] = ModelSpec(name, _resnet_factory(ctor), _image_batch(224), "image")
     for name, cfg in GPT2_CONFIGS.items():
         reg[name] = ModelSpec(name, _lm_factory(cfg),
                               _token_batch(min(cfg.max_len, 512), cfg.vocab_size),

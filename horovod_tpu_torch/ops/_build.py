@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``horovod_tpu_torch/csrc/`` are compiled by ``nvcc`` into
-one shared library with a plain C interface, loaded with ``ctypes``. The
+The sources under ``horovod_tpu_torch/csrc/`` are compiled by ``nvcc``, one
+process per source, all started together, then linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The
 build runs on first use, never at import, goes into
 ``horovod_tpu_torch/_build/`` and is keyed on a hash of the sources and the
 flags, so an edited source builds anew and an unchanged one is reused.
@@ -20,19 +21,25 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "flash_attention.cu",)
+SOURCES = (_PKG / "csrc" / "flash_attention.cu", _PKG / "csrc" / "fused_bn_conv.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _QKV_ARGS = [_I] * 14 + [_F, _P]   # B, S, H, D, 9 strides, causal; scale; stream
+# x, mu, var, gamma, beta, w, y, s, ws; M, Cin, Cout; eps; stream
+_BN_CONV_ARGS = [_P] * 9 + [_I] * 3 + [_F, _P]
 ARGTYPES = {
     "hvd_flash_fwd": [_P] * 6 + _QKV_ARGS,
     "hvd_flash_bwd_dkdv": [_P] * 9 + _QKV_ARGS,
     "hvd_flash_bwd_dq": [_P] * 8 + _QKV_ARGS,
+    "hvd_fused_bn_conv_scratch": _BN_CONV_ARGS,
+    "hvd_fused_bn_conv_revisit": _BN_CONV_ARGS,
+    "hvd_fused_bn_conv_scratch_parts": [_I, _I],   # M, Cout -> partitions
+    "hvd_fused_bn_conv_revisit_parts": [_I, _I],
 }
 
 _lock = threading.Lock()
@@ -48,7 +55,7 @@ def _nvcc() -> str:
     if default.exists():
         return str(default)
     raise RuntimeError(
-        "nvcc not found (PATH or /usr/local/cuda/bin): the flash-attention "
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA "
         "kernels are built from horovod_tpu_torch/csrc at first CUDA use")
 
 
@@ -69,18 +76,30 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+            objs.append(obj)
+        outputs = [proc.communicate() for _, proc in procs]   # wait for every compiler
+        for (cmd, proc), (stdout, stderr) in zip(procs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                                   f"{stdout}\n{stderr}")
+        ptxas = [stderr for _, stderr in outputs]
+        tmp = os.path.join(work, "lib.so")
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
     build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      cached=False, ptxas=proc.stderr)
+                      cached=False, ptxas="".join(ptxas))
     return out
 
 

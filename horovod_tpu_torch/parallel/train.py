@@ -59,7 +59,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     ``init_fn()`` broadcasts the parameters and optimizer state from rank 0
     and returns the initial ``TrainState``. ``step_fn(state, inputs,
-    labels)`` takes the global batch, runs this rank's ``dp`` slice of it
+    labels)`` takes the global batch, puts the model in train mode (batch
+    statistics, running-stat updates), runs this rank's ``dp`` slice of it
     forward and backward, steps ``optimizer`` (a ``DistributedOptimizer``
     for the gradients to be averaged), and returns ``(state, loss)`` with
     the loss averaged over ranks (a detached scalar on the device)."""
@@ -72,6 +73,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     def step_fn(state: TrainState, inputs: torch.Tensor, labels: torch.Tensor):
         x = _shard(inputs, mesh).to(mesh.device)
         y = _shard(labels, mesh).to(mesh.device)
+        model.train()   # batch statistics, as the JAX step's train=True
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model(x), y)
         loss.backward()

@@ -1,16 +1,20 @@
-"""Where the time of the GPT-2-small training step goes on the card.
+"""Where the time of a training step goes on the card.
 
-    python -m horovod_tpu_torch.profile_step [--steps 3] [--out PATH]
+    python -m horovod_tpu_torch.profile_step [--model gpt2-small|resnet50]
+        [--steps 3] [--out PATH]
 
-Builds the slice that ``chip_smoke.py`` drives (GPT-2-small, B=4, S=2048,
-bf16 logits, ``DistributedOptimizer(AdamW)`` on one card), warms up, then
-for ``attn_impl`` = flash and dense: times ``--steps`` steps by host clock
-around ``torch.cuda.synchronize()``, and traces the same number of steps
-with ``torch.profiler`` to sum device time by kernel. Prints one JSON line
-per implementation: step ms, tokens/s, device busy ms per step and the idle
-share against the untraced step, and device ms per step by kernel class (the
-flash kernels, matrix products, everything else) and for the top kernels.
-Needs a CUDA card.
+Builds a slice that ``chip_smoke.py`` drives on one card: GPT-2-small (B=4,
+S=2048, bf16 logits, ``DistributedOptimizer(AdamW)``), run with
+``attn_impl`` = flash and dense; or ResNet-50 (B=256, 224x224,
+``DistributedOptimizer(SGD(0.01, momentum=0.9))``), run with
+``fuse_bn_conv_stages`` = (1,) and (). For each variant it warms up, times
+``--steps`` steps by host clock around ``torch.cuda.synchronize()``, and
+traces the same number of steps with ``torch.profiler`` to sum device time
+by kernel. Prints one JSON line per variant: step ms, tokens or images per
+second, device busy ms per step and the idle share against the untraced
+step, and device ms per step by kernel class (the port's own kernels,
+matrix products, convolutions, NCCL, everything else) and for the top
+kernels. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -21,13 +25,21 @@ import time
 
 import torch
 
+import numpy as np
+
 B, S = 4, 2048
+RESNET_B, RESNET_HW = 256, 224
+VARIANTS = {"gpt2-small": ("flash", "dense"), "resnet50": ("fused", "unfused")}
 
 
 def _classify(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel" in name or "flash_bwd_" in name:
         return "flash_kernels"
+    if "fused_bn_conv" in name or "stats_reduce_kernel" in name:
+        return "fused_bn_kernels"
+    if any(t in low for t in ("conv", "fprop", "dgrad", "wgrad")):
+        return "conv"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "wgmma")):
         return "matmul"
     if "nccl" in low:
@@ -43,40 +55,59 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile(attn_impl: str, steps: int) -> dict:
+def _build(model_name: str, variant: str, dev):
+    """(step_fn, state, inputs, labels, items per step, item name)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.registry import get_model
+    from horovod_tpu_torch.parallel.mesh import create_mesh
+    from horovod_tpu_torch.parallel import train
+
+    spec = get_model(model_name)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mesh = create_mesh({"dp": 1})
+    if model_name == "gpt2-small":
+        model = spec.make_model(device=dev, generator=gen, attn_impl=variant,
+                                logits_dtype=torch.bfloat16, max_len=S)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8))
+        ids = torch.from_numpy(spec.make_batch(B, seed=42, seq_len=S)[0]).to(dev)
+        init_fn, step_fn = train.make_train_step(model, opt, train.lm_loss, mesh=mesh)
+        return step_fn, init_fn(), ids, ids, B * S, "tokens"
+    model = spec.make_model(device=dev, generator=gen,
+                            fuse_bn_conv_stages=(1,) if variant == "fused" else ())
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.01,
+                                                   momentum=0.9))
+    rng = np.random.RandomState(42)   # bench.py's synthetic batch
+    images = torch.from_numpy(
+        rng.rand(RESNET_B, RESNET_HW, RESNET_HW, 3).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.randint(0, 1000, size=(RESNET_B,), dtype=np.int32)).to(dev)
+    init_fn, step_fn = train.make_train_step(model, opt, train.softmax_xent, mesh=mesh)
+    return step_fn, init_fn(), images, labels, RESNET_B, "images"
+
+
+def profile(model_name: str, variant: str, steps: int) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.models.registry import get_model
-    from horovod_tpu_torch.parallel.mesh import create_mesh
-    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
 
-    dev = hvd.device()
-    spec = get_model("gpt2-small")
-    model = spec.make_model(device=dev, generator=torch.Generator(device=dev).manual_seed(0),
-                            attn_impl=attn_impl, logits_dtype=torch.bfloat16, max_len=S)
-    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
-        model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8))
-    init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=create_mesh({"dp": 1}))
-    state = init_fn()
-    ids = torch.from_numpy(spec.make_batch(B, seed=42, seq_len=S)[0]).to(dev)
+    step_fn, state, inputs, labels, items, unit = _build(model_name, variant, hvd.device())
     for _ in range(2):
-        state, loss = step_fn(state, ids, ids)
+        state, loss = step_fn(state, inputs, labels)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     times = []
     for _ in range(steps):
         t0 = time.perf_counter()
-        state, loss = step_fn(state, ids, ids)
+        state, loss = step_fn(state, inputs, labels)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
 
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, loss = step_fn(state, ids, ids)
+            state, loss = step_fn(state, inputs, labels)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
@@ -96,9 +127,9 @@ def profile(attn_impl: str, steps: int) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     median = statistics.median(times)
     return {
-        "attn_impl": attn_impl, "batch": B, "seq": S, "steps": steps,
+        "model": model_name, "variant": variant, "steps": steps,
         "step_ms": times, "median_step_ms": median,
-        "tokens_per_s": B * S / (median / 1e3),
+        f"{unit}_per_step": items, f"{unit}_per_s": items / (median / 1e3),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "loss": float(loss),
         "traced_ms_per_step": traced_ms / steps,
@@ -112,6 +143,7 @@ def profile(attn_impl: str, steps: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=sorted(VARIANTS), default="gpt2-small")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write the lines here")
     args = ap.parse_args()
@@ -127,8 +159,8 @@ def main() -> int:
     hvd.init()
     lines = []
     try:
-        for impl in ("flash", "dense"):
-            rec = profile(impl, args.steps)
+        for variant in VARIANTS[args.model]:
+            rec = profile(args.model, variant, args.steps)
             rec["card"] = card
             lines.append(json.dumps(rec))
             print(lines[-1], flush=True)

@@ -1,6 +1,7 @@
-"""Rank bodies for tests/test_torch_port_distributed.py, in a module of
-their own so spawned ranks import torch and horovod_tpu_torch only (no jax,
-no test module). Each rank returns a dict of numpy arrays through a queue."""
+"""Rank bodies for tests/test_torch_port_distributed.py and
+tests/test_torch_port_resnet.py, in a module of their own so spawned ranks
+import torch and horovod_tpu_torch only (no jax, no test module). Each rank
+returns a dict of numpy arrays through a queue."""
 from __future__ import annotations
 
 import os
@@ -87,6 +88,52 @@ def worker(rank: int, size: int, init_file: str, queue) -> None:
         hvd.init(device="cpu", init_method=f"file://{init_file}")
         try:
             queue.put((rank, _run(rank, size)))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+RESNET_LR, RESNET_MOMENTUM = 0.01, 0.9
+
+
+def _run_resnet(rank: int, size: int, flax_vars, images, labels, fuse) -> dict:
+    """One SGD-momentum step of a small f32 ResNet-50 from the flax
+    variables, this rank on its slice of the global batch."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.convert import resnet_flax_to_torch
+    from horovod_tpu_torch.models.registry import get_model
+    from horovod_tpu_torch.parallel.mesh import create_mesh
+    from horovod_tpu_torch.parallel.train import make_train_step, softmax_xent
+
+    model = get_model("resnet50").make_model(
+        device="cpu", num_filters=8, num_classes=10, dtype=torch.float32,
+        fuse_bn_conv_stages=fuse)
+    model.load_state_dict(resnet_flax_to_torch(*flax_vars, model))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(
+        model.parameters(), lr=RESNET_LR, momentum=RESNET_MOMENTUM))
+    init_fn, step_fn = make_train_step(model, opt, softmax_xent,
+                                       mesh=create_mesh({"dp": size}))
+    state = init_fn()
+    state, loss = step_fn(state, torch.from_numpy(images), torch.from_numpy(labels))
+    out = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
+    out["loss"] = loss.numpy().copy()
+    hvd.barrier()
+    return out
+
+
+def resnet_worker(rank: int, size: int, init_file: str, queue, flax_vars, images,
+                  labels, fuse) -> None:
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+
+        hvd.init(device="cpu", init_method=f"file://{init_file}")
+        try:
+            queue.put((rank, _run_resnet(rank, size, flax_vars, images, labels, fuse)))
         finally:
             hvd.shutdown()
     except Exception:  # report to the parent instead of leaving it waiting

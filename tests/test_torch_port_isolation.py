@@ -1,8 +1,8 @@
 """The port stands alone: importing it pulls in neither jax nor anything of
 horovod_tpu, no source file of it (nor chip_smoke.py) imports horovod_tpu,
-its entry points refuse to pick the CPU on their own, and its kernel module
-imports and runs on CPU tensors without triton or nvcc. Each check that
-imports the port runs in a fresh interpreter."""
+its entry points (``init``, ``make_model``) refuse to pick the CPU on their
+own, and its kernel modules import and run on CPU tensors without triton or
+nvcc. Each check that imports the port runs in a fresh interpreter."""
 import os
 import re
 import subprocess
@@ -20,12 +20,15 @@ MODULES = [
     "horovod_tpu_torch.ops",
     "horovod_tpu_torch.ops._build",
     "horovod_tpu_torch.ops.flash_attention",
+    "horovod_tpu_torch.ops.fused_bn_conv",
     "horovod_tpu_torch.optim.distributed",
     "horovod_tpu_torch.parallel.mesh",
     "horovod_tpu_torch.parallel.train",
     "horovod_tpu_torch.models.transformer",
+    "horovod_tpu_torch.models.resnet",
     "horovod_tpu_torch.models.registry",
     "horovod_tpu_torch.models.convert",
+    "horovod_tpu_torch.profile_step",
 ]
 FORBIDDEN_IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|flax|optax|horovod_tpu)(\.|\s|$)", re.M)
@@ -77,6 +80,30 @@ def test_init_without_cuda_and_without_cpu_request_raises():
     assert proc.returncode == 0, proc.stderr + proc.stdout
 
 
+@pytest.mark.parametrize("name", ["resnet50", "gpt2-tiny"])
+def test_make_model_without_cuda_and_without_cpu_request_raises(name):
+    code = (
+        "import torch, horovod_tpu_torch as hvd\n"
+        "from horovod_tpu_torch.models.registry import get_model\n"
+        "spec = get_model(%r)\n"
+        "kw = {'num_filters': 8, 'num_classes': 3} if spec.kind == 'image' else {}\n"
+        "try:\n"
+        "    spec.make_model(**kw)\n"
+        "except RuntimeError as e:\n"
+        "    assert 'CUDA' in str(e), e\n"
+        "else:\n"
+        "    raise SystemExit('make_model() fell back to the CPU')\n"
+        "p = next(spec.make_model(device='cpu', **kw).parameters())\n"
+        "assert p.device.type == 'cpu'\n"
+        "hvd.init(device='cpu')\n"
+        "p = next(spec.make_model(**kw).parameters())\n"
+        "assert p.device == hvd.device(), p.device\n"
+        "hvd.shutdown()\n"
+    ) % name
+    proc = _python(code, {"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
 def test_kernel_module_needs_no_triton_or_nvcc_and_cpu_takes_plain_path():
     code = (
         "import sys, torch\n"
@@ -87,6 +114,14 @@ def test_kernel_module_needs_no_triton_or_nvcc_and_cpu_takes_plain_path():
         "want, _ = fa._flash_fwd_plain(q, k, v, None, True)\n"
         "assert torch.equal(got, want)\n"
         "assert fa.launches() == dict.fromkeys(fa.launches(), 0)\n"
+        "from horovod_tpu_torch.ops import fused_bn_conv as fb\n"
+        "x = torch.randn(64, 32, generator=g).to(torch.bfloat16)\n"
+        "c = torch.ones(32)\n"
+        "w = torch.randn(32, 16, generator=g).to(torch.bfloat16)\n"
+        "for accum in ('scratch', 'revisit'):\n"
+        "    got = fb.fused_bn_relu_matmul(x, 0 * c, c, c, 0 * c, w, accum=accum)\n"
+        "    assert all(torch.equal(a, b) for a, b in zip(got, fb._reference_bn_relu_matmul(x, 0 * c, c, c, 0 * c, w)))\n"
+        "assert fb.launches() == dict.fromkeys(fb.launches(), 0)\n"
         "assert 'triton' not in sys.modules\n"
         "assert _build._lib is None and not _build.build_info\n"
     )
