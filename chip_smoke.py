@@ -9,12 +9,17 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
 2. the kernel build from ``horovod_tpu_torch/csrc`` (nvcc, sm_90a);
 3. K1, the flash-attention forward kernel, against its plain PyTorch
    version at the GPT-2-small path shape (B=4, S=2048, H=12, D=64, bf16,
-   causal, q/k/v as strided views of one qkv tensor) and at a small
-   padded-mask shape with one fully masked sequence; kernel, plain and
-   library (scaled_dot_product_attention, a yardstick the port never calls)
-   times from CUDA events;
+   causal, q/k/v as strided views of one qkv tensor) and at two small
+   shapes, causal and not: D=64 (B=2, S=200, H=2) with a padded mask and
+   one fully masked sequence, and D=128 (B=2, S=320, H=2) with and without
+   that mask; o and lse bitwise-equal over two launches at the path shape;
+   kernel, plain and library (scaled_dot_product_attention, a yardstick
+   the port never calls) times from CUDA events, achieved TFLOP/s and the
+   share of the bound;
 4. K2, the two backward kernels, against autograd of the plain version on
-   the same shapes;
+   the same shapes, dq, dk and dv bitwise-equal over two launches; times,
+   TFLOP/s and shares of each kernel and of the pair, beside the aten flash
+   backward (``library_pair_ms``) and the function's own 5-product bound;
 5. K3 and K4, the fused BN + ReLU + 1x1-conv + stats kernels (x- and
    w-stationary), against their plain PyTorch version at the four ResNet-50
    stage shapes at B=256, 224x224 (y, s1, s2 at the JAX tests'
@@ -139,6 +144,37 @@ def qkv_views(Bn, Sn, Hn, Dn, gen, dev):
     return qkv.unbind(dim=2)
 
 
+# Small shapes (B, S, H, D, mask kinds) checked beside the path shape, each
+# causal and not: S not a multiple of the kernels' 128-row tiles, D = 64 and
+# the D = 128 of gpt2-1p3b.
+SMALL = [(2, 200, 2, 64, ("padded",)), (2, 320, 2, 128, (None, "padded"))]
+
+
+def padded_mask(kind, Bn, Sn, dev):
+    """None, or a (B, S) key mask with batch 0 padded after 3/4 of S and
+    batch 1 fully masked."""
+    if kind is None:
+        return None
+    mask = torch.ones(Bn, Sn, device=dev)
+    mask[0, Sn * 3 // 4:] = 0
+    mask[1, :] = 0
+    return mask
+
+
+def rates(rec: dict, prefix: str = "") -> None:
+    """Achieved TFLOP/s and the share of the bound from a record's own
+    flops, kernel time and bound."""
+    ms = rec[f"{prefix}kernel_ms"]
+    rec[f"{prefix}tflops"] = rec[f"{prefix}flops"] / (ms * 1e-3) / 1e12
+    rec[f"{prefix}bound_share"] = rec[f"{prefix}bound_ms"] / ms
+
+
+def check_repeat(name: str, first, second) -> bool:
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    return True
+
+
 def phase_card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -174,20 +210,22 @@ def phase_k1(fa, gen, dev):
            "o_max_abs_err": err_o, "lse_max_abs_err": err_lse,
            "tolerance": {"o_atol": O_ATOL, "lse_atol": LSE_ATOL}}
 
-    # Small padded shape: batch 0 padded after 150, batch 1 fully masked.
-    qs, ks, vs = qkv_views(2, 200, 2, D, gen, dev)
-    mask = torch.ones(2, 200, device=dev)
-    mask[0, 150:] = 0
-    mask[1, :] = 0
-    for causal in (True, False):
-        o_s, lse_s = fa.flash_fwd_cuda(qs, ks, vs, mask, causal)
-        o_sr, lse_sr = fa._flash_fwd_plain(qs, ks, vs, mask, causal)
-        tag = f"padded causal={causal}"
-        rec[f"o_max_abs_err {tag}"] = check_close(f"K1 o ({tag})", o_s, o_sr, O_ATOL)
-        rec[f"lse_max_abs_err {tag}"] = check_close(
-            f"K1 lse ({tag})", lse_s, lse_sr, LSE_ATOL)
-        if float(o_s[1].float().abs().max()) != 0.0:
-            raise AssertionError("K1: the fully masked sequence is not zero")
+    rec["bitwise_repeat"] = check_repeat(
+        "K1 o, lse", (o, lse), fa.flash_fwd_cuda(q, k, v, None, True))
+
+    for Bn, Sn, Hn, Dn, kinds in SMALL:
+        qs, ks, vs = qkv_views(Bn, Sn, Hn, Dn, gen, dev)
+        for kind in kinds:
+            mask = padded_mask(kind, Bn, Sn, dev)
+            for causal in (True, False):
+                o_s, lse_s = fa.flash_fwd_cuda(qs, ks, vs, mask, causal)
+                o_sr, lse_sr = fa._flash_fwd_plain(qs, ks, vs, mask, causal)
+                tag = f"D={Dn} S={Sn} {kind or 'unmasked'} causal={causal}"
+                rec[f"o_max_abs_err {tag}"] = check_close(f"K1 o ({tag})", o_s, o_sr, O_ATOL)
+                rec[f"lse_max_abs_err {tag}"] = check_close(
+                    f"K1 lse ({tag})", lse_s, lse_sr, LSE_ATOL)
+                if mask is not None and float(o_s[1].float().abs().max()) != 0.0:
+                    raise AssertionError(f"K1 ({tag}): the fully masked sequence is not zero")
 
     rec["kernel_ms"] = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, None, True), 50)
     rec["plain_ms"] = time_ms(lambda: fa._flash_fwd_plain(q, k, v, None, True), 5)
@@ -199,6 +237,7 @@ def phase_k1(fa, gen, dev):
     rec["flops"] = 4 * D * pairs
     rec["bytes"] = 4 * n * 2 + B * H * S * 4
     rec["bound_ms"], rec["bound_by"] = bound(rec["flops"], rec["bytes"])
+    rates(rec)
     emit(rec)
     return rec, (q, k, v, o, lse)
 
@@ -235,21 +274,26 @@ def phase_k2(fa, gen, dev, fwd_out):
                                                  GRAD_TOL, GRAD_TOL)
         rec[f"{name}_max_abs_ref"] = float(want.float().abs().max())
 
-    qs, ks, vs = qkv_views(2, 200, 2, D, gen, dev)
-    mask = torch.ones(2, 200, device=dev)
-    mask[0, 150:] = 0
-    mask[1, :] = 0
-    dos = torch.randn(2, 200, 2, D, generator=gen, device=dev).to(torch.bfloat16)
-    for causal in (True, False):
-        o_s, lse_s = fa.flash_fwd_cuda(qs, ks, vs, mask, causal)
-        dlt = (dos.float() * o_s.float()).sum(-1).permute(0, 2, 1).contiguous()
-        dk_s, dv_s = fa.flash_bwd_dkdv_cuda(qs, ks, vs, mask, dos, lse_s, dlt, causal)
-        dq_s = fa.flash_bwd_dq_cuda(qs, ks, vs, mask, dos, lse_s, dlt, causal)
-        refs = fa._flash_bwd_plain(qs, ks, vs, mask, dos, causal)
-        for name, got, want in zip(("dq", "dk", "dv"), (dq_s, dk_s, dv_s), refs):
-            tag = f"padded causal={causal}"
-            rec[f"{name}_max_abs_err {tag}"] = check_close(
-                f"K2 {name} ({tag})", got, want, GRAD_TOL, GRAD_TOL)
+    rec["bitwise_repeat"] = check_repeat(
+        "K2 dq, dk, dv", (dq, dk, dv),
+        (fa.flash_bwd_dq_cuda(q, k, v, None, dout, lse, delta, True),
+         *fa.flash_bwd_dkdv_cuda(q, k, v, None, dout, lse, delta, True)))
+
+    for Bn, Sn, Hn, Dn, kinds in SMALL:
+        qs, ks, vs = qkv_views(Bn, Sn, Hn, Dn, gen, dev)
+        dos = torch.randn(Bn, Sn, Hn, Dn, generator=gen, device=dev).to(torch.bfloat16)
+        for kind in kinds:
+            mask = padded_mask(kind, Bn, Sn, dev)
+            for causal in (True, False):
+                o_s, lse_s = fa.flash_fwd_cuda(qs, ks, vs, mask, causal)
+                dlt = (dos.float() * o_s.float()).sum(-1).permute(0, 2, 1).contiguous()
+                dk_s, dv_s = fa.flash_bwd_dkdv_cuda(qs, ks, vs, mask, dos, lse_s, dlt, causal)
+                dq_s = fa.flash_bwd_dq_cuda(qs, ks, vs, mask, dos, lse_s, dlt, causal)
+                refs = fa._flash_bwd_plain(qs, ks, vs, mask, dos, causal)
+                tag = f"D={Dn} S={Sn} {kind or 'unmasked'} causal={causal}"
+                for name, got, want in zip(("dq", "dk", "dv"), (dq_s, dk_s, dv_s), refs):
+                    rec[f"{name}_max_abs_err {tag}"] = check_close(
+                        f"K2 {name} ({tag})", got, want, GRAD_TOL, GRAD_TOL)
 
     rec["dkdv_kernel_ms"] = time_ms(
         lambda: fa.flash_bwd_dkdv_cuda(q, k, v, None, dout, lse, delta, True), 30)
@@ -264,6 +308,19 @@ def phase_k2(fa, gen, dev, fwd_out):
     rec["dq_flops"], rec["dq_bytes"] = 6 * D * pairs, 4 * n * 2 + 2 * rows + n * 2
     rec["dkdv_bound_ms"], rec["dkdv_bound_by"] = bound(rec["dkdv_flops"], rec["dkdv_bytes"])
     rec["dq_bound_ms"], rec["dq_bound_by"] = bound(rec["dq_flops"], rec["dq_bytes"])
+    # The pair as designed (7 tile products: p and dP in both kernels) and
+    # the function itself (5 products: S, dP, dV, dK, dQ; q, k, v, dO, lse
+    # and delta read once, dq, dk, dv written once).
+    rec["pair_kernel_ms"] = rec["dkdv_kernel_ms"] + rec["dq_kernel_ms"]
+    rec["pair_flops"] = rec["dkdv_flops"] + rec["dq_flops"]
+    rec["pair_bound_ms"] = rec["dkdv_bound_ms"] + rec["dq_bound_ms"]
+    rec["function_flops"], rec["function_bytes"] = 10 * D * pairs, 4 * n * 2 + 2 * rows + 3 * n * 2
+    rec["function_bound_ms"], rec["function_bound_by"] = bound(rec["function_flops"],
+                                                               rec["function_bytes"])
+    for prefix in ("dkdv_", "dq_", "pair_"):
+        rates(rec, prefix)
+    rec["function_tflops"] = rec["function_flops"] / (rec["pair_kernel_ms"] * 1e-3) / 1e12
+    rec["function_bound_share"] = rec["function_bound_ms"] / rec["pair_kernel_ms"]
     emit(rec)
     return rec
 
@@ -543,11 +600,12 @@ def main() -> int:
          "max_abs_err": max(k2["dk_max_abs_err"], k2["dv_max_abs_err"]),
          "ms": k2["dkdv_kernel_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["dkdv_bound_ms"], "bound_by": k2["dkdv_bound_by"],
-         "library_ms": None},
+         "library_ms": None, "library_pair_ms": k2["library_pair_ms"]},
         {"name": "flash_bwd_dq", "launches": sl["launches"]["flash_bwd_dq"],
          "max_abs_err": k2["dq_max_abs_err"], "ms": k2["dq_kernel_ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["dq_bound_ms"],
-         "bound_by": k2["dq_bound_by"], "library_ms": None},
+         "bound_by": k2["dq_bound_by"], "library_ms": None,
+         "library_pair_ms": k2["library_pair_ms"]},
     ]
     for accum in ("scratch", "revisit"):
         name = f"fused_bn_conv_{accum}"

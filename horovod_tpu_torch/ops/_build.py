@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``horovod_tpu_torch/csrc/`` are compiled by ``nvcc``, one
-process per source, all started together, then linked into one shared
-library with a plain C interface, loaded with ``ctypes``. The
+The sources under ``horovod_tpu_torch/csrc/`` (every ``*.cu``) are compiled
+by ``nvcc``, one process per source, all started together, then linked into
+one shared library with a plain C interface, loaded with ``ctypes``. The
 build runs on first use, never at import, goes into
-``horovod_tpu_torch/_build/`` and is keyed on a hash of the sources and the
-flags, so an edited source builds anew and an unchanged one is reused.
+``horovod_tpu_torch/_build/`` and is keyed on a hash of every file under
+``csrc/`` (sources and the ``*.cuh`` headers they include) and the flags, so
+an edited source or header builds anew and an unchanged tree is reused.
 A missing ``nvcc`` or a failed build raises: there is no other path.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "flash_attention.cu", _PKG / "csrc" / "fused_bn_conv.cu")
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -59,10 +60,21 @@ def _nvcc() -> str:
         "kernels are built from horovod_tpu_torch/csrc at first CUDA use")
 
 
+def sources() -> list:
+    """The translation units: every ``*.cu`` under ``CSRC``."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def hashed_files() -> list:
+    """Every file the build reads: the sources and the headers they include."""
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
+
+
 def _key() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
+    for path in hashed_files():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -79,7 +91,7 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs, procs = [], []
-        for src in SOURCES:
+        for src in sources():
             obj = os.path.join(work, src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
             procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -78,16 +78,25 @@ def _flash_bwd_plain(q, k, v, mask, dout, causal: bool):
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
-def _strides(x: torch.Tensor, name: str):
-    """(b, s, h) element strides of a (B, S, H, D) view the kernels read in
-    place: D contiguous, 16-byte aligned rows."""
+def check_tma_layout(x: torch.Tensor, name: str = "x"):
+    """(b, s, h) element strides of a (B, S, H, D) view, checked against
+    what the kernels' TMA tensor maps read in place: D in
+    ``KERNEL_HEAD_DIMS`` and contiguous, a 16-byte-aligned base and (b, s,
+    h) strides that are multiples of 16 bytes. Raises ``ValueError``
+    otherwise. Takes a tensor on any device."""
+    if x.dim() != 4:
+        raise ValueError(f"{name}: expected a (B, S, H, D) view, got shape {tuple(x.shape)}")
+    D = x.shape[-1]
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D}: the kernels are built for {KERNEL_HEAD_DIMS}")
     sb, ss, sh, sd = x.stride()
     if sd != 1:
         raise ValueError(f"{name}: the head dimension must be contiguous, "
                          f"strides {tuple(x.stride())}")
-    if x.data_ptr() % 16 or sb % 8 or ss % 8 or sh % 8:
-        raise ValueError(f"{name}: strides {tuple(x.stride())} and the data "
-                         "pointer must be multiples of 8 elements (16 bytes)")
+    size = x.element_size()
+    if x.data_ptr() % 16 or any((st * size) % 16 for st in (sb, ss, sh)):
+        raise ValueError(f"{name}: strides {tuple(x.stride())} ({size}-byte elements) "
+                         "and the data pointer must be multiples of 16 bytes")
     return sb, ss, sh
 
 
@@ -102,14 +111,12 @@ def _check_kernel_inputs(q, k, v, mask):
             raise TypeError(f"{name}: the kernels take bfloat16, got {t.dtype}")
         if tuple(t.shape) != (B, S, H, D):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, q {tuple(q.shape)}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernels are built for {KERNEL_HEAD_DIMS}")
     if max(t.storage_offset() + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
            for t in (q, k, v)) >= 2**31:
         raise ValueError("q/k/v span 2**31 elements or more; the kernels index with int32")
     strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
-        strides.extend(_strides(t, name))
+        strides.extend(check_tma_layout(t, name))
     if mask is not None:
         if tuple(mask.shape) != (B, S):
             raise ValueError(f"mask has shape {tuple(mask.shape)}, expected {(B, S)}")
@@ -139,9 +146,16 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# The entry points' own codes besides cudaError_t (csrc/flash_attention.cu).
+_ERRORS = {-1: "head dim not 64 or 128",
+           -2: "the driver offers no cuTensorMapEncodeTiled",
+           -3: "the driver refused a tensor map"}
+
+
 def _raise_on(err: int, name: str):
     if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name}: launch failed with "
+                           f"{_ERRORS.get(err, f'CUDA error {err}')}")
 
 
 def flash_fwd_cuda(q, k, v, mask=None, causal: bool = True):

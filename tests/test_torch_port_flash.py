@@ -110,6 +110,31 @@ def test_mask_gets_no_gradient_and_kernels_do_not_launch_on_cpu():
     assert fa.launches() == {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 
 
+def test_tma_layout_accepts_the_models_qkv_views():
+    """q, k, v as models/transformer.py makes them: unbound views of the
+    (B, S, 3, H, D) projection, read in place by the tensor maps."""
+    for D in (64, 128):
+        qkv = torch.zeros(2, 96, 3, 4, D, dtype=torch.bfloat16)
+        for t in qkv.unbind(dim=2):
+            assert fa.check_tma_layout(t) == (96 * 3 * 4 * D, 3 * 4 * D, D)
+
+
+def _odd_row_stride_view():
+    # Rows of 4 * 64 + 1 elements: the s stride is 514 bytes, not a multiple of 16.
+    buf = torch.zeros(2 * 8 * (4 * 64 + 1), dtype=torch.bfloat16)
+    return buf.as_strided((2, 8, 4, 64), (8 * (4 * 64 + 1), 4 * 64 + 1, 64, 1))
+
+
+@pytest.mark.parametrize("make, match", [
+    (_odd_row_stride_view, "16 bytes"),
+    (lambda: torch.zeros(2, 8, 4, 96, dtype=torch.bfloat16), "head dim 96"),
+    (lambda: torch.zeros(2, 8, 4, 128, dtype=torch.bfloat16)[..., ::2], "contiguous"),
+], ids=["odd_row_stride", "head_dim_96", "strided_head_dim"])
+def test_tma_layout_refuses_what_the_tensor_maps_cannot_read(make, match):
+    with pytest.raises(ValueError, match=match):
+        fa.check_tma_layout(make())
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     q, k, v, _ = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(64))
     with pytest.raises(ValueError, match="CUDA"):
