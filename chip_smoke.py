@@ -22,10 +22,13 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    backward (``library_pair_ms``) and the function's own 5-product bound;
 5. K3 and K4, the fused BN + ReLU + 1x1-conv + stats kernels (x- and
    w-stationary), against their plain PyTorch version at the four ResNet-50
-   stage shapes at B=256, 224x224 (y, s1, s2 at the JAX tests'
-   tolerances), with bitwise-equal stats over two launches; kernel, plain
-   and library (the bf16 product alone, ``torch.matmul``) times at the
-   path shape (stage 1);
+   stage shapes at B=256, 224x224 and at the ragged M=300, Cin 64 -> 256
+   (y, s1, s2 at the JAX tests' tolerances; there beta is shifted so that
+   padding rows entering the stats would show), with bitwise-equal stats
+   over two launches; K3's grid; kernel, plain and library (the bf16
+   product alone, ``torch.matmul``) times, TFLOP/s, GB/s and shares of the
+   bound at the path shape (stage 1), and K3 run with one 128-row tile per
+   block (no persistence) beside it;
 6. the GPT-2 slice: ``hvd.init()`` (NCCL), ``create_mesh({"dp": 1})``,
    GPT-2-small (12 x 768, vocab 50257) with flash attention and bf16
    logits, ``DistributedOptimizer(AdamW)``, parameter broadcast, then 5
@@ -83,6 +86,9 @@ LOSS_RTOL = 2e-2     # flash vs dense, fused vs unfused forward loss, bf16 model
 # conv in each stage; stage 3's M = 12,544 is padded to 12,800 by the module.
 BN_STAGES = [(802816, 64, 256), (200704, 128, 512), (50176, 256, 1024), (12800, 512, 2048)]
 BN_PATH_STAGE = 1
+# A ragged shape (M not a multiple of either kernel's row tile) that
+# fused_bn_relu_matmul accepts: its block_m clamps to M.
+BN_RAGGED = (300, 64, 256)
 BN_TOL = {"y": (2e-2, 2e-2), "s1": (2e-2, 2.0), "s2": (3e-2, 3.0)}   # (rtol, atol)
 RESNET_B, RESNET_HW = 256, 224
 
@@ -339,9 +345,43 @@ def bn_inputs(M, cin, cout, gen, dev):
             (randn(cin, cout) / math.sqrt(cin)).to(torch.bfloat16))
 
 
+def bn_ragged(fb, kernels, gen, dev) -> dict:
+    """K3 and K4 at BN_RAGGED against the plain version, with beta shifted
+    by +1 so that a zero-filled row past M would normalise to about 1, not
+    0: the record shows, for each kernel's row tile, by how much the stats
+    would miss the tolerance if the padding rows entered them."""
+    M, cin, cout = BN_RAGGED
+    x, mu, var, gamma, beta, w = bn_inputs(M, cin, cout, gen, dev)
+    args = (x, mu, var, gamma, beta + 1.0, w)
+    want = fb._reference_bn_relu_matmul(*args)
+    row = {"M": M, "Cin": cin, "Cout": cout, "beta_shift": 1.0}
+    for name, tile in (("scratch", fb.K3_ROWS), ("revisit", 64)):
+        pad = -M % tile
+        wrong = fb._reference_bn_relu_matmul(torch.cat([x, x.new_zeros(pad, cin)]), *args[1:])
+        for part, idx in (("s1", 1), ("s2", 2)):
+            rtol, atol = BN_TOL[part]
+            excess = float(((wrong[idx] - want[idx]).abs()
+                            - (atol + rtol * want[idx].abs())).max())
+            if excess <= 0:
+                raise AssertionError(f"ragged {name}: {pad} padding rows would not show in {part}")
+            row[f"{name}_pad_rows"] = pad
+            row[f"{name}_pad_{part}_excess"] = excess
+    for name, fn in kernels.items():
+        got, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        for part, g, want_part in zip(("y", "s1", "s2"), got, want):
+            rtol, atol = BN_TOL[part]
+            row[f"{name}_{part}_max_abs_err"] = check_close(
+                f"K{3 if name == 'scratch' else 4} {part} (ragged)", g, want_part, atol, rtol)
+        row[f"{name}_bitwise_repeat"] = check_repeat(f"{name} (ragged)", got, again)
+    return row
+
+
 def phase_k34(fb, gen, dev):
-    """K3 and K4 against the plain version at the four stage shapes, stats
-    bitwise-equal over two launches; times at the path shape."""
+    """K3 and K4 against the plain version at the four stage shapes and at
+    BN_RAGGED, stats bitwise-equal over two launches; times, rates and
+    shares of the bound at the path shape, and K3 without persistence (one
+    128-row tile per block) beside its persistent grid."""
     rec = {"phase": "k34", "batch": RESNET_B, "image": RESNET_HW,
            "tolerance": {k: {"rtol": r, "atol": a} for k, (r, a) in BN_TOL.items()},
            "shapes": []}
@@ -350,7 +390,8 @@ def phase_k34(fb, gen, dev):
     for stage, (M, cin, cout) in enumerate(BN_STAGES):
         args = bn_inputs(M, cin, cout, gen, dev)
         want = fb._reference_bn_relu_matmul(*args)
-        row = {"stage": stage, "M": M, "Cin": cin, "Cout": cout}
+        row = {"stage": stage, "M": M, "Cin": cin, "Cout": cout,
+               "scratch_blocks": fb.k3_partitions(M, cout) // 2}
         for name, fn in kernels.items():
             got = fn(*args)
             again = fn(*args)
@@ -359,16 +400,23 @@ def phase_k34(fb, gen, dev):
                 rtol, atol = BN_TOL[part]
                 row[f"{name}_{part}_max_abs_err"] = check_close(
                     f"K{3 if name == 'scratch' else 4} {part} (stage {stage})", g, w, atol, rtol)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"{name} (stage {stage}): two launches differ")
-            row[f"{name}_bitwise_repeat"] = True
+            row[f"{name}_bitwise_repeat"] = check_repeat(f"{name} (stage {stage})", got, again)
         row["s1_max_abs_ref"] = float(want[1].abs().max())
         row["s2_max_abs_ref"] = float(want[2].abs().max())
         rec["shapes"].append(row)
         if stage == BN_PATH_STAGE:
+            tiles = -(-M // fb.K3_ROWS)
+            flat = fb.fused_bn_conv_scratch_cuda(*args, blocks=tiles)
+            for part, g, w in zip(("y", "s1", "s2"), flat, want):
+                rtol, atol = BN_TOL[part]
+                check_close(f"K3 one tile per block {part}", g, w, atol, rtol)
+            rec["scratch_partitions"] = fb.k3_partitions(M, cout)
+            rec["scratch_blocks"] = rec["scratch_partitions"] // 2
             for name, fn in kernels.items():
                 rec[f"{name}_ms"] = time_ms(lambda: fn(*args), 20)
                 rec[f"{name}_max_abs_err"] = row[f"{name}_y_max_abs_err"]
+            rec["scratch_one_tile_per_block_ms"] = time_ms(
+                lambda: fb.fused_bn_conv_scratch_cuda(*args, blocks=tiles), 20)
             rec["plain_ms"] = time_ms(lambda: fb._reference_bn_relu_matmul(*args), 5)
             x, mu, var, gamma, beta, w = args
             a = torch.relu((x.float() - mu) * torch.rsqrt(var + 1e-5) * gamma + beta).to(x.dtype)
@@ -379,9 +427,15 @@ def phase_k34(fb, gen, dev):
             rec["flops"] = 2 * M * cin * cout
             rec["bytes"] = (M * cin + M * cout + cin * cout) * 2 + 4 * cin * 4 + 2 * cout * 4
             rec["bound_ms"], rec["bound_by"] = bound(rec["flops"], rec["bytes"])
-            del a
+            for name in ("scratch", "revisit", "scratch_one_tile_per_block"):
+                ms = rec[f"{name}_ms"]
+                rec[f"{name}_tflops"] = rec["flops"] / (ms * 1e-3) / 1e12
+                rec[f"{name}_gbps"] = rec["bytes"] / (ms * 1e-3) / 1e9
+                rec[f"{name}_bound_share"] = rec["bound_ms"] / ms
+            del a, flat
         del args, want
         torch.cuda.empty_cache()
+    rec["ragged"] = bn_ragged(fb, kernels, gen, dev)
     emit(rec)
     return rec
 

@@ -68,11 +68,6 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  const uint32_t a = smem_addr(p);
-  return p + (((a + 1023u) & ~1023u) - a);
-}
-
 // `R` rows from row s0 of head h, batch b: D/64 boxes of R x 64, one after
 // the other in shared memory.
 template <int D, int R>
@@ -696,31 +691,6 @@ __global__ void __launch_bounds__(NT, 1)
 constexpr int ERR_HEAD_DIM = -1;      // D is not 64 or 128
 constexpr int ERR_NO_ENCODER = -2;    // the driver has no cuTensorMapEncodeTiled
 constexpr int ERR_TENSOR_MAP = -3;    // the driver refused a tensor map
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function; the runtime hands out its
-// address, so the library needs no -lcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
 
 // A (B, S, H, D) bf16 view with element strides (sb, ss, sh) and D
 // contiguous, read in boxes of `rows` x 64 with the 128-byte swizzle; rows

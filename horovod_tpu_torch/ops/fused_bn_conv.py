@@ -14,15 +14,17 @@ sizes, as in the JAX function; the CUDA tiles themselves are internal.
 Kernels (``horovod_tpu_torch/csrc/fused_bn_conv.cu``):
 
 * ``fused_bn_conv_scratch_cuda`` -> K3, replaces the Pallas kernel of
-  ``fused_bn_relu_matmul(accum="scratch")``: x-stationary, each block
-  normalises one row tile of x once and sweeps every Cout tile;
+  ``fused_bn_relu_matmul(accum="scratch")``: x-stationary and Hopper-only
+  (TMA, wgmma): one persistent block per SM walks its row tiles, normalises
+  each once in shared memory and sweeps every Cout tile of w;
 * ``fused_bn_conv_revisit_cuda`` -> K4, replaces the ``accum="revisit"``
   kernel: w-stationary, each block holds one Cout tile of w and walks its
   share of the row tiles, re-reading x once per Cout tile.
 
-Both take bf16 x and w only (Cin a multiple of 32, at most 512) and give
-the same y; their stats are reduced in a fixed order (no atomics), so two
-launches give bitwise-equal s1/s2. Each wrapper checks what it is given,
+Both take bf16 x and w only (K3: Cin a multiple of 64 up to 512 and Cout a
+multiple of 8; K4: Cin a multiple of 32 up to 512) and give the same y;
+their stats are reduced in a fixed order (no atomics), so two launches
+give bitwise-equal s1/s2. Each wrapper checks what it is given,
 raises on anything its kernel does not take, and adds one to its
 ``launches`` count when it launches. The dispatcher takes the plain
 version only for tensors on the CPU; a CUDA tensor launches a kernel or
@@ -32,8 +34,11 @@ from __future__ import annotations
 
 import torch
 
-KERNEL_K_STEP = 32        # Cin must be a multiple of this on the card
 KERNEL_MAX_CIN = 512      # the normalised row tile of x lives in shared memory
+K3_CIN_STEP = 64          # K3 reads x in boxes of 64 columns
+K3_COUT_STEP = 8          # K3's tensor maps need 16-byte row strides
+K4_CIN_STEP = 32          # K4's k-step
+K3_ROWS = 128             # rows of x per K3 tile
 
 
 # ---------------------------------------------------------------------------
@@ -71,9 +76,6 @@ def _check_kernel_inputs(x, mu, var, gamma, beta, w):
                 or tuple(t.shape) != (Cin,) or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32 ({Cin},) on "
                              f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if Cin % KERNEL_K_STEP or not 0 < Cin <= KERNEL_MAX_CIN:
-        raise ValueError(f"Cin={Cin}: the kernels take a multiple of "
-                         f"{KERNEL_K_STEP} up to {KERNEL_MAX_CIN}")
     Cout = w.shape[1]
     if M * max(Cin, Cout) >= 2**31:
         raise ValueError("x or y spans 2**31 elements or more; the kernels "
@@ -81,12 +83,35 @@ def _check_kernel_inputs(x, mu, var, gamma, beta, w):
     return M, Cin, Cout
 
 
-def _launch(entry: str, x, mu, var, gamma, beta, w, eps: float):
+def _check_k3_shape(M: int, Cin: int, Cout: int) -> None:
+    """K3's shape rules (its C entry point refuses the same shapes)."""
+    if M <= 0:
+        raise ValueError(f"M={M}: K3 needs at least one row")
+    if Cin % K3_CIN_STEP or not 0 < Cin <= KERNEL_MAX_CIN:
+        raise ValueError(f"Cin={Cin}: K3 takes a multiple of {K3_CIN_STEP} "
+                         f"up to {KERNEL_MAX_CIN}")
+    if Cout % K3_COUT_STEP or Cout <= 0:
+        raise ValueError(f"Cout={Cout}: K3 takes a positive multiple of {K3_COUT_STEP}")
+
+
+def _check_k4_shape(M: int, Cin: int, Cout: int) -> None:
+    """K4's shape rules (its C entry point refuses the same shapes)."""
+    if M <= 0 or Cout <= 0:
+        raise ValueError(f"M={M}, Cout={Cout}: K4 needs at least one of each")
+    if Cin % K4_CIN_STEP or not 0 < Cin <= KERNEL_MAX_CIN:
+        raise ValueError(f"Cin={Cin}: K4 takes a multiple of {K4_CIN_STEP} "
+                         f"up to {KERNEL_MAX_CIN}")
+
+
+def _launch(entry: str, check_shape, x, mu, var, gamma, beta, w, eps: float,
+            parts=None, *extra):
     from ._build import library
 
     M, Cin, Cout = _check_kernel_inputs(x, mu, var, gamma, beta, w)
+    check_shape(M, Cin, Cout)
     lib = library()
-    parts = getattr(lib, entry + "_parts")(M, Cout)
+    if parts is None:
+        parts = getattr(lib, entry + "_parts")(M, Cout)
     y = torch.empty((M, Cout), dtype=x.dtype, device=x.device)
     s = torch.empty((2, Cout), dtype=torch.float32, device=x.device)
     ws = torch.empty((2, parts, Cout), dtype=torch.float32, device=x.device)
@@ -94,15 +119,34 @@ def _launch(entry: str, x, mu, var, gamma, beta, w, eps: float):
         x.data_ptr(), mu.data_ptr(), var.data_ptr(), gamma.data_ptr(),
         beta.data_ptr(), w.data_ptr(), y.data_ptr(), s.data_ptr(),
         ws.data_ptr(), M, Cin, Cout, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        torch.cuda.current_stream(x.device).cuda_stream, *extra)
     if err != 0:
-        raise RuntimeError(f"{entry}: launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry}: launch failed with error {err}")
     return y, s[0], s[1]
 
 
-def fused_bn_conv_scratch_cuda(x, mu, var, gamma, beta, w, eps: float = 1e-5):
-    """K3: (y, s1, s2) from the x-stationary kernel."""
-    out = _launch("hvd_fused_bn_conv_scratch", x, mu, var, gamma, beta, w, eps)
+def k3_partitions(M: int, Cout: int) -> int:
+    """Rows of K3's stats workspace: two (one per consumer warpgroup) for
+    each of its persistent blocks, one block per SM at most."""
+    from ._build import library
+
+    return library().hvd_fused_bn_conv_scratch_parts(M, Cout)
+
+
+def fused_bn_conv_scratch_cuda(x, mu, var, gamma, beta, w, eps: float = 1e-5,
+                               blocks=None):
+    """K3: (y, s1, s2) from the x-stationary kernel. ``blocks`` caps its
+    grid (default: one block per SM); ``blocks`` at or above the number of
+    128-row tiles runs it without persistence, one tile per block."""
+    if blocks is None:
+        out = _launch("hvd_fused_bn_conv_scratch", _check_k3_shape,
+                      x, mu, var, gamma, beta, w, eps)
+    else:
+        if int(blocks) < 1:
+            raise ValueError(f"blocks={blocks}: K3 needs at least one block")
+        parts = 2 * min(int(blocks), -(-x.shape[0] // K3_ROWS))
+        out = _launch("hvd_fused_bn_conv_scratch_blocks", _check_k3_shape,
+                      x, mu, var, gamma, beta, w, eps, parts, int(blocks))
     fused_bn_conv_scratch_cuda.launches += 1
     return out
 
@@ -112,7 +156,8 @@ fused_bn_conv_scratch_cuda.launches = 0
 
 def fused_bn_conv_revisit_cuda(x, mu, var, gamma, beta, w, eps: float = 1e-5):
     """K4: (y, s1, s2) from the w-stationary kernel."""
-    out = _launch("hvd_fused_bn_conv_revisit", x, mu, var, gamma, beta, w, eps)
+    out = _launch("hvd_fused_bn_conv_revisit", _check_k4_shape,
+                  x, mu, var, gamma, beta, w, eps)
     fused_bn_conv_revisit_cuda.launches += 1
     return out
 

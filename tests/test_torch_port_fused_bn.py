@@ -179,3 +179,39 @@ def test_kernel_wrappers_refuse_cpu_tensors(fn):
     with pytest.raises(ValueError, match="CUDA"):
         fn(*_torch(_inputs(m=512, cin=64, cout=64)))
     assert fn.launches == 0
+
+
+@pytest.mark.parametrize("cin, cout, what", [
+    (32, 256, "Cin=32"), (96, 256, "Cin=96"), (640, 256, "Cin=640"), (128, 12, "Cout=12"),
+])
+def test_k3_shape_rules_refuse(cin, cout, what):
+    """K3 reads x in 64-column boxes (Cin a multiple of 64, at most 512)
+    and its tensor maps need 16-byte row strides (Cout a multiple of 8)."""
+    with pytest.raises(ValueError, match=what):
+        fb._check_k3_shape(1024, cin, cout)
+
+
+@pytest.mark.parametrize("shape", [(802816, 64, 256), (200704, 128, 512), (50176, 256, 1024),
+                                   (12800, 512, 2048), (300, 64, 256)])
+def test_k3_shape_rules_take_the_resnet_stages_and_a_ragged_m(shape):
+    fb._check_k3_shape(*shape)
+
+
+@pytest.mark.parametrize("shape, ok", [
+    ((1024, 32, 12), True), ((1024, 96, 256), True), ((300, 64, 256), True),
+    ((12800, 512, 2048), True), ((1024, 48, 256), False), ((1024, 640, 256), False),
+])
+def test_k4_shape_rules_are_unchanged(shape, ok):
+    """K4 keeps its rules: Cin a multiple of 32 up to 512, any Cout."""
+    if ok:
+        fb._check_k4_shape(*shape)
+    else:
+        with pytest.raises(ValueError, match="Cin"):
+            fb._check_k4_shape(*shape)
+
+
+def test_k3_blocks_must_be_positive():
+    fb.reset_launches()
+    with pytest.raises(ValueError):
+        fb.fused_bn_conv_scratch_cuda(*_torch(_inputs(m=512, cin=64, cout=64)), blocks=0)
+    assert fb.fused_bn_conv_scratch_cuda.launches == 0
