@@ -427,6 +427,14 @@ def phase_k34(fb, gen, dev):
             rec["flops"] = 2 * M * cin * cout
             rec["bytes"] = (M * cin + M * cout + cin * cout) * 2 + 4 * cin * 4 + 2 * cout * 4
             rec["bound_ms"], rec["bound_by"] = bound(rec["flops"], rec["bytes"])
+            # What this card's memory gives a plain device-to-device copy of
+            # y's size (read once, written once): the rate K3's bytes can
+            # hope for, beside the published 3.35 TB/s.
+            src = torch.empty(M, cout, dtype=torch.bfloat16, device=dev)
+            dst = torch.empty_like(src)
+            rec["copy_ms"] = time_ms(lambda: dst.copy_(src), 20)
+            rec["copy_gbps"] = 2 * src.numel() * 2 / (rec["copy_ms"] * 1e-3) / 1e9
+            del src, dst
             for name in ("scratch", "revisit", "scratch_one_tile_per_block"):
                 ms = rec[f"{name}_ms"]
                 rec[f"{name}_tflops"] = rec["flops"] / (ms * 1e-3) / 1e12
