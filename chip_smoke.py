@@ -22,9 +22,10 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    backward (``library_pair_ms``) and the function's own 5-product bound;
 5. K3 and K4, the fused BN + ReLU + 1x1-conv + stats kernels (x- and
    w-stationary), against their plain PyTorch version at the four ResNet-50
-   stage shapes at B=256, 224x224 and at the ragged M=300, Cin 64 -> 256
-   (y, s1, s2 at the JAX tests' tolerances; there beta is shifted so that
-   padding rows entering the stats would show), with bitwise-equal stats
+   stage shapes at B=256, 224x224, at the ragged M=300, Cin 64 -> 256
+   (beta shifted there so that padding rows entering the stats would
+   show) and at small shapes on the edges of the kernels' tiles (y, s1,
+   s2 at the JAX tests' tolerances), with bitwise-equal stats
    over two launches; K3's grid; kernel, plain and library (the bf16
    product alone, ``torch.matmul``) times, TFLOP/s, GB/s and shares of the
    bound at the path shape (stage 1), and K3 run with one 128-row tile per
@@ -89,6 +90,9 @@ BN_PATH_STAGE = 1
 # A ragged shape (M not a multiple of either kernel's row tile) that
 # fused_bn_relu_matmul accepts: its block_m clamps to M.
 BN_RAGGED = (300, 64, 256)
+# Edges of the kernels' tiles and boxes: M below one tile, Cout below one
+# 64-column box or not a multiple of it, Cin of three boxes.
+BN_EDGES = [(1, 64, 8), (100, 64, 40), (129, 192, 136), (1000, 128, 200)]
 BN_TOL = {"y": (2e-2, 2e-2), "s1": (2e-2, 2.0), "s2": (3e-2, 3.0)}   # (rtol, atol)
 RESNET_B, RESNET_HW = 256, 224
 
@@ -444,6 +448,17 @@ def phase_k34(fb, gen, dev):
         del args, want
         torch.cuda.empty_cache()
     rec["ragged"] = bn_ragged(fb, kernels, gen, dev)
+    rec["edges"] = []
+    for M, cin, cout in BN_EDGES:
+        args = bn_inputs(M, cin, cout, gen, dev)
+        want = fb._reference_bn_relu_matmul(*args)
+        row = {"M": M, "Cin": cin, "Cout": cout}
+        for name, fn in kernels.items():
+            for part, g, w in zip(("y", "s1", "s2"), fn(*args), want):
+                rtol, atol = BN_TOL[part]
+                row[f"{name}_{part}_max_abs_err"] = check_close(
+                    f"K{3 if name == 'scratch' else 4} {part} ({M}, {cin}, {cout})", g, w, atol, rtol)
+        rec["edges"].append(row)
     emit(rec)
     return rec
 

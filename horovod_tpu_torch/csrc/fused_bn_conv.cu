@@ -617,8 +617,8 @@ __global__ void __launch_bounds__(1024) stats_reduce_kernel(Args a) {
 
 // Error codes of the entry points besides cudaError_t values.
 constexpr int ERR_SHAPE = -1;         // a shape the kernel does not take
-constexpr int ERR_NO_ENCODER = -2;    // the driver has no cuTensorMapEncodeTiled
-constexpr int ERR_TENSOR_MAP = -3;    // the driver refused a tensor map
+constexpr int ERR_NO_ENCODER = -2;    // cuTensorMapEncodeTiled is not available
+constexpr int ERR_TENSOR_MAP = -3;    // cuTensorMapEncodeTiled refused a tensor map
 
 // K3's blocks: one per SM (or `blocks`, where positive), at most one per
 // row tile. Each block's two consumers own a partition of the workspace.

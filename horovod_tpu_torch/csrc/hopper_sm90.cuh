@@ -308,9 +308,9 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled is a driver-API function; the runtime hands out its
-// address, so a library that uses it needs no -lcuda. Null if the driver
-// has none.
+// cuTensorMapEncodeTiled is a CUDA driver-API function; the runtime hands
+// out its address, so a library that uses it needs no -lcuda. Null where it
+// is not available.
 inline EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {
