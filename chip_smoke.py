@@ -24,12 +24,12 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    w-stationary), against their plain PyTorch version at the four ResNet-50
    stage shapes at B=256, 224x224, at the ragged M=300, Cin 64 -> 256
    (beta shifted there so that padding rows entering the stats would
-   show) and at small shapes on the edges of the kernels' tiles (y, s1,
-   s2 at the JAX tests' tolerances), with bitwise-equal stats
-   over two launches; K3's grid; kernel, plain and library (the bf16
-   product alone, ``torch.matmul``) times, TFLOP/s, GB/s and shares of the
-   bound at the path shape (stage 1), and K3 run with one 128-row tile per
-   block (no persistence) beside it;
+   show) and at shapes on the edges of the kernels' tiles, among them
+   two where each of K3's persistent blocks walks several row tiles and
+   ends on a ragged one (y, s1, s2 at the JAX tests' tolerances), with
+   bitwise-equal stats over two launches; K3's grid; kernel, plain and
+   library (the bf16 product alone, ``torch.matmul``) times, TFLOP/s, GB/s
+   and shares of the bound at the path shape (stage 1);
 6. the GPT-2 slice: ``hvd.init()`` (NCCL), ``create_mesh({"dp": 1})``,
    GPT-2-small (12 x 768, vocab 50257) with flash attention and bf16
    logits, ``DistributedOptimizer(AdamW)``, parameter broadcast, then 5
@@ -90,9 +90,15 @@ BN_PATH_STAGE = 1
 # A ragged shape (M not a multiple of either kernel's row tile) that
 # fused_bn_relu_matmul accepts: its block_m clamps to M.
 BN_RAGGED = (300, 64, 256)
+# Rows per tile of K3 and K4.
+ROW_TILE = {"scratch": 128, "revisit": 64}
 # Edges of the kernels' tiles and boxes: M below one tile, Cout below one
-# 64-column box or not a multiple of it, Cin of three boxes.
-BN_EDGES = [(1, 64, 8), (100, 64, 40), (129, 192, 136), (1000, 128, 200)]
+# 64-column box or not a multiple of it, Cin of three boxes. The last two
+# give each of K3's blocks (one per SM, 132 on the H100) two or three row
+# tiles, the last of them ragged, with Cout not a multiple of 128: at Cin
+# 512 through its one x buffer, at Cin 192 through its two.
+BN_EDGES = [(1, 64, 8), (100, 64, 40), (129, 192, 136), (1000, 128, 200),
+            (132 * 128 * 2 + 77, 512, 264), (132 * 128 * 3 + 5, 192, 200)]
 BN_TOL = {"y": (2e-2, 2e-2), "s1": (2e-2, 2.0), "s2": (3e-2, 3.0)}   # (rtol, atol)
 RESNET_B, RESNET_HW = 256, 224
 
@@ -359,7 +365,7 @@ def bn_ragged(fb, kernels, gen, dev) -> dict:
     args = (x, mu, var, gamma, beta + 1.0, w)
     want = fb._reference_bn_relu_matmul(*args)
     row = {"M": M, "Cin": cin, "Cout": cout, "beta_shift": 1.0}
-    for name, tile in (("scratch", fb.K3_ROWS), ("revisit", 64)):
+    for name, tile in ROW_TILE.items():
         pad = -M % tile
         wrong = fb._reference_bn_relu_matmul(torch.cat([x, x.new_zeros(pad, cin)]), *args[1:])
         for part, idx in (("s1", 1), ("s2", 2)):
@@ -381,11 +387,31 @@ def bn_ragged(fb, kernels, gen, dev) -> dict:
     return row
 
 
+def bn_shape_row(fb, kernels, args, want, tag: str) -> dict:
+    """Both kernels against the plain version's (y, s1, s2) on one shape,
+    each launched twice: the errors and the bitwise repeat; K3's grid."""
+    from horovod_tpu_torch.ops._build import library
+
+    M, cin = args[0].shape
+    cout = args[5].shape[1]
+    parts = library().hvd_fused_bn_conv_scratch_parts(M, cout)
+    row = {"M": M, "Cin": cin, "Cout": cout, "scratch_partitions": parts,
+           "scratch_blocks": parts // 2, "scratch_row_tiles": -(-M // ROW_TILE["scratch"])}
+    for name, fn in kernels.items():
+        got, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        for part, g, w in zip(("y", "s1", "s2"), got, want):
+            rtol, atol = BN_TOL[part]
+            row[f"{name}_{part}_max_abs_err"] = check_close(
+                f"K{3 if name == 'scratch' else 4} {part} ({tag})", g, w, atol, rtol)
+        row[f"{name}_bitwise_repeat"] = check_repeat(f"{name} ({tag})", got, again)
+    return row
+
+
 def phase_k34(fb, gen, dev):
-    """K3 and K4 against the plain version at the four stage shapes and at
-    BN_RAGGED, stats bitwise-equal over two launches; times, rates and
-    shares of the bound at the path shape, and K3 without persistence (one
-    128-row tile per block) beside its persistent grid."""
+    """K3 and K4 against the plain version at the four stage shapes, at
+    BN_RAGGED and at BN_EDGES, stats bitwise-equal over two launches;
+    times, rates and shares of the bound at the path shape."""
     rec = {"phase": "k34", "batch": RESNET_B, "image": RESNET_HW,
            "tolerance": {k: {"rtol": r, "atol": a} for k, (r, a) in BN_TOL.items()},
            "shapes": []}
@@ -394,33 +420,16 @@ def phase_k34(fb, gen, dev):
     for stage, (M, cin, cout) in enumerate(BN_STAGES):
         args = bn_inputs(M, cin, cout, gen, dev)
         want = fb._reference_bn_relu_matmul(*args)
-        row = {"stage": stage, "M": M, "Cin": cin, "Cout": cout,
-               "scratch_blocks": fb.k3_partitions(M, cout) // 2}
-        for name, fn in kernels.items():
-            got = fn(*args)
-            again = fn(*args)
-            torch.cuda.synchronize()
-            for part, g, w in zip(("y", "s1", "s2"), got, want):
-                rtol, atol = BN_TOL[part]
-                row[f"{name}_{part}_max_abs_err"] = check_close(
-                    f"K{3 if name == 'scratch' else 4} {part} (stage {stage})", g, w, atol, rtol)
-            row[f"{name}_bitwise_repeat"] = check_repeat(f"{name} (stage {stage})", got, again)
+        row = {"stage": stage, **bn_shape_row(fb, kernels, args, want, f"stage {stage}")}
         row["s1_max_abs_ref"] = float(want[1].abs().max())
         row["s2_max_abs_ref"] = float(want[2].abs().max())
         rec["shapes"].append(row)
         if stage == BN_PATH_STAGE:
-            tiles = -(-M // fb.K3_ROWS)
-            flat = fb.fused_bn_conv_scratch_cuda(*args, blocks=tiles)
-            for part, g, w in zip(("y", "s1", "s2"), flat, want):
-                rtol, atol = BN_TOL[part]
-                check_close(f"K3 one tile per block {part}", g, w, atol, rtol)
-            rec["scratch_partitions"] = fb.k3_partitions(M, cout)
-            rec["scratch_blocks"] = rec["scratch_partitions"] // 2
+            rec["scratch_partitions"] = row["scratch_partitions"]
+            rec["scratch_blocks"] = row["scratch_blocks"]
             for name, fn in kernels.items():
                 rec[f"{name}_ms"] = time_ms(lambda: fn(*args), 20)
                 rec[f"{name}_max_abs_err"] = row[f"{name}_y_max_abs_err"]
-            rec["scratch_one_tile_per_block_ms"] = time_ms(
-                lambda: fb.fused_bn_conv_scratch_cuda(*args, blocks=tiles), 20)
             rec["plain_ms"] = time_ms(lambda: fb._reference_bn_relu_matmul(*args), 5)
             x, mu, var, gamma, beta, w = args
             a = torch.relu((x.float() - mu) * torch.rsqrt(var + 1e-5) * gamma + beta).to(x.dtype)
@@ -431,20 +440,12 @@ def phase_k34(fb, gen, dev):
             rec["flops"] = 2 * M * cin * cout
             rec["bytes"] = (M * cin + M * cout + cin * cout) * 2 + 4 * cin * 4 + 2 * cout * 4
             rec["bound_ms"], rec["bound_by"] = bound(rec["flops"], rec["bytes"])
-            # What this card's memory gives a plain device-to-device copy of
-            # y's size (read once, written once): the rate K3's bytes can
-            # hope for, beside the published 3.35 TB/s.
-            src = torch.empty(M, cout, dtype=torch.bfloat16, device=dev)
-            dst = torch.empty_like(src)
-            rec["copy_ms"] = time_ms(lambda: dst.copy_(src), 20)
-            rec["copy_gbps"] = 2 * src.numel() * 2 / (rec["copy_ms"] * 1e-3) / 1e9
-            del src, dst
-            for name in ("scratch", "revisit", "scratch_one_tile_per_block"):
+            for name in kernels:
                 ms = rec[f"{name}_ms"]
                 rec[f"{name}_tflops"] = rec["flops"] / (ms * 1e-3) / 1e12
                 rec[f"{name}_gbps"] = rec["bytes"] / (ms * 1e-3) / 1e9
                 rec[f"{name}_bound_share"] = rec["bound_ms"] / ms
-            del a, flat
+            del a
         del args, want
         torch.cuda.empty_cache()
     rec["ragged"] = bn_ragged(fb, kernels, gen, dev)
@@ -452,13 +453,7 @@ def phase_k34(fb, gen, dev):
     for M, cin, cout in BN_EDGES:
         args = bn_inputs(M, cin, cout, gen, dev)
         want = fb._reference_bn_relu_matmul(*args)
-        row = {"M": M, "Cin": cin, "Cout": cout}
-        for name, fn in kernels.items():
-            for part, g, w in zip(("y", "s1", "s2"), fn(*args), want):
-                rtol, atol = BN_TOL[part]
-                row[f"{name}_{part}_max_abs_err"] = check_close(
-                    f"K{3 if name == 'scratch' else 4} {part} ({M}, {cin}, {cout})", g, w, atol, rtol)
-        rec["edges"].append(row)
+        rec["edges"].append(bn_shape_row(fb, kernels, args, want, f"{M}, {cin}, {cout}"))
     emit(rec)
     return rec
 

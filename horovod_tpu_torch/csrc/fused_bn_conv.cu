@@ -620,16 +620,13 @@ constexpr int ERR_SHAPE = -1;         // a shape the kernel does not take
 constexpr int ERR_NO_ENCODER = -2;    // cuTensorMapEncodeTiled is not available
 constexpr int ERR_TENSOR_MAP = -3;    // cuTensorMapEncodeTiled refused a tensor map
 
-// K3's blocks: one per SM (or `blocks`, where positive), at most one per
-// row tile. Each block's two consumers own a partition of the workspace.
-int k3_grid(int M, int blocks) {
-  if (blocks <= 0) {
-    int dev = 0;
-    blocks = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&blocks, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return std::min(cdiv(M, k3::BM), blocks);
+// K3's blocks: one per SM, at most one per row tile. Each block's two
+// consumers own a partition of the workspace.
+int k3_grid(int M) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return std::min(cdiv(M, k3::BM), sms);
 }
 
 bool k3_shape_ok(int M, int Cin, int Cout) {
@@ -698,10 +695,10 @@ int launch(K kernel, size_t max_smem, size_t smem, dim3 grid, int nt, const Args
 
 int k3_launch(const void* x, const void* mu, const void* var, const void* gamma,
               const void* beta, const void* w, void* y, void* s, void* ws, int M, int Cin,
-              int Cout, float eps, void* stream, int blocks) {
+              int Cout, float eps, void* stream) {
   if (!k3_shape_ok(M, Cin, Cout)) return ERR_SHAPE;
   Args a = make_args(x, mu, var, gamma, beta, w, y, s, ws, M, Cin, Cout, eps);
-  const int grid = k3_grid(M, blocks);
+  const int grid = k3_grid(M);
   a.parts = 2 * grid;
   CUtensorMap mx, mw, my;
   int err;
@@ -716,7 +713,7 @@ int k3_launch(const void* x, const void* mu, const void* var, const void* gamma,
 }  // namespace
 
 // Partitions of the workspace each entry point needs: ws is (2, parts, Cout) f32.
-extern "C" int hvd_fused_bn_conv_scratch_parts(int M, int Cout) { return 2 * k3_grid(M, 0); }
+extern "C" int hvd_fused_bn_conv_scratch_parts(int M, int Cout) { return 2 * k3_grid(M); }
 
 extern "C" int hvd_fused_bn_conv_revisit_parts(int M, int Cout) {
   int parts, per;
@@ -731,18 +728,7 @@ extern "C" int hvd_fused_bn_conv_scratch(const void* x, const void* mu, const vo
                                          const void* gamma, const void* beta, const void* w,
                                          void* y, void* s, void* ws, int M, int Cin, int Cout,
                                          float eps, void* stream) {
-  return k3_launch(x, mu, var, gamma, beta, w, y, s, ws, M, Cin, Cout, eps, stream, 0);
-}
-
-// K3 on at most `blocks` blocks (ws then needs 2 * min(blocks, row tiles)
-// partitions): with one block per row tile, the kernel runs without
-// persistence, the schedule it is measured against.
-extern "C" int hvd_fused_bn_conv_scratch_blocks(const void* x, const void* mu, const void* var,
-                                                const void* gamma, const void* beta,
-                                                const void* w, void* y, void* s, void* ws, int M,
-                                                int Cin, int Cout, float eps, void* stream,
-                                                int blocks) {
-  return k3_launch(x, mu, var, gamma, beta, w, y, s, ws, M, Cin, Cout, eps, stream, blocks);
+  return k3_launch(x, mu, var, gamma, beta, w, y, s, ws, M, Cin, Cout, eps, stream);
 }
 
 extern "C" int hvd_fused_bn_conv_revisit(const void* x, const void* mu, const void* var,

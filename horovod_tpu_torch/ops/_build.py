@@ -38,7 +38,6 @@ ARGTYPES = {
     "hvd_flash_bwd_dkdv": [_P] * 9 + _QKV_ARGS,
     "hvd_flash_bwd_dq": [_P] * 8 + _QKV_ARGS,
     "hvd_fused_bn_conv_scratch": _BN_CONV_ARGS,
-    "hvd_fused_bn_conv_scratch_blocks": _BN_CONV_ARGS + [_I],   # ...; blocks
     "hvd_fused_bn_conv_revisit": _BN_CONV_ARGS,
     "hvd_fused_bn_conv_scratch_parts": [_I, _I],   # M, Cout -> partitions
     "hvd_fused_bn_conv_revisit_parts": [_I, _I],

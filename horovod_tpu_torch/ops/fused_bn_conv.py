@@ -38,7 +38,6 @@ KERNEL_MAX_CIN = 512      # the normalised row tile of x lives in shared memory
 K3_CIN_STEP = 64          # K3 reads x in boxes of 64 columns
 K3_COUT_STEP = 8          # K3's tensor maps need 16-byte row strides
 K4_CIN_STEP = 32          # K4's k-step
-K3_ROWS = 128             # rows of x per K3 tile
 
 
 # ---------------------------------------------------------------------------
@@ -103,15 +102,13 @@ def _check_k4_shape(M: int, Cin: int, Cout: int) -> None:
                          f"up to {KERNEL_MAX_CIN}")
 
 
-def _launch(entry: str, check_shape, x, mu, var, gamma, beta, w, eps: float,
-            parts=None, *extra):
+def _launch(entry: str, check_shape, x, mu, var, gamma, beta, w, eps: float):
     from ._build import library
 
     M, Cin, Cout = _check_kernel_inputs(x, mu, var, gamma, beta, w)
     check_shape(M, Cin, Cout)
     lib = library()
-    if parts is None:
-        parts = getattr(lib, entry + "_parts")(M, Cout)
+    parts = getattr(lib, entry + "_parts")(M, Cout)
     y = torch.empty((M, Cout), dtype=x.dtype, device=x.device)
     s = torch.empty((2, Cout), dtype=torch.float32, device=x.device)
     ws = torch.empty((2, parts, Cout), dtype=torch.float32, device=x.device)
@@ -119,34 +116,16 @@ def _launch(entry: str, check_shape, x, mu, var, gamma, beta, w, eps: float,
         x.data_ptr(), mu.data_ptr(), var.data_ptr(), gamma.data_ptr(),
         beta.data_ptr(), w.data_ptr(), y.data_ptr(), s.data_ptr(),
         ws.data_ptr(), M, Cin, Cout, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream, *extra)
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry}: launch failed with error {err}")
     return y, s[0], s[1]
 
 
-def k3_partitions(M: int, Cout: int) -> int:
-    """Rows of K3's stats workspace: two (one per consumer warpgroup) for
-    each of its persistent blocks, one block per SM at most."""
-    from ._build import library
-
-    return library().hvd_fused_bn_conv_scratch_parts(M, Cout)
-
-
-def fused_bn_conv_scratch_cuda(x, mu, var, gamma, beta, w, eps: float = 1e-5,
-                               blocks=None):
-    """K3: (y, s1, s2) from the x-stationary kernel. ``blocks`` caps its
-    grid (default: one block per SM); ``blocks`` at or above the number of
-    128-row tiles runs it without persistence, one tile per block."""
-    if blocks is None:
-        out = _launch("hvd_fused_bn_conv_scratch", _check_k3_shape,
-                      x, mu, var, gamma, beta, w, eps)
-    else:
-        if int(blocks) < 1:
-            raise ValueError(f"blocks={blocks}: K3 needs at least one block")
-        parts = 2 * min(int(blocks), -(-x.shape[0] // K3_ROWS))
-        out = _launch("hvd_fused_bn_conv_scratch_blocks", _check_k3_shape,
-                      x, mu, var, gamma, beta, w, eps, parts, int(blocks))
+def fused_bn_conv_scratch_cuda(x, mu, var, gamma, beta, w, eps: float = 1e-5):
+    """K3: (y, s1, s2) from the x-stationary kernel."""
+    out = _launch("hvd_fused_bn_conv_scratch", _check_k3_shape,
+                  x, mu, var, gamma, beta, w, eps)
     fused_bn_conv_scratch_cuda.launches += 1
     return out
 
