@@ -25,11 +25,14 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    stage shapes at B=256, 224x224, at the ragged M=300, Cin 64 -> 256
    (beta shifted there so that padding rows entering the stats would
    show) and at shapes on the edges of the kernels' tiles, among them
-   two where each of K3's persistent blocks walks several row tiles and
-   ends on a ragged one (y, s1, s2 at the JAX tests' tolerances), with
-   bitwise-equal stats over two launches; K3's grid; kernel, plain and
-   library (the bf16 product alone, ``torch.matmul``) times, TFLOP/s, GB/s
-   and shares of the bound at the path shape (stage 1);
+   four where each persistent block walks several row tiles and the last
+   ends on a ragged one, two shaped for K3's grid and two for K4's (y, s1,
+   s2 at the JAX tests' tolerances), with bitwise-equal stats over two
+   launches; both kernels' grids; kernel, plain and library (the bf16
+   product alone, ``torch.matmul``) times, TFLOP/s, GB/s and shares of the
+   bound at the path shape (stage 1), and K4's x re-reads, what its
+   schedule would move if no re-read came from L2, and its time on the
+   same walk with all of those bytes compulsory;
 6. the GPT-2 slice: ``hvd.init()`` (NCCL), ``create_mesh({"dp": 1})``,
    GPT-2-small (12 x 768, vocab 50257) with flash attention and bf16
    logits, ``DistributedOptimizer(AdamW)``, parameter broadcast, then 5
@@ -91,14 +94,20 @@ BN_PATH_STAGE = 1
 # fused_bn_relu_matmul accepts: its block_m clamps to M.
 BN_RAGGED = (300, 64, 256)
 # Rows per tile of K3 and K4.
-ROW_TILE = {"scratch": 128, "revisit": 64}
+ROW_TILE = {"scratch": 128, "revisit": 128}
 # Edges of the kernels' tiles and boxes: M below one tile, Cout below one
-# 64-column box or not a multiple of it, Cin of three boxes. The last two
+# 64-column box or not a multiple of it, Cin of three boxes. The next two
 # give each of K3's blocks (one per SM, 132 on the H100) two or three row
 # tiles, the last of them ragged, with Cout not a multiple of 128: at Cin
-# 512 through its one x buffer, at Cin 192 through its two.
+# 512 through its one x buffer, at Cin 192 through its two. The last two
+# give each of K4's row partitions (132 // (Cout tiles) of them) four to
+# six row tiles, the last partition ending on a ragged one: at Cin 512
+# (the fullest shared memory: a 128 KB w tile, three ring stages) with
+# Cout 392, whose last Cout tile is 8 columns wide, and at Cin 128 with
+# Cout 200.
 BN_EDGES = [(1, 64, 8), (100, 64, 40), (129, 192, 136), (1000, 128, 200),
-            (132 * 128 * 2 + 77, 512, 264), (132 * 128 * 3 + 5, 192, 200)]
+            (132 * 128 * 2 + 77, 512, 264), (132 * 128 * 3 + 5, 192, 200),
+            (33 * 128 * 5 + 3, 512, 392), (66 * 128 * 4 + 100, 128, 200)]
 BN_TOL = {"y": (2e-2, 2e-2), "s1": (2e-2, 2.0), "s2": (3e-2, 3.0)}   # (rtol, atol)
 RESNET_B, RESNET_HW = 256, 224
 
@@ -387,16 +396,30 @@ def bn_ragged(fb, kernels, gen, dev) -> dict:
     return row
 
 
-def bn_shape_row(fb, kernels, args, want, tag: str) -> dict:
-    """Both kernels against the plain version's (y, s1, s2) on one shape,
-    each launched twice: the errors and the bitwise repeat; K3's grid."""
+def bn_grids(M: int, cout: int) -> dict:
+    """Both kernels' grids at one shape, from the library: workspace
+    partitions (two a block for K3, two a row partition for K4), blocks,
+    row tiles, and K4's Cout tile and row partitions."""
     from horovod_tpu_torch.ops._build import library
 
+    lib = library()
+    parts = lib.hvd_fused_bn_conv_scratch_parts(M, cout)
+    k4_parts = lib.hvd_fused_bn_conv_revisit_parts(M, cout)
+    tile_n = lib.hvd_fused_bn_conv_revisit_tile_n()
+    return {"scratch_partitions": parts, "scratch_blocks": parts // 2,
+            "scratch_row_tiles": -(-M // ROW_TILE["scratch"]),
+            "revisit_partitions": k4_parts, "revisit_row_partitions": k4_parts // 2,
+            "revisit_tile_n": tile_n,
+            "revisit_blocks": -(-cout // tile_n) * (k4_parts // 2),
+            "revisit_row_tiles": -(-M // ROW_TILE["revisit"])}
+
+
+def bn_shape_row(fb, kernels, args, want, tag: str) -> dict:
+    """Both kernels against the plain version's (y, s1, s2) on one shape,
+    each launched twice: the errors and the bitwise repeat; their grids."""
     M, cin = args[0].shape
     cout = args[5].shape[1]
-    parts = library().hvd_fused_bn_conv_scratch_parts(M, cout)
-    row = {"M": M, "Cin": cin, "Cout": cout, "scratch_partitions": parts,
-           "scratch_blocks": parts // 2, "scratch_row_tiles": -(-M // ROW_TILE["scratch"])}
+    row = {"M": M, "Cin": cin, "Cout": cout, **bn_grids(M, cout)}
     for name, fn in kernels.items():
         got, again = fn(*args), fn(*args)
         torch.cuda.synchronize()
@@ -425,8 +448,9 @@ def phase_k34(fb, gen, dev):
         row["s2_max_abs_ref"] = float(want[2].abs().max())
         rec["shapes"].append(row)
         if stage == BN_PATH_STAGE:
-            rec["scratch_partitions"] = row["scratch_partitions"]
-            rec["scratch_blocks"] = row["scratch_blocks"]
+            for key in ("scratch_partitions", "scratch_blocks", "revisit_partitions",
+                        "revisit_row_partitions", "revisit_blocks", "revisit_tile_n"):
+                rec[key] = row[key]
             for name, fn in kernels.items():
                 rec[f"{name}_ms"] = time_ms(lambda: fn(*args), 20)
                 rec[f"{name}_max_abs_err"] = row[f"{name}_y_max_abs_err"]
@@ -445,6 +469,25 @@ def phase_k34(fb, gen, dev):
                 rec[f"{name}_tflops"] = rec["flops"] / (ms * 1e-3) / 1e12
                 rec[f"{name}_gbps"] = rec["bytes"] / (ms * 1e-3) / 1e9
                 rec[f"{name}_bound_share"] = rec["bound_ms"] / ms
+            # K4 reads x once per Cout tile. Had none of those reads come
+            # from L2, its schedule would move this many bytes; the bound
+            # above counts x once, whatever implements the function.
+            rec["revisit_x_reads"] = -(-cout // row["revisit_tile_n"])
+            rec["revisit_no_reuse_bytes"] = (rec["bytes"]
+                                             + (rec["revisit_x_reads"] - 1) * M * cin * 2)
+            rec["revisit_no_reuse_floor_ms"] = rec["revisit_no_reuse_bytes"] / PEAK_BYTES * 1e3
+            rec["revisit_no_reuse_floor_share"] = (rec["revisit_no_reuse_floor_ms"]
+                                                   / rec["revisit_ms"])
+            # The same walk with every one of those bytes compulsory: M times
+            # the re-reads rows into one Cout tile, so each block walks as many
+            # row tiles and does the same work, and the kernel moves the
+            # no-reuse bytes from device memory.
+            walk = bn_inputs(M * rec["revisit_x_reads"], cin, row["revisit_tile_n"], gen, dev)
+            rec["revisit_compulsory_shape"] = [M * rec["revisit_x_reads"], cin,
+                                               row["revisit_tile_n"]]
+            rec["revisit_compulsory_ms"] = time_ms(
+                lambda: fb.fused_bn_conv_revisit_cuda(*walk), 20)
+            del walk
             del a
         del args, want
         torch.cuda.empty_cache()

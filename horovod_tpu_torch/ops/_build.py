@@ -41,6 +41,7 @@ ARGTYPES = {
     "hvd_fused_bn_conv_revisit": _BN_CONV_ARGS,
     "hvd_fused_bn_conv_scratch_parts": [_I, _I],   # M, Cout -> partitions
     "hvd_fused_bn_conv_revisit_parts": [_I, _I],
+    "hvd_fused_bn_conv_revisit_tile_n": [],        # -> K4's Cout tile
 }
 
 _lock = threading.Lock()

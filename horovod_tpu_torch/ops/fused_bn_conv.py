@@ -14,17 +14,18 @@ sizes, as in the JAX function; the CUDA tiles themselves are internal.
 Kernels (``horovod_tpu_torch/csrc/fused_bn_conv.cu``):
 
 * ``fused_bn_conv_scratch_cuda`` -> K3, replaces the Pallas kernel of
-  ``fused_bn_relu_matmul(accum="scratch")``: x-stationary and Hopper-only
-  (TMA, wgmma): one persistent block per SM walks its row tiles, normalises
-  each once in shared memory and sweeps every Cout tile of w;
+  ``fused_bn_relu_matmul(accum="scratch")``: x-stationary: one persistent
+  block per SM walks its row tiles, normalises each once in shared memory
+  and sweeps every Cout tile of w;
 * ``fused_bn_conv_revisit_cuda`` -> K4, replaces the ``accum="revisit"``
-  kernel: w-stationary, each block holds one Cout tile of w and walks its
-  share of the row tiles, re-reading x once per Cout tile.
+  kernel: w-stationary: each persistent block holds one 128-column tile of
+  w and walks its partition of the row tiles, re-reading x once per Cout
+  tile (the blocks of a partition walk together, so L2 can serve it).
 
-Both take bf16 x and w only (K3: Cin a multiple of 64 up to 512 and Cout a
-multiple of 8; K4: Cin a multiple of 32 up to 512) and give the same y;
-their stats are reduced in a fixed order (no atomics), so two launches
-give bitwise-equal s1/s2. Each wrapper checks what it is given,
+Both are Hopper-only (TMA, wgmma), take bf16 x and w only, Cin a multiple
+of 64 up to 512 and Cout a multiple of 8, and give the same y; their stats
+are reduced in a fixed order (no atomics), so two launches give
+bitwise-equal s1/s2. Each wrapper checks what it is given,
 raises on anything its kernel does not take, and adds one to its
 ``launches`` count when it launches. The dispatcher takes the plain
 version only for tensors on the CPU; a CUDA tensor launches a kernel or
@@ -34,10 +35,9 @@ from __future__ import annotations
 
 import torch
 
-KERNEL_MAX_CIN = 512      # the normalised row tile of x lives in shared memory
-K3_CIN_STEP = 64          # K3 reads x in boxes of 64 columns
-K3_COUT_STEP = 8          # K3's tensor maps need 16-byte row strides
-K4_CIN_STEP = 32          # K4's k-step
+KERNEL_MAX_CIN = 512      # K3's x tile and K4's w tile live in shared memory
+KERNEL_CIN_STEP = 64      # the kernels read x and w in boxes of 64 columns
+KERNEL_COUT_STEP = 8      # their tensor maps need 16-byte row strides
 
 
 # ---------------------------------------------------------------------------
@@ -82,31 +82,24 @@ def _check_kernel_inputs(x, mu, var, gamma, beta, w):
     return M, Cin, Cout
 
 
-def _check_k3_shape(M: int, Cin: int, Cout: int) -> None:
-    """K3's shape rules (its C entry point refuses the same shapes)."""
+def _check_kernel_shape(kernel: str, M: int, Cin: int, Cout: int) -> None:
+    """The shape rules of K3 and K4 (their C entry points refuse the same
+    shapes); ``kernel`` names the kernel in the message."""
     if M <= 0:
-        raise ValueError(f"M={M}: K3 needs at least one row")
-    if Cin % K3_CIN_STEP or not 0 < Cin <= KERNEL_MAX_CIN:
-        raise ValueError(f"Cin={Cin}: K3 takes a multiple of {K3_CIN_STEP} "
+        raise ValueError(f"M={M}: {kernel} needs at least one row")
+    if Cin % KERNEL_CIN_STEP or not 0 < Cin <= KERNEL_MAX_CIN:
+        raise ValueError(f"Cin={Cin}: {kernel} takes a multiple of {KERNEL_CIN_STEP} "
                          f"up to {KERNEL_MAX_CIN}")
-    if Cout % K3_COUT_STEP or Cout <= 0:
-        raise ValueError(f"Cout={Cout}: K3 takes a positive multiple of {K3_COUT_STEP}")
+    if Cout % KERNEL_COUT_STEP or Cout <= 0:
+        raise ValueError(f"Cout={Cout}: {kernel} takes a positive multiple of "
+                         f"{KERNEL_COUT_STEP}")
 
 
-def _check_k4_shape(M: int, Cin: int, Cout: int) -> None:
-    """K4's shape rules (its C entry point refuses the same shapes)."""
-    if M <= 0 or Cout <= 0:
-        raise ValueError(f"M={M}, Cout={Cout}: K4 needs at least one of each")
-    if Cin % K4_CIN_STEP or not 0 < Cin <= KERNEL_MAX_CIN:
-        raise ValueError(f"Cin={Cin}: K4 takes a multiple of {K4_CIN_STEP} "
-                         f"up to {KERNEL_MAX_CIN}")
-
-
-def _launch(entry: str, check_shape, x, mu, var, gamma, beta, w, eps: float):
+def _launch(entry: str, kernel: str, x, mu, var, gamma, beta, w, eps: float):
     from ._build import library
 
     M, Cin, Cout = _check_kernel_inputs(x, mu, var, gamma, beta, w)
-    check_shape(M, Cin, Cout)
+    _check_kernel_shape(kernel, M, Cin, Cout)
     lib = library()
     parts = getattr(lib, entry + "_parts")(M, Cout)
     y = torch.empty((M, Cout), dtype=x.dtype, device=x.device)
@@ -124,7 +117,7 @@ def _launch(entry: str, check_shape, x, mu, var, gamma, beta, w, eps: float):
 
 def fused_bn_conv_scratch_cuda(x, mu, var, gamma, beta, w, eps: float = 1e-5):
     """K3: (y, s1, s2) from the x-stationary kernel."""
-    out = _launch("hvd_fused_bn_conv_scratch", _check_k3_shape,
+    out = _launch("hvd_fused_bn_conv_scratch", "K3",
                   x, mu, var, gamma, beta, w, eps)
     fused_bn_conv_scratch_cuda.launches += 1
     return out
@@ -135,7 +128,7 @@ fused_bn_conv_scratch_cuda.launches = 0
 
 def fused_bn_conv_revisit_cuda(x, mu, var, gamma, beta, w, eps: float = 1e-5):
     """K4: (y, s1, s2) from the w-stationary kernel."""
-    out = _launch("hvd_fused_bn_conv_revisit", _check_k4_shape,
+    out = _launch("hvd_fused_bn_conv_revisit", "K4",
                   x, mu, var, gamma, beta, w, eps)
     fused_bn_conv_revisit_cuda.launches += 1
     return out

@@ -187,27 +187,36 @@ def test_kernel_wrappers_refuse_cpu_tensors(fn):
 def test_k3_shape_rules_refuse(cin, cout, what):
     """K3 reads x in 64-column boxes (Cin a multiple of 64, at most 512)
     and its tensor maps need 16-byte row strides (Cout a multiple of 8)."""
-    with pytest.raises(ValueError, match=what):
-        fb._check_k3_shape(1024, cin, cout)
+    with pytest.raises(ValueError, match=f"{what}: K3 "):
+        fb._check_kernel_shape("K3", 1024, cin, cout)
+
+
+# chip_smoke's persistent edge shapes: several row tiles a block, a ragged
+# last tile, Cout not a multiple of 128; the first two shaped for K3's grid
+# (132 blocks), the last two for K4's (132 // Cout tiles row partitions).
+PERSISTENT_EDGES = [(132 * 128 * 2 + 77, 512, 264), (132 * 128 * 3 + 5, 192, 200),
+                    (33 * 128 * 5 + 3, 512, 392), (66 * 128 * 4 + 100, 128, 200)]
 
 
 @pytest.mark.parametrize("shape", [(802816, 64, 256), (200704, 128, 512), (50176, 256, 1024),
-                                   (12800, 512, 2048), (300, 64, 256),
-                                   (132 * 128 * 2 + 77, 512, 264), (132 * 128 * 3 + 5, 192, 200)])
+                                   (12800, 512, 2048), (300, 64, 256), *PERSISTENT_EDGES])
 def test_k3_shape_rules_take_the_resnet_stages_and_a_ragged_m(shape):
-    """The last two are chip_smoke's persistent edge shapes: several row
-    tiles a block, a ragged last tile, Cout not a multiple of 128."""
-    fb._check_k3_shape(*shape)
+    fb._check_kernel_shape("K3", *shape)
 
 
-@pytest.mark.parametrize("shape, ok", [
-    ((1024, 32, 12), True), ((1024, 96, 256), True), ((300, 64, 256), True),
-    ((12800, 512, 2048), True), ((1024, 48, 256), False), ((1024, 640, 256), False),
+@pytest.mark.parametrize("shape, what", [
+    ((802816, 64, 256), None), ((200704, 128, 512), None), ((12800, 512, 2048), None),
+    ((300, 64, 256), None), (PERSISTENT_EDGES[2], None), (PERSISTENT_EDGES[3], None),
+    ((1024, 32, 256), "Cin=32"), ((1024, 96, 256), "Cin=96"), ((1024, 640, 256), "Cin=640"),
+    ((1024, 128, 12), "Cout=12"), ((1024, 64, 0), "Cout=0"), ((0, 64, 256), "M=0"),
 ])
-def test_k4_shape_rules_are_unchanged(shape, ok):
-    """K4 keeps its rules: Cin a multiple of 32 up to 512, any Cout."""
-    if ok:
-        fb._check_k4_shape(*shape)
+def test_k4_shape_rules_are_k3s(shape, what):
+    """K4 reads x and w through the same 64-column boxes and writes y
+    through the same tensor map as K3, so it takes the same shapes: Cin a
+    multiple of 64 up to 512, Cout a multiple of 8. The messages name K4
+    and the dimension at fault."""
+    if what is None:
+        fb._check_kernel_shape("K4", *shape)
     else:
-        with pytest.raises(ValueError, match="Cin"):
-            fb._check_k4_shape(*shape)
+        with pytest.raises(ValueError, match=f"{what}: K4 "):
+            fb._check_kernel_shape("K4", *shape)
