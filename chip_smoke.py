@@ -45,7 +45,27 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    first held against the unfused ResNet-50 carrying the same weights; the
    5 steps must launch K3 exactly 4 times a step and K4 never; then the
    unfused model takes the same 5 steps for ``fused_bn_delta_ms``;
-8. the ``{"kernels": [...]}`` line; then the card line from nvidia-smi and
+8. the collectives: every collective of the port on CUDA tensors of f32,
+   bf16, uint8 and bool against closed forms (allgather; alltoall with
+   ``splits=[n]`` and without; reducescatter under SUM, AVERAGE, MIN and
+   MAX; each ``*_async`` through ``poll`` and ``synchronize``;
+   ``broadcast_object`` and ``allgather_object``) in this process's world;
+   with two cards or more, one spawned NCCL rank per card checks ragged
+   allgather, uneven alltoall and reducescatter and times a 64 MiB bf16
+   allreduce, allgather and reducescatter (algorithm bandwidth). At one card
+   the line says ``"world": 1``;
+9. the BERT slice: BERT-base (12 x 768, vocab 30522) with flash attention
+   and bf16 logits at B=256, S=128 on seeded ids, under a key padding mask
+   (sequence b attends to its first L_b tokens, L_b uniform in [64, 128]
+   from numpy seed 42). The forward loss is first held against dense
+   attention on the same weights and mask; then 5 AdamW steps whose
+   gradients come from ``hvd.distributed_value_and_grad(...,
+   compression=hvd.Compression.fp16)``, which must launch each flash kernel
+   exactly 12 times a step and no fused-BN kernel; then the same 5 steps
+   with dense attention as the control. K1 and the K2 pair are held against
+   their plain versions and timed alone at that shape (non-causal, that
+   mask), beside scaled_dot_product_attention with the same boolean mask;
+10. the ``{"kernels": [...]}`` line; then the card line from nvidia-smi and
    the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is not available.
@@ -110,6 +130,11 @@ BN_EDGES = [(1, 64, 8), (100, 64, 40), (129, 192, 136), (1000, 128, 200),
             (33 * 128 * 5 + 3, 512, 392), (66 * 128 * 4 + 100, 128, 200)]
 BN_TOL = {"y": (2e-2, 2e-2), "s1": (2e-2, 2.0), "s2": (3e-2, 3.0)}   # (rtol, atol)
 RESNET_B, RESNET_HW = 256, 224
+# BERT-base as bench.py's transformer_mfu trains it (bench.py:565).
+BERT_B, BERT_S = 256, 128
+BERT_MIN_LEN = 64
+COLL_BYTES = 64 * 2**20      # the multi-card timing buffer, bf16
+COLL_ITERS = 20
 
 
 def emit(obj) -> None:
@@ -675,6 +700,328 @@ def phase_resnet(fa, fb):
     return rec
 
 
+def _closed_form_checks(hvd, dev) -> dict:
+    """Every collective of the port on this process's world, each rank
+    holding the same tensors, against closed forms in n = hvd.size()."""
+    n, r = hvd.size(), hvd.rank()
+    checked = {}
+
+    def same(name, got, want):
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"collectives: {name} differs from its closed form")
+        checked[name] = True
+
+    for dtype in (torch.float32, torch.bfloat16, torch.uint8, torch.bool):
+        tag = str(dtype).removeprefix("torch.")
+        x = (torch.arange(6 * n * 4, device=dev) % 7).reshape(6 * n, 4)
+        x = x.to(dtype) if dtype != torch.bool else x > 3
+        same(f"allgather {tag}", hvd.allgather(x), x.repeat(n, 1))
+        same(f"allgather_async {tag}", hvd.synchronize(hvd.allgather_async(x)),
+             x.repeat(n, 1))
+        per = x.shape[0] // n
+        # Rank p sends rows [p*per, (p+1)*per) of the same x to each peer.
+        a2a_want = x[r * per:(r + 1) * per].repeat(n, 1)
+        for splits in (None, [per] * n):
+            got, recv = hvd.alltoall(x, splits=splits)
+            same(f"alltoall {tag} splits={splits}", got, a2a_want)
+            if recv != [per] * n:
+                raise AssertionError(f"alltoall {tag}: recv_splits {recv}")
+        got, recv = hvd.synchronize(hvd.alltoall_async(x, [per] * n))
+        same(f"alltoall_async {tag}", got, a2a_want)
+        same(f"broadcast_async {tag}", hvd.synchronize(hvd.broadcast_async(x, 0)), x)
+        rows = x[r * per:(r + 1) * per]
+        for op in ("SUM", "AVERAGE", "MIN", "MAX"):
+            got = hvd.reducescatter(x, op=getattr(hvd.ReduceOp, op))
+            # n copies of small integers: SUM is n times the rows (a logical
+            # or for bool), and AVERAGE gives the rows back exactly when n is
+            # a power of two, as card counts are.
+            want = rows * n if op == "SUM" and dtype != torch.bool else rows
+            same(f"reducescatter {tag} {op}", got, want)
+        h = hvd.allreduce_async(x, op=hvd.Max)
+        while not hvd.poll(h):
+            pass
+        same(f"allreduce_async {tag}", hvd.synchronize(h), x)
+    obj = {"rank": r, "bytes": bytes(range(256)), "nested": [1.5, None, "bert"]}
+    if hvd.broadcast_object(obj if r == 0 else None, root_rank=0) != dict(obj, rank=0):
+        raise AssertionError("broadcast_object")
+    if hvd.allgather_object(obj) != [dict(obj, rank=p) for p in range(n)]:
+        raise AssertionError("allgather_object")
+    checked["broadcast_object"] = checked["allgather_object"] = True
+    return checked
+
+
+def _rank_checks(hvd, dev) -> dict:
+    """What differs by rank: ragged allgather (rank r gives r + 1 rows),
+    alltoall with rank r sending r + 1 rows to each peer (as
+    tests/test_engine.py:138-156), reducescatter of rank-dependent rows."""
+    n, r = hvd.size(), hvd.rank()
+    x = torch.full((r + 1, 3), float(r), device=dev, dtype=torch.bfloat16)
+    want = torch.cat([torch.full((p + 1, 3), float(p), device=dev, dtype=torch.bfloat16)
+                      for p in range(n)])
+    if not torch.equal(hvd.allgather(x), want):
+        raise AssertionError("ragged allgather")
+    send = torch.arange(n * (r + 1), device=dev, dtype=torch.float32) + 100 * r
+    got, recv = hvd.alltoall(send, splits=[r + 1] * n)
+    want = torch.cat([torch.arange(r * (p + 1), (r + 1) * (p + 1), device=dev,
+                                   dtype=torch.float32) + 100 * p for p in range(n)])
+    if recv != [p + 1 for p in range(n)] or not torch.equal(got, want):
+        raise AssertionError(f"uneven alltoall: {recv}")
+    rows = torch.arange(2 * n, device=dev, dtype=torch.float32)[:, None] * (r + 1)
+    got = hvd.reducescatter(rows, op=hvd.Sum)
+    want = torch.arange(2 * r, 2 * r + 2, device=dev, dtype=torch.float32)[:, None] \
+        * (n * (n + 1) // 2)
+    if not torch.equal(got, want):
+        raise AssertionError("reducescatter across ranks")
+    return {"ragged_allgather": True, "uneven_alltoall": True, "reducescatter": True}
+
+
+def _collective_times(hvd, dev) -> dict:
+    """CUDA-event ms and algorithm bandwidth (COLL_BYTES over the time) of a
+    COLL_BYTES bf16 allreduce, an allgather into COLL_BYTES and a
+    reducescatter of COLL_BYTES, each through the port's entry point."""
+    n = hvd.size()
+    elems = COLL_BYTES // 2
+    full = torch.ones(elems, dtype=torch.bfloat16, device=dev)
+    part = torch.ones(elems // n, dtype=torch.bfloat16, device=dev)
+    calls = {"allreduce": lambda: hvd.allreduce(full, op=hvd.Sum),
+             "allgather": lambda: hvd.allgather(part),
+             "reducescatter": lambda: hvd.reducescatter(full)}
+    out = {"bytes": COLL_BYTES, "iters": COLL_ITERS}
+    for name, fn in calls.items():
+        ms = time_ms(fn, COLL_ITERS)
+        out[f"{name}_ms"] = ms
+        out[f"{name}_algbw_gbps"] = COLL_BYTES / (ms * 1e-3) / 1e9
+    return out
+
+
+def collectives_rank(rank: int, size: int, init_file: str, queue) -> None:
+    """One spawned NCCL rank of the multi-card collectives check."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            dev = hvd.device()
+            rec = {"closed_forms": _closed_form_checks(hvd, dev),
+                   **_rank_checks(hvd, dev), **_collective_times(hvd, dev)}
+            hvd.barrier()
+            queue.put((rank, rec))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_collectives(dev):
+    """The closed forms in this process's world; with two cards or more, one
+    spawned NCCL rank per card."""
+    import multiprocessing as mp
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+
+    rec = {"phase": "collectives", "world": hvd.size(), "backend": "nccl",
+           "checked": sorted(_closed_form_checks(hvd, dev))}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        ctx = mp.get_context("spawn")
+        queue = ctx.Queue()
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = [ctx.Process(target=collectives_rank,
+                                 args=(r, cards, f"{tmp}/store", queue)) for r in range(cards)]
+            for proc in procs:
+                proc.start()
+            try:
+                results = dict(queue.get(timeout=300) for _ in procs)
+            finally:
+                for proc in procs:
+                    proc.join(timeout=60)
+                    if proc.is_alive():
+                        proc.kill()
+        for r, res in results.items():
+            if not isinstance(res, dict):
+                raise AssertionError(f"collectives rank {r} failed:\n{res}")
+        rec["world"] = cards
+        rec["ranks"] = [results[r] for r in range(cards)]
+    emit(rec)
+    return rec
+
+
+def bert_batch(dev):
+    """Seeded ids (the registry's draw, numpy seed 42) and the key padding
+    mask: sequence b attends to its first L_b tokens, L_b uniform in
+    [BERT_MIN_LEN, BERT_S] from numpy seed 42."""
+    from horovod_tpu_torch.models.registry import get_model
+
+    ids = get_model("bert-base").make_batch(BERT_B, seed=42, seq_len=BERT_S)[0]
+    lengths = np.random.RandomState(42).randint(BERT_MIN_LEN, BERT_S + 1, size=BERT_B)
+    mask = (np.arange(BERT_S)[None, :] < lengths[:, None]).astype(np.int32)
+    return torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), lengths
+
+
+def bert_kernels(fa, gen, dev, mask) -> dict:
+    """K1 and the K2 pair at the BERT shape (B=256, S=128, H=12, D=64,
+    non-causal, the padding mask) against their plain versions, timed
+    alone, with the bound from the mask's valid pairs; SDPA with the same
+    boolean mask as a yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    Hn, Dn = 12, 64
+    q, k, v = qkv_views(BERT_B, BERT_S, Hn, Dn, gen, dev)
+    maskf = mask.float()
+    o, lse = fa.flash_fwd_cuda(q, k, v, maskf, False)
+    o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, maskf, False)
+    dout = torch.randn(BERT_B, BERT_S, Hn, Dn, generator=gen, device=dev).to(torch.bfloat16)
+    delta = (dout.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, maskf, dout, lse, delta, False)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, maskf, dout, lse, delta, False)
+    refs = fa._flash_bwd_plain(q, k, v, maskf, dout, False)
+    torch.cuda.synchronize()
+    rec = {"shape": [BERT_B, BERT_S, Hn, Dn], "causal": False,
+           "o_max_abs_err": check_close("K1 o (bert)", o, o_ref, O_ATOL),
+           "lse_max_abs_err": check_close("K1 lse (bert)", lse, lse_ref, LSE_ATOL)}
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        rec[f"{name}_max_abs_err"] = check_close(f"K2 {name} (bert)", got, want,
+                                                 GRAD_TOL, GRAD_TOL)
+    del o_ref, lse_ref, refs
+    rec["fwd_ms"] = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, maskf, False), 50)
+    rec["fwd_plain_ms"] = time_ms(lambda: fa._flash_fwd_plain(q, k, v, maskf, False), 5)
+    rec["dkdv_ms"] = time_ms(
+        lambda: fa.flash_bwd_dkdv_cuda(q, k, v, maskf, dout, lse, delta, False), 30)
+    rec["dq_ms"] = time_ms(
+        lambda: fa.flash_bwd_dq_cuda(q, k, v, maskf, dout, lse, delta, False), 30)
+    rec["pair_ms"] = rec["dkdv_ms"] + rec["dq_ms"]
+    rec["bwd_plain_ms"] = time_ms(lambda: fa._flash_bwd_plain(q, k, v, maskf, dout, False), 3)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    keep = (mask > 0)[:, None, None, :]
+    with torch.no_grad():
+        rec["sdpa_fwd_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep), 50)
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+    gt = dout.transpose(1, 2)
+    rec["sdpa_bwd_ms"] = time_ms(
+        lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True), 30)
+    pairs = valid_pairs(BERT_B, BERT_S, Hn, mask, False)
+    n = BERT_B * BERT_S * Hn * Dn
+    rows = BERT_B * Hn * BERT_S * 4
+    rec["valid_pairs"] = pairs
+    rec["fwd_flops"], rec["fwd_bytes"] = 4 * Dn * pairs, 4 * n * 2 + rows + BERT_B * BERT_S * 4
+    rec["dkdv_flops"], rec["dkdv_bytes"] = 8 * Dn * pairs, 4 * n * 2 + 2 * rows + 2 * n * 2
+    rec["dq_flops"], rec["dq_bytes"] = 6 * Dn * pairs, 4 * n * 2 + 2 * rows + n * 2
+    for part in ("fwd", "dkdv", "dq"):
+        rec[f"{part}_bound_ms"], rec[f"{part}_bound_by"] = bound(rec[f"{part}_flops"],
+                                                                 rec[f"{part}_bytes"])
+        rec[f"{part}_bound_share"] = rec[f"{part}_bound_ms"] / rec[f"{part}_ms"]
+    rec["pair_bound_ms"] = rec["dkdv_bound_ms"] + rec["dq_bound_ms"]
+    return rec
+
+
+def phase_bert(fa, fb, gen):
+    """BERT-base through ``distributed_value_and_grad`` with
+    ``Compression.fp16`` on the flash kernels under a padding mask."""
+    from torch.func import functional_call
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.registry import get_model
+    from horovod_tpu_torch.parallel.train import lm_loss
+
+    dev = hvd.device()
+    spec = get_model("bert-base")
+    model = spec.make_model(generator=torch.Generator(device=dev).manual_seed(0),
+                            attn_impl="flash", logits_dtype=torch.bfloat16)
+    cfg = model.cfg
+    init_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    ids, mask, lengths = bert_batch(dev)
+
+    # The forward loss through the kernels against dense attention on the
+    # same weights and mask.
+    dense = spec.make_model(attn_impl="dense", logits_dtype=torch.bfloat16)
+    dense.load_state_dict(init_sd)
+    fa.reset_launches()
+    with torch.no_grad():
+        loss_flash = float(lm_loss(model(ids, mask), ids))
+        loss_dense = float(lm_loss(dense(ids, mask), ids))
+    fwd_launches = fa.launches()["flash_fwd"]
+    if fwd_launches != cfg.n_layers:
+        raise AssertionError(f"the flash forward launched K1 {fwd_launches} times")
+    check_loss("bert-base flash vs dense", loss_flash, loss_dense)
+    del dense
+    torch.cuda.empty_cache()
+
+    def train(net):
+        """STEPS AdamW steps, the gradients from distributed_value_and_grad
+        with fp16 (bf16) compression; (losses, step ms)."""
+        hvd.broadcast_parameters(net, root_rank=0)
+        opt = torch.optim.AdamW(net.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
+
+        def loss_fn(params, x, m):
+            return lm_loss(functional_call(net, params, (x, m)), x)
+
+        value_and_grad = hvd.distributed_value_and_grad(
+            loss_fn, compression=hvd.Compression.fp16)
+        losses, step_ms = [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            loss, grads = value_and_grad(dict(net.named_parameters()), ids, mask)
+            for name, p in net.named_parameters():
+                p.grad = grads[name]
+            opt.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite losses {losses}")
+        return losses, step_ms
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    fb.reset_launches()
+    losses, step_ms = train(model)
+    launches, other = fa.launches(), fb.launches()
+    want = cfg.n_layers * STEPS
+    if launches != {name: want for name in launches} or any(other.values()):
+        raise AssertionError(f"launch counts {launches} {other}, expected {want} "
+                             "of each flash kernel and no fused-BN launch")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steady = statistics.median(step_ms[1:])
+    rec = {"phase": "bert", "model": "bert-base", "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads, "vocab": cfg.vocab_size,
+           "batch": BERT_B, "seq": BERT_S, "world": hvd.size(), "device": str(dev),
+           "compression": "fp16 (bf16 on the wire)",
+           "mask_valid_tokens": int(lengths.sum()),
+           "mask_lengths_min_max": [int(lengths.min()), int(lengths.max())],
+           "loss_flash_fwd": loss_flash, "loss_dense_fwd": loss_dense,
+           "losses": losses, "step_ms": step_ms, "median_step_ms_2_to_5": steady,
+           "sequences_per_s": BERT_B / (steady / 1e3),
+           "tokens_per_s": BERT_B * BERT_S / (steady / 1e3), "peak_mem_gb": peak,
+           "launches": launches,
+           "launches_per_step": {k: v / STEPS for k, v in launches.items()}}
+    del model
+    torch.cuda.empty_cache()
+
+    dense = spec.make_model(attn_impl="dense", logits_dtype=torch.bfloat16)
+    dense.load_state_dict(init_sd)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    dense_losses, dense_ms = train(dense)
+    if any(fa.launches().values()):
+        raise AssertionError(f"dense attention launched kernels: {fa.launches()}")
+    rec.update(dense_losses=dense_losses, dense_step_ms=dense_ms,
+               dense_median_step_ms_2_to_5=statistics.median(dense_ms[1:]),
+               dense_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del dense, init_sd
+    torch.cuda.empty_cache()
+    rec["kernels_at_bert_shape"] = bert_kernels(fa, gen, dev, mask)
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card",
@@ -700,9 +1047,11 @@ def main() -> int:
     try:
         if hvd.device().type != "cuda":
             raise AssertionError(f"hvd.init() chose {hvd.device()}")
+        phase_collectives(dev)
         sl = phase_slice(fa, fb)
         torch.cuda.empty_cache()
         rn = phase_resnet(fa, fb)
+        bert = phase_bert(fa, fb, gen)
     finally:
         hvd.shutdown()
 
@@ -728,6 +1077,14 @@ def main() -> int:
                         "max_abs_err": k34[f"{accum}_max_abs_err"], "ms": k34[f"{accum}_ms"],
                         "plain_ms": k34["plain_ms"], "bound_ms": k34["bound_ms"],
                         "bound_by": k34["bound_by"], "library_ms": k34["library_ms"]})
+    kb = bert["kernels_at_bert_shape"]
+    for kern, part in zip(kernels[:3], ("fwd", "dkdv", "dq")):
+        kern["launches_bert"] = bert["launches"][kern["name"]]
+        kern["bert"] = {"shape": kb["shape"], "causal": False, "ms": kb[f"{part}_ms"],
+                        "bound_ms": kb[f"{part}_bound_ms"],
+                        "bound_by": kb[f"{part}_bound_by"],
+                        "plain_ms": kb["fwd_plain_ms" if part == "fwd" else "bwd_plain_ms"],
+                        "sdpa_ms": kb["sdpa_fwd_ms" if part == "fwd" else "sdpa_bwd_ms"]}
     for kern in kernels:
         kern.update(route="cuda", source=SOURCE[kern["name"]], replaces=REPLACES[kern["name"]])
     emit({"kernels": kernels})

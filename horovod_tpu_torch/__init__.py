@@ -1,30 +1,67 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of horovod_tpu.
 
-``import horovod_tpu_torch as hvd`` gives the Horovod surface this slice
-has ported: process-group init and topology, collectives, the
-``DistributedOptimizer`` wrapper and parameter/optimizer-state broadcast.
+``import horovod_tpu_torch as hvd`` gives the Horovod surface under the
+JAX package's names: process-group init and topology, the ``*_built``
+flags, the collectives (allreduce, grouped_allreduce, allgather,
+broadcast, alltoall, reducescatter, barrier) with their ``*_async`` forms,
+``poll`` and ``synchronize``, the object collectives, ``Compression``,
+``DistributedOptimizer``, ``DistributedGradientTape``,
+``distributed_value_and_grad`` and parameter/optimizer-state broadcast.
 Models live in ``horovod_tpu_torch.models``, the training step in
-``horovod_tpu_torch.parallel``, the flash-attention kernels in
-``horovod_tpu_torch.ops.flash_attention``. The package imports torch and
-never jax, nor anything of ``horovod_tpu``.
+``horovod_tpu_torch.parallel``, the kernels in ``horovod_tpu_torch.ops``.
+The package imports torch and never jax, nor anything of ``horovod_tpu``.
 """
 from .common.basics import (
+    ccl_built,
     cross_rank,
     cross_size,
+    cuda_built,
+    ddl_built,
     device,
+    gloo_built,
     init,
+    is_homogeneous,
     is_initialized,
     local_rank,
     local_size,
+    mpi_built,
+    nccl_built,
     rank,
+    rocm_built,
     shutdown,
     size,
+    tcp_built,
+    xla_built,
 )
 from .common.exceptions import HorovodInternalError, NotInitializedError
-from .common.functions import broadcast_optimizer_state, broadcast_parameters
+from .common.functions import (
+    allgather_object,
+    broadcast_object,
+    broadcast_optimizer_state,
+    broadcast_parameters,
+)
 from .common.types import Adasum, Average, Max, Min, Product, ReduceOp, Sum
-from .ops import allreduce, barrier, broadcast, grouped_allreduce
-from .optim.distributed import DistributedOptimizer
+from .ops import (
+    allgather,
+    allgather_async,
+    allreduce,
+    allreduce_async,
+    alltoall,
+    alltoall_async,
+    barrier,
+    broadcast,
+    broadcast_async,
+    grouped_allreduce,
+    poll,
+    reducescatter,
+    synchronize,
+)
+from .ops.compression import Compression
+from .optim.distributed import (
+    DistributedGradientTape,
+    DistributedOptimizer,
+    distributed_value_and_grad,
+)
 from .parallel.mesh import create_mesh
 
 __version__ = "0.1.0"

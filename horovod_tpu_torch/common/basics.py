@@ -172,3 +172,49 @@ def device() -> torch.device:
     """The device this rank computes and communicates on."""
     _require_init()
     return _state.device
+
+
+def is_homogeneous() -> bool:
+    """Whether every host runs the same number of ranks
+    (ref: mpi_controller.cc:26-82 homogeneity check)."""
+    _require_init()
+    return _state.size % _state.cross_size == 0
+
+
+# What this build of the port can run on (ref: horovod/common/basics.py:
+# 174-208 mpi_built/nccl_built...); the JAX package's names, the port's
+# own answers.
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def cuda_built() -> bool:
+    return torch.version.cuda is not None
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def rocm_built() -> bool:
+    return False
+
+
+def xla_built() -> bool:
+    return False
+
+
+def tcp_built() -> bool:
+    return False

@@ -1,12 +1,16 @@
-"""Parameter and optimizer-state broadcast (counterpart of
-``horovod_tpu/common/functions.py``; ref: horovod/torch/functions.py:30-107).
+"""Parameter, optimizer-state and object collectives (counterpart of
+``horovod_tpu/common/functions.py``; ref: horovod/torch/functions.py:30-262).
 
-Both broadcast in place, as Horovod's PyTorch API does, so every rank
-starts from root's weights and optimizer state.
+The parameter and optimizer-state broadcasts work in place, as Horovod's
+PyTorch API does, so every rank starts from root's weights and optimizer
+state. The object collectives pickle, send the byte count first and then
+the bytes, through the port's own ``broadcast``/``allgather`` on the
+rank's device.
 """
 from __future__ import annotations
 
-from typing import Iterable, Mapping, Tuple, Union
+import pickle
+from typing import Any, Iterable, List, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -53,3 +57,45 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
             val = state[pid][key]
             if isinstance(val, torch.Tensor):
                 _broadcast_tensor_(val, root_rank)
+
+
+def _to_bytes(obj: Any) -> torch.Tensor:
+    payload = bytearray(pickle.dumps(obj))
+    return torch.frombuffer(payload, dtype=torch.uint8).to(basics.device())
+
+
+def broadcast_object(obj: Any = None, root_rank: int = 0,
+                     name: Optional[str] = None) -> Any:
+    """Root's ``obj`` on every rank (ref: horovod/torch/functions.py:186-227).
+    Unpickles what root sent, so every rank must trust root."""
+    if basics.size() == 1:
+        return obj
+    nm = name or "broadcast_object"
+    dev = basics.device()
+    if basics.rank() == root_rank:
+        data = _to_bytes(obj)
+        count = torch.tensor([data.numel()], dtype=torch.int64, device=dev)
+    else:
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+    count = ops.broadcast(count, root_rank, name=f"{nm}.size")
+    if basics.rank() != root_rank:
+        data = torch.empty(int(count.item()), dtype=torch.uint8, device=dev)
+    data = ops.broadcast(data, root_rank, name=f"{nm}.data")
+    return pickle.loads(data.cpu().numpy().tobytes())
+
+
+def allgather_object(obj: Any, name: Optional[str] = None) -> List[Any]:
+    """Every rank's ``obj``, in rank order
+    (ref: horovod/torch/functions.py:229-262)."""
+    if basics.size() == 1:
+        return [obj]
+    nm = name or "allgather_object"
+    data = _to_bytes(obj)
+    counts = ops.allgather(torch.tensor([data.numel()], dtype=torch.int64,
+                                        device=data.device), name=f"{nm}.size")
+    data = ops.allgather(data, name=f"{nm}.data").cpu().numpy()
+    out, off = [], 0
+    for count in counts.tolist():
+        out.append(pickle.loads(data[off:off + count].tobytes()))
+        off += count
+    return out

@@ -5,7 +5,9 @@ ResNet family (see its docstring).
 
 ``flax_to_torch(params, cfg)`` takes the ``params`` tree of the JAX
 ``TransformerLM`` as nested dicts of numpy arrays (unboxed) and returns the
-``state_dict`` of ``models.transformer.TransformerLM(cfg)``. flax kernels
+``state_dict`` of ``models.transformer.TransformerLM(cfg)``;
+``bert_flax_to_torch`` does the same for ``TransformerEncoder``, whose head
+is ``mlm_head`` where the LM's is ``lm_head``. flax kernels
 are (in, out), the transpose of ``nn.Linear.weight``; the qkv kernel
 (D, 3, H, Hd) keeps its (3, H, Hd) order when flattened, and the out
 kernel (H, Hd, D) flattens to (H*Hd, D). A missing or extra key raises.
@@ -50,7 +52,8 @@ def _apply_plan(flat: Dict[str, np.ndarray], plan: Dict, what: str,
     return out
 
 
-def flax_to_torch(params: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+def _transformer_to_torch(params: Mapping, cfg: TransformerConfig,
+                          head: str) -> Dict[str, torch.Tensor]:
     flat = _flatten(params)
     D = cfg.d_model
     HHd = cfg.n_heads * cfg.head_dim
@@ -59,7 +62,7 @@ def flax_to_torch(params: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Te
         "embed/pos_embedding": ("embed.pos_embedding", None),
         "ln_f/scale": ("ln_f.weight", None),
         "ln_f/bias": ("ln_f.bias", None),
-        "lm_head/kernel": ("lm_head.weight", lambda a: _dense(a, D)),
+        f"{head}/kernel": (f"{head}.weight", lambda a: _dense(a, D)),
     }
     for i in range(cfg.n_layers):
         src, dst = f"stack/layer_{i}", f"stack.layers.{i}"
@@ -79,6 +82,14 @@ def flax_to_torch(params: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Te
             plan[f"{src}/mlp/{name}/bias"] = (f"{dst}.mlp.{name}.bias", None)
 
     return _apply_plan(flat, plan, "params", cfg.param_dtype)
+
+
+def flax_to_torch(params: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    return _transformer_to_torch(params, cfg, "lm_head")
+
+
+def bert_flax_to_torch(params: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    return _transformer_to_torch(params, cfg, "mlm_head")
 
 
 def _hwio_to_oihw(kernel: np.ndarray) -> np.ndarray:

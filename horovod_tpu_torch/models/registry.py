@@ -1,6 +1,6 @@
 """Model registry: name -> (model factory, synthetic-batch factory).
-Counterpart of ``horovod_tpu/models/registry.py``; the port has the GPT-2
-and ResNet entries so far.
+Counterpart of ``horovod_tpu/models/registry.py``; the port has the GPT-2,
+BERT and ResNet entries so far.
 
 ``make_model(device=None, ...)`` builds on ``hvd.device()`` once
 ``hvd.init()`` has run, else on the current CUDA card; without CUDA it
@@ -16,7 +16,7 @@ import torch
 
 from ..common import basics
 from .resnet import RESNET_CONFIGS
-from .transformer import GPT2_CONFIGS, TransformerLM
+from .transformer import BERT_CONFIGS, GPT2_CONFIGS, TransformerEncoder, TransformerLM
 
 
 @dataclasses.dataclass
@@ -24,7 +24,7 @@ class ModelSpec:
     name: str
     make_model: Callable[..., Any]     # (device=None, generator=None, **cfg overrides)
     make_batch: Callable[..., Any]     # batch_size -> example inputs tuple
-    kind: str                          # "image" | "lm"
+    kind: str                          # "image" | "lm" | "encoder"
 
 
 def _resolve_device(device):
@@ -58,10 +58,10 @@ def _token_batch(seq_len: int, vocab: int):
     return make
 
 
-def _lm_factory(cfg):
+def _transformer_factory(cls, cfg):
     def make(device=None, generator=None, **overrides):
         c = dataclasses.replace(cfg, **overrides) if overrides else cfg
-        return TransformerLM(c, device=_resolve_device(device), generator=generator)
+        return cls(c, device=_resolve_device(device), generator=generator)
 
     return make
 
@@ -78,9 +78,13 @@ def _registry() -> Dict[str, ModelSpec]:
     for name, ctor in RESNET_CONFIGS.items():
         reg[name] = ModelSpec(name, _resnet_factory(ctor), _image_batch(224), "image")
     for name, cfg in GPT2_CONFIGS.items():
-        reg[name] = ModelSpec(name, _lm_factory(cfg),
+        reg[name] = ModelSpec(name, _transformer_factory(TransformerLM, cfg),
                               _token_batch(min(cfg.max_len, 512), cfg.vocab_size),
                               "lm")
+    for name, cfg in BERT_CONFIGS.items():
+        reg[name] = ModelSpec(name, _transformer_factory(TransformerEncoder, cfg),
+                              _token_batch(min(cfg.max_len, 128), cfg.vocab_size),
+                              "encoder")
     return reg
 
 

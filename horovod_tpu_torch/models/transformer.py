@@ -1,5 +1,5 @@
-"""GPT-2 causal LM in ``torch.nn`` (counterpart of
-``horovod_tpu/models/transformer.py:45-521,545-559``).
+"""GPT-2 causal LM and the BERT-shaped encoder in ``torch.nn`` (counterpart
+of ``horovod_tpu/models/transformer.py:45-571``).
 
 The numerics follow the flax model, so weights carried across with
 ``models/convert.py`` give the same logits:
@@ -68,6 +68,18 @@ GPT2_CONFIGS = {
                                  d_ff=6400),
     "gpt2-1p3b": TransformerConfig(d_model=2048, n_heads=16, n_layers=24,
                                    d_ff=8192, max_len=2048),
+}
+
+BERT_CONFIGS = {
+    "bert-tiny": TransformerConfig(vocab_size=30522, d_model=128, n_heads=2,
+                                   n_layers=2, d_ff=512, max_len=128,
+                                   causal=False),
+    "bert-base": TransformerConfig(vocab_size=30522, d_model=768, n_heads=12,
+                                   n_layers=12, d_ff=3072, max_len=512,
+                                   causal=False),
+    "bert-large": TransformerConfig(vocab_size=30522, d_model=1024, n_heads=16,
+                                    n_layers=24, d_ff=4096, max_len=512,
+                                    causal=False),
 }
 
 INIT_STD = 0.02   # flax default_kernel_init: normal(stddev=0.02)
@@ -219,9 +231,12 @@ class TransformerStack(nn.Module):
         return x
 
 
-class TransformerLM(nn.Module):
-    """Decoder-only causal LM, the GPT-2 shape. ``forward(ids, mask=None)``
-    returns (B, S, vocab) logits in ``cfg.logits_dtype``."""
+class _Transformer(nn.Module):
+    """Embedder, pre-LN stack, final LayerNorm and a bias-free vocabulary
+    head named ``HEAD``. ``forward(ids, mask=None)`` returns (B, S, vocab)
+    logits in ``cfg.logits_dtype``."""
+
+    HEAD = ""
 
     def __init__(self, cfg: TransformerConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -230,8 +245,8 @@ class TransformerLM(nn.Module):
         self.embed = Embedder(cfg, device=device)
         self.stack = TransformerStack(cfg, device=device)
         self.ln_f = LayerNorm(cfg.d_model, cfg, device=device)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg, bias=False,
-                             device=device)
+        self.add_module(self.HEAD, Dense(cfg.d_model, cfg.vocab_size, cfg,
+                                         bias=False, device=device))
         self.init_weights(generator)
 
     @torch.no_grad()
@@ -251,4 +266,22 @@ class TransformerLM(nn.Module):
         x = self.embed(ids)
         x = self.stack(x, mask)
         x = self.ln_f(x)
-        return self.lm_head(x).to(self.cfg.logits_dtype)
+        return getattr(self, self.HEAD)(x).to(self.cfg.logits_dtype)
+
+
+class TransformerLM(_Transformer):
+    """Decoder-only causal LM, the GPT-2 shape."""
+
+    HEAD = "lm_head"
+
+
+class TransformerEncoder(_Transformer):
+    """Bidirectional encoder with an MLM head, the BERT shape: attention is
+    never causal, whatever ``cfg.causal`` says."""
+
+    HEAD = "mlm_head"
+
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(dataclasses.replace(cfg, causal=False), device=device,
+                         generator=generator)

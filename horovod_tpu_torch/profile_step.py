@@ -1,13 +1,17 @@
 """Where the time of a training step goes on the card.
 
-    python -m horovod_tpu_torch.profile_step [--model gpt2-small|resnet50]
-        [--steps 3] [--out PATH]
+    python -m horovod_tpu_torch.profile_step
+        [--model gpt2-small|resnet50|bert-base] [--steps 3] [--out PATH]
 
 Builds a slice that ``chip_smoke.py`` drives on one card: GPT-2-small (B=4,
 S=2048, bf16 logits, ``DistributedOptimizer(AdamW)``), run with
-``attn_impl`` = flash and dense; or ResNet-50 (B=256, 224x224,
+``attn_impl`` = flash and dense; ResNet-50 (B=256, 224x224,
 ``DistributedOptimizer(SGD(0.01, momentum=0.9))``), run with
-``fuse_bn_conv_stages`` = (1,) and (). For each variant it warms up, times
+``fuse_bn_conv_stages`` = (1,) and (); or BERT-base (B=256, S=128, bf16
+logits, the key padding mask of chip_smoke's BERT phase, gradients from
+``distributed_value_and_grad(..., compression=Compression.fp16)``, a plain
+AdamW step), run with ``attn_impl`` = flash and dense. For each variant it
+warms up, times
 ``--steps`` steps by host clock around ``torch.cuda.synchronize()``, and
 traces the same number of steps with ``torch.profiler`` to sum device time
 by kernel. Prints one JSON line per variant: step ms, tokens or images per
@@ -29,7 +33,9 @@ import numpy as np
 
 B, S = 4, 2048
 RESNET_B, RESNET_HW = 256, 224
-VARIANTS = {"gpt2-small": ("flash", "dense"), "resnet50": ("fused", "unfused")}
+BERT_B, BERT_S, BERT_MIN_LEN = 256, 128, 64
+VARIANTS = {"gpt2-small": ("flash", "dense"), "resnet50": ("fused", "unfused"),
+            "bert-base": ("flash", "dense")}
 
 
 def _classify(name: str) -> str:
@@ -73,6 +79,8 @@ def _build(model_name: str, variant: str, dev):
         ids = torch.from_numpy(spec.make_batch(B, seed=42, seq_len=S)[0]).to(dev)
         init_fn, step_fn = train.make_train_step(model, opt, train.lm_loss, mesh=mesh)
         return step_fn, init_fn(), ids, ids, B * S, "tokens"
+    if model_name == "bert-base":
+        return _build_bert(spec, variant, dev, gen)
     model = spec.make_model(device=dev, generator=gen,
                             fuse_bn_conv_stages=(1,) if variant == "fused" else ())
     opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.01,
@@ -83,6 +91,36 @@ def _build(model_name: str, variant: str, dev):
     labels = torch.from_numpy(rng.randint(0, 1000, size=(RESNET_B,), dtype=np.int32)).to(dev)
     init_fn, step_fn = train.make_train_step(model, opt, train.softmax_xent, mesh=mesh)
     return step_fn, init_fn(), images, labels, RESNET_B, "images"
+
+
+def _build_bert(spec, variant: str, dev, gen):
+    """BERT-base trained through ``distributed_value_and_grad`` with fp16
+    (bf16) compression under chip_smoke's padding mask: sequence b attends
+    to its first L_b tokens, L_b uniform in [64, 128] from numpy seed 42."""
+    from torch.func import functional_call
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.train import lm_loss
+
+    model = spec.make_model(device=dev, generator=gen, attn_impl=variant,
+                            logits_dtype=torch.bfloat16)
+    ids = torch.from_numpy(spec.make_batch(BERT_B, seed=42, seq_len=BERT_S)[0]).to(dev)
+    lengths = np.random.RandomState(42).randint(BERT_MIN_LEN, BERT_S + 1, size=BERT_B)
+    mask = torch.from_numpy(
+        (np.arange(BERT_S)[None, :] < lengths[:, None]).astype(np.int32)).to(dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
+    value_and_grad = hvd.distributed_value_and_grad(
+        lambda p, x, m: lm_loss(functional_call(model, p, (x, m)), x),
+        compression=hvd.Compression.fp16)
+
+    def step_fn(state, inputs, labels):
+        loss, grads = value_and_grad(dict(model.named_parameters()), inputs, mask)
+        for name, p in model.named_parameters():
+            p.grad = grads[name]
+        opt.step()
+        return state, loss
+
+    return step_fn, None, ids, ids, BERT_B * BERT_S, "tokens"
 
 
 def profile(model_name: str, variant: str, steps: int) -> dict:

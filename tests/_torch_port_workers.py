@@ -1,5 +1,6 @@
-"""Rank bodies for tests/test_torch_port_distributed.py and
-tests/test_torch_port_resnet.py, in a module of their own so spawned ranks
+"""Rank bodies for tests/test_torch_port_distributed.py,
+tests/test_torch_port_resnet.py, tests/test_torch_port_collectives.py and
+tests/test_torch_port_bert.py, in a module of their own so spawned ranks
 import torch and horovod_tpu_torch only (no jax, no test module). Each rank
 returns a dict of numpy arrays through a queue."""
 from __future__ import annotations
@@ -134,6 +135,202 @@ def resnet_worker(rank: int, size: int, init_file: str, queue, flax_vars, images
         hvd.init(device="cpu", init_method=f"file://{init_file}")
         try:
             queue.put((rank, _run_resnet(rank, size, flax_vars, images, labels, fuse)))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+REDUCE_OPS = ("SUM", "AVERAGE", "MIN", "MAX")
+
+
+def collective_inputs(rank: int, size: int) -> dict:
+    """Each rank's numpy inputs to the collectives, which the tests feed to
+    the JAX package too. The allgather inputs have rank + 1 rows (the
+    uint8 one 2 + rank elements), the alltoall input sends rank + 1 rows to
+    each peer, the reducescatter input has one row past size * 2."""
+    rng = np.random.RandomState(100 + rank)
+    return {
+        "ag_f32": (np.arange((rank + 1) * 2, dtype=np.float32).reshape(rank + 1, 2)
+                   + 10 * rank),
+        "ag_u8": np.full(2 + rank, rank, np.uint8),
+        "ag_bool": (np.arange((rank + 1) * 3) % (rank + 2) == 0).reshape(rank + 1, 3),
+        "a2a": (np.arange(size * (rank + 1) * 2, dtype=np.float32)
+                .reshape(size * (rank + 1), 2) + 100 * rank),
+        "a2a_even": (np.arange(size * 2 * 3, dtype=np.float32).reshape(size * 2, 3)
+                     + 100 * rank),
+        "even": rng.randn(size * 2, 3).astype(np.float32),
+        "rs": rng.randn(size * 2 + 1, 3).astype(np.float32),
+        "bcast": np.full(3, rank * 10, np.float32),
+    }
+
+
+def collective_object(rank: int) -> dict:
+    return {"rank": rank, "items": list(range(rank + 1)), "name": f"r{rank}"}
+
+
+def _error(fn) -> str:
+    """The message of the exception ``fn`` raises, prefixed by its type."""
+    try:
+        fn()
+    except Exception as e:  # the tests read which error it was
+        return f"{type(e).__name__}: {e}"
+    return "no error"
+
+
+def _run_collectives(rank: int, size: int) -> dict:
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    inp = {k: torch.from_numpy(v) for k, v in collective_inputs(rank, size).items()}
+    out = {}
+    for key in ("ag_f32", "ag_u8", "ag_bool", "even"):
+        out[key] = hvd.allgather(inp[key], name=key).numpy()
+        h = hvd.allgather_async(inp[key], name=key)
+        out[f"{key}_async"] = hvd.synchronize(h).numpy()
+    out["ag_scalar"] = hvd.allgather(torch.tensor(float(rank))).numpy()
+    got, splits = hvd.alltoall(inp["a2a"], splits=[rank + 1] * size)
+    out["a2a"], out["a2a_splits"] = got.numpy(), splits
+    got, splits = hvd.synchronize(hvd.alltoall_async(inp["a2a"], [rank + 1] * size))
+    out["a2a_async"], out["a2a_async_splits"] = got.numpy(), splits
+    got, splits = hvd.alltoall(inp["a2a_even"])
+    out["a2a_even"], out["a2a_even_splits"] = got.numpy(), splits
+    for root in range(size):
+        out[f"bcast_{root}"] = hvd.broadcast(inp["bcast"], root_rank=root).numpy()
+        h = hvd.broadcast_async(inp["bcast"], root_rank=root)
+        out[f"bcast_{root}_async"] = hvd.synchronize(h).numpy()
+        out[f"object_{root}"] = hvd.broadcast_object(
+            collective_object(rank) if rank == root else None, root_rank=root)
+    out["allgather_object"] = hvd.allgather_object(collective_object(rank))
+    for op in REDUCE_OPS:
+        rop = getattr(hvd.ReduceOp, op)
+        out[f"rs_{op}"] = hvd.reducescatter(inp["rs"], op=rop).numpy()
+        out[f"even_rs_{op}"] = hvd.reducescatter(inp["even"], op=rop).numpy()
+    out["rs_default"] = hvd.reducescatter(inp["rs"]).numpy()
+    h = hvd.allreduce_async(inp["even"], average=False, name="grads")
+    while not hvd.poll(h):
+        pass
+    out["allreduce_async_sum"] = hvd.synchronize(h).numpy()
+    out["allreduce_sum"] = hvd.allreduce(inp["even"], average=False).numpy()
+    out["allreduce_avg"] = hvd.allreduce(inp["even"], average=True).numpy()
+    out["conflict"] = _error(lambda: hvd.allreduce(inp["even"], average=True,
+                                                   op=hvd.Sum))
+    out["handle_twice"] = _error(lambda: hvd.synchronize(h))
+    # Trailing dims, then dtypes, that differ between ranks: every rank
+    # raises, none hangs, and the group stays usable.
+    out["trailing_mismatch"] = _error(lambda: hvd.allgather(
+        torch.zeros(2, 3 + rank), name="bad"))
+    out["dtype_mismatch"] = _error(lambda: hvd.allgather(
+        torch.zeros(2, 3, dtype=torch.float32 if rank == 0 else torch.float64)))
+    out["after_errors"] = hvd.allreduce(torch.ones(1), average=False).numpy()
+    hvd.barrier()
+    return out
+
+
+def collectives_worker(rank: int, size: int, init_file: str, queue) -> None:
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+
+        hvd.init(device="cpu", init_method=f"file://{init_file}")
+        try:
+            queue.put((rank, _run_collectives(rank, size)))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def bert_batch(batch: int, seq: int):
+    """Seeded ids and a key padding mask: sequence b attends to its first
+    L_b tokens, L_b uniform in [seq // 2, seq] from numpy seed 42."""
+    rng = np.random.RandomState(42)
+    lengths = rng.randint(seq // 2, seq + 1, size=batch)
+    ids = np.random.RandomState(0).randint(0, 30522, size=(batch, seq)).astype(np.int32)
+    mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int32)
+    return ids, mask
+
+
+def _bert_value_and_grads(hvd, model, ids, mask, compression=None):
+    """distributed_value_and_grad and DistributedGradientTape of the LM
+    loss of ``model`` with respect to its parameters, as numpy."""
+    import torch
+    from torch.func import functional_call
+
+    from horovod_tpu_torch.parallel.train import lm_loss
+
+    def fun(p, x, m):
+        return lm_loss(functional_call(model, p, (x, m)), x)
+
+    params = dict(model.named_parameters())
+    x, m = torch.from_numpy(ids), torch.from_numpy(mask)
+    out = {}
+    vag = hvd.distributed_value_and_grad(fun, compression=compression)
+    tape = hvd.DistributedGradientTape(fun, compression=compression)
+    for name, (val, grads) in (("vag", vag(params, x, m)),
+                               ("tape", tape.gradient(params, x, m))):
+        out[f"{name}_value"] = val.numpy().copy()
+        out[f"{name}_grads"] = {k: g.numpy().copy() for k, g in grads.items()}
+    return out
+
+
+def make_bert_tiny(params, attn_impl: str):
+    """The port's f32 bert-tiny carrying the flax ``params``."""
+    import dataclasses
+
+    import torch
+
+    from horovod_tpu_torch.models.convert import bert_flax_to_torch
+    from horovod_tpu_torch.models.transformer import BERT_CONFIGS, TransformerEncoder
+
+    cfg = dataclasses.replace(BERT_CONFIGS["bert-tiny"], dtype=torch.float32,
+                              attn_impl=attn_impl)
+    model = TransformerEncoder(cfg, device="cpu")
+    model.load_state_dict(bert_flax_to_torch(params, cfg))
+    return model
+
+
+def _run_bert(rank: int, size: int, params, ids, mask, attn_impl) -> dict:
+    """This rank's slice of the batch through the gradient transforms, and
+    one compressed DistributedOptimizer gradient sync on the regression
+    problem."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    per = ids.shape[0] // size
+    rows = slice(rank * per, (rank + 1) * per)
+    model = make_bert_tiny(params, attn_impl)
+    out = _bert_value_and_grads(hvd, model, ids[rows], mask[rows])
+
+    w0, xs, ys = linreg_data(size)
+    w = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1.0),
+                                   compression=hvd.Compression.fp16)
+    xr = torch.from_numpy(xs[rank * 4:(rank + 1) * 4])
+    yr = torch.from_numpy(ys[rank * 4:(rank + 1) * 4])
+    ((xr @ w - yr) ** 2).mean().backward()
+    out["local_grad"] = w.grad.numpy().copy()
+    opt.step()
+    # step() leaves the all-reduced, decompressed gradient in .grad.
+    out["reduced_grad"] = w.grad.numpy().copy()
+    out["fp16_sgd"] = w.detach().numpy().copy()
+    hvd.barrier()
+    return out
+
+
+def bert_worker(rank: int, size: int, init_file: str, queue, params, ids, mask,
+                attn_impl) -> None:
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+
+        hvd.init(device="cpu", init_method=f"file://{init_file}")
+        try:
+            queue.put((rank, _run_bert(rank, size, params, ids, mask, attn_impl)))
         finally:
             hvd.shutdown()
     except Exception:  # report to the parent instead of leaving it waiting

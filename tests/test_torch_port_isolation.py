@@ -17,7 +17,9 @@ MODULES = [
     "horovod_tpu_torch",
     "horovod_tpu_torch.common.basics",
     "horovod_tpu_torch.common.functions",
+    "horovod_tpu_torch.common.async_handles",
     "horovod_tpu_torch.ops",
+    "horovod_tpu_torch.ops.compression",
     "horovod_tpu_torch.ops._build",
     "horovod_tpu_torch.ops.flash_attention",
     "horovod_tpu_torch.ops.fused_bn_conv",
@@ -30,6 +32,18 @@ MODULES = [
     "horovod_tpu_torch.models.convert",
     "horovod_tpu_torch.profile_step",
 ]
+# The JAX package's names that the port exports under the same names.
+EXPORTS = [
+    "is_homogeneous", "mpi_built", "nccl_built", "gloo_built", "ccl_built",
+    "ddl_built", "cuda_built", "rocm_built", "xla_built", "tcp_built",
+    "allreduce", "allreduce_async", "grouped_allreduce", "allgather",
+    "allgather_async", "broadcast", "broadcast_async", "alltoall",
+    "alltoall_async", "reducescatter", "barrier", "poll", "synchronize",
+    "broadcast_object", "allgather_object", "broadcast_parameters",
+    "broadcast_optimizer_state", "Compression", "DistributedOptimizer",
+    "DistributedGradientTape", "distributed_value_and_grad",
+]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 FORBIDDEN_IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|flax|optax|horovod_tpu)(\.|\s|$)", re.M)
 
@@ -49,6 +63,29 @@ def test_import_leaves_jax_and_horovod_tpu_out():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu', 'triton'))\n"
         "assert not bad, bad\n"
+    )
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_modules_import_with_the_jax_package_blocked():
+    """An import finder that refuses jax, flax, optax and horovod_tpu: every
+    module of the port, the new ones among them, still imports, and the
+    package exports the JAX package's names."""
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        "class Refuse(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {BLOCKED!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        f"assert not [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}]\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "import horovod_tpu_torch as hvd\n"
+        f"missing = [n for n in {EXPORTS!r} if not hasattr(hvd, n)]\n"
+        "assert not missing, missing\n"
+        "assert hvd.Compression.fp16.compress(__import__('torch').ones(1))[0].dtype "
+        "== __import__('torch').bfloat16\n"
     )
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
@@ -80,7 +117,7 @@ def test_init_without_cuda_and_without_cpu_request_raises():
     assert proc.returncode == 0, proc.stderr + proc.stdout
 
 
-@pytest.mark.parametrize("name", ["resnet50", "gpt2-tiny"])
+@pytest.mark.parametrize("name", ["resnet50", "gpt2-tiny", "bert-tiny"])
 def test_make_model_without_cuda_and_without_cpu_request_raises(name):
     code = (
         "import torch, horovod_tpu_torch as hvd\n"
