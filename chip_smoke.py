@@ -65,7 +65,22 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    with dense attention as the control. K1 and the K2 pair are held against
    their plain versions and timed alone at that shape (non-causal, that
    mask), beside scaled_dot_product_attention with the same boolean mask;
-10. the ``{"kernels": [...]}`` line; then the card line from nvidia-smi and
+10. the scaled data-parallel path (``zero``): GPT-2-small at full width and
+   depth, B=4 a rank, S=2048, AdamW through ``make_train_step``, 5 steps of
+   each variant from the same weights on the same batches: (a) the
+   all-reduce after backward, (b) overlapped with backward, (c) ``zero=1``,
+   (d) ``zero=2, error_feedback=True`` with ``HOROVOD_WIRE_COMPRESSION=bf16``,
+   (e) Adasum where the world is a power of two of at least 2. Each must
+   launch each flash kernel 12 times a step, hold its optimizer-state bytes
+   to the closed form, and keep its losses near (a)'s ((b) and (c)
+   bitwise at world 1 and within 1e-5 relative past it, (d) within 1e-3);
+   step ms, peak memory and the largest parameter error against (a) are
+   recorded. With two cards or more it runs again on one spawned NCCL
+   rank per card (global batch 4·n), checks that a mismatched allreduce
+   raises on the card, and records the weak-scaling efficiency. What (b)
+   saves over (a) is timed apart, from 5 steps of each in turns (a, b, b,
+   a) three times;
+11. the ``{"kernels": [...]}`` line; then the card line from nvidia-smi and
    the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is not available.
@@ -817,37 +832,44 @@ def collectives_rank(rank: int, size: int, init_file: str, queue) -> None:
         queue.put((rank, traceback.format_exc()))
 
 
-def phase_collectives(dev):
-    """The closed forms in this process's world; with two cards or more, one
-    spawned NCCL rank per card."""
+def spawn_cards(target, cards: int, timeout: float = 300) -> list:
+    """``target(rank, cards, init_file, queue)`` on one spawned process per
+    card; each rank's record, in rank order. A rank that failed sends its
+    traceback, which raises here."""
     import multiprocessing as mp
     import tempfile
 
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=target, args=(r, cards, f"{tmp}/store", queue))
+                 for r in range(cards)]
+        for proc in procs:
+            proc.start()
+        try:
+            results = dict(queue.get(timeout=timeout) for _ in procs)
+        finally:
+            for proc in procs:
+                proc.join(timeout=60)
+                if proc.is_alive():
+                    proc.kill()
+    for r, res in results.items():
+        if not isinstance(res, dict):
+            raise AssertionError(f"{target.__name__} rank {r} failed:\n{res}")
+    return [results[r] for r in range(cards)]
+
+
+def phase_collectives(dev):
+    """The closed forms in this process's world; with two cards or more, one
+    spawned NCCL rank per card."""
     import horovod_tpu_torch as hvd
 
     rec = {"phase": "collectives", "world": hvd.size(), "backend": "nccl",
            "checked": sorted(_closed_form_checks(hvd, dev))}
     cards = torch.cuda.device_count()
     if cards >= 2:
-        ctx = mp.get_context("spawn")
-        queue = ctx.Queue()
-        with tempfile.TemporaryDirectory() as tmp:
-            procs = [ctx.Process(target=collectives_rank,
-                                 args=(r, cards, f"{tmp}/store", queue)) for r in range(cards)]
-            for proc in procs:
-                proc.start()
-            try:
-                results = dict(queue.get(timeout=300) for _ in procs)
-            finally:
-                for proc in procs:
-                    proc.join(timeout=60)
-                    if proc.is_alive():
-                        proc.kill()
-        for r, res in results.items():
-            if not isinstance(res, dict):
-                raise AssertionError(f"collectives rank {r} failed:\n{res}")
         rec["world"] = cards
-        rec["ranks"] = [results[r] for r in range(cards)]
+        rec["ranks"] = spawn_cards(collectives_rank, cards)
     emit(rec)
     return rec
 
@@ -1022,6 +1044,197 @@ def phase_bert(fa, fb, gen):
     return rec
 
 
+# The zero phase's variants: DistributedOptimizer keywords and wire knobs.
+ZERO_VARIANTS = {
+    "a_after_backward": ({"overlap": False}, {}),
+    "b_overlapped": ({}, {}),
+    "c_zero1": ({"zero": 1}, {}),
+    "d_zero2_ef_bf16": ({"zero": 2, "error_feedback": True},
+                        {"HOROVOD_WIRE_COMPRESSION": "bf16"}),
+    "e_adasum": ({"op": "adasum"}, {}),
+}
+# Each variant's losses against (a)'s, relative; Adasum combines the
+# gradients otherwise and is held to finite losses only. At world 1 (b) and
+# (c) must be bitwise (a). Past one card NCCL sums each bucket, and each
+# reduce-scatter, in another order than the one grouped buffer of (a); on
+# four H100s (b)'s losses differ by 2.6e-6 at step 3.
+ZERO_LOSS_RTOL = {"b_overlapped": 1e-5, "c_zero1": 1e-5, "d_zero2_ef_bf16": 1e-3}
+ZERO_BITWISE_AT_WORLD_1 = ("b_overlapped", "c_zero1")
+
+
+def zero_variants(hvd, fa, world: int) -> dict:
+    """GPT-2-small at full width and depth, B=4 a rank (global batch 4·world),
+    S=2048, bf16, AdamW(1e-4, wd 1e-4, eps 1e-8) through
+    ``make_train_step``: STEPS steps of each variant from the same weights
+    on the same batches. Checks each variant's flash launches (12 of K1 and
+    of each K2 kernel a step), its optimizer-state bytes against the closed
+    form (8·P replicated, 8·⌈P/n⌉ sharded, 4·⌈P/n⌉ more for the residual)
+    and its losses against (a)'s; (b) and (c) bitwise at world 1."""
+    import gc
+    import os
+
+    from horovod_tpu_torch.models.registry import get_model
+    from horovod_tpu_torch.parallel.mesh import create_mesh
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    dev = hvd.device()
+    spec = get_model("gpt2-small")
+    model = spec.make_model(device=dev, generator=torch.Generator(device=dev).manual_seed(0),
+                            attn_impl="flash", logits_dtype=torch.bfloat16, max_len=S)
+    n_layers = model.cfg.n_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    shard = -(-n_params // world)
+    closed = {"a_after_backward": 8 * n_params, "b_overlapped": 8 * n_params,
+              "c_zero1": 8 * shard, "d_zero2_ef_bf16": 12 * shard, "e_adasum": 8 * n_params}
+    init_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    ids = torch.from_numpy(spec.make_batch(B * world, seed=42, seq_len=S)[0]).to(dev)
+    mesh = create_mesh({"dp": world})
+    names = [v for v in ZERO_VARIANTS
+             if v != "e_adasum" or (world >= 2 and world & (world - 1) == 0)]
+    out, ref = {"world": world, "params": n_params, "variants": {}}, None
+
+    def train(name):
+        """STEPS steps of variant ``name`` from the initial weights, no
+        gradient left from an earlier run; (optimizer, losses, step ms)."""
+        kw, knobs = ZERO_VARIANTS[name]
+        kw = dict(kw, op=hvd.Adasum) if kw.get("op") == "adasum" else kw
+        os.environ.update(knobs)
+        try:
+            model.load_state_dict(init_sd)
+            model.zero_grad(set_to_none=True)
+            opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+                model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), **kw)
+            init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh)
+            state = init_fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, losses, step_ms = steps(step_fn, state, ids, ids)
+            return opt, losses, step_ms
+        finally:
+            for key in knobs:
+                os.environ.pop(key)
+
+    for name in names:
+        fa.reset_launches()
+        opt, losses, step_ms = train(name)
+        launches = fa.launches()
+        want = n_layers * STEPS
+        if launches != {k: want for k in launches}:
+            raise AssertionError(f"zero {name}: launch counts {launches}, expected {want}")
+        held = opt.state_bytes()
+        if held != closed[name]:
+            raise AssertionError(f"zero {name}: {held} optimizer-state bytes, "
+                                 f"closed form {closed[name]}")
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        v = {"losses": losses, "step_ms": step_ms,
+             "median_step_ms_2_to_5": statistics.median(step_ms[1:]),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "state_bytes": held, "state_bytes_closed_form": closed[name],
+             "launches": launches,
+             "launches_per_step": {k: c / STEPS for k, c in launches.items()}}
+        if ref is None:
+            ref = (flat, losses)
+        else:
+            v["max_param_err_vs_a"] = max_err(flat, ref[0])
+            v["max_loss_rel_err_vs_a"] = max(abs(x - y) / abs(y) for x, y in zip(losses, ref[1]))
+            tol = ZERO_LOSS_RTOL.get(name)
+            if tol is not None and v["max_loss_rel_err_vs_a"] > tol:
+                raise AssertionError(f"zero {name}: losses {losses} vs (a) {ref[1]}")
+            if name in ZERO_BITWISE_AT_WORLD_1 and world == 1 and not (
+                    losses == ref[1] and torch.equal(flat, ref[0])):
+                raise AssertionError(f"zero {name}: not bitwise (a) at world 1")
+        out["variants"][name] = v
+        del opt, flat
+        gc.collect()
+        torch.cuda.empty_cache()
+    # What the overlap saves, from runs in turns (a, b, b, a) x 3: step times
+    # move by several ms between runs of one process.
+    pairs = {"a_after_backward": [], "b_overlapped": []}
+    for _ in range(3):
+        for name in ("a_after_backward", "b_overlapped", "b_overlapped", "a_after_backward"):
+            opt, _, step_ms = train(name)
+            pairs[name].append(statistics.median(step_ms[1:]))
+            del opt
+            gc.collect()
+    out["turns_median_step_ms"] = pairs
+    out["overlap_saves_ms"] = (statistics.median(pairs["a_after_backward"])
+                               - statistics.median(pairs["b_overlapped"]))
+    del model, init_sd, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mismatch_on_card(hvd) -> str:
+    """A 2-element allreduce on rank 0 against 3 elements elsewhere must
+    raise HorovodInternalError naming both shapes; the group works after."""
+    dev = hvd.device()
+    try:
+        hvd.allreduce(torch.zeros(2 if hvd.rank() == 0 else 3, device=dev))
+    except hvd.HorovodInternalError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("a mismatched allreduce did not raise")
+    if "(2,)" not in msg or "(3,)" not in msg:
+        raise AssertionError(f"the mismatch error does not name both shapes: {msg}")
+    if float(hvd.allreduce(torch.ones(1, device=dev), op=hvd.Sum)) != hvd.size():
+        raise AssertionError("the group does not work after the mismatch")
+    return msg
+
+
+def zero_rank(rank: int, size: int, init_file: str, queue) -> None:
+    """One spawned NCCL rank of the multi-card zero phase."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            rec = {"mismatch": _mismatch_on_card(hvd), **zero_variants(hvd, fa, size)}
+            hvd.barrier()
+            queue.put((rank, rec))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_zero(fa):
+    """The scaled data-parallel path: the variants of ``zero_variants`` in
+    this process (world 1); with two cards or more, again on one spawned
+    NCCL rank per card, with the step times, the weak-scaling efficiency
+    (one card's step ms over n cards') and what overlapping saves."""
+    import horovod_tpu_torch as hvd
+
+    one = zero_variants(hvd, fa, hvd.size())
+    rec = {"phase": "zero", "model": "gpt2-small", "batch_per_rank": B, "seq": S, **one}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        ranks = spawn_cards(zero_rank, cards, timeout=600)
+        multi = {"world": cards, "mismatch": ranks[0]["mismatch"],
+                 "variants": ranks[0]["variants"],
+                 "median_step_ms_by_rank": {v: [r["variants"][v]["median_step_ms_2_to_5"]
+                                                for r in ranks]
+                                            for v in ranks[0]["variants"]}}
+        steady = {v: max(ms) for v, ms in multi["median_step_ms_by_rank"].items()}
+        multi["weak_scaling_efficiency"] = {
+            v: one["variants"][v]["median_step_ms_2_to_5"] / steady[v]
+            for v in steady if v in one["variants"]}
+        multi["turns_median_step_ms_rank0"] = ranks[0]["turns_median_step_ms"]
+        multi["overlap_saves_ms_by_rank"] = [r["overlap_saves_ms"] for r in ranks]
+        rec["multi"] = multi
+    else:
+        rec["multi"] = f"{cards} card: not measured"
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card",
@@ -1052,6 +1265,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         rn = phase_resnet(fa, fb)
         bert = phase_bert(fa, fb, gen)
+        zero = phase_zero(fa)
     finally:
         hvd.shutdown()
 
@@ -1080,6 +1294,8 @@ def main() -> int:
     kb = bert["kernels_at_bert_shape"]
     for kern, part in zip(kernels[:3], ("fwd", "dkdv", "dq")):
         kern["launches_bert"] = bert["launches"][kern["name"]]
+        kern["launches_zero"] = {v: rec["launches"][kern["name"]]
+                                 for v, rec in zero["variants"].items()}
         kern["bert"] = {"shape": kb["shape"], "causal": False, "ms": kb[f"{part}_ms"],
                         "bound_ms": kb[f"{part}_bound_ms"],
                         "bound_by": kb[f"{part}_bound_by"],

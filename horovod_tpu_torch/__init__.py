@@ -5,8 +5,12 @@ JAX package's names: process-group init and topology, the ``*_built``
 flags, the collectives (allreduce, grouped_allreduce, allgather,
 broadcast, alltoall, reducescatter, barrier) with their ``*_async`` forms,
 ``poll`` and ``synchronize``, the object collectives, ``Compression``,
-``DistributedOptimizer``, ``DistributedGradientTape``,
-``distributed_value_and_grad`` and parameter/optimizer-state broadcast.
+``DistributedOptimizer`` (with ZeRO, error feedback, Adasum and the
+all-reduce overlapped with backward), ``DistributedGradientTape``,
+``distributed_value_and_grad``, parameter/optimizer-state broadcast,
+``adasum_allreduce``, ``SyncBatchNorm`` and ``sync_batch_stats``, and the
+``zero`` module (``recut_state``, ``status_snapshot``, ``state_to_global``,
+``state_from_global``).
 Models live in ``horovod_tpu_torch.models``, the training step in
 ``horovod_tpu_torch.parallel``, the kernels in ``horovod_tpu_torch.ops``.
 The package imports torch and never jax, nor anything of ``horovod_tpu``.
@@ -56,7 +60,10 @@ from .ops import (
     reducescatter,
     synchronize,
 )
+from .ops.adasum import adasum_allreduce
 from .ops.compression import Compression
+from .ops.sync_batch_norm import SyncBatchNorm, sync_batch_stats
+from .optim import zero
 from .optim.distributed import (
     DistributedGradientTape,
     DistributedOptimizer,

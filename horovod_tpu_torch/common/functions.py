@@ -50,7 +50,10 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
                               root_rank: int = 0) -> None:
     """Broadcast every tensor of the optimizer's state from root, in place.
     State that is still empty (before the first step) is the same on every
-    rank and needs nothing."""
+    rank and needs nothing. A ZeRO-sharded ``DistributedOptimizer`` holds a
+    different shard on every rank, so there is nothing to broadcast."""
+    if getattr(optimizer, "_zero", None) is not None:
+        return
     state = optimizer.state_dict()["state"]
     for pid in sorted(state):
         for key in sorted(state[pid]):

@@ -11,10 +11,14 @@ is ``mlm_head`` where the LM's is ``lm_head``. flax kernels
 are (in, out), the transpose of ``nn.Linear.weight``; the qkv kernel
 (D, 3, H, Hd) keeps its (3, H, Hd) order when flattened, and the out
 kernel (H, Hd, D) flattens to (H*Hd, D). A missing or extra key raises.
+
+``zero_state_from_jax(state, rank, world)`` takes the JAX traced plane's
+global ``ZeroState`` and returns one rank's shard of it in the form
+``DistributedOptimizer.load_shard_state`` takes (``optim/zero.py``).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -167,3 +171,51 @@ def resnet_unfused_state_dict(state_dict: Mapping[str, torch.Tensor]
         else:
             out[f"{prefix}.bn2.{'weight' if leaf == 'scale' else leaf}"] = t
     return out
+
+
+# optax state fields -> torch optimizer state keys (Adam/AdamW moments, the
+# momentum trace, RMSprop's square average; ``nu`` beside ``mu`` is Adam's).
+_OPTAX_FIELDS = {"count": "step", "mu": "exp_avg", "trace": "momentum_buffer"}
+
+
+def _optax_leaves(tree: Any, out: Dict[str, np.ndarray]) -> None:
+    """Collect the named array fields of a tree of optax NamedTuple states."""
+    if hasattr(tree, "_fields"):
+        for field in tree._fields:
+            val = getattr(tree, field)
+            if hasattr(val, "_fields") or isinstance(val, (tuple, list, Mapping)):
+                _optax_leaves(val, out)
+            elif val is not None:
+                if field in out:
+                    raise ValueError(f"optax state holds {field!r} twice")
+                out[field] = np.asarray(val)
+    elif isinstance(tree, Mapping):
+        for val in tree.values():
+            _optax_leaves(val, out)
+    elif isinstance(tree, (tuple, list)):
+        for val in tree:
+            _optax_leaves(val, out)
+
+
+def zero_state_from_jax(state: Any, rank: int, world: int) -> Dict[str, Any]:
+    """Rank ``rank``'s shard of a JAX ``ZeroState(inner, residual)`` whose
+    leaves are stacked over the world (``(world, k)`` moments, ``(world,)``
+    counts, as ``zero_init`` and the traced update give them), with the
+    optax names mapped to torch's: count -> step, mu -> exp_avg, nu ->
+    exp_avg_sq (beside mu; square_avg alone), trace -> momentum_buffer, and
+    the residual. A single param group."""
+    fields: Dict[str, np.ndarray] = {}
+    _optax_leaves(state.inner, fields)
+    if getattr(state, "residual", None) is not None:
+        fields["residual"] = np.asarray(state.residual)
+    group = {}
+    for field, arr in fields.items():
+        if arr.shape[:1] != (world,):
+            raise ValueError(f"leaf {field!r} of shape {arr.shape} is not stacked "
+                             f"over a world of {world}")
+        key = _OPTAX_FIELDS.get(field, field)
+        if field == "nu":
+            key = "exp_avg_sq" if "mu" in fields else "square_avg"
+        val = torch.from_numpy(np.array(arr[rank], copy=True))
+        group[key] = val.to(torch.float32) if key == "step" else val
+    return {"world": world, "rank": rank, "groups": [group]}

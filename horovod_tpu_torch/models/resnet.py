@@ -35,12 +35,11 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..common import basics
 from ..ops.fused_bn_conv import bn_relu_conv1x1
+from ..ops.sync_batch_norm import _GlobalSum, _world
 
 MOMENTUM = 0.9
 EPSILON = 1e-5
@@ -48,27 +47,6 @@ EPSILON = 1e-5
 
 # ---------------------------------------------------------------------------
 # Batch statistics over the data-parallel group.
-def _world() -> int:
-    return basics.size() if basics.is_initialized() else 1
-
-
-class _GlobalSum(torch.autograd.Function):
-    """All-reduce SUM over the ranks; the gradient is all-reduced likewise
-    (every rank's loss depends on every rank's contribution)."""
-
-    @staticmethod
-    def forward(ctx, t):
-        out = t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM)
-        return g
-
-
 class _ChannelSums(torch.autograd.Function):
     """(sum over rows of x, sum over rows of x^2) in f32 for an (M, C)
     tensor. Saves x in its own dtype, not an f32 copy."""

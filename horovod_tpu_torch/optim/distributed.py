@@ -2,31 +2,62 @@
 distributed_value_and_grad (counterpart of
 ``horovod_tpu/optim/distributed.py``).
 
-``DistributedOptimizer`` wraps a ``torch.optim.Optimizer``: before the
-inner optimizer steps, every gradient is all-reduced across the ranks, in
-one grouped collective (flatten, one all-reduce, split), with AVERAGE as
+``DistributedOptimizer`` wraps a ``torch.optim.Optimizer`` and averages the
+gradients across ranks before the inner optimizer steps, with AVERAGE as
 SUM then 1/size and the pre/postscale factors of the JAX package. With
 ``compression`` each gradient is compressed first, all-reduced in the
 compressed dtype (a bf16 sum for ``Compression.fp16``, as the JAX package
-sums) and then decompressed.
+sums) and then decompressed. Four paths:
+
+* **overlapped** (the default, ``overlap=True``; ref: the hooks of
+  horovod/torch/optimizer.py:32-207): at construction every parameter gets
+  a post-accumulate-grad hook, and the parameters, in reverse registration
+  order (about the order backward produces their gradients), are cut into
+  buckets of one wire dtype up to ``HOROVOD_FUSION_THRESHOLD`` bytes
+  (``fuse=False``: one gradient a bucket). A hook holds its gradient; a
+  bucket whose gradients have all landed is packed into its buffer in one
+  copy and all-reduced asynchronously while backward goes on, buckets
+  always launching in index order, so every rank launches the same
+  collectives in the same order.
+  ``step()`` fills the slots of parameters with no gradient with zeros
+  (their ``.grad`` stays ``None``), launches what is left in that order,
+  waits for every bucket, and writes the reduced gradients to ``.grad``;
+* **after backward** (``overlap=False``, or Adasum): ``step()``
+  all-reduces every ``.grad`` in one grouped collective (``fuse=False``:
+  one each);
+* **ZeRO** (``zero=1|2``) and **error feedback** (``error_feedback=True``):
+  ``optim/zero.py``. ``zero=None`` defers to ``HOROVOD_ZERO_SHARDING``;
+* **Adasum** (``op=Adasum``): the gradients combined by ``ops/adasum.py``,
+  the grouped buffer as one vector when ``fuse``, else each gradient.
+
+``synchronize()`` is the explicit form of the reduction; a ``step()`` after
+it only steps the inner optimizer. The ranks' gradient signatures (count,
+sizes, op, scale factors) are checked against each other once, on the
+first reduction; after that the step reads nothing back to the host.
 
 ``backward_passes_per_step=k`` follows ``optax.MultiSteps``, which the JAX
 wrapper uses: ``step()`` is called after every backward pass, the wrapper
 keeps the running mean of the k gradients, and on every k-th call it
-all-reduces that mean and lets the inner optimizer step; on the other calls
-the parameters do not change.
+all-reduces that mean (overlapped: the hooks of the k-th pass launch it)
+and lets the inner optimizer step; on the other calls the parameters do
+not change.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 
 from .. import ops
+from ..common import env
+from ..common.exceptions import HorovodInternalError
 from ..common.types import ReduceOp
 from ..ops.compression import Compression
+from . import zero as zero_mod
 
-_GRAD_OPS = (ReduceOp.AVERAGE, ReduceOp.SUM, ReduceOp.MIN, ReduceOp.MAX)
+_GRAD_OPS = (ReduceOp.AVERAGE, ReduceOp.SUM, ReduceOp.MIN, ReduceOp.MAX,
+             ReduceOp.ADASUM)
 
 
 def _check_op(op: ReduceOp):
@@ -36,47 +67,109 @@ def _check_op(op: ReduceOp):
 
 def _allreduce_grads(grads: List[torch.Tensor], op: ReduceOp,
                      prescale_factor: float, postscale_factor: float,
-                     compression, fuse: bool) -> List[torch.Tensor]:
+                     compression, fuse: bool, checked: bool = True
+                     ) -> List[torch.Tensor]:
     """Compress, all-reduce (one grouped collective when ``fuse``, else one
-    per gradient) and decompress (ref: the JAX ``_allreduce_grads``)."""
+    per gradient) and decompress (ref: the JAX ``_allreduce_grads``).
+    ``checked=False`` skips the header exchange, for a caller that checks
+    its signature once."""
     comp = compression or Compression.none
     packed = [comp.compress(g) for g in grads]
     wire = [c for c, _ in packed]
     if fuse:
-        red = ops.grouped_allreduce(wire, op=op, prescale_factor=prescale_factor,
-                                    postscale_factor=postscale_factor)
+        fn = ops.grouped_allreduce if checked else ops._grouped_allreduce
+        red = fn(wire, op=op, prescale_factor=prescale_factor,
+                 postscale_factor=postscale_factor)
     else:
-        red = [ops.allreduce(c, op=op, prescale_factor=prescale_factor,
-                             postscale_factor=postscale_factor) for c in wire]
+        fn = ops.allreduce if checked else ops._allreduce
+        red = [fn(c, op=op, prescale_factor=prescale_factor,
+                  postscale_factor=postscale_factor) for c in wire]
     return [comp.decompress(r, ctx) for r, (_, ctx) in zip(red, packed)]
 
 
+class _Bucket:
+    def __init__(self, dtype: torch.dtype):
+        self.dtype = dtype
+        self.itemsize = torch.empty(0, dtype=dtype).element_size()
+        self.params: List[torch.Tensor] = []
+        self.sizes: List[int] = []
+        self.numel = 0
+        self.buf: Optional[torch.Tensor] = None
+        self.parts: List[Optional[torch.Tensor]] = []   # the gradients, as they land
+        self.pending = 0
+        self.launched = None   # (work, finish) once launched
+
+    def add(self, p: torch.Tensor) -> None:
+        self.params.append(p)
+        self.sizes.append(p.numel())
+        self.numel += p.numel()
+
+    def flatten(self) -> torch.Tensor:
+        """The landed gradients packed into the bucket's buffer, one copy."""
+        if self.buf is None:
+            self.buf = torch.empty(self.numel, dtype=self.dtype,
+                                   device=self.params[0].device)
+        torch.cat([t.reshape(-1) for t in self.parts], out=self.buf)
+        self.parts = [None] * len(self.params)
+        return self.buf
+
+
+def _hook(ref):
+    """A post-accumulate-grad hook that holds its optimizer weakly, so the
+    hook does not keep a dropped optimizer alive."""
+    def hook(p):
+        opt = ref()
+        if opt is not None:
+            opt._on_grad(p)
+    return hook
+
+
 class DistributedOptimizer(torch.optim.Optimizer):
-    """Wraps ``optimizer``; ``param_groups`` and ``state`` are the inner
-    optimizer's own, so schedulers and ``state_dict`` see through."""
+    """Wraps ``optimizer``; ``param_groups`` are the inner optimizer's own,
+    so schedulers see through, and so are ``state`` and ``state_dict`` on
+    the replicated paths. Under ZeRO ``state`` and ``state_dict()`` are the
+    shard optimizer's (``optim/zero.py``; ``zero.state_to_global`` gathers
+    the whole)."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  op: ReduceOp = ReduceOp.AVERAGE,
                  prescale_factor: float = 1.0,
                  postscale_factor: float = 1.0,
                  backward_passes_per_step: int = 1,
-                 compression=None, zero=None, error_feedback=None):
-        if zero:
-            raise NotImplementedError("ZeRO-sharded optimizer state is not ported yet")
-        if error_feedback:
-            raise NotImplementedError("error feedback is not ported yet")
+                 compression=None, zero=None, error_feedback=None,
+                 fuse: bool = True, overlap: bool = True):
         _check_op(op)
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
+        zero = env.zero_sharding_default() if zero is None else int(zero)
+        if zero not in (0, 1, 2):
+            raise ValueError(f"zero stage must be 0, 1 or 2, got {zero!r}")
+        error_feedback = bool(error_feedback)
+        if (zero or error_feedback) and compression is not None:
+            raise ValueError("compression= does not combine with zero= or "
+                             "error_feedback=: their wire cast is "
+                             "HOROVOD_WIRE_COMPRESSION")
         # No Optimizer.__init__: the wrapper owns no parameters of its own.
         self._inner = optimizer
         self.op = op
         self.prescale_factor = prescale_factor
         self.postscale_factor = postscale_factor
         self.compression = compression
+        self.fuse = fuse
         self.backward_passes_per_step = backward_passes_per_step
         self._passes = 0
         self._acc: Dict[torch.Tensor, torch.Tensor] = {}
+        self._synchronized = False
+        self._signature_checked = False
+        self._zero = (zero_mod.ZeroSharder(optimizer, zero, error_feedback, op,
+                                           prescale_factor, postscale_factor)
+                      if zero else None)
+        self._ef = (zero_mod.EFReducer(optimizer, op, prescale_factor, postscale_factor)
+                    if error_feedback and not zero else None)
+        self._buckets: Optional[List[_Bucket]] = None
+        self._hooks = []
+        if overlap and not zero and not error_feedback and op != ReduceOp.ADASUM:
+            self._build_buckets()
 
     # The inner optimizer's groups, state and defaults, shared not copied.
     @property
@@ -85,17 +178,46 @@ class DistributedOptimizer(torch.optim.Optimizer):
 
     @property
     def state(self):
-        return self._inner.state
+        return self._zero.inner.state if self._zero else self._inner.state
 
     @property
     def defaults(self):
         return self._inner.defaults
 
     def state_dict(self):
-        return self._inner.state_dict()
+        return self._zero.state_dict() if self._zero else self._inner.state_dict()
 
     def load_state_dict(self, state_dict):
-        self._inner.load_state_dict(state_dict)
+        if self._zero:
+            self._zero.load_state_dict(state_dict)
+        else:
+            self._inner.load_state_dict(state_dict)
+
+    def shard_state(self) -> dict:
+        """Under ZeRO, this rank's shard of the state (``optim/zero.py``)."""
+        return self._require_zero().shard_state()
+
+    def load_shard_state(self, state: dict) -> None:
+        self._require_zero().load_shard_state(state)
+
+    def _require_zero(self):
+        if self._zero is None:
+            raise ValueError("the optimizer state is not sharded (zero=0)")
+        return self._zero
+
+    def state_bytes(self) -> int:
+        """Bytes of optimizer state this rank holds: the moments (per
+        parameter element on the replicated paths, per shard element under
+        ZeRO) and the error-feedback residual."""
+        if self._zero:
+            return self._zero.state_bytes()["sharded_state_bytes"]
+        held = sum(t.numel() * t.element_size()
+                   for g in self.param_groups for p in g["params"]
+                   for t in self._inner.state.get(p, {}).values()
+                   if torch.is_tensor(t) and t.shape == p.shape and t.dim() > 0)
+        if self._ef:
+            held += sum(r.numel() * r.element_size() for r in self._ef.residuals)
+        return held
 
     def zero_grad(self, set_to_none: bool = True):
         self._inner.zero_grad(set_to_none=set_to_none)
@@ -103,41 +225,231 @@ class DistributedOptimizer(torch.optim.Optimizer):
     def __repr__(self):
         return f"DistributedOptimizer({self._inner!r}, op={self.op.name})"
 
+    def __del__(self):
+        for h in getattr(self, "_hooks", ()):
+            h.remove()
+
+    def _params(self) -> List[torch.Tensor]:
+        seen, out = set(), []
+        for g in self.param_groups:
+            for p in g["params"]:
+                if p.requires_grad and id(p) not in seen:
+                    seen.add(id(p))
+                    out.append(p)
+        return out
+
     def _params_with_grad(self) -> List[torch.Tensor]:
         return [p for g in self.param_groups for p in g["params"]
                 if p.grad is not None]
 
-    def synchronize(self) -> None:
-        """All-reduce every ``.grad`` in place, in one grouped collective."""
+    def _check_signature(self, dtype: torch.dtype, sizes: List[int]) -> None:
+        """Once: every rank reduces the same gradient layout with the same
+        op and factors; else ``HorovodInternalError`` on every rank."""
+        if self._signature_checked:
+            return
+        label = "DistributedOptimizer"
+        heads = ops._exchange_header(label, label, dtype, (len(sizes),), self.op,
+                                     self.prescale_factor, self.postscale_factor,
+                                     extra=sizes)
+        ops._check_same_shape(label, heads)
+        for r, (_, counts) in enumerate(heads):
+            if counts != heads[0][1]:
+                raise HorovodInternalError(
+                    f"{label}: gradient sizes mismatch, rank 0 has {list(heads[0][1])}, "
+                    f"rank {r} has {list(counts)}")
+        self._signature_checked = True
+
+    # -- the overlapped path -------------------------------------------------
+    def _build_buckets(self) -> None:
+        comp = self.compression or Compression.none
+        threshold = env.fusion_threshold_bytes() if self.fuse else 0
+        self._buckets, self._slot = [], {}
+        for p in reversed(self._params()):
+            dt = comp.compress(torch.empty(0, dtype=p.dtype, device=p.device))[0].dtype
+            last = self._buckets[-1] if self._buckets else None
+            if (last is None or last.dtype != dt
+                    or (last.numel + p.numel()) * last.itemsize > threshold):
+                last = _Bucket(dt)
+                self._buckets.append(last)
+            self._slot[p] = (len(self._buckets) - 1, len(last.params))
+            last.add(p)
+        self._reset_buckets()
+        ref = weakref.ref(self)
+        self._hooks = [p.register_post_accumulate_grad_hook(_hook(ref))
+                       for p in self._params()]
+
+    def _check_bucket_signature(self) -> None:
+        # Before the first bucket launches: every rank fires its first hook.
+        if not self._signature_checked:
+            self._check_signature(self._buckets[0].dtype,
+                                  [p.numel() for b in self._buckets for p in b.params])
+
+    def _reset_buckets(self) -> None:
+        for b in self._buckets:
+            b.pending, b.launched = len(b.params), None
+            b.parts = [None] * len(b.params)
+        self._ctx: Dict[torch.Tensor, object] = {}
+        self._filled = set()
+        self._next_launch = 0
+
+    def _on_grad(self, p: torch.Tensor) -> None:
+        """A gradient landed: accumulate it, or (on the pass that reduces)
+        put it into its bucket and launch what is ready."""
+        self._check_bucket_signature()
+        if p in self._filled:
+            raise RuntimeError(
+                "a gradient was produced twice in one backward pass before "
+                "step(); call step() after every backward pass")
+        self._filled.add(p)
+        g = p.grad
+        k = self.backward_passes_per_step
+        if k > 1:
+            acc = self._acc.get(p)
+            if acc is None:
+                self._acc[p] = acc = g.detach().clone()
+            else:
+                acc.add_(g)
+            if self._passes < k - 1:
+                return
+            g = self._acc.pop(p).div_(k)
+        self._fill(p, g)
+
+    def _fill(self, p: torch.Tensor, g: Optional[torch.Tensor]) -> None:
+        """Hold ``p``'s gradient (zeros for none) in its bucket; once a
+        bucket and every one before it are whole, pack and launch them."""
+        b_idx, i = self._slot[p]
+        bucket = self._buckets[b_idx]
+        if g is None:
+            bucket.parts[i] = torch.zeros(p.numel(), dtype=bucket.dtype, device=p.device)
+        else:
+            bucket.parts[i], self._ctx[p] = (self.compression or Compression.none).compress(g)
+        bucket.pending -= 1
+        while (self._next_launch < len(self._buckets)
+               and self._buckets[self._next_launch].pending == 0):
+            b = self._buckets[self._next_launch]
+            with ops.span("hvd.flatten"):
+                buf = b.flatten()
+            b.launched = ops._reduce_launch(ops._scale(buf, self.prescale_factor),
+                                            self.op, self.postscale_factor, b.dtype, True)
+            self._next_launch += 1
+
+    @torch.no_grad()
+    def _finish_overlap(self) -> bool:
+        """Fill what the hooks did not, wait for every bucket and write the
+        reduced gradients; False on a pass that only accumulates."""
+        for p in self._params():
+            if p not in self._filled and p.grad is not None:
+                self._on_grad(p)
+        if self._passes < self.backward_passes_per_step - 1:
+            self._passes += 1
+            self._filled = set()
+            return False
+        self._check_bucket_signature()
+        for p in self._params():
+            if p not in self._filled:
+                acc = self._acc.pop(p, None)
+                self._filled.add(p)
+                self._fill(p, None if acc is None else acc.div_(self.backward_passes_per_step))
+        comp = self.compression or Compression.none
+        for b in self._buckets:
+            work, finish = b.launched
+            if work is not None:
+                work.wait()
+            with ops.span("hvd.unflatten"):
+                dst, src = [], []
+                for p, part in zip(b.params, torch.split(finish(), b.sizes)):
+                    if p not in self._ctx:   # no gradient on this rank's passes
+                        continue
+                    val = comp.decompress(part.view(p.shape), self._ctx[p])
+                    if p.grad is None:
+                        p.grad = val.to(p.dtype, copy=True)
+                    else:
+                        dst.append(p.grad)
+                        src.append(val)
+                if dst:
+                    torch._foreach_copy_(dst, src)
+        self._passes = 0
+        self._reset_buckets()
+        return True
+
+    # -- the step ------------------------------------------------------------
+    def _accumulate(self) -> bool:
+        """The after-backward paths' MultiSteps: False on a pass that only
+        accumulates, else the running mean is in ``.grad``."""
+        k = self.backward_passes_per_step
+        if k == 1:
+            return True
+        self._passes += 1
+        for p in self._params_with_grad():
+            acc = self._acc.get(p)
+            if acc is None:
+                self._acc[p] = p.grad.detach().clone()
+            else:
+                acc.add_(p.grad)
+        if self._passes % k:
+            return False
+        for p, acc in self._acc.items():
+            p.grad = acc.div_(k)
+        self._acc = {}
+        return True
+
+    @torch.no_grad()
+    def _reduce(self) -> None:
+        """All-reduce every ``.grad`` in place after backward."""
+        if self._ef:
+            self._ef.synchronize()
+            return
         params = self._params_with_grad()
         if not params:
             return
-        reduced = _allreduce_grads([p.grad for p in params], self.op,
-                                   self.prescale_factor, self.postscale_factor,
-                                   self.compression, fuse=True)
-        with torch.no_grad():
+        grads = [p.grad for p in params]
+        widest = grads[0].dtype
+        for g in grads[1:]:
+            widest = torch.promote_types(widest, g.dtype)
+        self._check_signature(widest, [g.numel() for g in grads])
+        reduced = _allreduce_grads(grads, self.op, self.prescale_factor,
+                                   self.postscale_factor, self.compression,
+                                   self.fuse, checked=False)
+        with ops.span("hvd.unflatten"):
             for p, r in zip(params, reduced):
                 p.grad.copy_(r)
+
+    def synchronize(self) -> None:
+        """Reduce the gradients now; the next ``step()`` only steps the
+        inner optimizer (ref: horovod/torch/optimizer.py synchronize)."""
+        if self._zero:
+            raise ValueError("under ZeRO the reduction is part of step()")
+        if self._buckets is not None:
+            done = self._finish_overlap()
+        else:
+            done = self._accumulate()
+            if done:
+                self._reduce()
+        self._synchronized = done or None
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise NotImplementedError("step(closure) is not supported")
-        k = self.backward_passes_per_step
-        if k > 1:
-            self._passes += 1
-            for p in self._params_with_grad():
-                acc = self._acc.get(p)
-                if acc is None:
-                    self._acc[p] = p.grad.detach().clone()
-                else:
-                    acc.add_(p.grad)
-            if self._passes % k:
-                return None
-            for p, acc in self._acc.items():
-                p.grad = acc.div_(k)
-            self._acc = {}
-        self.synchronize()
+        if self._synchronized is None:     # synchronize() saw a pass that accumulates
+            self._synchronized = False
+            return None
+        if not self._synchronized:
+            if self._zero:
+                if not self._accumulate():
+                    return None
+                if not self._signature_checked:
+                    self._check_signature(torch.float32,
+                                          [g.total for g in self._zero.groups])
+                return self._zero.step()
+            if self._buckets is not None:
+                if not self._finish_overlap():
+                    return None
+            else:
+                if not self._accumulate():
+                    return None
+                self._reduce()
+        self._synchronized = False
         return self._inner.step()
 
 

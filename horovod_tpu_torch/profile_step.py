@@ -2,6 +2,7 @@
 
     python -m horovod_tpu_torch.profile_step
         [--model gpt2-small|resnet50|bert-base] [--steps 3] [--out PATH]
+        [--zero 0|1|2] [--no-overlap]
 
 Builds a slice that ``chip_smoke.py`` drives on one card: GPT-2-small (B=4,
 S=2048, bf16 logits, ``DistributedOptimizer(AdamW)``), run with
@@ -19,6 +20,16 @@ second, device busy ms per step and the idle share against the untraced
 step, and device ms per step by kernel class (the port's own kernels,
 matrix products, convolutions, NCCL, everything else) and for the top
 kernels. Needs a CUDA card.
+
+``--zero`` (GPT-2 only) runs the flash variant alone with
+``DistributedOptimizer(zero=Z)`` (0: the replicated optimizer, overlapped
+with backward unless ``--no-overlap``) and splits the step's device time
+further by the ranges the optimizer marks: the flatten copies into the
+flat or bucket buffers (``hvd.flatten``), the unflatten copies out of them
+(``hvd.unflatten``) and the inner optimizer's step (``Optimizer.step``);
+NCCL is its kernel class. Run once per rank (``HOROVOD_RANK``,
+``HOROVOD_SIZE``, ``HOROVOD_INIT_METHOD``), it profiles each rank of a
+world of several cards, GPT-2 at B=4 a rank.
 """
 from __future__ import annotations
 
@@ -36,6 +47,7 @@ RESNET_B, RESNET_HW = 256, 224
 BERT_B, BERT_S, BERT_MIN_LEN = 256, 128, 64
 VARIANTS = {"gpt2-small": ("flash", "dense"), "resnet50": ("fused", "unfused"),
             "bert-base": ("flash", "dense")}
+RANGES = ("hvd.flatten", "hvd.unflatten", "Optimizer.step")
 
 
 def _classify(name: str) -> str:
@@ -61,7 +73,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _build(model_name: str, variant: str, dev):
+def _build(model_name: str, variant: str, dev, opt_kw=None):
     """(step_fn, state, inputs, labels, items per step, item name)."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.registry import get_model
@@ -70,13 +82,14 @@ def _build(model_name: str, variant: str, dev):
 
     spec = get_model(model_name)
     gen = torch.Generator(device=dev).manual_seed(0)
-    mesh = create_mesh({"dp": 1})
+    mesh = create_mesh({"dp": hvd.size()})
     if model_name == "gpt2-small":
         model = spec.make_model(device=dev, generator=gen, attn_impl=variant,
                                 logits_dtype=torch.bfloat16, max_len=S)
         opt = hvd.DistributedOptimizer(torch.optim.AdamW(
-            model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8))
-        ids = torch.from_numpy(spec.make_batch(B, seed=42, seq_len=S)[0]).to(dev)
+            model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), **(opt_kw or {}))
+        # B a rank: the global batch grows with the world (weak scaling).
+        ids = torch.from_numpy(spec.make_batch(B * hvd.size(), seed=42, seq_len=S)[0]).to(dev)
         init_fn, step_fn = train.make_train_step(model, opt, train.lm_loss, mesh=mesh)
         return step_fn, init_fn(), ids, ids, B * S, "tokens"
     if model_name == "bert-base":
@@ -123,13 +136,33 @@ def _build_bert(spec, variant: str, dev, gen):
     return step_fn, None, ids, ids, BERT_B * BERT_S, "tokens"
 
 
-def profile(model_name: str, variant: str, steps: int) -> dict:
+def _range_ms(prof, steps: int) -> dict:
+    """Device ms per step under each range the optimizer marks, two ways:
+    ``kernels`` sums the device time of the kernels launched inside the
+    range (its host-side row), ``span`` is the range's own row on the
+    device (first kernel start to last kernel end)."""
+    out = {}
+    for evt in prof.key_averages():
+        if not evt.key.startswith(RANGES):
+            continue
+        side = "span" if evt.device_type == torch.autograd.DeviceType.CUDA else "kernels"
+        attrs = (("self_device_time_total", "self_cuda_time_total") if side == "span"
+                 else ("device_time_total", "cuda_time_total"))
+        us = next((float(getattr(evt, a)) for a in attrs
+                   if getattr(evt, a, None) is not None), 0.0)
+        row = out.setdefault(evt.key.split("#")[0], {"kernels": 0.0, "span": 0.0})
+        row[side] += us / 1e3 / steps
+    return out or "not measured"
+
+
+def profile(model_name: str, variant: str, steps: int, opt_kw=None) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
     import horovod_tpu_torch as hvd
 
-    step_fn, state, inputs, labels, items, unit = _build(model_name, variant, hvd.device())
+    step_fn, state, inputs, labels, items, unit = _build(model_name, variant, hvd.device(),
+                                                         opt_kw)
     for _ in range(2):
         state, loss = step_fn(state, inputs, labels)
     torch.cuda.synchronize()
@@ -175,6 +208,7 @@ def profile(model_name: str, variant: str, steps: int) -> dict:
         # Against the untraced step: tracing adds host time per launch.
         "device_idle_share": (1 - busy_ms / median) if by_kernel else "not measured",
         "device_ms_per_step_by_class": classes,
+        "device_ms_per_step_by_range": _range_ms(prof, steps),
         "top_kernels_ms_per_step": [[name[:90], us / 1e3 / steps] for name, us in top],
     }
 
@@ -184,7 +218,17 @@ def main() -> int:
     ap.add_argument("--model", choices=sorted(VARIANTS), default="gpt2-small")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write the lines here")
+    ap.add_argument("--zero", type=int, choices=(0, 1, 2), default=None,
+                    help="GPT-2 only: the flash variant with DistributedOptimizer(zero=Z)")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="with --zero 0: the all-reduce after backward")
     args = ap.parse_args()
+    if args.zero is not None and args.model != "gpt2-small":
+        ap.error("--zero profiles gpt2-small")
+    variants, opt_kw = VARIANTS[args.model], None
+    if args.zero is not None:
+        variants = ("flash",)
+        opt_kw = {"zero": args.zero, "overlap": not args.no_overlap}
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
     import subprocess
@@ -197,9 +241,11 @@ def main() -> int:
     hvd.init()
     lines = []
     try:
-        for variant in VARIANTS[args.model]:
-            rec = profile(args.model, variant, args.steps)
+        for variant in variants:
+            rec = profile(args.model, variant, args.steps, opt_kw)
             rec["card"] = card
+            if opt_kw is not None:
+                rec.update(world=hvd.size(), optimizer=opt_kw)
             lines.append(json.dumps(rec))
             print(lines[-1], flush=True)
             torch.cuda.empty_cache()

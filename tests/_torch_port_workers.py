@@ -1,10 +1,13 @@
 """Rank bodies for tests/test_torch_port_distributed.py,
-tests/test_torch_port_resnet.py, tests/test_torch_port_collectives.py and
-tests/test_torch_port_bert.py, in a module of their own so spawned ranks
-import torch and horovod_tpu_torch only (no jax, no test module). Each rank
-returns a dict of numpy arrays through a queue."""
+tests/test_torch_port_resnet.py, tests/test_torch_port_collectives.py,
+tests/test_torch_port_bert.py and tests/test_torch_port_{zero,adasum,
+sync_bn,overlap}.py, in a module of their own so spawned ranks import torch
+and horovod_tpu_torch only (no jax, no test module). Each rank returns a
+dict of numpy arrays through a queue; ``spawn_world`` runs a named body on
+a world of gloo ranks."""
 from __future__ import annotations
 
+import contextlib
 import os
 import traceback
 
@@ -335,3 +338,381 @@ def bert_worker(rank: int, size: int, init_file: str, queue, params, ids, mask,
             hvd.shutdown()
     except Exception:  # report to the parent instead of leaving it waiting
         queue.put((rank, traceback.format_exc()))
+
+
+# ---------------------------------------------------------------------------
+# A world of gloo ranks running one named body.
+def rank_main(rank: int, size: int, init_file: str, queue, body: str, args,
+              env) -> None:
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    os.environ.update(env or {})
+    try:
+        import horovod_tpu_torch as hvd
+
+        hvd.init(device="cpu", init_method=f"file://{init_file}")
+        try:
+            queue.put((rank, globals()[body](rank, size, *args)))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def spawn_world(size: int, tmp_dir, body: str, *args, env=None, timeout=240) -> list:
+    """Each rank's result of ``body(rank, size, *args)`` on ``size`` spawned
+    gloo ranks that meet through a FileStore in ``tmp_dir``."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=rank_main, args=(r, size, os.path.join(str(tmp_dir), "store"),
+                                                 queue, body, args, env))
+             for r in range(size)]
+    for p in procs:
+        p.start()
+    try:
+        results = dict(queue.get(timeout=timeout) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for r, res in results.items():
+        assert isinstance(res, dict), f"rank {r} failed:\n{res}"
+    return [results[r] for r in range(size)]
+
+
+WIRE_KEYS = ("HOROVOD_WIRE_COMPRESSION", "HOROVOD_WIRE_COMPRESSION_MIN_BYTES",
+             "HOROVOD_WIRE_COMPRESSION_INT8")
+# The wire lanes: the knobs each sets (min bytes 0: every payload qualifies).
+LANES = {
+    "none": {},
+    "bf16": {"HOROVOD_WIRE_COMPRESSION": "bf16", "HOROVOD_WIRE_COMPRESSION_MIN_BYTES": "0"},
+    "fp16": {"HOROVOD_WIRE_COMPRESSION": "fp16", "HOROVOD_WIRE_COMPRESSION_MIN_BYTES": "0"},
+    "int8": {"HOROVOD_WIRE_COMPRESSION": "bf16", "HOROVOD_WIRE_COMPRESSION_MIN_BYTES": "0",
+             "HOROVOD_WIRE_COMPRESSION_INT8": "1"},
+}
+
+
+def set_lane(lane: str) -> None:
+    for key in WIRE_KEYS:
+        os.environ.pop(key, None)
+    os.environ.update(LANES[lane])
+
+
+@contextlib.contextmanager
+def lane_env(lane: str):
+    """The knobs of ``lane`` while the block runs; the caller's after."""
+    saved = {k: os.environ.get(k) for k in WIRE_KEYS}
+    set_lane(lane)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+# ---------------------------------------------------------------------------
+# ZeRO (tests/test_torch_port_zero.py)
+ZERO_LR, ZERO_WD, ZERO_EPS = 1e-3, 1e-2, 1e-8
+ZERO_KEYS = ("b", "w")     # the JAX params dict's leaf order
+
+
+def zero_params() -> dict:
+    rng = np.random.RandomState(0)
+    return {"b": rng.randn(53).astype(np.float32), "w": rng.randn(31, 7).astype(np.float32)}
+
+
+def zero_grads(size: int, steps: int, seed: int = 1) -> list:
+    """Per step, each leaf's gradients stacked over the ranks. Past two
+    ranks they are multiples of 1/8, whose bf16 sums are exact in any
+    order: gloo rounds each partial sum to bf16, XLA's CPU psum adds in f32
+    and rounds once, and at two ranks the two agree (one addition)."""
+    rng = np.random.RandomState(seed)
+    out = [{k: rng.randn(size, *v.shape).astype(np.float32)
+            for k, v in zero_params().items()} for _ in range(steps)]
+    if size > 2:
+        out = [{k: np.round(v * 8) / 8 for k, v in g.items()} for g in out]
+    return out
+
+
+def _zero_steps(hvd, params_np, grads, rank, **kw):
+    """AdamW under DistributedOptimizer(**kw) from ``params_np``, stepped on
+    this rank's slice of each step's gradients; (params, optimizer)."""
+    import torch
+
+    load = kw.pop("load", None)
+    params = [torch.nn.Parameter(torch.from_numpy(params_np[k].copy())) for k in ZERO_KEYS]
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        params, lr=ZERO_LR, weight_decay=ZERO_WD, eps=ZERO_EPS), **kw)
+    if load is not None:
+        opt.load_shard_state(load)
+    for g in grads:
+        for p, k in zip(params, ZERO_KEYS):
+            p.grad = torch.from_numpy(g[k][rank].copy())
+        opt.step()
+    return [p.detach().numpy().copy() for p in params], opt
+
+
+def _ef_drift(hvd, steps: int = 150, d: int = 256, **kw) -> float:
+    """Largest drift from the exact sum after ``steps`` SGD(1.0) steps of a
+    constant gradient bf16 cannot represent, on the bf16 lane (as
+    tests/test_zero.py::_accumulate)."""
+    import torch
+
+    set_lane("bf16")
+    gval = 1.0 + 1.0 / 300.0
+    w = torch.nn.Parameter(torch.zeros(d))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1.0), overlap=False, **kw)
+    for _ in range(steps):
+        w.grad = torch.full((d,), gval)
+        opt.step()
+    set_lane("none")
+    return float((w.detach() + steps * gval).abs().max())
+
+
+def _run_zero(rank: int, size: int, cases, fresh_grads) -> dict:
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    out = {}
+    for case in cases:
+        set_lane(case["lane"])
+        for stage in (1, 2):
+            tag = f"{case['lane']}_ef{int(case['ef'])}_z{stage}"
+            params, opt = _zero_steps(hvd, case["params"], case["grads"], rank,
+                                      zero=stage, error_feedback=case["ef"],
+                                      load=case["shards"][rank])
+            out[tag] = params
+            out[f"{tag}_bytes"] = opt.state_bytes()
+    set_lane("none")
+    # ZeRO without a codec against the replicated optimizer, from fresh state.
+    p0 = zero_params()
+    out["fresh_zero"], opt = _zero_steps(hvd, p0, fresh_grads, rank, zero=1)
+    out["fresh_zero_bytes"] = opt.state_bytes()
+    out["fresh_replicated"], rep = _zero_steps(hvd, p0, fresh_grads, rank)
+    out["replicated_bytes"] = rep.state_bytes()
+    _, opt_ef = _zero_steps(hvd, p0, fresh_grads, rank, zero=2, error_feedback=True)
+    out["fresh_zero_ef_bytes"] = opt_ef.state_bytes()
+    out["drift"] = {name: _ef_drift(hvd, **kw) for name, kw in (
+        ("stateless", {}), ("ef0", {"error_feedback": True}),
+        ("zero1_ef", {"zero": 1, "error_feedback": True}))}
+    # The stacked form, re-cut n -> m -> n, and one rank's shard out of it.
+    glob = hvd.zero.state_to_global(opt)
+    other = 3 if size != 3 else 2
+    back = hvd.zero.recut_state(hvd.zero.recut_state(glob, other), size)
+    out["global"] = {k: v.numpy() for k, v in glob["groups"][0].items()}
+    out["recut_back"] = {k: v.numpy() for k, v in back["groups"][0].items()}
+    out["recut_other"] = {k: v.numpy() for k, v in
+                          hvd.zero.recut_state(glob, other)["groups"][0].items()}
+    mine = hvd.zero.state_from_global(glob, rank)["groups"][0]
+    own = opt.shard_state()["groups"][0]
+    out["from_global_matches"] = sorted(mine) == sorted(own) and all(
+        torch.equal(mine[k].cpu().reshape(-1), own[k].cpu().reshape(-1)) for k in own)
+    out["status"] = hvd.zero.status_snapshot()
+    hvd.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Adasum (tests/test_torch_port_adasum.py)
+ADASUM_SHAPES = {"a": (5, 3), "b": (7,)}
+
+
+def adasum_inputs(size: int):
+    """Per-rank vectors (one a scaled copy of another, so the projection
+    terms matter) and per-rank gradient dicts."""
+    rng = np.random.RandomState(11)
+    vecs = rng.randn(size, 33).astype(np.float32)
+    vecs[1] = 0.5 * vecs[0] + 0.1 * vecs[1]
+    grads = [{k: rng.randn(*s).astype(np.float32) for k, s in ADASUM_SHAPES.items()}
+             for _ in range(size)]
+    return vecs, grads
+
+
+def _run_adasum(rank: int, size: int) -> dict:
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    vecs, grads = adasum_inputs(size)
+    x = torch.from_numpy(vecs[rank])
+    out = {"allreduce": hvd.allreduce(x, op=hvd.Adasum).numpy(),
+           "adasum_allreduce": hvd.adasum_allreduce(x).numpy(),
+           "input_kept": torch.equal(x, torch.from_numpy(vecs[rank]))}
+    for fuse in (True, False):
+        params = [torch.nn.Parameter(torch.zeros(s)) for s in ADASUM_SHAPES.values()]
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(params, lr=1.0), op=hvd.Adasum,
+                                       fuse=fuse)
+        for p, k in zip(params, ADASUM_SHAPES):
+            p.grad = torch.from_numpy(grads[rank][k].copy())
+        opt.step()
+        out[f"opt_fuse{int(fuse)}"] = [(-p.detach()).numpy() for p in params]
+    hvd.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SyncBatchNorm (tests/test_torch_port_sync_bn.py)
+SBN_N, SBN_C, SBN_HW, SBN_ITERS = 8, 3, 4, 2
+
+
+def sync_bn_inputs():
+    rng = np.random.RandomState(21)
+    xs = (rng.randn(SBN_ITERS, SBN_N, SBN_C, SBN_HW, SBN_HW) * 2 + 0.5).astype(np.float32)
+    coeff = rng.randn(SBN_ITERS, SBN_N, SBN_C, SBN_HW, SBN_HW).astype(np.float32)
+    weight = (1 + 0.1 * rng.randn(SBN_C)).astype(np.float32)
+    bias = (0.1 * rng.randn(SBN_C)).astype(np.float32)
+    nhwc = rng.randn(SBN_N, SBN_HW, SBN_HW, SBN_C).astype(np.float32)
+    return xs, coeff, weight, bias, nhwc
+
+
+def _run_sync_bn(rank: int, size: int) -> dict:
+    """SyncBatchNorm on this rank's slice against nn.BatchNorm2d over the
+    whole batch, which each rank computes itself."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    xs, coeff, weight, bias, nhwc = sync_bn_inputs()
+    per = SBN_N // size
+    rows = slice(rank * per, (rank + 1) * per)
+    sbn, ref = hvd.SyncBatchNorm(SBN_C), torch.nn.BatchNorm2d(SBN_C)
+    for m in (sbn, ref):
+        with torch.no_grad():
+            m.weight.copy_(torch.from_numpy(weight))
+            m.bias.copy_(torch.from_numpy(bias))
+    out = {}
+    for it in range(SBN_ITERS):
+        for m in (sbn, ref):
+            m.zero_grad()
+        x = torch.from_numpy(xs[it][rows].copy()).requires_grad_(True)
+        y = sbn(x)
+        (y * torch.from_numpy(coeff[it][rows])).sum().backward()
+        xf = torch.from_numpy(xs[it].copy()).requires_grad_(True)
+        yf = ref(xf)
+        (yf * torch.from_numpy(coeff[it])).sum().backward()
+        out[f"y{it}"], out[f"y{it}_ref"] = y.detach().numpy(), yf.detach()[rows].numpy()
+        out[f"dx{it}"], out[f"dx{it}_ref"] = x.grad.numpy(), xf.grad[rows].numpy()
+        for name in ("weight", "bias"):
+            g = hvd.allreduce(getattr(sbn, name).grad, op=hvd.Sum)
+            out[f"d{name}{it}"] = g.numpy()
+            out[f"d{name}{it}_ref"] = getattr(ref, name).grad.numpy()
+    for name in ("running_mean", "running_var"):
+        out[name], out[f"{name}_ref"] = (getattr(sbn, name).numpy(),
+                                         getattr(ref, name).numpy())
+    sbn.eval()
+    ref.eval()
+    x = torch.from_numpy(xs[0][rows].copy())
+    out["eval"], out["eval_ref"] = sbn(x).detach().numpy(), ref(x).detach().numpy()
+    mean, var = hvd.sync_batch_stats(torch.from_numpy(nhwc[rows].copy()))
+    out["stats_mean"], out["stats_var"] = mean.numpy(), var.numpy()
+    hvd.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The overlapped all-reduce, the wire casts, the header checks
+# (tests/test_torch_port_overlap.py)
+OVERLAP_CASES = {"plain": (None, 1), "fp16_bpps2": ("fp16", 2)}
+OVERLAP_STEPS = 3
+
+
+def wire_inputs(size: int):
+    rng = np.random.RandomState(31)
+    return rng.randn(size, 300).astype(np.float32), rng.randn(size, 41).astype(np.float32)
+
+
+def _overlap_net(torch):
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            # Registered first, so the last bucket waits for step().
+            self.unused = torch.nn.Parameter(torch.ones(5))
+            self.fc1 = torch.nn.Linear(8, 32)
+            self.fc2 = torch.nn.Linear(32, 32)
+            self.fc3 = torch.nn.Linear(32, 4)
+
+        def forward(self, x):
+            return self.fc3(torch.relu(self.fc2(torch.relu(self.fc1(x)))))
+
+    torch.manual_seed(0)
+    return Net()
+
+
+def _train_overlap(hvd, rank, compression, k, overlap):
+    import torch
+
+    net = _overlap_net(torch)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(net.parameters(), lr=1e-2),
+        compression=getattr(hvd.Compression, compression) if compression else None,
+        backward_passes_per_step=k, overlap=overlap)
+    rng = np.random.RandomState(41 + rank)
+    for _ in range(OVERLAP_STEPS * k):
+        x = torch.from_numpy(rng.randn(6, 8).astype(np.float32))
+        y = torch.from_numpy(rng.randn(6, 4).astype(np.float32))
+        opt.zero_grad()
+        ((net(x) - y) ** 2).mean().backward()
+        opt.step()
+    out = {name: p.detach().numpy().copy() for name, p in net.named_parameters()}
+    out["grads"] = {name: None if p.grad is None else p.grad.numpy().copy()
+                    for name, p in net.named_parameters()}
+    out["buckets"] = len(opt._buckets) if opt._buckets is not None else 0
+    return out
+
+
+def _mismatches(hvd, rank: int) -> dict:
+    import torch
+
+    z = torch.zeros
+    cases = {
+        "shape": lambda: hvd.allreduce(z(2 + rank), name="grads"),
+        "shape_async": lambda: hvd.synchronize(hvd.allreduce_async(z(2 + rank))),
+        "dtype": lambda: hvd.allreduce(z(2, dtype=torch.float32 if rank == 0
+                                         else torch.float64)),
+        "op": lambda: hvd.allreduce(z(2), op=hvd.Sum if rank == 0 else hvd.Max),
+        "prescale": lambda: hvd.allreduce(z(2), prescale_factor=1.0 + rank),
+        "postscale": lambda: hvd.allreduce(z(2), postscale_factor=0.5 * (1 + rank)),
+        "grouped": lambda: hvd.grouped_allreduce([z(2 + rank), z(3 - rank)]),
+        "grouped_shape": lambda: hvd.grouped_allreduce([z(2), z(3 + rank)]),
+        "root": lambda: hvd.broadcast(z(2), root_rank=rank),
+        "root_async": lambda: hvd.synchronize(hvd.broadcast_async(z(2), root_rank=rank)),
+        "broadcast_shape": lambda: hvd.ops.broadcast_(z(2 + rank), root_rank=0),
+        "collective": lambda: (hvd.allreduce(z(2)) if rank == 0
+                               else hvd.broadcast(z(2), root_rank=0)),
+    }
+    out = {name: _error(fn) for name, fn in cases.items()}
+    w = torch.nn.Parameter(z(3 + rank))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1.0))
+    w.grad = z(3 + rank)
+    out["optimizer"] = _error(opt.step)
+    out["after_errors"] = hvd.allreduce(torch.ones(1), op=hvd.Sum).numpy()
+    return out
+
+
+def _run_overlap(rank: int, size: int) -> dict:
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    out = {}
+    for case, (compression, k) in OVERLAP_CASES.items():
+        for overlap in (False, True):
+            out[f"{case}_overlap{int(overlap)}"] = _train_overlap(hvd, rank, compression,
+                                                                  k, overlap)
+    big, small = wire_inputs(size)
+    for lane in LANES:
+        set_lane(lane)
+        x, s = torch.from_numpy(big[rank]), torch.from_numpy(small[rank])
+        out[f"wire_{lane}_sum"] = hvd.allreduce(x, op=hvd.Sum).numpy()
+        out[f"wire_{lane}_avg"] = hvd.allreduce(x).numpy()
+        out[f"wire_{lane}_grouped"] = [t.numpy() for t in hvd.grouped_allreduce([x, s])]
+    set_lane("none")
+    out.update(_mismatches(hvd, rank))
+    hvd.barrier()
+    return out

@@ -265,8 +265,8 @@ def test_axis_name_other_than_dp_raises():
         hvd.distributed_value_and_grad(lambda p: p["w"].sum(), axis_name="tp")
     with pytest.raises(ValueError, match="axis_name"):
         hvd.DistributedGradientTape(lambda p: p["w"].sum(), axis_name="sp")
-    with pytest.raises(NotImplementedError, match="ADASUM"):
-        hvd.distributed_value_and_grad(lambda p: p["w"].sum(), op=hvd.Adasum)
+    with pytest.raises(NotImplementedError, match="PRODUCT"):
+        hvd.distributed_value_and_grad(lambda p: p["w"].sum(), op=hvd.Product)
 
 
 def test_has_aux_and_unused_parameters(cpu_world):

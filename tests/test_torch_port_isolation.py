@@ -18,12 +18,17 @@ MODULES = [
     "horovod_tpu_torch.common.basics",
     "horovod_tpu_torch.common.functions",
     "horovod_tpu_torch.common.async_handles",
+    "horovod_tpu_torch.common.env",
     "horovod_tpu_torch.ops",
+    "horovod_tpu_torch.ops.adasum",
     "horovod_tpu_torch.ops.compression",
+    "horovod_tpu_torch.ops.sync_batch_norm",
+    "horovod_tpu_torch.ops.wire",
     "horovod_tpu_torch.ops._build",
     "horovod_tpu_torch.ops.flash_attention",
     "horovod_tpu_torch.ops.fused_bn_conv",
     "horovod_tpu_torch.optim.distributed",
+    "horovod_tpu_torch.optim.zero",
     "horovod_tpu_torch.parallel.mesh",
     "horovod_tpu_torch.parallel.train",
     "horovod_tpu_torch.models.transformer",
@@ -42,6 +47,7 @@ EXPORTS = [
     "broadcast_object", "allgather_object", "broadcast_parameters",
     "broadcast_optimizer_state", "Compression", "DistributedOptimizer",
     "DistributedGradientTape", "distributed_value_and_grad",
+    "SyncBatchNorm", "sync_batch_stats", "adasum_allreduce", "zero",
 ]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 FORBIDDEN_IMPORT = re.compile(
@@ -84,6 +90,7 @@ def test_modules_import_with_the_jax_package_blocked():
         "import horovod_tpu_torch as hvd\n"
         f"missing = [n for n in {EXPORTS!r} if not hasattr(hvd, n)]\n"
         "assert not missing, missing\n"
+        "assert callable(hvd.zero.recut_state) and callable(hvd.zero.status_snapshot)\n"
         "assert hvd.Compression.fp16.compress(__import__('torch').ones(1))[0].dtype "
         "== __import__('torch').bfloat16\n"
     )
