@@ -68,12 +68,15 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
 10. the scaled data-parallel path (``zero``): GPT-2-small at full width and
    depth, B=4 a rank, S=2048, AdamW through ``make_train_step``, 5 steps of
    each variant from the same weights on the same batches: (a) the
-   all-reduce after backward, (b) overlapped with backward, (c) ``zero=1``,
-   (d) ``zero=2, error_feedback=True`` with ``HOROVOD_WIRE_COMPRESSION=bf16``,
+   all-reduce after backward in one grouped buffer, (a2) after backward in
+   the buckets of (b), (b) overlapped with backward, (c) ``zero=1``, (d)
+   ``zero=2, error_feedback=True`` with ``HOROVOD_WIRE_COMPRESSION=bf16``,
    (e) Adasum where the world is a power of two of at least 2. Each must
    launch each flash kernel 12 times a step, hold its optimizer-state bytes
-   to the closed form, and keep its losses near (a)'s ((b) and (c)
+   to the closed form, and keep its losses near (a)'s ((a2), (b) and (c)
    bitwise at world 1 and within 1e-5 relative past it, (d) within 1e-3);
+   (b) must be bitwise (a2) on every world, and the step-1 gradients of
+   (a2) and (b) within the rounding bound of two summation orders of (a)'s;
    step ms, peak memory and the largest parameter error against (a) are
    recorded. With two cards or more it runs again on one spawned NCCL
    rank per card (global batch 4·n), checks that a mismatched allreduce
@@ -1045,8 +1048,12 @@ def phase_bert(fa, fb, gen):
 
 
 # The zero phase's variants: DistributedOptimizer keywords and wire knobs.
+# (a) and (a2) are the after-backward references the overlap (b) is held
+# against, through the optimizer's private ``_schedule``: (a2) launches
+# (b)'s buckets in step(), so (b) must be bitwise (a2) on any world.
 ZERO_VARIANTS = {
-    "a_after_backward": ({"overlap": False}, {}),
+    "a_after_backward": ({"_schedule": "grouped"}, {}),
+    "a2_after_backward_buckets": ({"_schedule": "buckets"}, {}),
     "b_overlapped": ({}, {}),
     "c_zero1": ({"zero": 1}, {}),
     "d_zero2_ef_bf16": ({"zero": 2, "error_feedback": True},
@@ -1054,12 +1061,50 @@ ZERO_VARIANTS = {
     "e_adasum": ({"op": "adasum"}, {}),
 }
 # Each variant's losses against (a)'s, relative; Adasum combines the
-# gradients otherwise and is held to finite losses only. At world 1 (b) and
-# (c) must be bitwise (a). Past one card NCCL sums each bucket, and each
-# reduce-scatter, in another order than the one grouped buffer of (a); on
-# four H100s (b)'s losses differ by 2.6e-6 at step 3.
-ZERO_LOSS_RTOL = {"b_overlapped": 1e-5, "c_zero1": 1e-5, "d_zero2_ef_bf16": 1e-3}
-ZERO_BITWISE_AT_WORLD_1 = ("b_overlapped", "c_zero1")
+# gradients otherwise and is held to finite losses only. At world 1 (a2),
+# (b) and (c) must be bitwise (a). Past one card NCCL sums each bucket, and
+# each reduce-scatter, in another order than the one grouped buffer of (a):
+# the step-1 gradients of (a2) and (b) must then lie within the rounding
+# bound of two orders of an n-term sum (``grad_order_bound``), and the
+# losses within 1e-5 of (a)'s (four H100s: 2.6e-6 at step 3).
+ZERO_LOSS_RTOL = {"a2_after_backward_buckets": 1e-5, "b_overlapped": 1e-5,
+                  "c_zero1": 1e-5, "d_zero2_ef_bf16": 1e-3}
+ZERO_BITWISE_AT_WORLD_1 = ("a2_after_backward_buckets", "b_overlapped", "c_zero1")
+ZERO_REPLICATED = ("a_after_backward", "a2_after_backward_buckets", "b_overlapped")
+
+
+def grad_order_bound(abs_sum: torch.Tensor, world: int, dtype: torch.dtype) -> torch.Tensor:
+    """Per element, how far two all-reduces of the same gradients may land
+    apart when they add the world's n terms in other orders: each side
+    rounds n-1 partial sums, each by at most u·Σ_r|g_r| (u the unit
+    roundoff of ``dtype``), and AVERAGE divides both by n."""
+    u = torch.finfo(dtype).eps / 2
+    return abs_sum * (2 * (world - 1) * u / world)
+
+
+def _capture_step_1(hvd, opt, keep_abs_sum: bool, got: dict) -> None:
+    """Wrap ``opt`` so that its first step records into ``got`` the
+    reduced gradients (``grads``, flat, as the inner optimizer gets them)
+    and, with ``keep_abs_sum``, Σ_r|g_r| of the ranks' own gradients
+    (``abs_sum``), both in host memory, so that they stay out of the
+    variant's peak device memory."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    inner_step, reduce = opt._inner.step, opt._reduce
+
+    def step(*args, **kw):
+        if "grads" not in got:
+            got["grads"] = torch.cat([p.grad.detach().reshape(-1).cpu() for p in params])
+        return inner_step(*args, **kw)
+
+    def reduce_first():
+        if "abs_sum" not in got:
+            got["abs_sum"] = torch.cat([hvd.allreduce(p.grad.detach().abs(), op=hvd.Sum)
+                                        .reshape(-1).cpu() for p in params])
+        return reduce()
+
+    opt._inner.step = step
+    if keep_abs_sum:
+        opt._reduce = reduce_first
 
 
 def zero_variants(hvd, fa, world: int) -> dict:
@@ -1069,7 +1114,9 @@ def zero_variants(hvd, fa, world: int) -> dict:
     on the same batches. Checks each variant's flash launches (12 of K1 and
     of each K2 kernel a step), its optimizer-state bytes against the closed
     form (8·P replicated, 8·⌈P/n⌉ sharded, 4·⌈P/n⌉ more for the residual)
-    and its losses against (a)'s; (b) and (c) bitwise at world 1."""
+    and its losses against (a)'s; (a2), (b) and (c) bitwise (a) at world 1;
+    (b) bitwise (a2) on every world; the step-1 gradients of (a2) and (b)
+    within ``grad_order_bound`` of (a)'s."""
     import gc
     import os
 
@@ -1084,18 +1131,20 @@ def zero_variants(hvd, fa, world: int) -> dict:
     n_layers = model.cfg.n_layers
     n_params = sum(p.numel() for p in model.parameters())
     shard = -(-n_params // world)
-    closed = {"a_after_backward": 8 * n_params, "b_overlapped": 8 * n_params,
+    closed = {"a_after_backward": 8 * n_params, "a2_after_backward_buckets": 8 * n_params,
+              "b_overlapped": 8 * n_params,
               "c_zero1": 8 * shard, "d_zero2_ef_bf16": 12 * shard, "e_adasum": 8 * n_params}
     init_sd = {k: v.clone() for k, v in model.state_dict().items()}
     ids = torch.from_numpy(spec.make_batch(B * world, seed=42, seq_len=S)[0]).to(dev)
     mesh = create_mesh({"dp": world})
     names = [v for v in ZERO_VARIANTS
              if v != "e_adasum" or (world >= 2 and world & (world - 1) == 0)]
-    out, ref = {"world": world, "params": n_params, "variants": {}}, None
+    out, ref, a2 = {"world": world, "params": n_params, "variants": {}}, None, None
 
-    def train(name):
+    def train(name, capture=None):
         """STEPS steps of variant ``name`` from the initial weights, no
-        gradient left from an earlier run; (optimizer, losses, step ms)."""
+        gradient left from an earlier run; (optimizer, losses, step ms).
+        ``capture`` gets the step-1 record of ``_capture_step_1``."""
         kw, knobs = ZERO_VARIANTS[name]
         kw = dict(kw, op=hvd.Adasum) if kw.get("op") == "adasum" else kw
         os.environ.update(knobs)
@@ -1104,6 +1153,8 @@ def zero_variants(hvd, fa, world: int) -> dict:
             model.zero_grad(set_to_none=True)
             opt = hvd.DistributedOptimizer(torch.optim.AdamW(
                 model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), **kw)
+            if capture is not None:
+                _capture_step_1(hvd, opt, name == "a_after_backward", capture)
             init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh)
             state = init_fn()
             torch.cuda.synchronize()
@@ -1116,7 +1167,8 @@ def zero_variants(hvd, fa, world: int) -> dict:
 
     for name in names:
         fa.reset_launches()
-        opt, losses, step_ms = train(name)
+        step1 = {} if name in ZERO_REPLICATED else None
+        opt, losses, step_ms = train(name, step1)
         launches = fa.launches()
         want = n_layers * STEPS
         if launches != {k: want for k in launches}:
@@ -1125,15 +1177,18 @@ def zero_variants(hvd, fa, world: int) -> dict:
         if held != closed[name]:
             raise AssertionError(f"zero {name}: {held} optimizer-state bytes, "
                                  f"closed form {closed[name]}")
-        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # The parameters in host memory, as the step-1 records are.
+        flat = torch.cat([p.detach().reshape(-1).cpu() for p in model.parameters()])
         v = {"losses": losses, "step_ms": step_ms,
              "median_step_ms_2_to_5": statistics.median(step_ms[1:]),
-             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "peak_mem_gb": peak,
              "state_bytes": held, "state_bytes_closed_form": closed[name],
              "launches": launches,
              "launches_per_step": {k: c / STEPS for k, c in launches.items()}}
         if ref is None:
-            ref = (flat, losses)
+            ref = (flat, losses, step1["grads"],
+                   grad_order_bound(step1.pop("abs_sum"), world, step1["grads"].dtype))
         else:
             v["max_param_err_vs_a"] = max_err(flat, ref[0])
             v["max_loss_rel_err_vs_a"] = max(abs(x - y) / abs(y) for x, y in zip(losses, ref[1]))
@@ -1143,8 +1198,27 @@ def zero_variants(hvd, fa, world: int) -> dict:
             if name in ZERO_BITWISE_AT_WORLD_1 and world == 1 and not (
                     losses == ref[1] and torch.equal(flat, ref[0])):
                 raise AssertionError(f"zero {name}: not bitwise (a) at world 1")
+            if step1 is not None:
+                # The step-1 gradients against (a)'s: the same weights and
+                # batch, so only the order of the sums may differ.
+                diff = (step1["grads"] - ref[2]).abs()
+                over = diff > ref[3]
+                v["step1_grad_max_abs_err_vs_a"] = float(diff.max())
+                v["step1_grad_rel_norm_err_vs_a"] = float(diff.norm() / ref[2].norm())
+                v["step1_grad_err_over_bound_vs_a"] = float(
+                    (diff / ref[3].clamp_min(torch.finfo(diff.dtype).tiny)).max())
+                if over.any():
+                    raise AssertionError(
+                        f"zero {name}: {int(over.sum())} step-1 gradient elements past the "
+                        f"rounding bound of (a)'s, largest {v['step1_grad_err_over_bound_vs_a']}x")
+        if name == "a2_after_backward_buckets":
+            a2 = (flat, losses, step1["grads"])
+        if name == "b_overlapped" and not (
+                losses == a2[1] and torch.equal(flat, a2[0]) and torch.equal(step1["grads"], a2[2])):
+            raise AssertionError("zero b_overlapped: not bitwise (a2), the same buckets "
+                                 "launched after backward")
         out["variants"][name] = v
-        del opt, flat
+        del opt, flat, step1
         gc.collect()
         torch.cuda.empty_cache()
     # What the overlap saves, from runs in turns (a, b, b, a) x 3: step times
@@ -1159,7 +1233,7 @@ def zero_variants(hvd, fa, world: int) -> dict:
     out["turns_median_step_ms"] = pairs
     out["overlap_saves_ms"] = (statistics.median(pairs["a_after_backward"])
                                - statistics.median(pairs["b_overlapped"]))
-    del model, init_sd, ref
+    del model, init_sd, ref, a2
     gc.collect()
     torch.cuda.empty_cache()
     return out

@@ -7,28 +7,31 @@ gradients across ranks before the inner optimizer steps, with AVERAGE as
 SUM then 1/size and the pre/postscale factors of the JAX package. With
 ``compression`` each gradient is compressed first, all-reduced in the
 compressed dtype (a bf16 sum for ``Compression.fp16``, as the JAX package
-sums) and then decompressed. Four paths:
+sums) and then decompressed. Three paths:
 
-* **overlapped** (the default, ``overlap=True``; ref: the hooks of
-  horovod/torch/optimizer.py:32-207): at construction every parameter gets
-  a post-accumulate-grad hook, and the parameters, in reverse registration
-  order (about the order backward produces their gradients), are cut into
-  buckets of one wire dtype up to ``HOROVOD_FUSION_THRESHOLD`` bytes
-  (``fuse=False``: one gradient a bucket). A hook holds its gradient; a
-  bucket whose gradients have all landed is packed into its buffer in one
-  copy and all-reduced asynchronously while backward goes on, buckets
-  always launching in index order, so every rank launches the same
-  collectives in the same order.
-  ``step()`` fills the slots of parameters with no gradient with zeros
-  (their ``.grad`` stays ``None``), launches what is left in that order,
-  waits for every bucket, and writes the reduced gradients to ``.grad``;
-* **after backward** (``overlap=False``, or Adasum): ``step()``
-  all-reduces every ``.grad`` in one grouped collective (``fuse=False``:
-  one each);
+* **overlapped** (ref: the hooks of horovod/torch/optimizer.py:32-207): at
+  construction every parameter gets a post-accumulate-grad hook, and the
+  parameters, in reverse registration order (about the order backward
+  produces their gradients), are cut into buckets of one wire dtype up to
+  ``HOROVOD_FUSION_THRESHOLD`` bytes (``fuse=False``: one gradient a
+  bucket). A hook holds its gradient; a bucket whose gradients have all
+  landed is packed into its buffer in one copy and all-reduced
+  asynchronously while backward goes on, buckets always launching in index
+  order, so every rank launches the same collectives in the same order.
+  ``step()`` gives the parameters that got no gradient zeros, launches what
+  is left in that order, waits for every bucket, and writes the reduced
+  gradients to ``.grad``. As in Horovod, the reduction overwrites ``.grad``:
+  code that edits the gradients (clipping) calls ``synchronize()`` first;
 * **ZeRO** (``zero=1|2``) and **error feedback** (``error_feedback=True``):
   ``optim/zero.py``. ``zero=None`` defers to ``HOROVOD_ZERO_SHARDING``;
-* **Adasum** (``op=Adasum``): the gradients combined by ``ops/adasum.py``,
-  the grouped buffer as one vector when ``fuse``, else each gradient.
+* **Adasum** (``op=Adasum``): after backward, the gradients combined by
+  ``ops/adasum.py``, the grouped buffer as one vector when ``fuse``, else
+  each gradient.
+
+On every path a parameter that requires grad but got none on this rank
+(a branch this rank's batch did not take, an MoE expert without tokens)
+counts as a zero gradient, as in Horovod and the JAX package: every rank
+writes the reduced value to every ``.grad``, so the replicas stay equal.
 
 ``synchronize()`` is the explicit form of the reduction; a ``step()`` after
 it only steps the inner optimizer. The ranks' gradient signatures (count,
@@ -65,25 +68,44 @@ def _check_op(op: ReduceOp):
         raise NotImplementedError(f"reduce op {ReduceOp(op).name} is not ported yet")
 
 
+def _check_grad_signature(label: str, dtype: torch.dtype, sizes: List[int],
+                          op: ReduceOp, prescale_factor: float = 1.0,
+                          postscale_factor: float = 1.0) -> None:
+    """Every rank reduces the same gradient layout with the same op and
+    factors, else ``HorovodInternalError`` on every rank; two int64
+    all-gathers and two host reads at world > 1, so a caller runs it once."""
+    heads = ops._exchange_header(label, label, dtype, (len(sizes),), op,
+                                 prescale_factor, postscale_factor, extra=sizes)
+    ops._check_same_shape(label, heads)
+    for r, (_, counts) in enumerate(heads):
+        if counts != heads[0][1]:
+            raise HorovodInternalError(
+                f"{label}: gradient sizes mismatch, rank 0 has {list(heads[0][1])}, "
+                f"rank {r} has {list(counts)}")
+
+
+def _widest(tensors: List[torch.Tensor]) -> torch.dtype:
+    widest = tensors[0].dtype
+    for t in tensors[1:]:
+        widest = torch.promote_types(widest, t.dtype)
+    return widest
+
+
 def _allreduce_grads(grads: List[torch.Tensor], op: ReduceOp,
                      prescale_factor: float, postscale_factor: float,
-                     compression, fuse: bool, checked: bool = True
-                     ) -> List[torch.Tensor]:
+                     compression, fuse: bool) -> List[torch.Tensor]:
     """Compress, all-reduce (one grouped collective when ``fuse``, else one
-    per gradient) and decompress (ref: the JAX ``_allreduce_grads``).
-    ``checked=False`` skips the header exchange, for a caller that checks
-    its signature once."""
+    per gradient) and decompress (ref: the JAX ``_allreduce_grads``), with
+    no header: the callers check their signature once."""
     comp = compression or Compression.none
     packed = [comp.compress(g) for g in grads]
     wire = [c for c, _ in packed]
     if fuse:
-        fn = ops.grouped_allreduce if checked else ops._grouped_allreduce
-        red = fn(wire, op=op, prescale_factor=prescale_factor,
-                 postscale_factor=postscale_factor)
+        red = ops._grouped_allreduce(wire, op=op, prescale_factor=prescale_factor,
+                                     postscale_factor=postscale_factor)
     else:
-        fn = ops.allreduce if checked else ops._allreduce
-        red = [fn(c, op=op, prescale_factor=prescale_factor,
-                  postscale_factor=postscale_factor) for c in wire]
+        red = [ops._allreduce(c, op=op, prescale_factor=prescale_factor,
+                              postscale_factor=postscale_factor) for c in wire]
     return [comp.decompress(r, ctx) for r, (_, ctx) in zip(red, packed)]
 
 
@@ -124,6 +146,13 @@ def _hook(ref):
     return hook
 
 
+# When the replicated path reduces: "hooks" overlapped with backward (what
+# every user gets); "buckets", the same buckets launched in step() and
+# "grouped", one grouped all-reduce in step(), are the after-backward
+# references the tests and chip_smoke.py hold the overlap against.
+_SCHEDULES = ("hooks", "buckets", "grouped")
+
+
 class DistributedOptimizer(torch.optim.Optimizer):
     """Wraps ``optimizer``; ``param_groups`` are the inner optimizer's own,
     so schedulers see through, and so are ``state`` and ``state_dict`` on
@@ -137,8 +166,10 @@ class DistributedOptimizer(torch.optim.Optimizer):
                  postscale_factor: float = 1.0,
                  backward_passes_per_step: int = 1,
                  compression=None, zero=None, error_feedback=None,
-                 fuse: bool = True, overlap: bool = True):
+                 fuse: bool = True, _schedule: str = "hooks"):
         _check_op(op)
+        if _schedule not in _SCHEDULES:
+            raise ValueError(f"_schedule must be one of {_SCHEDULES}, got {_schedule!r}")
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         zero = env.zero_sharding_default() if zero is None else int(zero)
@@ -168,8 +199,9 @@ class DistributedOptimizer(torch.optim.Optimizer):
                     if error_feedback and not zero else None)
         self._buckets: Optional[List[_Bucket]] = None
         self._hooks = []
-        if overlap and not zero and not error_feedback and op != ReduceOp.ADASUM:
-            self._build_buckets()
+        if (_schedule != "grouped" and not zero and not error_feedback
+                and op != ReduceOp.ADASUM):
+            self._build_buckets(hooks=_schedule == "hooks")
 
     # The inner optimizer's groups, state and defaults, shared not copied.
     @property
@@ -238,29 +270,15 @@ class DistributedOptimizer(torch.optim.Optimizer):
                     out.append(p)
         return out
 
-    def _params_with_grad(self) -> List[torch.Tensor]:
-        return [p for g in self.param_groups for p in g["params"]
-                if p.grad is not None]
-
     def _check_signature(self, dtype: torch.dtype, sizes: List[int]) -> None:
-        """Once: every rank reduces the same gradient layout with the same
-        op and factors; else ``HorovodInternalError`` on every rank."""
-        if self._signature_checked:
-            return
-        label = "DistributedOptimizer"
-        heads = ops._exchange_header(label, label, dtype, (len(sizes),), self.op,
-                                     self.prescale_factor, self.postscale_factor,
-                                     extra=sizes)
-        ops._check_same_shape(label, heads)
-        for r, (_, counts) in enumerate(heads):
-            if counts != heads[0][1]:
-                raise HorovodInternalError(
-                    f"{label}: gradient sizes mismatch, rank 0 has {list(heads[0][1])}, "
-                    f"rank {r} has {list(counts)}")
-        self._signature_checked = True
+        """Once, on the first reduction (``_check_grad_signature``)."""
+        if not self._signature_checked:
+            _check_grad_signature("DistributedOptimizer", dtype, sizes, self.op,
+                                  self.prescale_factor, self.postscale_factor)
+            self._signature_checked = True
 
     # -- the overlapped path -------------------------------------------------
-    def _build_buckets(self) -> None:
+    def _build_buckets(self, hooks: bool) -> None:
         comp = self.compression or Compression.none
         threshold = env.fusion_threshold_bytes() if self.fuse else 0
         self._buckets, self._slot = [], {}
@@ -274,9 +292,10 @@ class DistributedOptimizer(torch.optim.Optimizer):
             self._slot[p] = (len(self._buckets) - 1, len(last.params))
             last.add(p)
         self._reset_buckets()
-        ref = weakref.ref(self)
-        self._hooks = [p.register_post_accumulate_grad_hook(_hook(ref))
-                       for p in self._params()]
+        if hooks:
+            ref = weakref.ref(self)
+            self._hooks = [p.register_post_accumulate_grad_hook(_hook(ref))
+                           for p in self._params()]
 
     def _check_bucket_signature(self) -> None:
         # Before the first bucket launches: every rank fires its first hook.
@@ -320,9 +339,8 @@ class DistributedOptimizer(torch.optim.Optimizer):
         b_idx, i = self._slot[p]
         bucket = self._buckets[b_idx]
         if g is None:
-            bucket.parts[i] = torch.zeros(p.numel(), dtype=bucket.dtype, device=p.device)
-        else:
-            bucket.parts[i], self._ctx[p] = (self.compression or Compression.none).compress(g)
+            g = torch.zeros_like(p)
+        bucket.parts[i], self._ctx[p] = (self.compression or Compression.none).compress(g)
         bucket.pending -= 1
         while (self._next_launch < len(self._buckets)
                and self._buckets[self._next_launch].pending == 0):
@@ -358,8 +376,6 @@ class DistributedOptimizer(torch.optim.Optimizer):
             with ops.span("hvd.unflatten"):
                 dst, src = [], []
                 for p, part in zip(b.params, torch.split(finish(), b.sizes)):
-                    if p not in self._ctx:   # no gradient on this rank's passes
-                        continue
                     val = comp.decompress(part.view(p.shape), self._ctx[p])
                     if p.grad is None:
                         p.grad = val.to(p.dtype, copy=True)
@@ -380,7 +396,9 @@ class DistributedOptimizer(torch.optim.Optimizer):
         if k == 1:
             return True
         self._passes += 1
-        for p in self._params_with_grad():
+        for p in self._params():
+            if p.grad is None:
+                continue
             acc = self._acc.get(p)
             if acc is None:
                 self._acc[p] = p.grad.detach().clone()
@@ -395,24 +413,24 @@ class DistributedOptimizer(torch.optim.Optimizer):
 
     @torch.no_grad()
     def _reduce(self) -> None:
-        """All-reduce every ``.grad`` in place after backward."""
+        """All-reduce every gradient after backward (zeros for a parameter
+        without one) into ``.grad``."""
         if self._ef:
             self._ef.synchronize()
             return
-        params = self._params_with_grad()
+        params = self._params()
         if not params:
             return
-        grads = [p.grad for p in params]
-        widest = grads[0].dtype
-        for g in grads[1:]:
-            widest = torch.promote_types(widest, g.dtype)
-        self._check_signature(widest, [g.numel() for g in grads])
+        grads = zero_mod._grads(params)
+        self._check_signature(_widest(grads), [g.numel() for g in grads])
         reduced = _allreduce_grads(grads, self.op, self.prescale_factor,
-                                   self.postscale_factor, self.compression,
-                                   self.fuse, checked=False)
+                                   self.postscale_factor, self.compression, self.fuse)
         with ops.span("hvd.unflatten"):
             for p, r in zip(params, reduced):
-                p.grad.copy_(r)
+                if p.grad is None:
+                    p.grad = r.to(p.dtype, copy=True)
+                else:
+                    p.grad.copy_(r)
 
     def synchronize(self) -> None:
         """Reduce the gradients now; the next ``step()`` only steps the
@@ -481,9 +499,25 @@ def _value_and_grad(fun: Callable, has_aux: bool, params: Mapping[str, torch.Ten
     return ((value, aux) if has_aux else value), grads
 
 
-def _reduce_dict(grads: Dict[str, torch.Tensor], op, compression, fuse):
-    red = _allreduce_grads(list(grads.values()), op, 1.0, 1.0, compression, fuse)
-    return dict(zip(grads, red))
+class _GradReducer:
+    """The all-reduce of a gradient transform. The ranks' signatures
+    (count, sizes, op) are checked on the first call and again only when
+    this rank's changes, so a steady training loop pays no host read."""
+
+    def __init__(self, label: str, op: ReduceOp, compression, fuse: bool):
+        self.label, self.op, self.compression, self.fuse = label, op, compression, fuse
+        self.checked = None
+
+    def __call__(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        vals = list(grads.values())
+        if not vals:
+            return {}
+        sig = (_widest(vals), [g.numel() for g in vals])
+        if sig != self.checked:
+            _check_grad_signature(self.label, *sig, self.op)
+            self.checked = sig
+        red = _allreduce_grads(vals, self.op, 1.0, 1.0, self.compression, self.fuse)
+        return dict(zip(grads, red))
 
 
 class DistributedGradientTape:
@@ -498,13 +532,12 @@ class DistributedGradientTape:
         _check_op(op)
         _check_axis(axis_name)
         self._fun = fun
-        self._op = op
-        self._compression = compression
         self._has_aux = has_aux
+        self._reduce = _GradReducer("DistributedGradientTape", op, compression, False)
 
     def gradient(self, *args, **kwargs):
         val, grads = _value_and_grad(self._fun, self._has_aux, *args, **kwargs)
-        return val, _reduce_dict(grads, self._op, self._compression, False)
+        return val, self._reduce(grads)
 
 
 def distributed_value_and_grad(fun: Callable, op: ReduceOp = ReduceOp.AVERAGE,
@@ -517,9 +550,10 @@ def distributed_value_and_grad(fun: Callable, op: ReduceOp = ReduceOp.AVERAGE,
     when ``fuse`` is set, else one each."""
     _check_op(op)
     _check_axis(axis_name)
+    reduce = _GradReducer("distributed_value_and_grad", op, compression, fuse)
 
     def wrapped(*args, **kwargs):
         val, grads = _value_and_grad(fun, has_aux, *args, **kwargs)
-        return val, _reduce_dict(grads, op, compression, fuse)
+        return val, reduce(grads)
 
     return wrapped

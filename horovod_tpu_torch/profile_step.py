@@ -23,7 +23,8 @@ kernels. Needs a CUDA card.
 
 ``--zero`` (GPT-2 only) runs the flash variant alone with
 ``DistributedOptimizer(zero=Z)`` (0: the replicated optimizer, overlapped
-with backward unless ``--no-overlap``) and splits the step's device time
+with backward; with ``--no-overlap`` the after-backward reference, one
+grouped all-reduce in ``step()``) and splits the step's device time
 further by the ranges the optimizer marks: the flatten copies into the
 flat or bucket buffers (``hvd.flatten``), the unflatten copies out of them
 (``hvd.unflatten``) and the inner optimizer's step (``Optimizer.step``);
@@ -228,7 +229,9 @@ def main() -> int:
     variants, opt_kw = VARIANTS[args.model], None
     if args.zero is not None:
         variants = ("flash",)
-        opt_kw = {"zero": args.zero, "overlap": not args.no_overlap}
+        opt_kw = {"zero": args.zero}
+        if args.no_overlap:
+            opt_kw["_schedule"] = "grouped"
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
     import subprocess

@@ -418,6 +418,7 @@ def lane_env(lane: str):
 # ---------------------------------------------------------------------------
 # ZeRO (tests/test_torch_port_zero.py)
 ZERO_LR, ZERO_WD, ZERO_EPS = 1e-3, 1e-2, 1e-8
+ZERO_SGD_LR = 1e-2
 ZERO_KEYS = ("b", "w")     # the JAX params dict's leaf order
 
 
@@ -426,28 +427,31 @@ def zero_params() -> dict:
     return {"b": rng.randn(53).astype(np.float32), "w": rng.randn(31, 7).astype(np.float32)}
 
 
-def zero_grads(size: int, steps: int, seed: int = 1) -> list:
+def zero_grads(size: int, steps: int, seed: int = 1, exact_sums: bool = True) -> list:
     """Per step, each leaf's gradients stacked over the ranks. Past two
-    ranks they are multiples of 1/8, whose bf16 sums are exact in any
-    order: gloo rounds each partial sum to bf16, XLA's CPU psum adds in f32
-    and rounds once, and at two ranks the two agree (one addition)."""
+    ranks, with ``exact_sums``, they are multiples of 1/8, whose bf16 sums
+    are exact in any order: gloo rounds each partial sum to bf16, XLA's CPU
+    psum adds in f32 and rounds once, and at two ranks the two agree (one
+    addition)."""
     rng = np.random.RandomState(seed)
     out = [{k: rng.randn(size, *v.shape).astype(np.float32)
             for k, v in zero_params().items()} for _ in range(steps)]
-    if size > 2:
+    if size > 2 and exact_sums:
         out = [{k: np.round(v * 8) / 8 for k, v in g.items()} for g in out]
     return out
 
 
-def _zero_steps(hvd, params_np, grads, rank, **kw):
-    """AdamW under DistributedOptimizer(**kw) from ``params_np``, stepped on
-    this rank's slice of each step's gradients; (params, optimizer)."""
+def _zero_steps(hvd, params_np, grads, rank, inner="adamw", **kw):
+    """AdamW (or SGD) under DistributedOptimizer(**kw) from ``params_np``,
+    stepped on this rank's slice of each step's gradients; (params,
+    optimizer)."""
     import torch
 
     load = kw.pop("load", None)
     params = [torch.nn.Parameter(torch.from_numpy(params_np[k].copy())) for k in ZERO_KEYS]
-    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
-        params, lr=ZERO_LR, weight_decay=ZERO_WD, eps=ZERO_EPS), **kw)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(params, lr=ZERO_SGD_LR) if inner == "sgd" else
+        torch.optim.AdamW(params, lr=ZERO_LR, weight_decay=ZERO_WD, eps=ZERO_EPS), **kw)
     if load is not None:
         opt.load_shard_state(load)
     for g in grads:
@@ -466,7 +470,7 @@ def _ef_drift(hvd, steps: int = 150, d: int = 256, **kw) -> float:
     set_lane("bf16")
     gval = 1.0 + 1.0 / 300.0
     w = torch.nn.Parameter(torch.zeros(d))
-    opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1.0), overlap=False, **kw)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1.0), _schedule="grouped", **kw)
     for _ in range(steps):
         w.grad = torch.full((d,), gval)
         opt.step()
@@ -481,14 +485,20 @@ def _run_zero(rank: int, size: int, cases, fresh_grads) -> dict:
 
     out = {}
     for case in cases:
-        set_lane(case["lane"])
-        for stage in (1, 2):
-            tag = f"{case['lane']}_ef{int(case['ef'])}_z{stage}"
-            params, opt = _zero_steps(hvd, case["params"], case["grads"], rank,
-                                      zero=stage, error_feedback=case["ef"],
-                                      load=case["shards"][rank])
-            out[tag] = params
-            out[f"{tag}_bytes"] = opt.state_bytes()
+        inner = case.get("inner", "adamw")
+        for lane in dict.fromkeys((case["lane"], "none")):
+            # Each case on its lane; a lossy one also at full width from the
+            # same start, which it must differ from.
+            set_lane(lane)
+            for stage in (1, 2) if lane == case["lane"] else (1,):
+                tag = f"{case['lane']}_ef{int(case['ef'])}_z{stage}"
+                if lane != case["lane"]:
+                    tag = f"{case['lane']}_ef{int(case['ef'])}_fullwidth"
+                params, opt = _zero_steps(hvd, case["params"], case["grads"], rank, inner,
+                                          zero=stage, error_feedback=case["ef"],
+                                          load=case["shards"][rank])
+                out[f"{inner}_{tag}"] = params
+                out[f"{inner}_{tag}_bytes"] = opt.state_bytes()
     set_lane("none")
     # ZeRO without a codec against the replicated optimizer, from fresh state.
     p0 = zero_params()
@@ -620,6 +630,10 @@ def _run_sync_bn(rank: int, size: int) -> dict:
 # (tests/test_torch_port_overlap.py)
 OVERLAP_CASES = {"plain": (None, 1), "fp16_bpps2": ("fp16", 2)}
 OVERLAP_STEPS = 3
+# How DistributedOptimizer reduces: overlapped (hooks), after backward in
+# the same buckets, after backward in one grouped all-reduce; and ZeRO-1.
+OVERLAP_RUNS = {"hooks": {"_schedule": "hooks"}, "buckets": {"_schedule": "buckets"},
+                "grouped": {"_schedule": "grouped"}, "zero1": {"zero": 1}}
 
 
 def wire_inputs(size: int):
@@ -631,33 +645,39 @@ def _overlap_net(torch):
     class Net(torch.nn.Module):
         def __init__(self):
             super().__init__()
-            # Registered first, so the last bucket waits for step().
+            # Registered first, so the last buckets wait for step(): one
+            # parameter no rank uses, and a layer only rank 0 uses (an MoE
+            # expert that gets no tokens on rank 1).
             self.unused = torch.nn.Parameter(torch.ones(5))
+            self.rank0_only = torch.nn.Linear(8, 4)
             self.fc1 = torch.nn.Linear(8, 32)
             self.fc2 = torch.nn.Linear(32, 32)
             self.fc3 = torch.nn.Linear(32, 4)
 
-        def forward(self, x):
-            return self.fc3(torch.relu(self.fc2(torch.relu(self.fc1(x)))))
+        def forward(self, x, rank):
+            y = self.fc3(torch.relu(self.fc2(torch.relu(self.fc1(x)))))
+            return y + self.rank0_only(x) if rank == 0 else y
 
     torch.manual_seed(0)
     return Net()
 
 
-def _train_overlap(hvd, rank, compression, k, overlap):
+def _train_overlap(hvd, rank, compression, k, run):
     import torch
 
     net = _overlap_net(torch)
+    if compression and run == "zero1":   # ZeRO's wire cast is the env knob's
+        return None
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(net.parameters(), lr=1e-2),
         compression=getattr(hvd.Compression, compression) if compression else None,
-        backward_passes_per_step=k, overlap=overlap)
+        backward_passes_per_step=k, **OVERLAP_RUNS[run])
     rng = np.random.RandomState(41 + rank)
     for _ in range(OVERLAP_STEPS * k):
         x = torch.from_numpy(rng.randn(6, 8).astype(np.float32))
         y = torch.from_numpy(rng.randn(6, 4).astype(np.float32))
         opt.zero_grad()
-        ((net(x) - y) ** 2).mean().backward()
+        ((net(x, rank) - y) ** 2).mean().backward()
         opt.step()
     out = {name: p.detach().numpy().copy() for name, p in net.named_parameters()}
     out["grads"] = {name: None if p.grad is None else p.grad.numpy().copy()
@@ -695,6 +715,37 @@ def _mismatches(hvd, rank: int) -> dict:
     return out
 
 
+def _transform_headers(hvd, rank: int) -> dict:
+    """How many header exchanges the gradient transforms make: once on
+    their first call, again only when the gradients' signature changes."""
+    import torch
+
+    calls = []
+    exchange = hvd.ops._exchange_header
+
+    def counted(*args, **kw):
+        calls.append(args[0])
+        return exchange(*args, **kw)
+
+    def loss(params, x):
+        return (params["w"] * x).sum() + params["b"].sum()
+
+    params = {"w": torch.ones(3), "b": torch.zeros(2)}
+    x = torch.full((3,), float(rank + 1))
+    hvd.ops._exchange_header = counted
+    try:
+        vg = hvd.distributed_value_and_grad(loss)
+        tape = hvd.DistributedGradientTape(loss)
+        grads = [vg(params, x)[1] for _ in range(3)]
+        grads += [tape.gradient(params, x)[1] for _ in range(3)]
+        steady = list(calls)
+        vg({"w": torch.ones(4), "b": torch.zeros(2)}, torch.ones(4))
+    finally:
+        hvd.ops._exchange_header = exchange
+    return {"steady": steady, "after_change": calls[len(steady):],
+            "w_grad": [g["w"].numpy() for g in grads]}
+
+
 def _run_overlap(rank: int, size: int) -> dict:
     import torch
 
@@ -702,9 +753,9 @@ def _run_overlap(rank: int, size: int) -> dict:
 
     out = {}
     for case, (compression, k) in OVERLAP_CASES.items():
-        for overlap in (False, True):
-            out[f"{case}_overlap{int(overlap)}"] = _train_overlap(hvd, rank, compression,
-                                                                  k, overlap)
+        for run in OVERLAP_RUNS:
+            out[f"{case}_{run}"] = _train_overlap(hvd, rank, compression, k, run)
+    out["transform_headers"] = _transform_headers(hvd, rank)
     big, small = wire_inputs(size)
     for lane in LANES:
         set_lane(lane)

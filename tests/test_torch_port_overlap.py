@@ -1,13 +1,19 @@
 """The gradient all-reduce overlapped with backward, the stateless wire
 casts and the header checks, on 2 gloo ranks.
 
-* Overlap: a small net with an unused parameter (registered first, so the
-  last bucket can only launch in ``step()``) trained by AdamW under
-  ``DistributedOptimizer`` with ``HOROVOD_FUSION_THRESHOLD=1024`` (several
-  buckets), once after backward (``overlap=False``) and once overlapped,
-  plain and with ``Compression.fp16`` and ``backward_passes_per_step=2``:
-  the parameters and gradients bitwise equal, the unused one's gradient
-  ``None`` on both paths.
+* Overlap: a small net with a parameter no rank uses and a layer only
+  rank 0 uses (both registered first, so the last buckets can only launch
+  in ``step()``) trained by AdamW under ``DistributedOptimizer`` with
+  ``HOROVOD_FUSION_THRESHOLD=1024`` (several buckets), overlapped (the
+  default), after backward in the same buckets and after backward in one
+  grouped all-reduce, plain and with ``Compression.fp16`` and
+  ``backward_passes_per_step=2``: the parameters and gradients bitwise
+  equal on the three, every parameter's gradient reduced (zeros for the
+  unused one, as Horovod gives it), and every parameter bitwise equal
+  across the ranks; ZeRO-1 from the same start within rtol 1e-5, atol 1e-6
+  of them (the same zero-gradient semantics).
+* The gradient transforms exchange their header once, and again only when
+  the gradients' signature changes.
 * Wire casts: ``hvd.allreduce`` (SUM, AVERAGE) and ``grouped_allreduce``
   of seeded f32 tensors on each lane (none, bf16, fp16, int8) against the
   JAX traced ``allreduce``/``grouped_allreduce`` in ``shard_map`` on 2 CPU
@@ -40,23 +46,55 @@ def world(tmp_path_factory):
                                env={"HOROVOD_FUSION_THRESHOLD": "1024"})
 
 
+def _params(run):
+    return {k: v for k, v in run.items() if k not in ("buckets", "grads")}
+
+
 @pytest.mark.parametrize("case", list(workers.OVERLAP_CASES))
 def test_overlap_is_bitwise_the_after_backward_path(world, case):
     for res in world:
-        after, over = res[f"{case}_overlap0"], res[f"{case}_overlap1"]
-        assert after["buckets"] == 0 and over["buckets"] > 2, over["buckets"]
-        for name, val in after.items():
-            if name in ("buckets", "grads"):
-                continue
-            np.testing.assert_array_equal(over[name], val, err_msg=name)
-        for name, g in after["grads"].items():
-            if g is None:
-                assert over["grads"][name] is None, name
-            else:
-                np.testing.assert_array_equal(over["grads"][name], g, err_msg=name)
-        assert after["grads"]["unused"] is None
-    np.testing.assert_array_equal(world[0][f"{case}_overlap1"]["fc1.weight"],
-                                  world[1][f"{case}_overlap1"]["fc1.weight"])
+        after = res[f"{case}_grouped"]
+        assert after["buckets"] == 0
+        for run in ("hooks", "buckets"):
+            over = res[f"{case}_{run}"]
+            assert over["buckets"] > 2, over["buckets"]
+            for name, val in _params(after).items():
+                np.testing.assert_array_equal(over[name], val, err_msg=f"{run} {name}")
+            for name, g in after["grads"].items():
+                np.testing.assert_array_equal(over["grads"][name], g, err_msg=f"{run} {name}")
+        np.testing.assert_array_equal(after["grads"]["unused"], np.zeros(5, np.float32))
+
+
+# ZeRO takes no compression= (its wire cast is HOROVOD_WIRE_COMPRESSION).
+UNEVEN = [(case, run) for case, (compression, _) in workers.OVERLAP_CASES.items()
+          for run in workers.OVERLAP_RUNS if not (compression and run == "zero1")]
+
+
+@pytest.mark.parametrize("case,run", UNEVEN)
+def test_a_parameter_unused_on_one_rank_stays_equal_across_ranks(world, case, run):
+    """``rank0_only`` gets a gradient on rank 0 only: every rank steps it
+    with the same reduced gradient, so the replicas stay bitwise equal."""
+    got = [res[f"{case}_{run}"] for res in world]
+    for name, val in _params(got[0]).items():
+        np.testing.assert_array_equal(got[1][name], val, err_msg=name)
+    if run == "zero1":
+        for name, val in _params(world[0][f"{case}_grouped"]).items():
+            np.testing.assert_allclose(got[0][name], val, rtol=1e-5, atol=1e-6,
+                                       err_msg=name)
+        return
+    for name, g in got[0]["grads"].items():
+        assert g is not None, name
+        np.testing.assert_array_equal(got[1]["grads"][name], g, err_msg=name)
+    assert np.any(got[0]["grads"]["rank0_only.weight"])
+
+
+def test_gradient_transforms_check_their_signature_once(world):
+    for res in world:
+        seen = res["transform_headers"]
+        assert seen["steady"] == ["distributed_value_and_grad", "DistributedGradientTape"]
+        assert seen["after_change"] == ["distributed_value_and_grad"]
+        for g in seen["w_grad"]:   # the mean of x over the ranks: (1 + 2) / 2
+            np.testing.assert_array_equal(g, np.full(3, 1.5, np.float32))
 
 
 def _jax_allreduce(lane, big, small):
