@@ -83,13 +83,39 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    raises on the card, and records the weak-scaling efficiency. What (b)
    saves over (a) is timed apart, from 5 steps of each in turns (a, b, b,
    a) three times;
-11. the ``{"kernels": [...]}`` line; then the card line from nvidia-smi and
+11. sequence parallelism (``sp``): attention at B=2, S=8192, H=12, D=64,
+   bf16, causal, forward and backward on a one-rank sp line: Ulysses through
+   flash (``ulysses_attention(use_flash=True)``) must be bitwise the port's
+   ``flash_attention`` (o, dq, dk, dv) and launch K1 and each K2 kernel
+   once; ``ring_attention`` must match flash within the k1/k2 tolerances;
+   the ms of each and the ring's peak memory;
+12. expert parallelism (``moe``): GPT-2-small at full width and depth with
+   8 Switch experts in every other FFN (capacity factor 1.25: the layout of
+   Switch-Base-8), flash attention, B=4, S=2048, 5 AdamW steps through
+   ``make_train_step(moe_aux_weight=0.01)``: finite losses, each flash
+   kernel 12 times a step, the dispatch and combine by index bitwise equal
+   to the one-hot einsum formulation at that shape; dropped tokens and the
+   auxiliary loss a step, step ms, tokens/s, peak memory;
+13. with two cards or more (``sp_multi``), one NCCL rank per card against
+   world-1 controls run here on the same global batch: (s1) sp=n, Ulysses
+   through flash, ``shard_seq``, B=2, S=8192, against flash; (s2) the same
+   with the ring; (e1) ep=n with phase 12's configuration, against phase
+   12; (se) on four cards ep=2 x sp=2 with MoE and Ulysses-flash at B=2,
+   S=8192 against MoE with flash. Each: step-1 loss within 2e-3 relative
+   and the 5 steps' within 1e-2; step-1 gradients, experts gathered to full
+   shape, within 1e-2 in relative norm; 12 launches of each flash kernel a
+   step on every rank (0 for the ring); step-1 dropped tokens within 0.1%
+   of the control's; replicated parameters bitwise equal on every rank.
+   n must divide 12 for sp and 8 for ep;
+14. the ``{"kernels": [...]}`` line (with ``launches_sp`` and
+   ``launches_moe``); then the card line from nvidia-smi and
    the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is not available.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -153,6 +179,19 @@ BERT_B, BERT_S = 256, 128
 BERT_MIN_LEN = 64
 COLL_BYTES = 64 * 2**20      # the multi-card timing buffer, bf16
 COLL_ITERS = 20
+
+
+def full_precision_products() -> None:
+    """f32 accumulation in every matrix product, as XLA computes the JAX
+    reference's: no TF32, and no bf16 reductions in cuBLAS's split-K
+    (PyTorch allows them by default; they raised the step-1 gradient noise
+    of GPT-2-small between token cuts from 0.49% to 1.03%, PERF.md §6 PR 9).
+    The sp/ep phases, which hold one card's gradients against n cards',
+    set it; the earlier phases keep the settings their records were taken
+    with."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def emit(obj) -> None:
@@ -1309,6 +1348,453 @@ def phase_zero(fa):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Sequence and expert parallelism (phases ``sp``, ``moe`` and, with two
+# cards or more, ``sp_multi``).
+SP_B, SP_S = 2, 8192
+MOE_B, MOE_S = 4, 2048
+MOE_CFG = {"n_experts": 8, "moe_every": 2, "capacity_factor": 1.25}   # Switch-Base-8
+MOE_AUX = 0.01
+F32 = {"dtype": torch.float32, "logits_dtype": torch.float32}
+SP_LOSS1_RTOL = 2e-3       # step-1 loss against the world-1 control
+SP_LOSS_RTOL = 1e-2        # the 5 steps' losses
+SP_GRAD_RTOL = 1e-2        # step-1 gradients, relative norm of the difference
+DROP_RTOL = 1e-3           # step-1 dropped tokens against the control's
+# The multi-card variants: mesh for n cards, model overrides, global batch,
+# whether the flash kernels run, the world-1 control they are held against.
+SP_VARIANTS = {
+    "s1_ulysses_flash": (lambda n: {"sp": n}, {"attn_impl": "ulysses", "sp_use_flash": True},
+                         (SP_B, SP_S), True, "control_flash_s8192"),
+    "s2_ring": (lambda n: {"sp": n}, {"attn_impl": "ring"}, (SP_B, SP_S), False,
+                "control_flash_s8192"),
+    "e1_moe": (lambda n: {"ep": n}, {"attn_impl": "flash", **MOE_CFG}, (MOE_B, MOE_S), True,
+               "control_moe"),
+    "se_moe_ulysses_flash": (lambda n: {"ep": 2, "sp": 2},
+                             {"attn_impl": "ulysses", "sp_use_flash": True, **MOE_CFG},
+                             (SP_B, SP_S), True, "control_moe_s8192"),
+    # A witness in f32 (no flash: the kernels take bf16), at S=2048 where
+    # the dense control's saved probabilities fit: the sp path's gradients
+    # without bf16's rounding noise.
+    "s2f_ring_f32_s2048": (lambda n: {"sp": n}, {"attn_impl": "ring", **F32},
+                           (SP_B, MOE_S), False, "control_dense_f32_s2048"),
+}
+SP_CONTROLS = {
+    "control_dense_f32_s2048": ({"attn_impl": "dense", **F32}, (SP_B, MOE_S)),
+    "control_flash_s8192": ({"attn_impl": "flash"}, (SP_B, SP_S)),
+    "control_moe": ({"attn_impl": "flash", **MOE_CFG}, (MOE_B, MOE_S)),
+    "control_moe_s8192": ({"attn_impl": "flash", **MOE_CFG}, (SP_B, SP_S)),
+}
+
+
+def sp_variants_for(cards: int) -> list:
+    """The variants a world of ``cards`` runs: n must divide the 12 heads
+    for sp and the 8 experts for ep; (se) needs four cards."""
+    out = []
+    if 12 % cards == 0:
+        out += ["s1_ulysses_flash", "s2_ring", "s2f_ring_f32_s2048"]
+    if 8 % cards == 0:
+        out.append("e1_moe")
+    if cards == 4:
+        out.append("se_moe_ulysses_flash")
+    return out
+
+
+def full_mesh(shape: dict):
+    """A dp x ep x sp mesh with every axis named (size 1 where not given)."""
+    import horovod_tpu_torch as hvd
+
+    return hvd.create_mesh({"dp": shape.get("dp", 1), "ep": shape.get("ep", 1),
+                            "sp": shape.get("sp", 1)})
+
+
+def gpt2_on(mesh, seq: int, **overrides):
+    """GPT-2-small at full width and depth from torch seed 0 on ``mesh``
+    (every ep layout of one seed holds the same experts)."""
+    from horovod_tpu_torch.models.registry import get_model
+
+    dev = mesh.device
+    return get_model("gpt2-small").make_model(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(0), mesh=mesh,
+        max_len=max(1024, seq), **{"logits_dtype": torch.bfloat16, **overrides})
+
+
+def flat_grads(hvd, model) -> torch.Tensor:
+    """Every parameter's gradient flattened into host memory, the experts
+    gathered along ep to their full (E, ...) shape."""
+    parts = []
+    for p in model.parameters():
+        g = p.grad.detach()
+        if hasattr(p, "expert_parallel") and model.mesh.shape.get("ep", 1) > 1:
+            g = hvd.allgather(g, axis_name="ep")
+        parts.append(g.float().reshape(-1).cpu())
+    return torch.cat(parts)
+
+
+def train_sp(hvd, fa, fb, mesh, overrides: dict, batch, keep_grads: bool) -> dict:
+    """STEPS AdamW steps (lr 1e-4, wd 1e-4, eps 1e-8) of GPT-2-small on
+    ``mesh`` through ``make_train_step`` (``shard_seq`` where sp > 1, the
+    MoE auxiliary loss at 0.01 where there are experts, the gradients
+    averaged over the ("dp", "sp") line) on the global batch of numpy seed
+    42. Returns the record, the model and, with ``keep_grads``, the reduced
+    step-1 gradients in host memory."""
+    from horovod_tpu_torch.models.registry import get_model
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    Bn, Sn = batch
+    model = gpt2_on(mesh, Sn, **overrides)
+    ids = torch.from_numpy(get_model("gpt2-small").make_batch(Bn, seed=42, seq_len=Sn)[0])
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), axis_name=("dp", "sp"))
+    moe = bool(overrides.get("n_experts"))
+    init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh,
+                                       shard_seq=mesh.shape["sp"] > 1,
+                                       moe_aux_weight=MOE_AUX if moe else 0.0)
+    got = {}
+    inner_step = opt._inner.step
+
+    def step(*a, **kw):     # the reduced step-1 gradients, as AdamW gets them
+        if keep_grads and "grads" not in got:
+            got["grads"] = flat_grads(hvd, model)
+        return inner_step(*a, **kw)
+
+    opt._inner.step = step
+    state = init_fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    fb.reset_launches()
+    losses, step_ms, dropped, aux = [], [], [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, ids, ids)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if moe:
+            dropped.append(sum(int(d) for d in model.moe_dropped()))
+            aux.append(float(model.moe_aux_loss().detach()))
+    launches, other = fa.launches(), fb.launches()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    if any(other.values()):
+        raise AssertionError(f"fused-BN kernels launched: {other}")
+    steady = statistics.median(step_ms[1:])
+    rec = {"mesh": dict(mesh.shape), "batch": Bn, "seq": Sn,
+           "overrides": {k: str(v) if isinstance(v, torch.dtype) else v
+                         for k, v in overrides.items()},
+           "losses": losses, "step_ms": step_ms, "median_step_ms_2_to_5": steady,
+           "tokens_per_s": Bn * Sn / (steady / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "launches_per_step": {k: v / STEPS for k, v in launches.items()}}
+    if moe:
+        tokens = Bn * Sn
+        rec.update(dropped_per_step=dropped, aux_per_step=aux, tokens_per_layer=tokens,
+                   moe_layers=len(model.moe_blocks()),
+                   capacity=max(1, int(MOE_CFG["capacity_factor"] * tokens
+                                       / MOE_CFG["n_experts"])))
+    layout = [(n, p.numel() * (model.mesh.shape.get("ep", 1)
+                                if hasattr(p, "expert_parallel") else 1))
+              for n, p in model.named_parameters()]
+    return {"rec": rec, "model": model, "grads": got.get("grads"), "ids": ids,
+            "layout": layout}
+
+
+def check_launches(name: str, rec: dict, n_layers: int, flash: bool) -> None:
+    want = n_layers if flash else 0
+    if rec["launches_per_step"] != {k: want for k in rec["launches_per_step"]}:
+        raise AssertionError(f"{name}: launches per step {rec['launches_per_step']}, "
+                             f"expected {want} of each flash kernel")
+
+
+def moe_dispatch_bitwise(model, ids) -> dict:
+    """The first Switch FFN's dispatch and combine by index against the
+    one-hot einsum formulation (``dispatch_combine_einsum``) on that FFN's
+    own input from a forward of the trained model on the path batch (B=4,
+    S=2048): both must be bitwise equal. Times each."""
+    from horovod_tpu_torch.models.transformer import (combine_by_index, dispatch_by_index,
+                                                      dispatch_combine_einsum)
+
+    mod = model.moe_blocks()[0]
+    cfg = mod.cfg
+    seen = []
+    hook = mod.register_forward_pre_hook(lambda m, args: seen.append(args[0].detach()))
+    with torch.no_grad():
+        model(ids.to(model.mesh.device))
+    hook.remove()
+    x = seen[0]
+    with torch.no_grad():
+        tokens, _, idx, gate, pos, keep, C, _, _ = mod.route(x)
+        tok = tokens.to(cfg.dtype)
+        slots = torch.where(keep, idx * C + pos, cfg.n_experts * C)
+
+        def by_index():
+            expert_in = dispatch_by_index(tok, slots, cfg.n_experts, C)
+            return expert_in, combine_by_index(mod.experts(expert_in), slots, gate)
+
+        def by_einsum():
+            return dispatch_combine_einsum(tok, idx, gate, pos, keep, cfg.n_experts, C,
+                                           mod.experts, cfg.dtype)
+
+        got, want = by_index(), by_einsum()
+        for name, a, b in (("expert_in", got[0], want[0]), ("out", got[1], want[1])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"moe {name}: the index form differs from the einsum "
+                                     f"form by {max_err(a, b)}")
+        return {"input": "the first Switch FFN's own, after 5 steps",
+                "tokens": tok.shape[0], "capacity": C, "kept": int(keep.sum()),
+                "bitwise": True, "index_ms": time_ms(by_index, 5, 1),
+                "einsum_ms": time_ms(by_einsum, 5, 1)}
+
+
+def phase_moe(fa, fb):
+    """GPT-2-small with eight Switch experts in every other FFN on one card:
+    5 steps through make_train_step with the auxiliary loss; the flash
+    kernels 12 times a step; the dispatch and combine bitwise against the
+    einsum formulation. Its record is the control of the (e1) variant."""
+    import horovod_tpu_torch as hvd
+
+    out = train_sp(hvd, fa, fb, full_mesh({}), {"attn_impl": "flash", **MOE_CFG},
+                   (MOE_B, MOE_S), keep_grads=torch.cuda.device_count() >= 2)
+    rec, model = out.pop("rec"), out.pop("model")
+    check_launches("moe", rec, model.cfg.n_layers, True)
+    rec["dropped_share_step1"] = rec["dropped_per_step"][0] / (
+        rec["tokens_per_layer"] * rec["moe_layers"])
+    rec.update(phase="moe", model="gpt2-small", n_layers=model.cfg.n_layers,
+               params=sum(p.numel() for p in model.parameters()),
+               dispatch=moe_dispatch_bitwise(model, out.pop("ids")))
+    emit(rec)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, (out["grads"], out["layout"])
+
+
+def phase_sp(fa, gen, dev):
+    """Attention at B=2, S=8192, H=12, D=64, bf16, causal, forward and
+    backward on a one-rank sp line: Ulysses through flash must be bitwise
+    the port's flash_attention (o, dq, dk, dv) and launch K1 and the K2
+    pair once; ring attention must match flash within the k1/k2 phases'
+    tolerances. The ms of each."""
+    import horovod_tpu_torch as hvd
+
+    line = hvd.create_mesh({"sp": 1}).comm("sp")
+    Hn = 12
+    q, k, v = qkv_views(SP_B, SP_S, Hn, D, gen, dev)
+    dout = torch.randn(SP_B, SP_S, Hn, D, generator=gen, device=dev).to(torch.bfloat16)
+
+    def run(fn):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*leaves)
+        o.backward(dout)
+        return [o.detach()] + [t.grad for t in leaves]
+
+    impls = {
+        "flash": lambda a, b, c: fa.flash_attention(a, b, c, causal=True),
+        "ulysses_flash": lambda a, b, c: hvd.ulysses_attention(a, b, c, line, causal=True,
+                                                               use_flash=True),
+        "ring": lambda a, b, c: hvd.ring_attention(a, b, c, line, causal=True),
+    }
+    want = run(impls["flash"])
+    fa.reset_launches()
+    uly = run(impls["ulysses_flash"])
+    launches = fa.launches()
+    if launches != {name: 1 for name in launches}:
+        raise AssertionError(f"sp: Ulysses launched {launches}, expected each kernel once")
+    names = ("o", "dq", "dk", "dv")
+    for name, a, b in zip(names, uly, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"sp: Ulysses {name} not bitwise flash ({max_err(a, b)})")
+    del uly
+    ring = run(impls["ring"])
+    rec = {"phase": "sp", "shape": [SP_B, SP_S, Hn, D], "causal": True, "sp": 1,
+           "launches": launches, "ulysses_bitwise_flash": True}
+    for name, a, b in zip(names, ring, want):
+        tol = (O_ATOL, 0.0) if name == "o" else (GRAD_TOL, GRAD_TOL)
+        rec[f"ring_{name}_max_abs_err"] = check_close(f"sp: ring {name}", a, b, *tol)
+    del ring, want
+    torch.cuda.empty_cache()
+    for name, fn in impls.items():
+        rec[f"{name}_fwd_bwd_ms"] = time_ms(lambda: run(fn), 3, 1)
+    torch.cuda.reset_peak_memory_stats()
+    run(impls["ring"])
+    rec["ring_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
+    """One spawned NCCL rank of the multi-card sp/ep variants: each
+    variant's record; rank 0 writes its step-1 gradients under ``tmp``;
+    every rank checks that its replicated parameters equal rank 0's
+    bitwise after the 5 steps."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            recs = {}
+            for name in variants:
+                shape, overrides, batch, flash, _ = SP_VARIANTS[name]
+                mesh = full_mesh(shape(size))
+                out = train_sp(hvd, fa, fb, mesh, overrides, batch, keep_grads=True)
+                rec, model = out["rec"], out["model"]
+                check_launches(name, rec, model.cfg.n_layers, flash)
+                flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()
+                                  if not hasattr(p, "expert_parallel")])
+                root = hvd.broadcast(flat, root_rank=0)
+                rec["replicated_bitwise_rank0"] = bool(torch.equal(flat, root))
+                if not rec["replicated_bitwise_rank0"]:
+                    raise AssertionError(f"{name}: replicated parameters differ from rank 0's")
+                if rank == 0:
+                    torch.save(out["grads"], os.path.join(tmp, f"{name}.pt"))
+                recs[name] = rec
+                del out, model, flat, root
+                gc.collect()
+                torch.cuda.empty_cache()
+            hvd.barrier()
+            queue.put((rank, recs))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def worst_params(got: torch.Tensor, want: torch.Tensor, layout, top: int = 6) -> list:
+    """The parameters that carry most of the squared gradient difference:
+    [name, relative norm of its difference, share of the squared total]."""
+    rows, off = [], 0
+    total = float(((got - want) ** 2).sum())
+    for name, n in layout:
+        d = float(((got[off:off + n] - want[off:off + n]) ** 2).sum())
+        rows.append([name, (d / max(float((want[off:off + n] ** 2).sum()), 1e-30)) ** 0.5,
+                     d / max(total, 1e-30)])
+        off += n
+    return sorted(rows, key=lambda r: -r[2])[:top]
+
+
+def split_noise(hvd, fa, fb, overrides: dict, batch, want: torch.Tensor) -> float:
+    """The bf16 noise floor of the step-1 gradients on one card: the same
+    global batch as two micro-batches of half its rows
+    (``backward_passes_per_step=2``), against ``want``, the whole batch's,
+    in relative norm."""
+    from horovod_tpu_torch.models.registry import get_model
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    Bn, Sn = batch
+    mesh = full_mesh({})
+    model = gpt2_on(mesh, Sn, **overrides)
+    ids = torch.from_numpy(get_model("gpt2-small").make_batch(Bn, seed=42, seq_len=Sn)[0])
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), backward_passes_per_step=2)
+    got = {}
+    inner_step = opt._inner.step
+
+    def step(*a, **kw):
+        got.setdefault("grads", flat_grads(hvd, model))
+        return inner_step(*a, **kw)
+
+    opt._inner.step = step
+    init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh)
+    state = init_fn()
+    for half in (ids[: Bn // 2], ids[Bn // 2:]):
+        state, _ = step_fn(state, half, half)
+    err = rel_norm(got["grads"], want)
+    del model, opt, got, inner_step, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_sp_multi(fa, fb, moe_rec, moe_grads) -> dict:
+    """With two cards or more: the world-1 controls in this process, then
+    the variants of ``sp_variants_for`` on one spawned NCCL rank per card,
+    each held against its control: step-1 loss within 2e-3 relative and
+    the 5 steps' within 1e-2, step-1 gradients (experts gathered) within
+    1e-2 in relative norm, 12 launches of each flash kernel a step on every
+    rank (0 for the ring), step-1 dropped tokens within 0.1% of the
+    control's, and the replicated parameters bitwise equal on every rank."""
+    import functools
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+
+    cards = torch.cuda.device_count()
+    variants = sp_variants_for(cards)
+    rec = {"phase": "sp_multi", "cards": cards, "variants": {}, "controls": {}}
+    controls = {"control_moe": (moe_rec, *moe_grads)}
+    for name in sorted({SP_VARIANTS[v][4] for v in variants} - set(controls)):
+        overrides, batch = SP_CONTROLS[name]
+        out = train_sp(hvd, fa, fb, full_mesh({}), overrides, batch, keep_grads=True)
+        controls[name] = (out["rec"], out["grads"], out["layout"])
+        rec["controls"][name] = out["rec"]
+        del out
+        gc.collect()    # the step-1 capture closes a cycle through the optimizer
+        torch.cuda.empty_cache()
+        if "n_experts" not in overrides:
+            rec["controls"][name]["step1_grad_rel_norm_split_in_two"] = split_noise(
+                hvd, fa, fb, overrides, batch, controls[name][1])
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_cards(functools.partial(sp_rank, variants=variants, tmp=tmp), cards,
+                            timeout=900)
+        for name in variants:
+            ctrl, ctrl_grads, *layout = controls[SP_VARIANTS[name][4]]
+            got = ranks[0][name]
+            v = {"rank0": got,
+                 "median_step_ms_by_rank": [r[name]["median_step_ms_2_to_5"] for r in ranks],
+                 "peak_mem_gb_by_rank": [r[name]["peak_mem_gb"] for r in ranks],
+                 "launches_per_step_by_rank": [r[name]["launches_per_step"] for r in ranks],
+                 "control_median_step_ms_2_to_5": ctrl["median_step_ms_2_to_5"],
+                 "control_peak_mem_gb": ctrl["peak_mem_gb"]}
+            slowest = max(v["median_step_ms_by_rank"])
+            v["tokens_per_s_per_card"] = got["batch"] * got["seq"] / (slowest / 1e3) / cards
+            v["loss1_rel_err"] = abs(got["losses"][0] - ctrl["losses"][0]) / abs(ctrl["losses"][0])
+            v["loss_max_rel_err"] = max(abs(a - b) / abs(b)
+                                        for a, b in zip(got["losses"], ctrl["losses"]))
+            grads = torch.load(f"{tmp}/{name}.pt")
+            v["step1_grad_rel_norm_err"] = rel_norm(grads, ctrl_grads)
+            if layout:
+                v["step1_grad_worst_params"] = worst_params(grads, ctrl_grads, layout[0])
+            del grads
+            if "dropped_per_step" in ctrl:
+                v["dropped_step1"] = got["dropped_per_step"][0]
+                v["control_dropped_step1"] = ctrl["dropped_per_step"][0]
+            rec["variants"][name] = v
+            if v["loss1_rel_err"] > SP_LOSS1_RTOL or v["loss_max_rel_err"] > SP_LOSS_RTOL:
+                failed.append(f"{name}: losses {got['losses']} vs {ctrl['losses']}")
+            if v["step1_grad_rel_norm_err"] > SP_GRAD_RTOL:
+                failed.append(f"{name}: step-1 gradients {v['step1_grad_rel_norm_err']} off "
+                              "the control's in relative norm")
+            if "dropped_step1" in v and abs(v["dropped_step1"] - v["control_dropped_step1"]) \
+                    > DROP_RTOL * v["control_dropped_step1"]:
+                failed.append(f"{name}: {v['dropped_step1']} tokens dropped at step 1, "
+                              f"control {v['control_dropped_step1']}")
+        if {"s1_ulysses_flash", "s2_ring"} <= set(variants):
+            # The two sp variants cut the tokens alike and attend otherwise:
+            # what they share against the control is the cut's bf16 noise.
+            a, b = (torch.load(f"{tmp}/{n}.pt") for n in ("s1_ulysses_flash", "s2_ring"))
+            rec["s1_vs_s2_step1_grad_rel_norm"] = rel_norm(b, a)
+            del a, b
+    emit(rec)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card",
@@ -1340,6 +1826,12 @@ def main() -> int:
         rn = phase_resnet(fa, fb)
         bert = phase_bert(fa, fb, gen)
         zero = phase_zero(fa)
+        full_precision_products()
+        sp = phase_sp(fa, gen, dev)
+        moe, moe_grads = phase_moe(fa, fb)
+        if torch.cuda.device_count() >= 2:
+            phase_sp_multi(fa, fb, moe, moe_grads)
+        del moe_grads
     finally:
         hvd.shutdown()
 
@@ -1376,6 +1868,8 @@ def main() -> int:
                         "plain_ms": kb["fwd_plain_ms" if part == "fwd" else "bwd_plain_ms"],
                         "sdpa_ms": kb["sdpa_fwd_ms" if part == "fwd" else "sdpa_bwd_ms"]}
     for kern in kernels:
+        kern["launches_sp"] = sp["launches"].get(kern["name"], 0)
+        kern["launches_moe"] = moe["launches"].get(kern["name"], 0)
         kern.update(route="cuda", source=SOURCE[kern["name"]], replaces=REPLACES[kern["name"]])
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -10,7 +10,10 @@ all-reduce overlapped with backward), ``DistributedGradientTape``,
 ``distributed_value_and_grad``, parameter/optimizer-state broadcast,
 ``adasum_allreduce``, ``SyncBatchNorm`` and ``sync_batch_stats``, and the
 ``zero`` module (``recut_state``, ``status_snapshot``, ``state_to_global``,
-``state_from_global``).
+``state_from_global``), the mesh (``create_mesh``, ``create_hybrid_mesh``;
+``axis_name=`` on every collective and optimizer), ``wrap_step``, and the
+sequence-parallel attention ``ring_attention``, ``ulysses_attention`` and
+``dense_attention``.
 Models live in ``horovod_tpu_torch.models``, the training step in
 ``horovod_tpu_torch.parallel``, the kernels in ``horovod_tpu_torch.ops``.
 The package imports torch and never jax, nor anything of ``horovod_tpu``.
@@ -69,6 +72,9 @@ from .optim.distributed import (
     DistributedOptimizer,
     distributed_value_and_grad,
 )
-from .parallel.mesh import create_mesh
+from .parallel.mesh import AXIS_ORDER, create_hybrid_mesh, create_mesh
+from .parallel.ring import dense_attention, ring_attention
+from .parallel.step import wrap_step
+from .parallel.ulysses import ulysses_attention
 
 __version__ = "0.1.0"

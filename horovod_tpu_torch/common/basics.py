@@ -125,6 +125,9 @@ def shutdown() -> None:
             shutil.rmtree(_state.store_dir, ignore_errors=True)
         _state.initialized = False
         _state.owns_group = False
+        from ..parallel import mesh   # its groups die with the process group
+
+        mesh._current = None
         _state.store_dir = None
         _state.device = None
 

@@ -10,7 +10,11 @@ ResNet family (see its docstring).
 is ``mlm_head`` where the LM's is ``lm_head``. flax kernels
 are (in, out), the transpose of ``nn.Linear.weight``; the qkv kernel
 (D, 3, H, Hd) keeps its (3, H, Hd) order when flattened, and the out
-kernel (H, Hd, D) flattens to (H*Hd, D). A missing or extra key raises.
+kernel (H, Hd, D) flattens to (H*Hd, D). A Switch-MoE block's router
+kernel (D, E) becomes the Linear weight (E, D), and its ``wi`` (E, D, F)
+and ``wo`` (E, F, D) are cut to this rank's ``E / ep`` experts by its ep
+index (``flax_to_torch(..., ep=, ep_rank=)``). A missing or extra key
+raises.
 
 ``zero_state_from_jax(state, rank, world)`` takes the JAX traced plane's
 global ``ZeroState`` and returns one rank's shard of it in the form
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from .resnet import BottleneckResNetBlock, ResNet, ResNetBlock
-from .transformer import TransformerConfig
+from .transformer import TransformerConfig, uses_moe
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -56,8 +60,15 @@ def _apply_plan(flat: Dict[str, np.ndarray], plan: Dict, what: str,
     return out
 
 
-def _transformer_to_torch(params: Mapping, cfg: TransformerConfig,
-                          head: str) -> Dict[str, torch.Tensor]:
+def _experts(ep: int, ep_rank: int, n_experts: int):
+    if n_experts % ep:
+        raise ValueError(f"n_experts={n_experts} must be divisible by ep={ep}")
+    per = n_experts // ep
+    return lambda a: a[ep_rank * per:(ep_rank + 1) * per]
+
+
+def _transformer_to_torch(params: Mapping, cfg: TransformerConfig, head: str,
+                          ep: int = 1, ep_rank: int = 0) -> Dict[str, torch.Tensor]:
     flat = _flatten(params)
     D = cfg.d_model
     HHd = cfg.n_heads * cfg.head_dim
@@ -80,6 +91,13 @@ def _transformer_to_torch(params: Mapping, cfg: TransformerConfig,
         plan[f"{src}/attn/out/kernel"] = (f"{dst}.attn.out.weight",
                                           lambda a: _dense(a, HHd))
         plan[f"{src}/attn/out/bias"] = (f"{dst}.attn.out.bias", None)
+        if uses_moe(cfg, i):
+            cut = _experts(ep, ep_rank, cfg.n_experts)
+            plan[f"{src}/moe/router/kernel"] = (f"{dst}.moe.router.weight",
+                                                lambda a: _dense(a, D))
+            plan[f"{src}/moe/wi"] = (f"{dst}.moe.wi", cut)
+            plan[f"{src}/moe/wo"] = (f"{dst}.moe.wo", cut)
+            continue
         for name, fan_in in (("wi", D), ("wo", cfg.d_ff)):
             plan[f"{src}/mlp/{name}/kernel"] = (
                 f"{dst}.mlp.{name}.weight", lambda a, n=fan_in: _dense(a, n))
@@ -88,8 +106,9 @@ def _transformer_to_torch(params: Mapping, cfg: TransformerConfig,
     return _apply_plan(flat, plan, "params", cfg.param_dtype)
 
 
-def flax_to_torch(params: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
-    return _transformer_to_torch(params, cfg, "lm_head")
+def flax_to_torch(params: Mapping, cfg: TransformerConfig, ep: int = 1,
+                  ep_rank: int = 0) -> Dict[str, torch.Tensor]:
+    return _transformer_to_torch(params, cfg, "lm_head", ep, ep_rank)
 
 
 def bert_flax_to_torch(params: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:

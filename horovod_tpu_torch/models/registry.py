@@ -22,7 +22,7 @@ from .transformer import BERT_CONFIGS, GPT2_CONFIGS, TransformerEncoder, Transfo
 @dataclasses.dataclass
 class ModelSpec:
     name: str
-    make_model: Callable[..., Any]     # (device=None, generator=None, **cfg overrides)
+    make_model: Callable[..., Any]     # (device=None, generator=None, [mesh=None,] **overrides)
     make_batch: Callable[..., Any]     # batch_size -> example inputs tuple
     kind: str                          # "image" | "lm" | "encoder"
 
@@ -59,9 +59,9 @@ def _token_batch(seq_len: int, vocab: int):
 
 
 def _transformer_factory(cls, cfg):
-    def make(device=None, generator=None, **overrides):
+    def make(device=None, generator=None, mesh=None, **overrides):
         c = dataclasses.replace(cfg, **overrides) if overrides else cfg
-        return cls(c, device=_resolve_device(device), generator=generator)
+        return cls(c, device=_resolve_device(device), generator=generator, mesh=mesh)
 
     return make
 

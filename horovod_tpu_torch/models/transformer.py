@@ -14,10 +14,39 @@ The numerics follow the flax model, so weights carried across with
 * logits are cast to ``logits_dtype`` (f32 by default; the training path
   opts into bf16).
 
-Attention is ``dense`` (the einsum path, scores materialised) or
-``flash`` (``ops/flash_attention.py``: the CUDA kernels on the card, their
-plain version on the CPU). Ring/Ulysses attention and the Switch MoE FFN
-are later slices and raise.
+Attention is ``dense`` (the einsum path, scores materialised), ``flash``
+(``ops/flash_attention.py``: the CUDA kernels on the card, their plain
+version on the CPU), or the sequence-parallel ``ring``
+(``parallel/ring.py``) and ``ulysses`` (``parallel/ulysses.py``, through
+flash with ``sp_use_flash``), which run dense attention when the model's
+mesh has no ``sp_axis`` or it has one member, as the JAX dispatch does
+(``horovod_tpu/models/transformer.py:185-188``).
+
+**The mesh.** A model built with ``mesh=`` (``parallel/mesh.py``) runs its
+part of the JAX model's logical computation on this rank, as GSPMD runs it
+there (``horovod_tpu/parallel/train.py`` cuts the batch over dp and, with
+``shard_seq``, the sequence over sp; tokens are replicated over ep):
+
+* with sp > 1 the inputs are this rank's sequence block; positions count
+  from its offset (``sp index · S_local``); ``dense`` and ``flash``
+  attention gather q, k, v and the mask along sp (backward: the
+  reduce-scatter), attend over the whole sequence and keep the local rows;
+* ``SwitchMoE`` (every ``moe_every``-th block when ``n_experts > 0``)
+  holds this rank's ``n_experts / ep`` experts. Capacity, the slot order
+  (a cumsum in global token order t = b·S + s) and the auxiliary loss are
+  over the global batch: each rank's slot offsets are an exclusive prefix
+  of the per-(row, expert) counts of every dp and sp rank (one all-gather
+  of B_local x E ints a layer). Tokens are scattered to (expert, slot) by
+  index (static shapes, no host sync: a token not dispatched here goes to
+  a row that is dropped) into this rank's (E_local, C, D) expert input,
+  which a SUM
+  all-reduce over (dp, sp) completes (its slots are disjoint); outputs are
+  gathered back by index, scaled by the gate, and a SUM all-reduce over ep
+  (identity backward) completes them. The tokens and the gate enter the
+  expert region through ``pvary`` over ep, whose backward sums there, so
+  the replicated parameters' gradients are equal on every ep rank.
+  ``dispatch_combine_einsum`` is the JAX one-hot formulation
+  (``:339-368``), the plain version the index form is held against.
 """
 from __future__ import annotations
 
@@ -29,7 +58,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import ops
+from ..common import basics
 from ..ops.flash_attention import flash_attention
+from ..parallel.collectives import all_gather, psum, pvary
+from ..parallel.mesh import Comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +79,16 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     causal: bool = True
+    # MoE: every `moe_every`-th block uses a Switch FFN with n_experts.
     n_experts: int = 0
+    moe_every: int = 2
+    capacity_factor: float = 1.25
     logits_dtype: torch.dtype = torch.float32
+    # "dense", "flash", or the sequence-parallel "ring" / "ulysses".
     attn_impl: str = "dense"
+    sp_axis: str = "sp"
+    # With attn_impl="ulysses": the per-head-group attention through flash.
+    sp_use_flash: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -107,13 +147,50 @@ def _dense_attention_masked(cfg: TransformerConfig, q, k, v, mask):
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(cfg.dtype), v)
 
 
-def _attention_dispatch(cfg: TransformerConfig, q, k, v, mask):
+ATTN_IMPLS = ("dense", "flash", "ring", "ulysses")
+
+
+def _sp_comm(cfg: TransformerConfig, mesh):
+    """The model's sp line, or None where the mesh has no such axis or it
+    has one member."""
+    if mesh is None or cfg.sp_axis not in mesh.axis_names \
+            or mesh.shape[cfg.sp_axis] == 1:
+        return None
+    return mesh.comm(cfg.sp_axis)
+
+
+def _local_attention(cfg: TransformerConfig, q, k, v, mask):
     if cfg.attn_impl == "flash":
         return flash_attention(q, k, v, mask, causal=cfg.causal).to(cfg.dtype)
-    if cfg.attn_impl == "dense":
-        return _dense_attention_masked(cfg, q, k, v, mask)
-    raise NotImplementedError(
-        f"attn_impl={cfg.attn_impl!r} is not ported yet (dense, flash)")
+    return _dense_attention_masked(cfg, q, k, v, mask)
+
+
+def _attention_dispatch(cfg: TransformerConfig, q, k, v, mask, mesh=None):
+    """Dense, flash, or the sequence-parallel kernels over the mesh's sp
+    line. Under sp, dense and flash attend over the gathered sequence and
+    keep this rank's rows, the logical result GSPMD gives; ring and
+    Ulysses without an sp line fall back to dense, as in JAX."""
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl={cfg.attn_impl!r}: one of {ATTN_IMPLS}")
+    comm = _sp_comm(cfg, mesh)
+    if comm is None:
+        if cfg.attn_impl in ("ring", "ulysses"):
+            return _dense_attention_masked(cfg, q, k, v, mask)
+        return _local_attention(cfg, q, k, v, mask)
+    if cfg.attn_impl == "ring":
+        from ..parallel.ring import ring_attention
+
+        return ring_attention(q, k, v, comm, causal=cfg.causal, mask=mask)
+    if cfg.attn_impl == "ulysses":
+        from ..parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, comm, causal=cfg.causal, mask=mask,
+                                 use_flash=cfg.sp_use_flash)
+    q, k, v = (all_gather(t, comm, dim=1, name="hvd.sp.all_gather") for t in (q, k, v))
+    if mask is not None:
+        mask = all_gather(mask.detach(), comm, dim=1, name="hvd.sp.all_gather")
+    out = _local_attention(cfg, q, k, v, mask)
+    return out.chunk(comm.size, dim=1)[comm.rank]
 
 
 class Dense(nn.Linear):
@@ -162,9 +239,10 @@ class MultiHeadAttention(nn.Module):
     kernel is; q, k, v are strided views of its output, which the flash
     kernels read in place."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         H, Hd = cfg.n_heads, cfg.head_dim
         self.qkv = Dense(cfg.d_model, 3 * H * Hd, cfg, device=device)
         self.out = Dense(H * Hd, cfg.d_model, cfg, device=device)
@@ -174,7 +252,7 @@ class MultiHeadAttention(nn.Module):
         B, S, _ = x.shape
         qkv = self.qkv(x).view(B, S, 3, cfg.n_heads, cfg.head_dim)
         q, k, v = qkv.unbind(dim=2)                        # (B, S, H, Hd)
-        ctx = _attention_dispatch(cfg, q, k, v, mask)
+        ctx = _attention_dispatch(cfg, q, k, v, mask, self.mesh)
         return self.out(ctx.reshape(B, S, cfg.n_heads * cfg.head_dim))
 
 
@@ -188,21 +266,170 @@ class MlpBlock(nn.Module):
         return self.wo(F.gelu(self.wi(x), approximate="tanh"))
 
 
-class TransformerBlock(nn.Module):
-    """Pre-LN block."""
+def _lines(mesh):
+    """The (dp, sp) line and the ep line of ``mesh`` (one-member lines for
+    absent axes), and the dp and sp sizes."""
+    if mesh is None:
+        if basics.is_initialized() and basics.size() > 1:
+            raise ValueError("SwitchMoE on a world of more than one rank needs the "
+                             "mesh (make_model(mesh=...)): capacity and the slot "
+                             "order are over the global batch")
+        one = Comm(None, 1, 0, (0,))
+        return one, one, 1, 1
+    present = lambda axes: tuple(a for a in axes if a in mesh.axis_names)  # noqa: E731
+    return (mesh.comm(present(("dp", "sp"))), mesh.comm(present(("ep",))),
+            mesh.shape.get("dp", 1), mesh.shape.get("sp", 1))
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+
+def dispatch_combine_einsum(tokens, expert_idx, gate, pos, keep, n_experts: int,
+                            capacity: int, experts, dtype):
+    """The JAX one-hot formulation (``horovod_tpu/models/transformer.py:
+    339-368``) on one rank's tokens: ``(expert_in, out)`` from the (T, E, C)
+    dispatch tensor, ``expert_in = einsum("td,tec->ecd")``, ``experts`` (a
+    function of the (E, C, D) expert input) and the combine einsum with the
+    gate in ``dtype``. The plain version ``SwitchMoE``'s index form is held
+    against."""
+    dispatch = (F.one_hot(expert_idx, n_experts).to(dtype)[:, :, None]
+                * F.one_hot(torch.where(keep, pos, capacity), capacity + 1)[:, :capacity]
+                .to(dtype)[:, None, :])
+    expert_in = torch.einsum("td,tec->ecd", tokens.to(dtype), dispatch)
+    expert_out = experts(expert_in)
+    combine = dispatch * gate.to(dtype)[:, None, None]
+    return expert_in, torch.einsum("ecd,tec->td", expert_out, combine)
+
+
+def dispatch_by_index(tokens, slots, n_local: int, capacity: int):
+    """This rank's (n_local, C, D) expert input: token t written to its flat
+    (expert, slot) index ``slots[t]``, zeros elsewhere. A token dispatched
+    to no slot here has ``slots[t] == n_local · C``, a row that is dropped.
+    No host sync: every shape is static."""
+    buf = tokens.new_zeros(n_local * capacity + 1, tokens.shape[-1])
+    return buf.index_copy(0, slots, tokens)[:-1].view(n_local, capacity, -1)
+
+
+def combine_by_index(expert_out, slots, gate):
+    """(T, D): token t's expert output at ``slots[t]`` times its gate in the
+    output dtype (one bf16 rounding, as the combine einsum's one non-zero
+    term); zeros for ``slots[t] == n_local · C``."""
+    flat = expert_out.reshape(-1, expert_out.shape[-1])
+    flat = torch.cat([flat, flat.new_zeros(1, flat.shape[-1])])
+    return flat.index_select(0, slots) * gate.to(expert_out.dtype)[:, None]
+
+
+class SwitchMoE(nn.Module):
+    """Switch-transformer top-1 MoE FFN with static capacity (counterpart of
+    ``horovod_tpu/models/transformer.py:307-375``), over this rank's
+    ``n_experts / ep`` experts; see the module docstring for the layout.
+    After each forward ``aux`` holds the load-balancing loss
+    ``E · Σ density · density_proxy`` over the global batch (what the JAX
+    block sows as ``moe_aux``) and ``dropped`` the global count of tokens
+    past capacity (a 0-d int64 tensor)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
-        if cfg.n_experts:
-            raise NotImplementedError("the Switch MoE FFN is not ported yet")
+        E = cfg.n_experts
+        self.cfg, self.mesh = cfg, mesh
+        self.data, self.ep, self.dp, self.sp = _lines(mesh)
+        if E % self.ep.size:
+            raise ValueError(f"n_experts={E} must be divisible by ep={self.ep.size}")
+        self.n_local = E // self.ep.size
+        self.first = self.ep.rank * self.n_local
+        self.router = Dense(cfg.d_model, E, cfg, bias=False, device=device)
+        self.wi = nn.Parameter(torch.empty(self.n_local, cfg.d_model, cfg.d_ff,
+                                           dtype=cfg.param_dtype, device=device))
+        self.wo = nn.Parameter(torch.empty(self.n_local, cfg.d_ff, cfg.d_model,
+                                           dtype=cfg.param_dtype, device=device))
+        for p in (self.wi, self.wo):
+            p.expert_parallel = (self.first, E)   # this rank's slice of E experts
+        self.aux = None
+        self.dropped = None
+
+    def experts(self, expert_in):
+        dt = self.cfg.dtype
+        h = torch.einsum("ecd,edf->ecf", expert_in, self.wi.to(dt))
+        h = F.gelu(h, approximate="tanh")
+        return torch.einsum("ecf,efd->ecd", h, self.wo.to(dt))
+
+    def route(self, x):
+        """Router, top-1 choice, global slot positions: (tokens, probs,
+        expert_idx, gate, pos, keep, capacity, per-expert global counts,
+        the global batch's token count)."""
+        cfg = self.cfg
+        dp, sp = self.dp, self.sp
+        Bl, Sl, D = x.shape
+        E = cfg.n_experts
+        T = Bl * dp * Sl * sp
+        C = max(1, int(cfg.capacity_factor * T / E))
+        tokens = x.reshape(Bl * Sl, D)
+        with ops.span("hvd.moe.router"):
+            probs = torch.softmax(self.router(tokens).float(), dim=-1)
+            expert_idx = probs.argmax(dim=-1)
+            gate = probs.gather(-1, expert_idx[:, None])[:, 0]
+            # A comparison, not F.one_hot, whose range check syncs the host.
+            onehot = (expert_idx[:, None] == torch.arange(E, device=x.device)).long()
+            onehot = onehot.view(Bl, Sl, E)
+            counts = onehot.sum(dim=1)                              # (Bl, E)
+            # Every (dp, sp) rank's counts, (dp, sp, Bl, E) in line order,
+            # as (global row, sp block) rows: a slot's offset is the
+            # exclusive prefix over the rows before this rank's.
+            every = all_gather(counts[None], self.data, dim=0, name="hvd.moe.all_gather")
+            every = every.view(dp, sp, Bl, E).transpose(1, 2).reshape(dp * Bl * sp, E)
+            d, s = divmod(self.data.rank, sp)
+            rows = (d * Bl + torch.arange(Bl, device=x.device)) * sp + s
+            offset = (every.cumsum(dim=0) - every)[rows]
+            total = every.sum(dim=0)
+            within = (onehot.cumsum(dim=1) * onehot).sum(dim=-1) - 1     # (Bl, Sl)
+            pos = (offset.gather(1, expert_idx.view(Bl, Sl)) + within).reshape(-1)
+            keep = pos < C
+        return tokens, probs, expert_idx, gate, pos, keep, C, total, T
+
+    def forward(self, x):
+        cfg = self.cfg
+        tokens, probs, expert_idx, gate, pos, keep, C, total, T = self.route(x)
+        # The load-balancing loss over the global batch (Switch eq. 4).
+        density = total.float() / T
+        proxy = psum(probs.sum(dim=0), self.data, name="hvd.moe.psum")
+        self.aux = cfg.n_experts * torch.sum(density * (proxy / T))
+        self.dropped = (total - C).clamp_min(0).sum()
+        tok = pvary(tokens.to(cfg.dtype), self.ep, name="hvd.ep.pvary")
+        g = pvary(gate, self.ep, name="hvd.ep.pvary")
+        sel = keep & (expert_idx >= self.first) & (expert_idx < self.first + self.n_local)
+        slots = torch.where(sel, (expert_idx - self.first) * C + pos, self.n_local * C)
+        with ops.span("hvd.moe.dispatch"):
+            expert_in = psum(dispatch_by_index(tok, slots, self.n_local, C), self.data,
+                             name="hvd.moe.psum")
+        with ops.span("hvd.moe.experts"):
+            expert_out = self.experts(expert_in)
+        with ops.span("hvd.moe.combine"):
+            out = psum(combine_by_index(expert_out, slots, g), self.ep, grad="identity",
+                       name="hvd.ep.psum")
+        return out.view(x.shape)
+
+
+def uses_moe(cfg: TransformerConfig, i: int) -> bool:
+    """Whether block ``i`` takes the Switch FFN (the JAX stack's rule)."""
+    return cfg.n_experts > 0 and cfg.moe_every > 0 and i % cfg.moe_every == cfg.moe_every - 1
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN block; ``use_moe`` swaps the FFN for ``SwitchMoE`` (named
+    ``moe``, as in the flax tree)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, use_moe: bool = False,
+                 mesh=None):
+        super().__init__()
         self.ln1 = LayerNorm(cfg.d_model, cfg, device=device)
-        self.attn = MultiHeadAttention(cfg, device=device)
+        self.attn = MultiHeadAttention(cfg, device=device, mesh=mesh)
         self.ln2 = LayerNorm(cfg.d_model, cfg, device=device)
-        self.mlp = MlpBlock(cfg, device=device)
+        if use_moe:
+            self.moe = SwitchMoE(cfg, device=device, mesh=mesh)
+        else:
+            self.mlp = MlpBlock(cfg, device=device)
+        self.ffn_name = "moe" if use_moe else "mlp"
 
     def forward(self, x, mask=None):
         h = x + self.attn(self.ln1(x), mask)
-        return h + self.mlp(self.ln2(h))
+        return h + getattr(self, self.ffn_name)(self.ln2(h))
 
 
 class Embedder(nn.Module):
@@ -214,16 +441,20 @@ class Embedder(nn.Module):
         self.pos_embedding = nn.Parameter(torch.empty(
             cfg.max_len, cfg.d_model, dtype=cfg.param_dtype, device=device))
 
-    def forward(self, ids):
+    def forward(self, ids, offset: int = 0):
+        """``offset``: the global position of ``ids``' first column (a
+        sequence-parallel rank's block starts at ``sp index · S_local``)."""
         x = F.embedding(ids, self.embedding).to(self.dtype)
-        return x + self.pos_embedding[: ids.shape[1]].to(self.dtype)[None]
+        pos = self.pos_embedding[offset: offset + ids.shape[1]]
+        return x + pos.to(self.dtype)[None]
 
 
 class TransformerStack(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerBlock(cfg, device=device) for _ in range(cfg.n_layers))
+            TransformerBlock(cfg, device=device, use_moe=uses_moe(cfg, i), mesh=mesh)
+            for i in range(cfg.n_layers))
 
     def forward(self, x, mask=None):
         for layer in self.layers:
@@ -234,16 +465,20 @@ class TransformerStack(nn.Module):
 class _Transformer(nn.Module):
     """Embedder, pre-LN stack, final LayerNorm and a bias-free vocabulary
     head named ``HEAD``. ``forward(ids, mask=None)`` returns (B, S, vocab)
-    logits in ``cfg.logits_dtype``."""
+    logits in ``cfg.logits_dtype``; with a mesh of sp > 1, ``ids`` and
+    ``mask`` are this rank's sequence block and so are the logits.
+    ``moe_aux_loss()`` sums the MoE blocks' auxiliary losses of the last
+    forward, ``moe_dropped()`` their dropped-token counts."""
 
     HEAD = ""
 
     def __init__(self, cfg: TransformerConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         self.embed = Embedder(cfg, device=device)
-        self.stack = TransformerStack(cfg, device=device)
+        self.stack = TransformerStack(cfg, device=device, mesh=mesh)
         self.ln_f = LayerNorm(cfg.d_model, cfg, device=device)
         self.add_module(self.HEAD, Dense(cfg.d_model, cfg.vocab_size, cfg,
                                          bias=False, device=device))
@@ -259,11 +494,32 @@ class _Transformer(nn.Module):
                 p.zero_()
             elif ".ln" in name or name.startswith("ln_f"):
                 p.fill_(1.0)
+            elif hasattr(p, "expert_parallel"):
+                # Draw all E experts and keep this rank's, so that every ep
+                # layout of one seed holds the same experts.
+                first, E = p.expert_parallel
+                full = torch.empty((E, *p.shape[1:]), dtype=p.dtype, device=p.device)
+                p.copy_(full.normal_(0.0, INIT_STD, generator=generator)
+                        [first: first + p.shape[0]])
             else:
                 p.normal_(0.0, INIT_STD, generator=generator)
 
+    def seq_offset(self, s_local: int) -> int:
+        comm = _sp_comm(self.cfg, self.mesh)
+        return 0 if comm is None else comm.rank * s_local
+
+    def moe_blocks(self):
+        return [layer.moe for layer in self.stack.layers if hasattr(layer, "moe")]
+
+    def moe_aux_loss(self):
+        blocks = self.moe_blocks()
+        return sum(b.aux for b in blocks) if blocks else None
+
+    def moe_dropped(self):
+        return [b.dropped for b in self.moe_blocks()]
+
     def forward(self, ids, mask=None):
-        x = self.embed(ids)
+        x = self.embed(ids, self.seq_offset(ids.shape[1]))
         x = self.stack(x, mask)
         x = self.ln_f(x)
         return getattr(self, self.HEAD)(x).to(self.cfg.logits_dtype)
@@ -282,6 +538,6 @@ class TransformerEncoder(_Transformer):
     HEAD = "mlm_head"
 
     def __init__(self, cfg: TransformerConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__(dataclasses.replace(cfg, causal=False), device=device,
-                         generator=generator)
+                         generator=generator, mesh=mesh)

@@ -13,9 +13,15 @@ where the JAX traced all-reduce takes it. ADASUM combines the ranks'
 tensors by ``ops/adasum.py``.
 
 The entry points take the JAX package's keywords: ``op=`` or the legacy
-``average=`` (both at once raise ``ValueError``), and ``name=``, which
-names the collective in errors (``torch.distributed`` negotiates nothing
-by name, so it keys no cache here).
+``average=`` (both at once raise ``ValueError``), ``name=``, which names
+the collective in errors (``torch.distributed`` negotiates nothing by
+name, so it keys no cache here), and ``axis_name=``: one mesh axis or a
+tuple of them (``parallel/mesh.py``), the collective then runs over this
+rank's line along them, as the JAX traced collectives run over the named
+axes (``resolve_axis``, ``horovod_tpu/ops/__init__.py:92-140``). None is
+the axis a ``wrap_step`` body binds, else the world. Ranks, sizes and
+``root_rank`` are then indices along the line; AVERAGE divides by the
+line's size. A line of one rank runs no collective.
 
 Before every collective the ranks exchange a small header (two int64
 all-gathers: the collective, dtype, reduce op, pre/postscale factors,
@@ -51,6 +57,7 @@ from ..common import basics
 from ..common.async_handles import HandleTable
 from ..common.exceptions import HorovodInternalError
 from ..common.types import ReduceOp
+from ..parallel.mesh import Comm, resolve_comm, world_comm
 from . import wire
 
 _DIST_OPS = {
@@ -137,32 +144,35 @@ _FIELDS = [  # (name, how a value reads in the error)
 ]
 
 
-def _gather_rows(row: List[int]) -> List[List[int]]:
-    """Every rank's ``row`` (equal lengths), through the rank's device."""
+def _gather_rows(row: List[int], comm: Comm) -> List[List[int]]:
+    """Every member's ``row`` (equal lengths), through the rank's device."""
     t = torch.tensor(row, dtype=torch.int64, device=basics.device())
-    parts = [torch.empty_like(t) for _ in range(basics.size())]
-    dist.all_gather(parts, t)
+    parts = [torch.empty_like(t) for _ in range(comm.size)]
+    dist.all_gather(parts, t, group=comm.group)
     return torch.stack(parts).tolist()
 
 
 def _exchange_header(label: str, kind: str, dtype: torch.dtype,
                      shape: Sequence[int], op: Optional[ReduceOp] = None,
                      prescale: float = 1.0, postscale: float = 1.0,
-                     root: int = -1, extra: Sequence[int] = ()
+                     root: int = -1, extra: Sequence[int] = (),
+                     comm: Optional[Comm] = None
                      ) -> List[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
     """Every rank's ``(shape, extra)``, after checking that the collective,
     dtype, op, scale factors, root and the lengths of shape and extra
     agree; a disagreement raises ``HorovodInternalError`` naming the op and
     both values. Comparing shapes and extras is the caller's (what may
-    differ depends on the collective)."""
+    differ depends on the collective). Runs over ``comm`` (the world by
+    default); ranks in errors are indices along it."""
+    comm = comm or world_comm()
     if dtype not in _DTYPES:
         raise TypeError(f"{label}: dtype {dtype} is not supported")
     shape, extra = tuple(int(d) for d in shape), tuple(int(e) for e in extra)
-    if basics.size() == 1:
+    if comm.size == 1:
         return [(shape, extra)]
     head = [_KINDS.index(kind), _DTYPES.index(dtype), -1 if op is None else int(op),
             _bits(prescale), _bits(postscale), root, len(shape), len(extra)]
-    heads = _gather_rows(head)
+    heads = _gather_rows(head, comm)
     for r, row in enumerate(heads):
         for i, (field, show) in enumerate(_FIELDS):
             if row[i] != heads[0][i]:
@@ -170,9 +180,9 @@ def _exchange_header(label: str, kind: str, dtype: torch.dtype,
                     f"{label}: {field} mismatch, rank 0 has {show(heads[0][i])}, "
                     f"rank {r} has {show(row[i])}")
     if not shape and not extra:
-        return [((), ())] * basics.size()
+        return [((), ())] * comm.size
     return [(tuple(row[:len(shape)]), tuple(row[len(shape):]))
-            for row in _gather_rows([*shape, *extra])]
+            for row in _gather_rows([*shape, *extra], comm)]
 
 
 def _check_same_shape(label: str, shapes) -> None:
@@ -194,85 +204,93 @@ def _check_trailing_dims(label: str, shapes) -> None:
 # ---------------------------------------------------------------------------
 # allreduce
 def _reduce_launch(x: torch.Tensor, op: ReduceOp, postscale_factor: float,
-                   out_dtype: torch.dtype, async_op: bool):
-    """Launch the all-reduce of ``x``, already prescaled and the caller's
-    to give away (it may be reduced in place); returns ``(work, finish)``.
-    SUM and AVERAGE of f32 take the wire cast ``wire.py`` selects."""
+                   out_dtype: torch.dtype, async_op: bool, comm: Optional[Comm] = None):
+    """Launch the all-reduce of ``x`` over ``comm`` (the world by default),
+    already prescaled and the caller's to give away (it may be reduced in
+    place); returns ``(work, finish)``. SUM and AVERAGE of f32 take the
+    wire cast ``wire.py`` selects."""
+    comm = comm or world_comm()
     if wire.int8_enabled(x, op):
-        work, raw = wire.int8_allreduce_launch(x, async_op)
+        work, raw = wire.int8_allreduce_launch(x, async_op, comm)
     else:
         dt = wire.wire_dtype(x, op)
         # bool reduces as uint8 (SUM and MAX are a logical or, MIN an and).
         buf = x.to(dt) if dt is not None else (
             x.to(torch.uint8) if x.dtype == torch.bool else x)
-        work = dist.all_reduce(buf, op=_DIST_OPS[op], async_op=async_op)
+        work = None if comm.trivial else dist.all_reduce(
+            buf, op=_DIST_OPS[op], group=comm.group, async_op=async_op)
         raw = (lambda: buf.to(x.dtype)) if dt is not None else (lambda: buf)
 
     def finish():
         out = raw()
         if op == ReduceOp.AVERAGE:
-            out = _scale(out, 1.0 / basics.size())
+            out = _scale(out, 1.0 / comm.size)
         return _scale(out, postscale_factor).to(out_dtype)
 
     return work, finish
 
 
 def _allreduce_launch(tensor: torch.Tensor, op: ReduceOp, prescale_factor: float,
-                      postscale_factor: float, async_op: bool, owned: bool = False):
+                      postscale_factor: float, async_op: bool, owned: bool = False,
+                      comm: Optional[Comm] = None):
     """The all-reduce without the header; ``owned`` says ``tensor`` may be
     overwritten. Adasum runs its rounds at once (no ``async`` form)."""
     x = _scale(tensor, prescale_factor)
     if op == ReduceOp.ADASUM:
         from .adasum import adasum_allreduce
 
-        out = _scale(adasum_allreduce(x), postscale_factor)
+        out = _scale(adasum_allreduce(x, comm), postscale_factor)
         return None, lambda: out
     if x is tensor and not owned:
         x = x.clone()
-    return _reduce_launch(x, op, postscale_factor, tensor.dtype, async_op)
+    return _reduce_launch(x, op, postscale_factor, tensor.dtype, async_op, comm)
 
 
 def _allreduce(tensor: torch.Tensor, op: ReduceOp, prescale_factor: float = 1.0,
-               postscale_factor: float = 1.0) -> torch.Tensor:
+               postscale_factor: float = 1.0, comm: Optional[Comm] = None) -> torch.Tensor:
     """All-reduce without the header exchange, for the port's own hot
     callers, whose ranks agree by construction."""
-    return _allreduce_launch(tensor, op, prescale_factor, postscale_factor, False)[1]()
+    return _allreduce_launch(tensor, op, prescale_factor, postscale_factor, False,
+                             comm=comm)[1]()
 
 
 def _check_allreduce(label: str, tensor: torch.Tensor, op: ReduceOp,
-                     prescale_factor: float, postscale_factor: float) -> None:
+                     prescale_factor: float, postscale_factor: float, comm: Comm) -> None:
     _check_device(tensor, label)
     _check_same_shape(label, _exchange_header(
         label, "allreduce", tensor.dtype, tensor.shape, op, prescale_factor,
-        postscale_factor))
+        postscale_factor, comm=comm))
 
 
 def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
               name: Optional[str] = None, op: Optional[ReduceOp] = None,
               prescale_factor: float = 1.0,
-              postscale_factor: float = 1.0) -> torch.Tensor:
+              postscale_factor: float = 1.0, axis_name=None) -> torch.Tensor:
     """All-reduce across ranks; returns a new tensor, the input is kept."""
     rop = _resolve_op(op, average)
+    comm = resolve_comm(axis_name)
     _check_allreduce(_label("allreduce", name), tensor, rop, prescale_factor,
-                     postscale_factor)
-    return _allreduce(tensor, rop, prescale_factor, postscale_factor)
+                     postscale_factor, comm)
+    return _allreduce(tensor, rop, prescale_factor, postscale_factor, comm)
 
 
 def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
                     name: Optional[str] = None, op: Optional[ReduceOp] = None,
                     prescale_factor: float = 1.0,
-                    postscale_factor: float = 1.0) -> int:
+                    postscale_factor: float = 1.0, axis_name=None) -> int:
     """(ref: horovod/torch/mpi_ops.py:117-161)"""
     rop = _resolve_op(op, average)
+    comm = resolve_comm(axis_name)
     _check_allreduce(_label("allreduce_async", name), tensor, rop, prescale_factor,
-                     postscale_factor)
+                     postscale_factor, comm)
     return _handles.put(*_allreduce_launch(tensor, rop, prescale_factor,
-                                           postscale_factor, True))
+                                           postscale_factor, True, comm=comm))
 
 
 def _grouped_allreduce(tensors: Sequence[torch.Tensor], op: ReduceOp,
                        prescale_factor: float = 1.0,
-                       postscale_factor: float = 1.0) -> List[torch.Tensor]:
+                       postscale_factor: float = 1.0,
+                       comm: Optional[Comm] = None) -> List[torch.Tensor]:
     """The grouped all-reduce without the header."""
     widest = tensors[0].dtype
     for t in tensors[1:]:
@@ -280,7 +298,7 @@ def _grouped_allreduce(tensors: Sequence[torch.Tensor], op: ReduceOp,
     with span("hvd.flatten"):
         flat = torch.cat([t.reshape(-1).to(widest) for t in tensors])
     red = _allreduce_launch(flat, op, prescale_factor, postscale_factor, False,
-                            owned=True)[1]()
+                            owned=True, comm=comm)[1]()
     out, off = [], 0
     with span("hvd.unflatten"):
         for t in tensors:
@@ -294,7 +312,7 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
                       average: Optional[bool] = None, name: Optional[str] = None,
                       op: Optional[ReduceOp] = None,
                       prescale_factor: float = 1.0,
-                      postscale_factor: float = 1.0) -> List[torch.Tensor]:
+                      postscale_factor: float = 1.0, axis_name=None) -> List[torch.Tensor]:
     """Fused all-reduce of a list: flatten into one buffer of the widest
     dtype, one collective, split back (ref: the fusion buffer,
     controller.cc:686-809; ``ops/traced.py`` grouped_allreduce). The ranks
@@ -303,6 +321,7 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
     if not tensors:
         return []
     label = _label("grouped_allreduce", name)
+    comm = resolve_comm(axis_name)
     for t in tensors:
         _check_device(t, label)
     widest = tensors[0].dtype
@@ -310,30 +329,35 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
         widest = torch.promote_types(widest, t.dtype)
     sizes = [t.numel() for t in tensors]
     heads = _exchange_header(label, "grouped_allreduce", widest, (sum(sizes),), rop,
-                             prescale_factor, postscale_factor, extra=sizes)
+                             prescale_factor, postscale_factor, extra=sizes, comm=comm)
     for r, (_, counts) in enumerate(heads):
         if counts != heads[0][1]:
             raise HorovodInternalError(
                 f"{label}: tensor sizes mismatch, rank 0 has {list(heads[0][1])}, "
                 f"rank {r} has {list(counts)}")
-    return _grouped_allreduce(tensors, rop, prescale_factor, postscale_factor)
+    return _grouped_allreduce(tensors, rop, prescale_factor, postscale_factor, comm)
 
 
 # ---------------------------------------------------------------------------
 # allgather
-def _allgather_launch(tensor: torch.Tensor, name: Optional[str], async_op: bool):
+def _allgather_launch(tensor: torch.Tensor, name: Optional[str], async_op: bool,
+                      axis_name=None):
     label = _label("allgather", name)
     _check_device(tensor, label)
+    comm = resolve_comm(axis_name)
     x = tensor.reshape(1) if tensor.dim() == 0 else tensor
-    shapes = _exchange_header(label, "allgather", x.dtype, x.shape)
+    shapes = _exchange_header(label, "allgather", x.dtype, x.shape, comm=comm)
     _check_trailing_dims(label, shapes)
     rows = [shape[0] for shape, _ in shapes]
     longest = max(rows)
     buf = _wire(x).contiguous()
     if x.shape[0] < longest:
         buf = torch.cat([buf, buf.new_zeros(longest - x.shape[0], *x.shape[1:])])
-    parts = [torch.empty_like(buf) for _ in rows]
-    work = dist.all_gather(parts, buf, async_op=async_op)
+    if comm.trivial:
+        parts, work = [buf], None
+    else:
+        parts = [torch.empty_like(buf) for _ in rows]
+        work = dist.all_gather(parts, buf, group=comm.group, async_op=async_op)
 
     def finish():
         out = torch.cat([p[:r] for p, r in zip(parts, rows)])
@@ -342,59 +366,72 @@ def _allgather_launch(tensor: torch.Tensor, name: Optional[str], async_op: bool)
     return work, finish
 
 
-def allgather(tensor: torch.Tensor, name: Optional[str] = None) -> torch.Tensor:
+def allgather(tensor: torch.Tensor, name: Optional[str] = None,
+              axis_name=None) -> torch.Tensor:
     """Concatenate the ranks' tensors along dim 0, in rank order; the first
     dims may differ, a 0-d tensor counts as shape (1,)
     (ref: collective_operations.h:148-185)."""
-    return _allgather_launch(tensor, name, False)[1]()
+    return _allgather_launch(tensor, name, False, axis_name)[1]()
 
 
-def allgather_async(tensor: torch.Tensor, name: Optional[str] = None) -> int:
-    return _handles.put(*_allgather_launch(tensor, name, True))
+def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
+                    axis_name=None) -> int:
+    return _handles.put(*_allgather_launch(tensor, name, True, axis_name))
 
 
 # ---------------------------------------------------------------------------
 # broadcast
-def _check_broadcast(label: str, tensor: torch.Tensor, root_rank: int) -> None:
+def _check_broadcast(label: str, tensor: torch.Tensor, root_rank: int,
+                     comm: Comm) -> int:
+    """The root's global rank, after the header check."""
     _check_device(tensor, label)
+    if not 0 <= root_rank < comm.size:
+        raise ValueError(f"{label}: root_rank {root_rank} outside a line of {comm.size}")
     _check_same_shape(label, _exchange_header(label, "broadcast", tensor.dtype,
-                                              tensor.shape, root=root_rank))
+                                              tensor.shape, root=root_rank, comm=comm))
+    return comm.ranks[root_rank]
 
 
 def _broadcast_launch(tensor: torch.Tensor, root_rank: int, name: Optional[str],
-                      async_op: bool):
-    _check_broadcast(_label("broadcast", name), tensor, root_rank)
+                      async_op: bool, axis_name=None):
+    comm = resolve_comm(axis_name)
+    src = _check_broadcast(_label("broadcast", name), tensor, root_rank, comm)
     out = tensor.clone()
-    work = dist.broadcast(_wire(out), src=root_rank, async_op=async_op)
+    work = None if comm.trivial else dist.broadcast(
+        _wire(out), src=src, group=comm.group, async_op=async_op)
     return work, lambda: out
 
 
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,
-              name: Optional[str] = None) -> torch.Tensor:
-    """A copy of root's tensor on every rank."""
-    return _broadcast_launch(tensor, root_rank, name, False)[1]()
+              name: Optional[str] = None, axis_name=None) -> torch.Tensor:
+    """A copy of root's tensor on every rank (``root_rank`` an index along
+    ``axis_name``'s line)."""
+    return _broadcast_launch(tensor, root_rank, name, False, axis_name)[1]()
 
 
 def broadcast_async(tensor: torch.Tensor, root_rank: int = 0,
-                    name: Optional[str] = None) -> int:
-    return _handles.put(*_broadcast_launch(tensor, root_rank, name, True))
+                    name: Optional[str] = None, axis_name=None) -> int:
+    return _handles.put(*_broadcast_launch(tensor, root_rank, name, True, axis_name))
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
-               name: Optional[str] = None) -> torch.Tensor:
+               name: Optional[str] = None, axis_name=None) -> torch.Tensor:
     """In-place broadcast from root."""
-    _check_broadcast(_label("broadcast_", name), tensor, root_rank)
-    dist.broadcast(_wire(tensor), src=root_rank)
+    comm = resolve_comm(axis_name)
+    src = _check_broadcast(_label("broadcast_", name), tensor, root_rank, comm)
+    if not comm.trivial:
+        dist.broadcast(_wire(tensor), src=src, group=comm.group)
     return tensor
 
 
 # ---------------------------------------------------------------------------
 # alltoall
 def _alltoall_launch(tensor: torch.Tensor, splits: Optional[Sequence[int]],
-                     name: Optional[str], async_op: bool):
+                     name: Optional[str], async_op: bool, axis_name=None):
     label = _label("alltoall", name)
     _check_device(tensor, label)
-    n, r = basics.size(), basics.rank()
+    comm = resolve_comm(axis_name)
+    n, r = comm.size, comm.rank
     if tensor.dim() == 0:
         raise ValueError(f"{label}: needs a tensor of at least one dim")
     if splits is None:
@@ -407,13 +444,17 @@ def _alltoall_launch(tensor: torch.Tensor, splits: Optional[Sequence[int]],
         raise ValueError(f"{label}: splits {splits} must be {n} counts that sum "
                          f"to dim 0 ({tensor.shape[0]})")
     shapes = _exchange_header(label, "alltoall", tensor.dtype, tensor.shape,
-                              extra=splits)
+                              extra=splits, comm=comm)
     _check_trailing_dims(label, shapes)
     recv = [extra[r] for _, extra in shapes]
     buf = _wire(tensor).contiguous()
-    out = buf.new_empty(sum(recv), *tensor.shape[1:])
-    work = dist.all_to_all_single(out, buf, output_split_sizes=recv,
-                                  input_split_sizes=splits, async_op=async_op)
+    if comm.trivial:
+        out, work = buf.clone(), None
+    else:
+        out = buf.new_empty(sum(recv), *tensor.shape[1:])
+        work = dist.all_to_all_single(out, buf, output_split_sizes=recv,
+                                      input_split_sizes=splits, group=comm.group,
+                                      async_op=async_op)
 
     def finish():
         res = out.view(torch.bool) if tensor.dtype == torch.bool else out
@@ -423,34 +464,38 @@ def _alltoall_launch(tensor: torch.Tensor, splits: Optional[Sequence[int]],
 
 
 def alltoall(tensor: torch.Tensor, splits: Optional[Sequence[int]] = None,
-             name: Optional[str] = None) -> Tuple[torch.Tensor, List[int]]:
+             name: Optional[str] = None, axis_name=None) -> Tuple[torch.Tensor, List[int]]:
     """Send ``splits[p]`` rows of dim 0 to rank p (in order), receive the
     peers' rows in rank order; returns ``(output, recv_splits)``. Without
     ``splits`` each peer gets ``shape[0] // size`` rows
     (ref: operations.cc:979-1042)."""
-    return _alltoall_launch(tensor, splits, name, False)[1]()
+    return _alltoall_launch(tensor, splits, name, False, axis_name)[1]()
 
 
 def alltoall_async(tensor: torch.Tensor, splits: Optional[Sequence[int]] = None,
-                   name: Optional[str] = None) -> int:
-    return _handles.put(*_alltoall_launch(tensor, splits, name, True))
+                   name: Optional[str] = None, axis_name=None) -> int:
+    return _handles.put(*_alltoall_launch(tensor, splits, name, True, axis_name))
 
 
 # ---------------------------------------------------------------------------
 # reducescatter
-def _reducescatter(tensor: torch.Tensor, op: ReduceOp) -> torch.Tensor:
+def _reducescatter(tensor: torch.Tensor, op: ReduceOp,
+                   comm: Optional[Comm] = None) -> torch.Tensor:
     """This rank's ``shape[0] // size`` rows of the reduction, in the
     tensor's own dtype (no wire cast, as the JAX traced reducescatter)."""
-    n, r = basics.size(), basics.rank()
+    comm = comm or world_comm()
+    n, r = comm.size, comm.rank
     per = tensor.shape[0] // n
     x = tensor[:n * per].contiguous()
     buf = x.to(torch.uint8) if x.dtype == torch.bool else x
-    if dist.get_backend() == "nccl":
+    if comm.trivial:
+        out = buf.clone()
+    elif dist.get_backend() == "nccl":
         out = buf.new_empty(per, *x.shape[1:])
-        dist.reduce_scatter_tensor(out, buf, op=_DIST_OPS[op])
+        dist.reduce_scatter_tensor(out, buf, op=_DIST_OPS[op], group=comm.group)
     else:
         buf = buf.clone()   # x may be a view of the caller's tensor
-        dist.all_reduce(buf, op=_DIST_OPS[op])
+        dist.all_reduce(buf, op=_DIST_OPS[op], group=comm.group)
         out = buf[r * per:(r + 1) * per]
     if op == ReduceOp.AVERAGE:
         out = _scale(out, 1.0 / n)
@@ -458,7 +503,7 @@ def _reducescatter(tensor: torch.Tensor, op: ReduceOp) -> torch.Tensor:
 
 
 def reducescatter(tensor: torch.Tensor, op: Optional[ReduceOp] = None,
-                  name: Optional[str] = None) -> torch.Tensor:
+                  name: Optional[str] = None, axis_name=None) -> torch.Tensor:
     """Reduce across ranks (SUM unless ``op`` says otherwise) and keep this
     rank's ``shape[0] // size`` rows of dim 0; rows past ``size * per`` are
     dropped, as the JAX eager path drops them. NCCL reduce-scatters those
@@ -469,7 +514,7 @@ def reducescatter(tensor: torch.Tensor, op: Optional[ReduceOp] = None,
     _check_device(tensor, label)
     if tensor.dim() == 0:
         raise ValueError(f"{label}: needs a tensor of at least one dim")
-    return _reducescatter(tensor, rop)
+    return _reducescatter(tensor, rop, resolve_comm(axis_name))
 
 
 # ---------------------------------------------------------------------------

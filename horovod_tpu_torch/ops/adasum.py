@@ -40,10 +40,14 @@ def _combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ca * af + cb * bf).reshape(a.shape).to(a.dtype)
 
 
-def adasum_allreduce(tensor: torch.Tensor) -> torch.Tensor:
-    """Adasum of the ranks' ``tensor`` over the world (the dp group); the
-    world size must be a power of two. Returns a new tensor."""
-    n, r = basics.size(), basics.rank()
+def adasum_allreduce(tensor: torch.Tensor, comm=None) -> torch.Tensor:
+    """Adasum of the ranks' ``tensor`` over the world (the dp group), or
+    over the members of ``comm`` (``parallel/mesh.py``); their number must
+    be a power of two. Returns a new tensor."""
+    if comm is None:
+        n, r, ranks = basics.size(), basics.rank(), None
+    else:
+        n, r, ranks = comm.size, comm.rank, comm.ranks
     if n & (n - 1):
         raise ValueError(f"Adasum requires a power-of-2 world size, got {n} "
                          "(ref: horovod/torch/mpi_ops.py:93-113)")
@@ -52,7 +56,7 @@ def adasum_allreduce(tensor: torch.Tensor) -> torch.Tensor:
     x = tensor.contiguous()
     for k in range(int(math.log2(n))):
         stride = 1 << k
-        peer = r ^ stride
+        peer = r ^ stride if ranks is None else ranks[r ^ stride]
         recv = torch.empty_like(x)
         for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer),
                                            dist.P2POp(dist.irecv, recv, peer)]):

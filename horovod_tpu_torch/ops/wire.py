@@ -74,31 +74,34 @@ class Works:
         return all(w.is_completed() for w in self._works)
 
 
-def all_gather_launch(x: torch.Tensor, async_op: bool
+def all_gather_launch(x: torch.Tensor, async_op: bool, comm=None
                       ) -> Tuple[Optional[object], Callable[[], torch.Tensor]]:
-    """Launch the all-gather of equal-shaped ``x`` from every rank; returns
-    ``(work, finish)`` where ``finish()`` gives the ``(size, *x.shape)``
-    stack in rank order. NCCL gathers into one tensor; the list form is
-    the one every backend has."""
-    n = basics.size()
+    """Launch the all-gather of equal-shaped ``x`` from every member of
+    ``comm`` (the world by default); returns ``(work, finish)`` where
+    ``finish()`` gives the ``(size, *x.shape)`` stack in rank order. NCCL
+    gathers into one tensor; the list form is the one every backend has."""
+    group = None if comm is None else comm.group
+    n = basics.size() if comm is None else comm.size
     x = x.contiguous()
+    if comm is not None and comm.trivial:
+        return None, lambda: x[None]
     if dist.get_backend() == "nccl":
         out = x.new_empty((n, *x.shape))
-        work = dist.all_gather_into_tensor(out, x, async_op=async_op)
+        work = dist.all_gather_into_tensor(out, x, group=group, async_op=async_op)
         return work, lambda: out
     parts: List[torch.Tensor] = [torch.empty_like(x) for _ in range(n)]
-    work = dist.all_gather(parts, x, async_op=async_op)
+    work = dist.all_gather(parts, x, group=group, async_op=async_op)
     return work, lambda: torch.stack(parts)
 
 
-def int8_allreduce_launch(x: torch.Tensor, async_op: bool
+def int8_allreduce_launch(x: torch.Tensor, async_op: bool, comm=None
                           ) -> Tuple[Works, Callable[[], torch.Tensor]]:
     """The int8 lane's SUM of f32 ``x``: quantise, all-gather the int8
     payload and the scales, decode and add in rank order in f32
     (ref: ``_int8_allreduce``); ``finish()`` returns the f32 sum."""
     q, scale = int8_encode(x)
-    wq, qs = all_gather_launch(q, async_op)
-    ws, ss = all_gather_launch(scale.reshape(1), async_op)
+    wq, qs = all_gather_launch(q, async_op, comm)
+    ws, ss = all_gather_launch(scale.reshape(1), async_op, comm)
 
     def finish():
         parts, scales = qs(), ss()

@@ -57,6 +57,7 @@ from ..common import env
 from ..common.exceptions import HorovodInternalError
 from ..common.types import ReduceOp
 from ..ops.compression import Compression
+from ..parallel.mesh import Comm, current_mesh, resolve_comm
 from . import zero as zero_mod
 
 _GRAD_OPS = (ReduceOp.AVERAGE, ReduceOp.SUM, ReduceOp.MIN, ReduceOp.MAX,
@@ -70,12 +71,14 @@ def _check_op(op: ReduceOp):
 
 def _check_grad_signature(label: str, dtype: torch.dtype, sizes: List[int],
                           op: ReduceOp, prescale_factor: float = 1.0,
-                          postscale_factor: float = 1.0) -> None:
-    """Every rank reduces the same gradient layout with the same op and
-    factors, else ``HorovodInternalError`` on every rank; two int64
-    all-gathers and two host reads at world > 1, so a caller runs it once."""
+                          postscale_factor: float = 1.0,
+                          comm: Optional[Comm] = None) -> None:
+    """Every rank of ``comm`` reduces the same gradient layout with the same
+    op and factors, else ``HorovodInternalError`` on every rank; two int64
+    all-gathers and two host reads past one rank, so a caller runs it once."""
     heads = ops._exchange_header(label, label, dtype, (len(sizes),), op,
-                                 prescale_factor, postscale_factor, extra=sizes)
+                                 prescale_factor, postscale_factor, extra=sizes,
+                                 comm=comm)
     ops._check_same_shape(label, heads)
     for r, (_, counts) in enumerate(heads):
         if counts != heads[0][1]:
@@ -93,7 +96,8 @@ def _widest(tensors: List[torch.Tensor]) -> torch.dtype:
 
 def _allreduce_grads(grads: List[torch.Tensor], op: ReduceOp,
                      prescale_factor: float, postscale_factor: float,
-                     compression, fuse: bool) -> List[torch.Tensor]:
+                     compression, fuse: bool, comm: Optional[Comm] = None
+                     ) -> List[torch.Tensor]:
     """Compress, all-reduce (one grouped collective when ``fuse``, else one
     per gradient) and decompress (ref: the JAX ``_allreduce_grads``), with
     no header: the callers check their signature once."""
@@ -102,10 +106,11 @@ def _allreduce_grads(grads: List[torch.Tensor], op: ReduceOp,
     wire = [c for c, _ in packed]
     if fuse:
         red = ops._grouped_allreduce(wire, op=op, prescale_factor=prescale_factor,
-                                     postscale_factor=postscale_factor)
+                                     postscale_factor=postscale_factor, comm=comm)
     else:
         red = [ops._allreduce(c, op=op, prescale_factor=prescale_factor,
-                              postscale_factor=postscale_factor) for c in wire]
+                              postscale_factor=postscale_factor, comm=comm)
+               for c in wire]
     return [comp.decompress(r, ctx) for r, (_, ctx) in zip(red, packed)]
 
 
@@ -158,7 +163,14 @@ class DistributedOptimizer(torch.optim.Optimizer):
     so schedulers see through, and so are ``state`` and ``state_dict`` on
     the replicated paths. Under ZeRO ``state`` and ``state_dict()`` are the
     shard optimizer's (``optim/zero.py``; ``zero.state_to_global`` gathers
-    the whole)."""
+    the whole).
+
+    ``axis_name`` (one mesh axis or a tuple, ``parallel/mesh.py``) reduces
+    over this rank's line along those axes of the mesh current at
+    construction, instead of the world (inside a ``wrap_step`` body None
+    binds its axis);
+    the sequence- and expert-parallel training step reduces over
+    ``("dp", "sp")``. ZeRO and error feedback shard over the world only."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  op: ReduceOp = ReduceOp.AVERAGE,
@@ -166,7 +178,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
                  postscale_factor: float = 1.0,
                  backward_passes_per_step: int = 1,
                  compression=None, zero=None, error_feedback=None,
-                 fuse: bool = True, _schedule: str = "hooks"):
+                 fuse: bool = True, axis_name=None, _schedule: str = "hooks"):
         _check_op(op)
         if _schedule not in _SCHEDULES:
             raise ValueError(f"_schedule must be one of {_SCHEDULES}, got {_schedule!r}")
@@ -176,12 +188,19 @@ class DistributedOptimizer(torch.optim.Optimizer):
         if zero not in (0, 1, 2):
             raise ValueError(f"zero stage must be 0, 1 or 2, got {zero!r}")
         error_feedback = bool(error_feedback)
+        if axis_name is not None and not resolve_comm(axis_name).world and (
+                zero or error_feedback):
+            raise NotImplementedError(
+                f"zero= and error_feedback= shard over the world; over the mesh line "
+                f"axis_name={axis_name!r} they are not ported (ROADMAP A7)")
         if (zero or error_feedback) and compression is not None:
             raise ValueError("compression= does not combine with zero= or "
                              "error_feedback=: their wire cast is "
                              "HOROVOD_WIRE_COMPRESSION")
         # No Optimizer.__init__: the wrapper owns no parameters of its own.
         self._inner = optimizer
+        self.axis_name = axis_name
+        self._mesh = current_mesh() if axis_name is not None else None
         self.op = op
         self.prescale_factor = prescale_factor
         self.postscale_factor = postscale_factor
@@ -270,11 +289,17 @@ class DistributedOptimizer(torch.optim.Optimizer):
                     out.append(p)
         return out
 
+    def _comm(self) -> Comm:
+        if self._mesh is not None:
+            return self._mesh.comm(self.axis_name)
+        return resolve_comm(self.axis_name)
+
     def _check_signature(self, dtype: torch.dtype, sizes: List[int]) -> None:
         """Once, on the first reduction (``_check_grad_signature``)."""
         if not self._signature_checked:
             _check_grad_signature("DistributedOptimizer", dtype, sizes, self.op,
-                                  self.prescale_factor, self.postscale_factor)
+                                  self.prescale_factor, self.postscale_factor,
+                                  self._comm())
             self._signature_checked = True
 
     # -- the overlapped path -------------------------------------------------
@@ -348,7 +373,8 @@ class DistributedOptimizer(torch.optim.Optimizer):
             with ops.span("hvd.flatten"):
                 buf = b.flatten()
             b.launched = ops._reduce_launch(ops._scale(buf, self.prescale_factor),
-                                            self.op, self.postscale_factor, b.dtype, True)
+                                            self.op, self.postscale_factor, b.dtype, True,
+                                            self._comm())
             self._next_launch += 1
 
     @torch.no_grad()
@@ -424,7 +450,8 @@ class DistributedOptimizer(torch.optim.Optimizer):
         grads = zero_mod._grads(params)
         self._check_signature(_widest(grads), [g.numel() for g in grads])
         reduced = _allreduce_grads(grads, self.op, self.prescale_factor,
-                                   self.postscale_factor, self.compression, self.fuse)
+                                   self.postscale_factor, self.compression, self.fuse,
+                                   self._comm())
         with ops.span("hvd.unflatten"):
             for p, r in zip(params, reduced):
                 if p.grad is None:
@@ -474,13 +501,6 @@ class DistributedOptimizer(torch.optim.Optimizer):
 # ---------------------------------------------------------------------------
 # The functional spelling: gradients of fun(params, *args) with respect to a
 # dict of tensors, the torch form of jax.value_and_grad.
-def _check_axis(axis_name: Optional[str]):
-    # The port's mesh knows only dp (parallel/mesh.py), whose collectives
-    # run over the world group.
-    if axis_name not in (None, "dp"):
-        raise ValueError(f"axis_name={axis_name!r}: the port's mesh has only 'dp'")
-
-
 def _value_and_grad(fun: Callable, has_aux: bool, params: Mapping[str, torch.Tensor],
                     *args, **kwargs):
     """``fun(params, *args, **kwargs)`` and its gradients with respect to
@@ -504,19 +524,26 @@ class _GradReducer:
     (count, sizes, op) are checked on the first call and again only when
     this rank's changes, so a steady training loop pays no host read."""
 
-    def __init__(self, label: str, op: ReduceOp, compression, fuse: bool):
+    def __init__(self, label: str, op: ReduceOp, compression, fuse: bool, axis_name):
+        self.mesh = None
+        if axis_name is not None:
+            resolve_comm(axis_name)    # no mesh, or an axis not in it, raises here
+            self.mesh = current_mesh()
         self.label, self.op, self.compression, self.fuse = label, op, compression, fuse
+        self.axis_name = axis_name
         self.checked = None
 
     def __call__(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         vals = list(grads.values())
         if not vals:
             return {}
-        sig = (_widest(vals), [g.numel() for g in vals])
+        comm = (self.mesh.comm(self.axis_name) if self.mesh is not None
+                else resolve_comm(self.axis_name))
+        sig = (_widest(vals), [g.numel() for g in vals], comm.ranks)
         if sig != self.checked:
-            _check_grad_signature(self.label, *sig, self.op)
+            _check_grad_signature(self.label, *sig[:2], self.op, comm=comm)
             self.checked = sig
-        red = _allreduce_grads(vals, self.op, 1.0, 1.0, self.compression, self.fuse)
+        red = _allreduce_grads(vals, self.op, 1.0, 1.0, self.compression, self.fuse, comm)
         return dict(zip(grads, red))
 
 
@@ -530,10 +557,10 @@ class DistributedGradientTape:
                  compression=None, axis_name: Optional[str] = None,
                  has_aux: bool = False):
         _check_op(op)
-        _check_axis(axis_name)
         self._fun = fun
         self._has_aux = has_aux
-        self._reduce = _GradReducer("DistributedGradientTape", op, compression, False)
+        self._reduce = _GradReducer("DistributedGradientTape", op, compression, False,
+                                    axis_name)
 
     def gradient(self, *args, **kwargs):
         val, grads = _value_and_grad(self._fun, self._has_aux, *args, **kwargs)
@@ -549,8 +576,7 @@ def distributed_value_and_grad(fun: Callable, op: ReduceOp = ReduceOp.AVERAGE,
     ``(value, grads)``, the gradients all-reduced in one grouped collective
     when ``fuse`` is set, else one each."""
     _check_op(op)
-    _check_axis(axis_name)
-    reduce = _GradReducer("distributed_value_and_grad", op, compression, fuse)
+    reduce = _GradReducer("distributed_value_and_grad", op, compression, fuse, axis_name)
 
     def wrapped(*args, **kwargs):
         val, grads = _value_and_grad(fun, has_aux, *args, **kwargs)

@@ -1,12 +1,25 @@
-"""The data-parallel training step (counterpart of
-``horovod_tpu/parallel/train.py:55-296``).
+"""The training step (counterpart of ``horovod_tpu/parallel/train.py:55-296``).
 
 The JAX package builds one jitted SPMD step whose batch is sharded over the
-``dp`` axis. Here each rank runs the same eager step on its own slice of
-the global batch; the model's gradients are averaged across ranks by the
-``DistributedOptimizer`` the caller wraps its optimizer in, and the step
-returns the loss averaged across ranks, which is the global-batch loss the
-JAX step returns when the loss is a mean over equal slices.
+mesh (``batch_spec``: dim 0 over ``dp``, dim 1 over ``sp`` with
+``shard_seq``, replicated over ``ep``) and lets GSPMD derive the
+collectives. Here each rank runs the same eager step on its cut of the
+global batch, through a model built on the same mesh (``make_model(mesh=
+...)``: the sequence-parallel attention, the positions of its sequence
+block, the Switch-MoE experts of its ep index), and the optimizer reduces
+the gradients over the ``("dp", "sp")`` line: a ``DistributedOptimizer``
+with that ``axis_name`` (the world when the mesh has no ep axis).
+
+Every rank's objective counts once: a rank's loss is its share of the
+global mean, ``G · (its sum) / (global count)`` with G the size of the
+("dp", "sp") line, so the line's average of the ranks' gradients, which
+the optimizer takes, is the gradient of the global loss, and so is the
+average of their losses, which the step returns. Ranks along ep hold the
+same tokens and compute the same objective; their replicated gradients
+come out equal (``models/transformer.py``). ``lm_loss`` under sequence
+sharding is over the global shifted sequence: a rank's last position is
+labelled with the first id of the next sp block, and the last sp block has
+one label fewer, as ``lm_loss`` on the whole sequence has.
 """
 from __future__ import annotations
 
@@ -17,9 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from .. import ops
-from ..common.functions import broadcast_optimizer_state, broadcast_parameters
+from ..common import basics
 from ..common.types import ReduceOp
-from .mesh import Mesh
+from .mesh import Comm, Mesh
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -44,42 +57,124 @@ class TrainState:
     optimizer: torch.optim.Optimizer
 
 
-def _shard(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    n, r = mesh.shape["dp"], mesh.coords["dp"]
-    if x.shape[0] % n:
-        raise ValueError(f"global batch {x.shape[0]} does not split over dp={n}")
-    per = x.shape[0] // n
-    return x[r * per:(r + 1) * per]
+def _data_comm(mesh: Mesh) -> Comm:
+    """The ("dp", "sp") line the gradients are reduced over."""
+    return mesh.comm(tuple(a for a in ("dp", "sp") if a in mesh.axis_names))
+
+
+def _cut(x: torch.Tensor, mesh: Mesh, shard_seq: bool) -> torch.Tensor:
+    """This rank's part of a global batch: dim 0 over dp, dim 1 over sp with
+    ``shard_seq`` (tensors of two dims or more), the whole over ep."""
+    for dim, axis in ((0, "dp"), (1, "sp")):
+        n = mesh.shape.get(axis, 1)
+        if n == 1 or x.dim() <= dim or (dim == 1 and not shard_seq):
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"global batch dim {dim} ({x.shape[dim]}) does not split "
+                             f"over {axis}={n}")
+        per = x.shape[dim] // n
+        x = x.narrow(dim, mesh.coords[axis] * per, per)
+    return x
+
+
+def _lm_loss_sharded(logits: torch.Tensor, ids: torch.Tensor, mesh: Mesh,
+                     group: int) -> torch.Tensor:
+    """This rank's share of ``lm_loss`` over the global shifted sequence:
+    ``group · Σ(its cross-entropies) / (B · (S - 1))``. ``ids`` is the
+    global (B, S) batch."""
+    rows = _cut(ids, mesh, False)
+    Bl, Sl = logits.shape[:2]
+    start = mesh.coords["sp"] * Sl
+    labels = rows[:, start + 1: start + Sl + 1]
+    logp = F.log_softmax(logits[:, :labels.shape[1]].float(), dim=-1)
+    picked = logp.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+    count = ids.shape[0] * (ids.shape[1] - 1)
+    return -picked.sum() * (group / count)
+
+
+def _is_expert(p: torch.Tensor) -> bool:
+    return hasattr(p, "expert_parallel")
+
+
+def _broadcast_(t: torch.Tensor, comm) -> None:
+    """``t`` from the first member of ``comm`` (None: the world's rank 0),
+    in place."""
+    if comm is not None and comm.size == 1:
+        return
+    dev = basics.device()
+    with torch.no_grad():
+        if t.device.type == dev.type:
+            ops.broadcast_(t, 0, axis_name=comm)
+        else:   # AdamW keeps `step` on the CPU
+            t.copy_(ops.broadcast_(t.to(dev), 0, axis_name=comm))
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                    loss_fn: Callable, *, mesh: Mesh
+                    loss_fn: Callable, *, mesh: Mesh, shard_seq: bool = False,
+                    moe_aux_weight: float = 0.0
                     ) -> Tuple[Callable[[], TrainState], Callable]:
     """Returns ``(init_fn, step_fn)``.
 
-    ``init_fn()`` broadcasts the parameters and optimizer state from rank 0
-    and returns the initial ``TrainState``. ``step_fn(state, inputs,
-    labels)`` takes the global batch, puts the model in train mode (batch
-    statistics, running-stat updates), runs this rank's ``dp`` slice of it
-    forward and backward, steps ``optimizer`` (a ``DistributedOptimizer``
-    for the gradients to be averaged), and returns ``(state, loss)`` with
-    the loss averaged over ranks (a detached scalar on the device)."""
+    ``init_fn()`` broadcasts the replicated parameters, buffers and their
+    optimizer state from rank 0, and each expert parameter (and its state)
+    only within its ("dp", "sp") line, from the line's first member, so
+    that every ep rank keeps its own experts; it returns the initial
+    ``TrainState``. ``step_fn(state, inputs, labels)`` takes the global
+    batch, puts the model in train mode, runs this rank's cut of it forward
+    and backward, adds ``moe_aux_weight`` times the model's MoE auxiliary
+    loss, steps ``optimizer`` (a ``DistributedOptimizer`` reducing over the
+    ("dp", "sp") line, for the gradients to be averaged), and returns
+    ``(state, loss)``, the global loss (aux included) as a detached scalar
+    on the device.
+
+    ``shard_seq`` cuts dim 1 over sp; a mesh with sp > 1 needs it, since
+    the model then takes this rank's sequence block."""
+    from ..optim.distributed import DistributedOptimizer
+
+    sp = mesh.shape.get("sp", 1)
+    data = _data_comm(mesh)
+    if sp > 1 and not shard_seq:
+        raise ValueError("a mesh with sp > 1 needs shard_seq=True: the model takes "
+                         "this rank's sequence block")
+    if (sp > 1 or mesh.shape.get("ep", 1) > 1) and getattr(model, "mesh", None) is not mesh:
+        raise ValueError("the model must be built on the step's mesh "
+                         "(make_model(mesh=...)) when it has sp or ep")
+    if isinstance(optimizer, DistributedOptimizer) and optimizer._comm().ranks != data.ranks:
+        raise ValueError(
+            f"the optimizer reduces over ranks {optimizer._comm().ranks}, the step's "
+            f"gradients must be reduced over the ('dp', 'sp') line {data.ranks}: "
+            "pass axis_name=('dp', 'sp') to DistributedOptimizer")
+    sharded_lm = loss_fn is lm_loss and sp > 1
 
     def init_fn() -> TrainState:
-        broadcast_parameters(model, root_rank=0)
-        broadcast_optimizer_state(optimizer, root_rank=0)
+        for _, t in sorted(model.state_dict(keep_vars=True).items(), key=lambda kv: kv[0]):
+            _broadcast_(t.data, data if _is_expert(t) else None)
+        if getattr(optimizer, "_zero", None) is None:
+            params = [p for g in optimizer.param_groups for p in g["params"]]
+            state = optimizer.state_dict()["state"]
+            for pid in sorted(state):
+                for key in sorted(state[pid]):
+                    if isinstance(state[pid][key], torch.Tensor):
+                        _broadcast_(state[pid][key], data if _is_expert(params[pid]) else None)
         return TrainState(step=0, model=model, optimizer=optimizer)
 
     def step_fn(state: TrainState, inputs: torch.Tensor, labels: torch.Tensor):
-        x = _shard(inputs, mesh).to(mesh.device)
-        y = _shard(labels, mesh).to(mesh.device)
+        x = _cut(inputs, mesh, shard_seq).to(mesh.device)
         model.train()   # batch statistics, as the JAX step's train=True
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model(x), y)
+        logits = model(x)
+        if sharded_lm:
+            loss = _lm_loss_sharded(logits, labels.to(mesh.device), mesh, data.size)
+        else:
+            loss = loss_fn(logits, _cut(labels, mesh, shard_seq).to(mesh.device))
+        if moe_aux_weight > 0.0:
+            aux = model.moe_aux_loss()
+            if aux is not None:
+                loss = loss + moe_aux_weight * aux
         loss.backward()
         optimizer.step()
         # Every rank averages one scalar here: no header exchange.
-        loss = ops._allreduce(loss.detach(), ReduceOp.AVERAGE)
+        loss = ops._allreduce(loss.detach(), ReduceOp.AVERAGE, comm=data)
         return dataclasses.replace(state, step=state.step + 1), loss
 
     return init_fn, step_fn

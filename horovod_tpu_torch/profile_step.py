@@ -3,6 +3,7 @@
     python -m horovod_tpu_torch.profile_step
         [--model gpt2-small|resnet50|bert-base] [--steps 3] [--out PATH]
         [--zero 0|1|2] [--no-overlap]
+        [--attn flash|dense|ring|ulysses] [--sp N] [--n-experts E] [--seq S]
 
 Builds a slice that ``chip_smoke.py`` drives on one card: GPT-2-small (B=4,
 S=2048, bf16 logits, ``DistributedOptimizer(AdamW)``), run with
@@ -31,6 +32,19 @@ flat or bucket buffers (``hvd.flatten``), the unflatten copies out of them
 NCCL is its kernel class. Run once per rank (``HOROVOD_RANK``,
 ``HOROVOD_SIZE``, ``HOROVOD_INIT_METHOD``), it profiles each rank of a
 world of several cards, GPT-2 at B=4 a rank.
+
+``--attn``, ``--sp``, ``--n-experts`` and ``--seq`` (GPT-2 only) profile
+one variant of the sequence- and expert-parallel path: the attention
+(``ulysses`` runs its per-head-group attention through flash), a mesh of
+dp x sp over the world (``shard_seq`` where sp > 1, the gradients averaged
+over the ("dp", "sp") line), E Switch experts in every other FFN
+(capacity factor 1.25, auxiliary loss at 0.01) and S tokens a sequence.
+The device time is then split further by the ranges the MoE FFN and the
+sp/ep collectives mark: ``hvd.moe.router``, ``hvd.moe.dispatch`` (the
+index scatter and the (dp, sp) all-reduce), ``hvd.moe.experts``,
+``hvd.moe.combine`` (forward only: their backward kernels run outside
+the ranges), ``hvd.sp.*`` and ``hvd.ep.*`` (forward and, with ``.bwd``,
+backward).
 """
 from __future__ import annotations
 
@@ -48,7 +62,8 @@ RESNET_B, RESNET_HW = 256, 224
 BERT_B, BERT_S, BERT_MIN_LEN = 256, 128, 64
 VARIANTS = {"gpt2-small": ("flash", "dense"), "resnet50": ("fused", "unfused"),
             "bert-base": ("flash", "dense")}
-RANGES = ("hvd.flatten", "hvd.unflatten", "Optimizer.step")
+RANGES = ("hvd.flatten", "hvd.unflatten", "Optimizer.step", "hvd.moe.", "hvd.sp.",
+          "hvd.ep.")
 
 
 def _classify(name: str) -> str:
@@ -74,7 +89,8 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _build(model_name: str, variant: str, dev, opt_kw=None):
+def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
+           n_experts: int = 0, seq: int = S):
     """(step_fn, state, inputs, labels, items per step, item name)."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.registry import get_model
@@ -83,16 +99,22 @@ def _build(model_name: str, variant: str, dev, opt_kw=None):
 
     spec = get_model(model_name)
     gen = torch.Generator(device=dev).manual_seed(0)
-    mesh = create_mesh({"dp": hvd.size()})
     if model_name == "gpt2-small":
-        model = spec.make_model(device=dev, generator=gen, attn_impl=variant,
-                                logits_dtype=torch.bfloat16, max_len=S)
+        dp = hvd.size() // sp
+        mesh = create_mesh({"dp": dp, "sp": sp})
+        model = spec.make_model(device=dev, generator=gen, mesh=mesh, attn_impl=variant,
+                                sp_use_flash=variant == "ulysses", n_experts=n_experts,
+                                logits_dtype=torch.bfloat16, max_len=max(1024, seq))
         opt = hvd.DistributedOptimizer(torch.optim.AdamW(
-            model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), **(opt_kw or {}))
-        # B a rank: the global batch grows with the world (weak scaling).
-        ids = torch.from_numpy(spec.make_batch(B * hvd.size(), seed=42, seq_len=S)[0]).to(dev)
-        init_fn, step_fn = train.make_train_step(model, opt, train.lm_loss, mesh=mesh)
-        return step_fn, init_fn(), ids, ids, B * S, "tokens"
+            model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8),
+            axis_name=("dp", "sp"), **(opt_kw or {}))
+        # B a dp rank: the global batch grows with dp (weak scaling).
+        ids = torch.from_numpy(spec.make_batch(B * dp, seed=42, seq_len=seq)[0]).to(dev)
+        init_fn, step_fn = train.make_train_step(
+            model, opt, train.lm_loss, mesh=mesh, shard_seq=sp > 1,
+            moe_aux_weight=0.01 if n_experts else 0.0)
+        return step_fn, init_fn(), ids, ids, B * seq // sp, "tokens"
+    mesh = create_mesh({"dp": hvd.size()})
     if model_name == "bert-base":
         return _build_bert(spec, variant, dev, gen)
     model = spec.make_model(device=dev, generator=gen,
@@ -156,14 +178,14 @@ def _range_ms(prof, steps: int) -> dict:
     return out or "not measured"
 
 
-def profile(model_name: str, variant: str, steps: int, opt_kw=None) -> dict:
+def profile(model_name: str, variant: str, steps: int, opt_kw=None, **shape) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
     import horovod_tpu_torch as hvd
 
     step_fn, state, inputs, labels, items, unit = _build(model_name, variant, hvd.device(),
-                                                         opt_kw)
+                                                         opt_kw, **shape)
     for _ in range(2):
         state, loss = step_fn(state, inputs, labels)
     torch.cuda.synchronize()
@@ -223,10 +245,21 @@ def main() -> int:
                     help="GPT-2 only: the flash variant with DistributedOptimizer(zero=Z)")
     ap.add_argument("--no-overlap", action="store_true",
                     help="with --zero 0: the all-reduce after backward")
+    ap.add_argument("--attn", choices=("flash", "dense", "ring", "ulysses"), default=None,
+                    help="GPT-2 only: this attention alone")
+    ap.add_argument("--sp", type=int, default=1, help="GPT-2 only: the sp axis's size")
+    ap.add_argument("--n-experts", type=int, default=0,
+                    help="GPT-2 only: Switch experts in every other FFN")
+    ap.add_argument("--seq", type=int, default=S, help="GPT-2 only: tokens a sequence")
     args = ap.parse_args()
-    if args.zero is not None and args.model != "gpt2-small":
-        ap.error("--zero profiles gpt2-small")
+    if args.model != "gpt2-small" and (args.zero is not None or args.attn or args.sp > 1
+                                       or args.n_experts or args.seq != S):
+        ap.error("--zero, --attn, --sp, --n-experts and --seq profile gpt2-small")
     variants, opt_kw = VARIANTS[args.model], None
+    shape = ({"sp": args.sp, "n_experts": args.n_experts, "seq": args.seq}
+             if args.model == "gpt2-small" else {})
+    if args.attn:
+        variants = (args.attn,)
     if args.zero is not None:
         variants = ("flash",)
         opt_kw = {"zero": args.zero}
@@ -245,8 +278,8 @@ def main() -> int:
     lines = []
     try:
         for variant in variants:
-            rec = profile(args.model, variant, args.steps, opt_kw)
-            rec["card"] = card
+            rec = profile(args.model, variant, args.steps, opt_kw, **shape)
+            rec.update(card=card, **shape)
             if opt_kw is not None:
                 rec.update(world=hvd.size(), optimizer=opt_kw)
             lines.append(json.dumps(rec))

@@ -1,0 +1,104 @@
+"""GPT-2 training across the port's parallel axes (counterpart of
+``examples/jax_gpt2_train.py``): any registry GPT-2 size over a dp x ep x
+sp mesh, with ring or Ulysses attention and an optional Switch-MoE FFN.
+
+    torchrun --nproc-per-node 4 -m horovod_tpu_torch.train_gpt2 \\
+        --model gpt2-small --seq-len 8192 --batch-size 2 --sp 4 \\
+        --attn ulysses --sp-use-flash
+    torchrun --nproc-per-node 4 -m horovod_tpu_torch.train_gpt2 \\
+        --model gpt2-small --seq-len 2048 --batch-size 4 --ep 4 \\
+        --n-experts 8 --attn flash
+
+One process per card; ``hvd.init()`` reads torchrun's ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR``. ``--batch-size`` is
+the global batch, cut over dp (and the sequence over sp); the ids are
+seeded synthetic tokens. AdamW as ``optax.adamw(lr)`` (weight decay 1e-4),
+bf16 logits, the gradients averaged over the ("dp", "sp") line, and the
+MoE auxiliary loss at weight 0.01 when ``--n-experts`` is set, as the JAX
+script trains. Rank 0 prints each step's loss and tokens/s. ``--tp`` and
+``--pp`` above 1 raise ``NotImplementedError`` (ROADMAP A7). ``--device
+cpu`` runs on gloo (the default is the rank's card).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--model", default="gpt2-small")
+    p.add_argument("--batch-size", type=int, default=8, help="global batch")
+    p.add_argument("--seq-len", type=int, default=512)
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--dp", type=int, default=-1)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--ep", type=int, default=1)
+    p.add_argument("--pp", type=int, default=1)
+    p.add_argument("--attn", default="dense", choices=["dense", "ring", "ulysses", "flash"])
+    p.add_argument("--sp-use-flash", action="store_true",
+                   help="Ulysses' per-head-group attention through the flash kernels")
+    p.add_argument("--n-experts", type=int, default=0)
+    p.add_argument("--device", default=None, help="cpu, or a card (default: the rank's)")
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None) -> List[float]:
+    """Trains and returns the losses (rank 0 prints them)."""
+    args = parse_args(argv)
+    from .parallel.mesh import NOT_PORTED
+
+    for axis in ("tp", "pp"):
+        if getattr(args, axis) > 1:
+            raise NotImplementedError(f"--{axis} {getattr(args, axis)}: {NOT_PORTED[axis]} "
+                                      "is not ported yet")
+    import horovod_tpu_torch as hvd
+    from .models.registry import get_model
+    from .models.transformer import GPT2_CONFIGS
+    from .parallel.train import lm_loss, make_train_step
+
+    hvd.init(device=args.device)
+    try:
+        mesh = hvd.create_mesh({"pp": args.pp, "dp": args.dp, "ep": args.ep,
+                                "sp": args.sp, "tp": args.tp})
+        spec = get_model(args.model)
+        if spec.kind != "lm":
+            raise ValueError(f"--model {args.model}: a GPT-2 configuration is needed")
+        dev = hvd.device()
+        cfg = GPT2_CONFIGS[args.model]
+        model = spec.make_model(
+            device=dev, generator=torch.Generator(device=dev).manual_seed(0), mesh=mesh,
+            max_len=max(cfg.max_len, args.seq_len), attn_impl=args.attn,
+            sp_use_flash=args.sp_use_flash, n_experts=args.n_experts,
+            logits_dtype=torch.bfloat16)
+        ids = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (args.batch_size, args.seq_len), dtype=np.int32))
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=args.lr, weight_decay=1e-4, eps=1e-8),
+            axis_name=("dp", "sp"))
+        init_fn, step_fn = make_train_step(
+            model, opt, lm_loss, mesh=mesh, shard_seq=args.sp > 1,
+            moe_aux_weight=0.01 if args.n_experts else 0.0)
+        state = init_fn()
+        losses = []
+        for i in range(args.steps):
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, ids, ids)
+            loss = float(loss)
+            losses.append(loss)
+            if hvd.rank() == 0:
+                toks = args.batch_size * args.seq_len / (time.perf_counter() - t0)
+                print(f"step {i}: loss={loss:.4f}  {toks:,.0f} tokens/sec", flush=True)
+        return losses
+    finally:
+        hvd.shutdown()
+
+
+if __name__ == "__main__":
+    main()

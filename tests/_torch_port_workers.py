@@ -1,10 +1,11 @@
 """Rank bodies for tests/test_torch_port_distributed.py,
 tests/test_torch_port_resnet.py, tests/test_torch_port_collectives.py,
-tests/test_torch_port_bert.py and tests/test_torch_port_{zero,adasum,
-sync_bn,overlap}.py, in a module of their own so spawned ranks import torch
-and horovod_tpu_torch only (no jax, no test module). Each rank returns a
-dict of numpy arrays through a queue; ``spawn_world`` runs a named body on
-a world of gloo ranks."""
+tests/test_torch_port_bert.py, tests/test_torch_port_{zero,adasum,
+sync_bn,overlap}.py and tests/test_torch_port_{sp,moe,mesh}.py, in a
+module of their own so spawned ranks import torch and horovod_tpu_torch
+only (no jax, no test module). Each rank returns a dict of numpy arrays
+through a queue; ``spawn_world`` runs a named body on a world of gloo
+ranks."""
 from __future__ import annotations
 
 import contextlib
@@ -766,4 +767,257 @@ def _run_overlap(rank: int, size: int) -> dict:
     set_lane("none")
     out.update(_mismatches(hvd, rank))
     hvd.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Sequence and expert parallelism, the mesh and wrap_step
+# (tests/test_torch_port_{sp,moe,mesh}.py)
+SP_B, SP_S, SP_H, SP_D = 2, 32, 4, 8
+SP_IMPLS = ("ring", "ulysses", "ulysses_flash")
+
+
+def sp_inputs():
+    """q, k, v, the output cotangent (B, S, H, D) and a padding mask with
+    ragged lengths S-2 and S/2: at sp=4 the second row's last two blocks
+    are all padding."""
+    rng = np.random.RandomState(0)
+    q, k, v, cot = (rng.randn(SP_B, SP_S, SP_H, SP_D).astype(np.float32) for _ in range(4))
+    mask = np.zeros((SP_B, SP_S), np.float32)
+    for b, length in enumerate([SP_S - 2, SP_S // 2]):
+        mask[b, :length] = 1.0
+    return q, k, v, cot, mask
+
+
+def _block(a, rank: int, n: int, dim: int = 1):
+    per = a.shape[dim] // n
+    return np.take(a, np.arange(rank * per, (rank + 1) * per), axis=dim)
+
+
+def _run_sp_attention(rank: int, size: int, cases) -> dict:
+    """o and dq, dk, dv of each (impl, causal, masked) case on this rank's
+    sequence block, at sp=size."""
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+
+    hvd.create_mesh({"sp": size})
+    q, k, v, cot, mask = (torch.from_numpy(_block(a, rank, size)) for a in sp_inputs())
+    out = {}
+    for impl, causal, masked in cases:
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        m = mask if masked else None
+        if impl == "ring":
+            o = hvd.ring_attention(*qkv, "sp", causal=causal, mask=m)
+        else:
+            o = hvd.ulysses_attention(*qkv, "sp", causal=causal, mask=m,
+                                      use_flash=impl == "ulysses_flash")
+        (o * cot).sum().backward()
+        out[f"{impl}-{causal}-{masked}"] = [o.detach().numpy()] + [
+            t.grad.numpy() for t in qkv]
+    return out
+
+
+SP_MODEL_B, SP_MODEL_S = 4, 64          # bert-tiny under Ulysses-flash
+SP_TRAIN_B, SP_TRAIN_S = 4, 32          # gpt2-tiny trained under sp
+SP_LR, SP_WD, SP_EPS, SP_STEPS = 1e-4, 1e-4, 1e-8, 3
+
+
+def sp_bert_batch():
+    ids = np.random.RandomState(0).randint(0, 1000, (SP_MODEL_B, SP_MODEL_S)).astype(np.int32)
+    mask = np.ones((SP_MODEL_B, SP_MODEL_S), np.float32)
+    mask[0, 40:] = 0.0
+    return ids, mask
+
+
+def sp_train_ids():
+    return np.random.RandomState(1).randint(0, 1024, (SP_TRAIN_B, SP_TRAIN_S)).astype(np.int32)
+
+
+def axis_value(rank: int) -> np.ndarray:
+    return np.arange(6, dtype=np.float32).reshape(2, 3) * (rank + 1)
+
+
+def _axis_collectives(hvd, torch, rank: int) -> dict:
+    """The collectives over "sp", "dp" and ("dp", "sp") of a dp=2 x sp=2
+    mesh on this rank's ``axis_value``."""
+    x = torch.from_numpy(axis_value(rank))
+    out = {}
+    for axes in ("sp", "dp", ("dp", "sp")):
+        key = axes if isinstance(axes, str) else "+".join(axes)
+        out[f"sum_{key}"] = hvd.allreduce(x, op=hvd.Sum, axis_name=axes).numpy()
+        out[f"avg_{key}"] = hvd.allreduce(x, axis_name=axes).numpy()
+        out[f"grouped_{key}"] = [t.numpy() for t in hvd.grouped_allreduce(
+            [x, x[0] * 2], op=hvd.Sum, axis_name=axes)]
+        out[f"gather_{key}"] = hvd.allgather(x[: 1 + rank % 2], axis_name=axes).numpy()
+        out[f"bcast_{key}"] = hvd.broadcast(x, root_rank=1, axis_name=axes).numpy()
+        n = 2 if isinstance(axes, str) else 4
+        rows = torch.arange(n * 2, dtype=torch.float32) + 10 * rank
+        out[f"alltoall_{key}"] = hvd.alltoall(rows, axis_name=axes)[0].numpy()
+        out[f"rs_{key}"] = hvd.reducescatter(rows, axis_name=axes).numpy()
+    return out
+
+
+def _run_sp_world(rank: int, size: int, bert_params, gpt_params, attns) -> dict:
+    """On dp=2 x sp=2: bert-tiny under Ulysses-flash (this rank's logits
+    block), gpt2-tiny trained 3 steps under each of ``attns`` with
+    shard_seq (losses, parameters), and the axis collectives."""
+    import dataclasses
+
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.convert import bert_flax_to_torch, flax_to_torch
+    from horovod_tpu_torch.models.transformer import (BERT_CONFIGS, GPT2_CONFIGS,
+                                                      TransformerEncoder, TransformerLM)
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    mesh = hvd.create_mesh({"dp": 2, "sp": 2})
+    out = {"coords": np.array([mesh.coords["dp"], mesh.coords["sp"]])}
+
+    def cut(a):
+        return torch.from_numpy(_block(_block(a, mesh.coords["dp"], 2, 0),
+                                       mesh.coords["sp"], 2, 1))
+
+    cfg = dataclasses.replace(BERT_CONFIGS["bert-tiny"], max_len=64, n_layers=1,
+                              n_heads=4, dtype=torch.float32, attn_impl="ulysses",
+                              sp_use_flash=True)
+    model = TransformerEncoder(cfg, device="cpu", mesh=mesh)
+    model.load_state_dict(bert_flax_to_torch(bert_params, cfg))
+    ids, mask = sp_bert_batch()
+    with torch.no_grad():
+        out["bert_logits"] = model(cut(ids), cut(mask)).numpy()
+
+    ids = torch.from_numpy(sp_train_ids())
+    for attn in attns:
+        cfg = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], dtype=torch.float32,
+                                  attn_impl=attn)
+        model = TransformerLM(cfg, device="cpu", mesh=mesh)
+        model.load_state_dict(flax_to_torch(gpt_params, cfg))
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=SP_LR, weight_decay=SP_WD, eps=SP_EPS),
+            axis_name=("dp", "sp"))
+        init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh, shard_seq=True)
+        state = init_fn()
+        losses = []
+        for _ in range(SP_STEPS):
+            state, loss = step_fn(state, ids, ids)
+            losses.append(float(loss))
+        out[f"train_{attn}"] = {"losses": np.array(losses),
+                                **{k: v.detach().numpy().copy()
+                                   for k, v in model.state_dict().items()}}
+    out.update(_axis_collectives(hvd, torch, rank))
+    return out
+
+
+MOE_B, MOE_S, MOE_E, MOE_AUX = 4, 32, 4, 0.01
+# (name, mesh, capacity_factor, attn_impl, shard_seq)
+MOE_CASES = [("dp2_ep2", {"dp": 2, "ep": 2}, 1.25, "dense", False),
+             ("ep2_sp2", {"ep": 2, "sp": 2}, 0.5, "ulysses", True)]
+
+
+def moe_ids():
+    return np.random.RandomState(2).randint(0, 1024, (MOE_B, MOE_S)).astype(np.int32)
+
+
+def _run_moe_world(rank: int, size: int, params_by_case) -> dict:
+    """Each MOE_CASES case on its mesh: gpt2-tiny (f32) with a Switch FFN of
+    MOE_E experts in block 1, 3 AdamW steps through make_train_step with
+    moe_aux_weight; the losses, the dropped tokens of each step, the
+    parameters (this rank's experts) and the mesh coordinates. Also what
+    n_experts % ep raises."""
+    import dataclasses
+
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.convert import flax_to_torch
+    from horovod_tpu_torch.models.transformer import GPT2_CONFIGS, SwitchMoE, TransformerLM
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    ids = torch.from_numpy(moe_ids())
+    out = {}
+    for (name, shape, cf, attn, shard_seq), params in zip(MOE_CASES, params_by_case):
+        mesh = hvd.create_mesh(shape)
+        cfg = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], dtype=torch.float32,
+                                  n_experts=MOE_E, capacity_factor=cf, attn_impl=attn)
+        model = TransformerLM(cfg, device="cpu", mesh=mesh)
+        model.load_state_dict(flax_to_torch(params, cfg, ep=mesh.shape["ep"],
+                                            ep_rank=mesh.coords["ep"]))
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=SP_LR, weight_decay=SP_WD, eps=SP_EPS),
+            axis_name=tuple(a for a in ("dp", "sp") if a in shape))
+        init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh,
+                                           shard_seq=shard_seq, moe_aux_weight=MOE_AUX)
+        state = init_fn()
+        losses, dropped = [], []
+        for _ in range(SP_STEPS):
+            state, loss = step_fn(state, ids, ids)
+            losses.append(float(loss))
+            dropped.append([int(d) for d in model.moe_dropped()])
+        out[name] = {"losses": np.array(losses), "dropped": np.array(dropped),
+                     "coords": dict(mesh.coords),
+                     "params": {k: v.detach().numpy().copy()
+                                for k, v in model.state_dict().items()}}
+        if name == "dp2_ep2":
+            try:
+                SwitchMoE(dataclasses.replace(cfg, n_experts=3), device="cpu", mesh=mesh)
+            except ValueError as e:
+                out["indivisible"] = str(e)
+    return out
+
+
+WRAP_STEPS, WRAP_LR = 30, 0.3
+
+
+def wrap_data():
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 4).astype(np.float32)
+    return x, x @ np.array([1.0, -2.0, 3.0, 0.5], np.float32)
+
+
+def _run_wrap_step(rank: int, size: int) -> dict:
+    """tests/test_parallel.py:174-232 on the port: the gradient semantics
+    inside wrap_step, a DistributedOptimizer converging through it, and
+    out_replicated=False gathering the ranks' outputs."""
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+
+    out = {}
+    X = torch.arange(32, dtype=torch.float32).reshape(32, 1)
+
+    @hvd.wrap_step
+    def grad_step(w, xb):
+        w = w.clone().requires_grad_(True)
+        (xb[:, 0] * w[0]).mean().backward()
+        out["local_grad"] = w.grad.numpy().copy()
+        return hvd.allreduce(w.grad, op=hvd.Average)
+
+    out["grad"] = grad_step(torch.ones(1), X).numpy()
+    x, y = wrap_data()
+    w = torch.nn.Parameter(torch.zeros(4))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=WRAP_LR))
+
+    @hvd.wrap_step
+    def train_step(w, xb, yb):
+        opt.zero_grad()
+        ((xb @ w - yb) ** 2).mean().backward()
+        opt.step()
+        return w
+
+    for _ in range(WRAP_STEPS):
+        train_step(w, torch.from_numpy(x), torch.from_numpy(y))
+    out["w"] = w.detach().numpy().copy()
+    gathered = hvd.wrap_step(lambda xb: xb * 2, replicated_argnums=(),
+                             out_replicated=False)(torch.from_numpy(x))
+    out["gathered"] = gathered.numpy()
     return out

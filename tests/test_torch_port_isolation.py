@@ -30,7 +30,12 @@ MODULES = [
     "horovod_tpu_torch.optim.distributed",
     "horovod_tpu_torch.optim.zero",
     "horovod_tpu_torch.parallel.mesh",
+    "horovod_tpu_torch.parallel.collectives",
+    "horovod_tpu_torch.parallel.ring",
+    "horovod_tpu_torch.parallel.ulysses",
+    "horovod_tpu_torch.parallel.step",
     "horovod_tpu_torch.parallel.train",
+    "horovod_tpu_torch.train_gpt2",
     "horovod_tpu_torch.models.transformer",
     "horovod_tpu_torch.models.resnet",
     "horovod_tpu_torch.models.registry",
@@ -48,6 +53,8 @@ EXPORTS = [
     "broadcast_optimizer_state", "Compression", "DistributedOptimizer",
     "DistributedGradientTape", "distributed_value_and_grad",
     "SyncBatchNorm", "sync_batch_stats", "adasum_allreduce", "zero",
+    "create_mesh", "create_hybrid_mesh", "wrap_step", "ring_attention",
+    "ulysses_attention", "dense_attention", "AXIS_ORDER",
 ]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 FORBIDDEN_IMPORT = re.compile(
