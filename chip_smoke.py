@@ -99,7 +99,9 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
 13. with two cards or more (``sp_multi``), one NCCL rank per card against
    world-1 controls run here on the same global batch: (s1) sp=n, Ulysses
    through flash, ``shard_seq``, B=2, S=8192, against flash; (s2) the same
-   with the ring; (e1) ep=n with phase 12's configuration, against phase
+   with the ring, against dense attention with remat (the ring rounds q·k
+   to bf16 as dense attention does; against flash it is printed, not
+   gated); (e1) ep=n with phase 12's configuration, against phase
    12; (se) on four cards ep=2 x sp=2 with MoE and Ulysses-flash at B=2,
    S=8192 against MoE with flash. Each: step-1 loss within 2e-3 relative
    and the 5 steps' within 1e-2; step-1 gradients, experts gathered to full
@@ -107,9 +109,26 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    step on every rank (0 for the ring); step-1 dropped tokens within 0.1%
    of the control's; replicated parameters bitwise equal on every rank.
    n must divide 12 for sp and 8 for ep;
-14. the ``{"kernels": [...]}`` line (with ``launches_sp`` and
-   ``launches_moe``); then the card line from nvidia-smi and
-   the last line ``{"ok": true, "device": {...}}``.
+14. pipeline parallelism (``pp``): GPT-2 1.3B (24 x 2048, 16 heads of
+   head dim 128, d_ff 8192, vocab 50257) at B=8, S=2048, bf16, flash, remat,
+   AdamW: ``TransformerLM`` takes one step; ``PipelinedLM`` on a pp=1 mesh
+   from the same seed takes 5, bitwise the LM's at step 1 (loss and every
+   gradient), the last loss below the first, 48 launches of K1 and 24 of
+   each K2 kernel a step (remat runs each forward twice); remat bitwise no
+   remat at B=1; K1 and the K2 pair at (8, 2048, 16, 128) and (1, 2048, 16, 128)
+   against their plain versions, timed beside SDPA and the aten flash
+   backward; step ms, tokens/s, model TFLOP/s against 989, peak memory;
+15. with two cards or more (``pp_multi``), one NCCL rank per card against
+   phase 14's run: (p1) pp=n for n in {2, 4} with 8 microbatches, (p2) on
+   four cards pp=2 x dp=2 with 4 microbatches and remat. Gates as in 13,
+   the stages' gradients gathered to the full model; (24/n)·M launches of
+   each kernel a step per rank (K1 twice that with remat); pp-replicated
+   parameters bitwise on every rank; the step ms beside GPipe's bubble.
+   With one card its line says "not measured";
+16. the ``{"kernels": [...]}`` line (with ``launches_sp``,
+   ``launches_moe``, ``launches_pp`` and the D=128 records ``pp_d128``);
+   then the card line from nvidia-smi and the last line
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is not available.
 """
@@ -895,9 +914,10 @@ def spawn_cards(target, cards: int, timeout: float = 300) -> list:
                 proc.join(timeout=60)
                 if proc.is_alive():
                     proc.kill()
+    name = getattr(target, "func", target).__name__     # a functools.partial names its func
     for r, res in results.items():
         if not isinstance(res, dict):
-            raise AssertionError(f"{target.__name__} rank {r} failed:\n{res}")
+            raise AssertionError(f"{name} rank {r} failed:\n{res}")
     return [results[r] for r in range(cards)]
 
 
@@ -1365,8 +1385,11 @@ DROP_RTOL = 1e-3           # step-1 dropped tokens against the control's
 SP_VARIANTS = {
     "s1_ulysses_flash": (lambda n: {"sp": n}, {"attn_impl": "ulysses", "sp_use_flash": True},
                          (SP_B, SP_S), True, "control_flash_s8192"),
+    # The ring rounds q·k to bf16 as dense attention does (flash keeps f32
+    # scores): its control is dense attention, which fits one card at
+    # B=2, S=8192 only with each block recomputed in backward.
     "s2_ring": (lambda n: {"sp": n}, {"attn_impl": "ring"}, (SP_B, SP_S), False,
-                "control_flash_s8192"),
+                "control_dense_s8192"),
     "e1_moe": (lambda n: {"ep": n}, {"attn_impl": "flash", **MOE_CFG}, (MOE_B, MOE_S), True,
                "control_moe"),
     "se_moe_ulysses_flash": (lambda n: {"ep": 2, "sp": 2},
@@ -1381,6 +1404,7 @@ SP_VARIANTS = {
 SP_CONTROLS = {
     "control_dense_f32_s2048": ({"attn_impl": "dense", **F32}, (SP_B, MOE_S)),
     "control_flash_s8192": ({"attn_impl": "flash"}, (SP_B, SP_S)),
+    "control_dense_s8192": ({"attn_impl": "dense", "remat": True}, (SP_B, SP_S)),
     "control_moe": ({"attn_impl": "flash", **MOE_CFG}, (MOE_B, MOE_S)),
     "control_moe_s8192": ({"attn_impl": "flash", **MOE_CFG}, (SP_B, SP_S)),
 }
@@ -1500,11 +1524,19 @@ def train_sp(hvd, fa, fb, mesh, overrides: dict, batch, keep_grads: bool) -> dic
             "layout": layout}
 
 
-def check_launches(name: str, rec: dict, n_layers: int, flash: bool) -> None:
-    want = n_layers if flash else 0
-    if rec["launches_per_step"] != {k: want for k in rec["launches_per_step"]}:
+def flash_launches(blocks: int, remat: bool = False) -> dict:
+    """The flash launches of a step that runs ``blocks`` attention blocks
+    (layers times microbatches): K1 once a block, twice where ``remat``
+    recomputes the forward in backward; each K2 kernel once."""
+    return {"flash_fwd": blocks * (2 if remat else 1), "flash_bwd_dkdv": blocks,
+            "flash_bwd_dq": blocks}
+
+
+def check_launches(name: str, rec: dict, want: dict) -> None:
+    got = {k: rec["launches_per_step"].get(k, 0) for k in want}
+    if got != want:
         raise AssertionError(f"{name}: launches per step {rec['launches_per_step']}, "
-                             f"expected {want} of each flash kernel")
+                             f"expected {want}")
 
 
 def moe_dispatch_bitwise(model, ids) -> dict:
@@ -1557,7 +1589,7 @@ def phase_moe(fa, fb):
     out = train_sp(hvd, fa, fb, full_mesh({}), {"attn_impl": "flash", **MOE_CFG},
                    (MOE_B, MOE_S), keep_grads=torch.cuda.device_count() >= 2)
     rec, model = out.pop("rec"), out.pop("model")
-    check_launches("moe", rec, model.cfg.n_layers, True)
+    check_launches("moe", rec, flash_launches(model.cfg.n_layers))
     rec["dropped_share_step1"] = rec["dropped_per_step"][0] / (
         rec["tokens_per_layer"] * rec["moe_layers"])
     rec.update(phase="moe", model="gpt2-small", n_layers=model.cfg.n_layers,
@@ -1648,7 +1680,7 @@ def sp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
                 mesh = full_mesh(shape(size))
                 out = train_sp(hvd, fa, fb, mesh, overrides, batch, keep_grads=True)
                 rec, model = out["rec"], out["model"]
-                check_launches(name, rec, model.cfg.n_layers, flash)
+                check_launches(name, rec, flash_launches(model.cfg.n_layers if flash else 0))
                 flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()
                                   if not hasattr(p, "expert_parallel")])
                 root = hvd.broadcast(flat, root_rank=0)
@@ -1783,6 +1815,10 @@ def phase_sp_multi(fa, fb, moe_rec, moe_grads) -> dict:
                     > DROP_RTOL * v["control_dropped_step1"]:
                 failed.append(f"{name}: {v['dropped_step1']} tokens dropped at step 1, "
                               f"control {v['control_dropped_step1']}")
+        if "s2_ring" in variants and "control_flash_s8192" in controls:
+            # Not gated: the ring against flash's f32 scores (ROADMAP C1).
+            rec["variants"]["s2_ring"]["step1_grad_rel_norm_vs_control_flash_s8192"] = rel_norm(
+                torch.load(f"{tmp}/s2_ring.pt"), controls["control_flash_s8192"][1])
         if {"s1_ulysses_flash", "s2_ring"} <= set(variants):
             # The two sp variants cut the tokens alike and attend otherwise:
             # what they share against the control is the cut's bf16 noise.
@@ -1793,6 +1829,451 @@ def phase_sp_multi(fa, fb, moe_rec, moe_grads) -> dict:
     if failed:
         raise AssertionError("; ".join(failed))
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (phases ``pp`` and, with two cards or more,
+# ``pp_multi``): GPT-2 1.3B ("GPT-2 1.3B + Adasum" of BASELINE.json;
+# ``examples/jax_gpt2_train.py --pp --remat``) at full width and depth.
+PP_MODEL = "gpt2-1p3b"
+PP_B, PP_S = 8, 2048
+PP_M = 8                   # microbatches of (p1)
+PP_REMAT_B = 1             # remat against no remat, where both fit one card
+PP_KERNEL_SHAPES = [(PP_B, PP_S), (1, PP_S)]   # K1/K2 at the path's batches
+# The multi-card variants: mesh (its world is that many cards), microbatches
+# (dp=2 leaves 4 rows a dp rank), remat.
+PP_VARIANTS = {
+    "p1_pp2": ({"pp": 2, "dp": 1}, PP_M, False),
+    "p1_pp4": ({"pp": 4, "dp": 1}, PP_M, False),
+    "p2_pp2_dp2": ({"pp": 2, "dp": 2}, 4, True),
+}
+
+
+def pp_worlds_for(cards: int) -> dict:
+    """The variants by world size, each world no larger than the cards:
+    (p1) pp=n for n in {2, 4}, (p2) pp=2 x dp=2 on four cards."""
+    out = {}
+    for name, (shape, _, _) in PP_VARIANTS.items():
+        world = shape["pp"] * shape["dp"]
+        if world <= cards:
+            out.setdefault(world, []).append(name)
+    return out
+
+
+def gpt2_1p3b(mesh, pipelined: bool, **overrides):
+    """GPT-2 1.3B from torch seed 0 (flash, bf16 logits, the scan-stacked
+    layout): ``PipelinedLM`` on ``mesh`` or ``TransformerLM``; every pp
+    layout of the seed holds the same weights."""
+    import dataclasses
+
+    from horovod_tpu_torch.models.pipelined import PipelinedLM
+    from horovod_tpu_torch.models.registry import get_model
+    from horovod_tpu_torch.models.transformer import GPT2_CONFIGS
+
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kw = {"attn_impl": "flash", "logits_dtype": torch.bfloat16, "scan_layers": True,
+          **overrides}
+    num_microbatches = kw.pop("num_microbatches", None)
+    if pipelined:
+        return PipelinedLM(dataclasses.replace(GPT2_CONFIGS[PP_MODEL], **kw), mesh,
+                           num_microbatches=num_microbatches, device=dev, generator=gen)
+    return get_model(PP_MODEL).make_model(device=dev, generator=gen, **kw)
+
+
+def pp_ids(batch: int = PP_B):
+    from horovod_tpu_torch.models.registry import get_model
+
+    return torch.from_numpy(get_model(PP_MODEL).make_batch(batch, seed=42, seq_len=PP_S)[0])
+
+
+def model_flops(cfg, Bn: int, Sn: int) -> float:
+    """The model's training operations a step (forward and backward, 3x the
+    forward; remat's recomputation not counted): 6 · (the matrix products'
+    parameters) · tokens plus the causal attention products."""
+    d, L = cfg.d_model, cfg.n_layers
+    matmul_params = L * (4 * d * d + 2 * d * cfg.d_ff) + d * cfg.vocab_size
+    return (6 * matmul_params * Bn * Sn
+            + 3 * L * 4 * cfg.head_dim * valid_pairs(Bn, Sn, cfg.n_heads, None, True))
+
+
+def warm_pp(mesh) -> None:
+    """One small gpipe forward and backward: NCCL creates the pp line's
+    point-to-point communicators at their first send, outside the timing."""
+    from horovod_tpu_torch.parallel.pipeline import gpipe
+
+    x = torch.ones(mesh.shape["pp"], 8, device=mesh.device, requires_grad=True)
+    gpipe(lambda p, a: a * 1.0, None, x, mesh=mesh).sum().backward()
+    torch.cuda.synchronize()
+
+
+def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bool,
+             steps: int = STEPS) -> dict:
+    """``steps`` AdamW steps (lr 1e-4, wd 1e-4, eps 1e-8) of GPT-2 1.3B on
+    ``mesh`` through ``make_train_step`` on the global batch (B=8, S=2048,
+    numpy seed 42), the optimizer reducing over the ("dp", "sp") line.
+    Returns the record, the model and, with ``keep_grads``, this rank's
+    step-1 gradients by name, in host memory (out of the peak)."""
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    model = gpt2_1p3b(mesh, pipelined, **overrides)
+    ids = pp_ids()
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), axis_name=("dp", "sp"))
+    init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh)
+    got = {}
+    inner_step = opt._inner.step
+
+    def step(*a, **kw):     # the reduced step-1 gradients, as AdamW gets them
+        if keep_grads and "grads" not in got:
+            got["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        return inner_step(*a, **kw)
+
+    opt._inner.step = step
+    state = init_fn()
+    if pipelined and mesh.shape["pp"] > 1:
+        warm_pp(mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    fb.reset_launches()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, ids, ids)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches, other = fa.launches(), fb.launches()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    if any(other.values()):
+        raise AssertionError(f"fused-BN kernels launched: {other}")
+    steady = statistics.median(step_ms[1:]) if steps > 1 else step_ms[0]
+    flops = model_flops(model.cfg, PP_B, PP_S)
+    rec = {"mesh": dict(mesh.shape), "batch": PP_B, "seq": PP_S,
+           "pipelined": pipelined, "remat": model.cfg.remat,
+           "microbatches": getattr(model, "num_microbatches", None),
+           "params_held": sum(p.numel() for p in model.parameters()),
+           "losses": losses, "step_ms": step_ms, "median_step_ms_2_to_5": steady,
+           "tokens_per_s": PP_B * PP_S / (steady / 1e3),
+           "model_tflops_per_step": flops / 1e12,
+           "model_tflops_per_s": flops / (steady / 1e3) / 1e12,
+           "model_flops_share_of_989": flops / (steady / 1e3) / PEAK_BF16_FLOPS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    del opt, inner_step, step, state
+    return {"rec": rec, "model": model, "grads": got.get("grads")}
+
+
+def flash_at(fa, gen, dev, Bn: int, Sn: int, Hn: int, Dn: int) -> dict:
+    """K1 and the K2 pair at (Bn, Sn, Hn, Dn), causal, against their plain
+    versions (O_ATOL, LSE_ATOL, GRAD_TOL), timed alone beside SDPA and the
+    aten flash backward (yardsticks the port never calls), with bounds."""
+    import torch.nn.functional as F
+
+    q, k, v = qkv_views(Bn, Sn, Hn, Dn, gen, dev)
+    o, lse = fa.flash_fwd_cuda(q, k, v, None, True)
+    o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, None, True)
+    dout = torch.randn(Bn, Sn, Hn, Dn, generator=gen, device=dev).to(torch.bfloat16)
+    delta = (dout.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, None, dout, lse, delta, True)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, None, dout, lse, delta, True)
+    refs = fa._flash_bwd_plain(q, k, v, None, dout, True)
+    torch.cuda.synchronize()
+    tag = f"({Bn}, {Sn}, {Hn}, {Dn})"
+    rec = {"shape": [Bn, Sn, Hn, Dn], "causal": True,
+           "tolerance": {"o_atol": O_ATOL, "lse_atol": LSE_ATOL, "grad_tol": GRAD_TOL},
+           "o_max_abs_err": check_close(f"K1 o {tag}", o, o_ref, O_ATOL),
+           "lse_max_abs_err": check_close(f"K1 lse {tag}", lse, lse_ref, LSE_ATOL)}
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        rec[f"{name}_max_abs_err"] = check_close(f"K2 {name} {tag}", got, want,
+                                                 GRAD_TOL, GRAD_TOL)
+    del o_ref, lse_ref, refs
+    torch.cuda.empty_cache()
+    rec["fwd_ms"] = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, None, True), 30)
+    rec["fwd_plain_ms"] = time_ms(lambda: fa._flash_fwd_plain(q, k, v, None, True), 3)
+    rec["dkdv_ms"] = time_ms(
+        lambda: fa.flash_bwd_dkdv_cuda(q, k, v, None, dout, lse, delta, True), 20)
+    rec["dq_ms"] = time_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, None, dout, lse, delta, True),
+                           20)
+    rec["pair_ms"] = rec["dkdv_ms"] + rec["dq_ms"]
+    rec["bwd_plain_ms"] = time_ms(lambda: fa._flash_bwd_plain(q, k, v, None, dout, True), 2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rec["sdpa_fwd_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 30)
+    rec["library_pair_ms"] = _library_bwd_ms(q, k, v, dout)
+    pairs = valid_pairs(Bn, Sn, Hn, None, True)
+    n = Bn * Sn * Hn * Dn
+    rows = Bn * Hn * Sn * 4
+    rec["fwd_flops"], rec["fwd_bytes"] = 4 * Dn * pairs, 4 * n * 2 + rows
+    rec["dkdv_flops"], rec["dkdv_bytes"] = 8 * Dn * pairs, 4 * n * 2 + 2 * rows + 2 * n * 2
+    rec["dq_flops"], rec["dq_bytes"] = 6 * Dn * pairs, 4 * n * 2 + 2 * rows + n * 2
+    for part in ("fwd", "dkdv", "dq"):
+        rec[f"{part}_bound_ms"], rec[f"{part}_bound_by"] = bound(rec[f"{part}_flops"],
+                                                                 rec[f"{part}_bytes"])
+        rec[f"{part}_bound_share"] = rec[f"{part}_bound_ms"] / rec[f"{part}_ms"]
+        rec[f"{part}_tflops"] = rec[f"{part}_flops"] / (rec[f"{part}_ms"] * 1e-3) / 1e12
+    rec["pair_bound_ms"] = rec["dkdv_bound_ms"] + rec["dq_bound_ms"]
+    rec["pair_bound_share"] = rec["pair_bound_ms"] / rec["pair_ms"]
+    del q, k, v, o, lse, dout, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return rec
+
+
+def remat_bitwise(mesh) -> dict:
+    """GPT-2 1.3B with and without remat at B=1, S=2048 on the same weights:
+    the loss and every gradient of one forward and backward bitwise equal."""
+    from horovod_tpu_torch.parallel.train import lm_loss
+
+    ids = pp_ids(PP_REMAT_B).to(mesh.device)
+    out = {}
+    for remat in (True, False):
+        model = gpt2_1p3b(mesh, False, remat=remat)
+        torch.cuda.reset_peak_memory_stats()
+        loss = lm_loss(model(ids), ids)
+        loss.backward()
+        out[remat] = (loss.detach(), [p.grad for p in model.parameters()],
+                      torch.cuda.max_memory_allocated() / 1e9)
+        del model, loss
+    (l1, g1, m1), (l0, g0, m0) = out[True], out[False]
+    bad = [i for i, (a, b) in enumerate(zip(g1, g0)) if not torch.equal(a, b)]
+    if not torch.equal(l1, l0) or bad:
+        raise AssertionError(f"pp: remat is not bitwise no remat (loss {float(l1)} vs "
+                             f"{float(l0)}, {len(bad)} gradients differ)")
+    del out, g1, g0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": PP_REMAT_B, "seq": PP_S, "bitwise": True, "loss": float(l1),
+            "peak_mem_gb_remat": m1, "peak_mem_gb_no_remat": m0}
+
+
+def phase_pp(fa, fb, gen, dev):
+    """GPT-2 1.3B (24 x 2048, 16 heads of 128, d_ff 8192, vocab 50257) at
+    B=8, S=2048, bf16, flash, remat, AdamW: ``TransformerLM`` takes one step
+    through ``make_train_step``; ``PipelinedLM`` on a pp=1 mesh (the
+    degenerate gpipe) from the same seed holds the same weights and takes 5
+    steps, whose step-1 loss and gradients must be bitwise the LM's, whose
+    last loss must be below the first, and which must launch K1 48 times a
+    step and each K2 kernel 24 times. Then remat against no remat at B=1 (bitwise), and K1
+    and the K2 pair at the path's D=128 shapes against their plain
+    versions. The record's pipelined run is the control of ``pp_multi``."""
+    import horovod_tpu_torch as hvd
+
+    mesh = hvd.create_mesh({"pp": 1, "dp": 1, "sp": 1})
+    lm = train_pp(hvd, fa, fb, mesh, False, {"remat": True}, keep_grads=True, steps=1)
+    lm_rec, lm_grads = lm["rec"], lm["grads"]
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp = train_pp(hvd, fa, fb, mesh, True, {"remat": True}, keep_grads=True)
+    rec, model = pp["rec"], pp["model"]
+    n_layers = model.cfg.n_layers
+    check_launches("pp", rec, flash_launches(n_layers, remat=True))
+    if rec["losses"][0] != lm_rec["losses"][0]:
+        raise AssertionError(f"pp: step-1 loss {rec['losses'][0]} is not the LM's "
+                             f"{lm_rec['losses'][0]}")
+    differ = [n for n, g in pp["grads"].items() if not torch.equal(g, lm_grads[n])]
+    if set(pp["grads"]) != set(lm_grads) or differ:
+        raise AssertionError(f"pp: step-1 gradients not bitwise the LM's: {differ[:4]}")
+    # Falling as the JAX package's pipeline test asserts it: the last loss
+    # below the first (AdamW on one batch need not fall at every step).
+    if not rec["losses"][-1] < rec["losses"][0]:
+        raise AssertionError(f"pp: losses do not fall: {rec['losses']}")
+    rec.update(phase="pp", model=PP_MODEL, n_layers=n_layers, d_model=model.cfg.d_model,
+               n_heads=model.cfg.n_heads, head_dim=model.cfg.head_dim,
+               vocab=model.cfg.vocab_size, lm_step1_bitwise=True,
+               lm_step_ms=lm_rec["step_ms"][0], lm_peak_mem_gb=lm_rec["peak_mem_gb"])
+    layout = [(n, g.numel()) for n, g in sorted(pp["grads"].items())]
+    flat = (torch.cat([g.float().reshape(-1) for _, g in sorted(pp["grads"].items())])
+            if torch.cuda.device_count() >= 2 else None)
+    del pp, model, lm_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["remat_vs_no_remat"] = remat_bitwise(mesh)
+    rec["kernels_d128"] = {f"{Bn}x{Sn}": flash_at(fa, gen, dev, Bn, Sn, 16, 128)
+                           for Bn, Sn in PP_KERNEL_SHAPES}
+    emit(rec)
+    return rec, (flat, layout)
+
+
+def pp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
+    """One spawned NCCL rank of ``pp_multi``: each variant's record; the
+    ranks of dp index 0 write their step-1 gradients by name under ``tmp``;
+    every rank checks that its pp-replicated parameters equal rank 0's, and
+    its stage's blocks those of its dp replicas, bitwise after 5 steps."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            recs = {}
+            for name in variants:
+                shape, M, remat = PP_VARIANTS[name]
+                mesh = hvd.create_mesh({**shape, "sp": 1})
+                out = train_pp(hvd, fa, fb, mesh, True,
+                               {"remat": remat, "num_microbatches": M}, keep_grads=True)
+                rec, model = out["rec"], out["model"]
+                blocks = model.cfg.n_layers // mesh.shape["pp"] * M
+                check_launches(name, rec, flash_launches(blocks, remat))
+                params = dict(model.named_parameters())
+                repl = torch.cat([p.detach().reshape(-1) for n, p in params.items()
+                                  if not n.startswith("stack.")])
+                stage = torch.cat([p.detach().reshape(-1) for n, p in params.items()
+                                   if n.startswith("stack.")])
+                rec["replicated_bitwise_rank0"] = bool(torch.equal(
+                    repl, hvd.broadcast(repl, root_rank=0)))
+                rec["stage_bitwise_dp_replicas"] = bool(torch.equal(
+                    stage, hvd.broadcast(stage, root_rank=0, axis_name="dp")))
+                if not (rec["replicated_bitwise_rank0"] and rec["stage_bitwise_dp_replicas"]):
+                    raise AssertionError(f"{name}: replicas differ: {rec}")
+                rec["coords"] = dict(mesh.coords)
+                rec["layers"] = [model.layer_range.start, model.layer_range.stop]
+                if mesh.coords["dp"] == 0:
+                    torch.save({n: g.float() for n, g in out["grads"].items()},
+                               os.path.join(tmp, f"{name}.{mesh.coords['pp']}.pt"))
+                recs[name] = rec
+                del out, model, params, repl, stage
+                gc.collect()
+                torch.cuda.empty_cache()
+            hvd.barrier()
+            queue.put((rank, recs))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_pp_multi(pp_rec, control) -> dict:
+    """With two cards or more: the variants of ``pp_variants_for`` on one
+    spawned NCCL rank per card, each against the world-1 control (phase
+    ``pp``: the same model, weights and global batch): step-1 loss within
+    2e-3 relative and the 5 steps' within 1e-2, step-1 gradients (the
+    stages' gathered to the full model) within 1e-2 in relative norm, the
+    exact flash launches per rank, pp-replicated parameters bitwise on
+    every rank; the step ms beside GPipe's bubble (S-1)/(M+S-1)."""
+    cards = torch.cuda.device_count()
+    ctrl_flat, layout = control
+    rec = {"phase": "pp_multi", "cards": cards, "variants": {},
+           "control_median_step_ms_2_to_5": pp_rec["median_step_ms_2_to_5"],
+           "control_losses": pp_rec["losses"]}
+    failed = []
+    for world, variants in sorted(pp_worlds_for(cards).items()):
+        failed += _pp_world(world, variants, rec, pp_rec, ctrl_flat, layout)
+    emit(rec)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rec
+
+
+def _pp_world(world: int, variants, rec: dict, pp_rec: dict, ctrl_flat, layout) -> list:
+    """``variants`` on one spawned NCCL rank per card of a world of
+    ``world`` cards, each held against the control; the failed gates."""
+    import functools
+    import tempfile
+
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_cards(functools.partial(pp_rank, variants=variants, tmp=tmp), world,
+                            timeout=900)
+        for name in variants:
+            got = ranks[0][name]
+            S, M = got["mesh"]["pp"], got["microbatches"]
+            parts = {}
+            for s in range(S):
+                parts.update(torch.load(f"{tmp}/{name}.{s}.pt"))
+            grads = torch.cat([parts[n].reshape(-1) for n, _ in layout])
+            del parts
+            v = {"rank0": got,
+                 "median_step_ms_by_rank": [r[name]["median_step_ms_2_to_5"] for r in ranks],
+                 "peak_mem_gb_by_rank": [r[name]["peak_mem_gb"] for r in ranks],
+                 "params_held_by_rank": [r[name]["params_held"] for r in ranks],
+                 "launches_per_step_by_rank": [r[name]["launches_per_step"] for r in ranks],
+                 "bubble": (S - 1) / (M + S - 1)}
+            slowest = max(v["median_step_ms_by_rank"])
+            dp = got["mesh"]["dp"]
+            # The step at pp=S x dp if the stages split the control's work
+            # evenly and only the bubble were added.
+            v["control_split_with_bubble_ms"] = (pp_rec["median_step_ms_2_to_5"] / (S * dp)
+                                                 * (M + S - 1) / M)
+            v["tokens_per_s"] = PP_B * PP_S / (slowest / 1e3)
+            v["loss1_rel_err"] = abs(got["losses"][0] - pp_rec["losses"][0]) / abs(
+                pp_rec["losses"][0])
+            v["loss_max_rel_err"] = max(abs(a - b) / abs(b)
+                                        for a, b in zip(got["losses"], pp_rec["losses"]))
+            v["step1_grad_rel_norm_err"] = rel_norm(grads, ctrl_flat)
+            v["step1_grad_worst_params"] = worst_params(grads, ctrl_flat, layout)
+            del grads
+            rec["variants"][name] = v
+            if v["loss1_rel_err"] > SP_LOSS1_RTOL or v["loss_max_rel_err"] > SP_LOSS_RTOL:
+                failed.append(f"{name}: losses {got['losses']} vs {pp_rec['losses']}")
+            if v["step1_grad_rel_norm_err"] > SP_GRAD_RTOL:
+                failed.append(f"{name}: step-1 gradients {v['step1_grad_rel_norm_err']} off "
+                              "the control's in relative norm")
+    return failed
+
+
+def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp) -> list:
+    """The ``kernels`` line from the phases' records: each kernel's
+    launches on the GPT-2 slice (and per path), error, times and bound."""
+    kernels = [
+        {"name": "flash_fwd", "launches": sl["launches"]["flash_fwd"],
+         "max_abs_err": k1["o_max_abs_err"], "ms": k1["kernel_ms"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
+        {"name": "flash_bwd_dkdv", "launches": sl["launches"]["flash_bwd_dkdv"],
+         "max_abs_err": max(k2["dk_max_abs_err"], k2["dv_max_abs_err"]),
+         "ms": k2["dkdv_kernel_ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["dkdv_bound_ms"], "bound_by": k2["dkdv_bound_by"],
+         "library_ms": None, "library_pair_ms": k2["library_pair_ms"]},
+        {"name": "flash_bwd_dq", "launches": sl["launches"]["flash_bwd_dq"],
+         "max_abs_err": k2["dq_max_abs_err"], "ms": k2["dq_kernel_ms"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["dq_bound_ms"],
+         "bound_by": k2["dq_bound_by"], "library_ms": None,
+         "library_pair_ms": k2["library_pair_ms"]},
+    ]
+    for accum in ("scratch", "revisit"):
+        name = f"fused_bn_conv_{accum}"
+        kernels.append({"name": name, "launches": rn["launches"][name],
+                        "max_abs_err": k34[f"{accum}_max_abs_err"], "ms": k34[f"{accum}_ms"],
+                        "plain_ms": k34["plain_ms"], "bound_ms": k34["bound_ms"],
+                        "bound_by": k34["bound_by"], "library_ms": k34["library_ms"]})
+    kb = bert["kernels_at_bert_shape"]
+    for kern, part in zip(kernels[:3], ("fwd", "dkdv", "dq")):
+        kern["launches_bert"] = bert["launches"][kern["name"]]
+        kern["launches_zero"] = {v: rec["launches"][kern["name"]]
+                                 for v, rec in zero["variants"].items()}
+        kern["bert"] = {"shape": kb["shape"], "causal": False, "ms": kb[f"{part}_ms"],
+                        "bound_ms": kb[f"{part}_bound_ms"],
+                        "bound_by": kb[f"{part}_bound_by"],
+                        "plain_ms": kb["fwd_plain_ms" if part == "fwd" else "bwd_plain_ms"],
+                        "sdpa_ms": kb["sdpa_fwd_ms" if part == "fwd" else "sdpa_bwd_ms"]}
+    for kern, part in zip(kernels[:3], ("fwd", "dkdv", "dq")):
+        kern["pp_d128"] = [
+            {"shape": r["shape"], "causal": True, "ms": r[f"{part}_ms"],
+             "bound_ms": r[f"{part}_bound_ms"], "bound_by": r[f"{part}_bound_by"],
+             "plain_ms": r["fwd_plain_ms" if part == "fwd" else "bwd_plain_ms"],
+             "library_ms": r["sdpa_fwd_ms"] if part == "fwd" else None,
+             "library_pair_ms": None if part == "fwd" else r["library_pair_ms"],
+             "max_abs_err": (r["o_max_abs_err"] if part == "fwd" else
+                             max(r["dk_max_abs_err"], r["dv_max_abs_err"])
+                             if part == "dkdv" else r["dq_max_abs_err"])}
+            for r in pp["kernels_d128"].values()]
+    for kern in kernels:
+        kern["launches_sp"] = sp["launches"].get(kern["name"], 0)
+        kern["launches_moe"] = moe["launches"].get(kern["name"], 0)
+        kern["launches_pp"] = pp["launches"].get(kern["name"], 0)
+        kern.update(route="cuda", source=SOURCE[kern["name"]], replaces=REPLACES[kern["name"]])
+    return kernels
 
 
 def main() -> int:
@@ -1832,46 +2313,19 @@ def main() -> int:
         if torch.cuda.device_count() >= 2:
             phase_sp_multi(fa, fb, moe, moe_grads)
         del moe_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        pp, pp_grads = phase_pp(fa, fb, gen, dev)
+        if torch.cuda.device_count() >= 2:
+            phase_pp_multi(pp, pp_grads)
+        else:
+            emit({"phase": "pp_multi", "cards": torch.cuda.device_count(),
+                  "result": "not measured: needs two cards or more"})
+        del pp_grads
     finally:
         hvd.shutdown()
 
-    kernels = [
-        {"name": "flash_fwd", "launches": sl["launches"]["flash_fwd"],
-         "max_abs_err": k1["o_max_abs_err"], "ms": k1["kernel_ms"],
-         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
-        {"name": "flash_bwd_dkdv", "launches": sl["launches"]["flash_bwd_dkdv"],
-         "max_abs_err": max(k2["dk_max_abs_err"], k2["dv_max_abs_err"]),
-         "ms": k2["dkdv_kernel_ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["dkdv_bound_ms"], "bound_by": k2["dkdv_bound_by"],
-         "library_ms": None, "library_pair_ms": k2["library_pair_ms"]},
-        {"name": "flash_bwd_dq", "launches": sl["launches"]["flash_bwd_dq"],
-         "max_abs_err": k2["dq_max_abs_err"], "ms": k2["dq_kernel_ms"],
-         "plain_ms": k2["plain_ms"], "bound_ms": k2["dq_bound_ms"],
-         "bound_by": k2["dq_bound_by"], "library_ms": None,
-         "library_pair_ms": k2["library_pair_ms"]},
-    ]
-    for accum in ("scratch", "revisit"):
-        name = f"fused_bn_conv_{accum}"
-        kernels.append({"name": name, "launches": rn["launches"][name],
-                        "max_abs_err": k34[f"{accum}_max_abs_err"], "ms": k34[f"{accum}_ms"],
-                        "plain_ms": k34["plain_ms"], "bound_ms": k34["bound_ms"],
-                        "bound_by": k34["bound_by"], "library_ms": k34["library_ms"]})
-    kb = bert["kernels_at_bert_shape"]
-    for kern, part in zip(kernels[:3], ("fwd", "dkdv", "dq")):
-        kern["launches_bert"] = bert["launches"][kern["name"]]
-        kern["launches_zero"] = {v: rec["launches"][kern["name"]]
-                                 for v, rec in zero["variants"].items()}
-        kern["bert"] = {"shape": kb["shape"], "causal": False, "ms": kb[f"{part}_ms"],
-                        "bound_ms": kb[f"{part}_bound_ms"],
-                        "bound_by": kb[f"{part}_bound_by"],
-                        "plain_ms": kb["fwd_plain_ms" if part == "fwd" else "bwd_plain_ms"],
-                        "sdpa_ms": kb["sdpa_fwd_ms" if part == "fwd" else "sdpa_bwd_ms"]}
-    for kern in kernels:
-        kern["launches_sp"] = sp["launches"].get(kern["name"], 0)
-        kern["launches_moe"] = moe["launches"].get(kern["name"], 0)
-        kern.update(route="cuda", source=SOURCE[kern["name"]], replaces=REPLACES[kern["name"]])
-    emit({"kernels": kernels})
+    emit({"kernels": kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

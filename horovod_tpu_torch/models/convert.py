@@ -14,7 +14,10 @@ kernel (H, Hd, D) flattens to (H*Hd, D). A Switch-MoE block's router
 kernel (D, E) becomes the Linear weight (E, D), and its ``wi`` (E, D, F)
 and ``wo`` (E, F, D) are cut to this rank's ``E / ep`` experts by its ep
 index (``flax_to_torch(..., ep=, ep_rank=)``). A missing or extra key
-raises.
+raises. With ``cfg.stacked`` (``scan_layers`` and a dense FFN) the layers
+are read from JAX's scan-stacked ``stack/layers`` (``unstack_layers``), else
+from ``stack/layer_{i}``; ``flax_to_torch(..., stages=, stage=)`` returns
+one pipeline stage's part (``models/pipelined.py``).
 
 ``zero_state_from_jax(state, rank, world)`` takes the JAX traced plane's
 global ``ZeroState`` and returns one rank's shard of it in the form
@@ -22,7 +25,7 @@ global ``ZeroState`` and returns one rank's shard of it in the form
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -67,9 +70,34 @@ def _experts(ep: int, ep_rank: int, n_experts: int):
     return lambda a: a[ep_rank * per:(ep_rank + 1) * per]
 
 
+def unstack_layers(params: Mapping, n_layers: int) -> Dict:
+    """The JAX scan-stacked layout (``params["stack"]["layers"]``, every leaf
+    with a leading L axis; ``scan_layers=True`` with a dense FFN) as the
+    unrolled one (``stack/layer_{i}``), layer i the leaves' row i."""
+    def row(tree, i):
+        if isinstance(tree, Mapping):
+            return {k: row(v, i) for k, v in tree.items()}
+        a = np.asarray(tree)
+        if a.shape[:1] != (n_layers,):
+            raise ValueError(f"a scanned leaf of shape {a.shape} has no leading axis "
+                             f"of {n_layers} layers")
+        return a[i]
+
+    stacked = params["stack"]["layers"]
+    out = {k: v for k, v in params.items() if k != "stack"}
+    out["stack"] = {f"layer_{i}": row(stacked, i) for i in range(n_layers)}
+    return out
+
+
 def _transformer_to_torch(params: Mapping, cfg: TransformerConfig, head: str,
-                          ep: int = 1, ep_rank: int = 0) -> Dict[str, torch.Tensor]:
+                          ep: int = 1, ep_rank: int = 0,
+                          layers: Optional[range] = None) -> Dict[str, torch.Tensor]:
+    if cfg.stacked:
+        params = unstack_layers(params, cfg.n_layers)
+    layers = range(cfg.n_layers) if layers is None else layers
     flat = _flatten(params)
+    other = tuple(f"stack/layer_{i}/" for i in range(cfg.n_layers) if i not in layers)
+    flat = {k: v for k, v in flat.items() if not k.startswith(other)}
     D = cfg.d_model
     HHd = cfg.n_heads * cfg.head_dim
     plan = {   # flax path -> (torch key, transform)
@@ -79,7 +107,7 @@ def _transformer_to_torch(params: Mapping, cfg: TransformerConfig, head: str,
         "ln_f/bias": ("ln_f.bias", None),
         f"{head}/kernel": (f"{head}.weight", lambda a: _dense(a, D)),
     }
-    for i in range(cfg.n_layers):
+    for i in layers:
         src, dst = f"stack/layer_{i}", f"stack.layers.{i}"
         for ln in ("ln1", "ln2"):
             plan[f"{src}/{ln}/scale"] = (f"{dst}.{ln}.weight", None)
@@ -107,8 +135,15 @@ def _transformer_to_torch(params: Mapping, cfg: TransformerConfig, head: str,
 
 
 def flax_to_torch(params: Mapping, cfg: TransformerConfig, ep: int = 1,
-                  ep_rank: int = 0) -> Dict[str, torch.Tensor]:
-    return _transformer_to_torch(params, cfg, "lm_head", ep, ep_rank)
+                  ep_rank: int = 0, stages: int = 1,
+                  stage: int = 0) -> Dict[str, torch.Tensor]:
+    """With ``stages`` > 1: the ``state_dict`` of ``PipelinedLM`` stage
+    ``stage``, the layers ``[stage·L/stages, (stage+1)·L/stages)`` under
+    their global indices, with the embeddings, ``ln_f`` and the head."""
+    from ..parallel.pipeline import stage_layers
+
+    return _transformer_to_torch(params, cfg, "lm_head", ep, ep_rank,
+                                 stage_layers(cfg.n_layers, stages, stage))
 
 
 def bert_flax_to_torch(params: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:

@@ -12,7 +12,10 @@ The numerics follow the flax model, so weights carried across with
 * the token embedding is a lookup in f32 then a cast; positions are added
   in ``dtype``;
 * logits are cast to ``logits_dtype`` (f32 by default; the training path
-  opts into bf16).
+  opts into bf16);
+* ``remat`` recomputes each block's forward in backward
+  (``run_blocks``); ``scan_layers`` changes only the JAX parameter layout
+  that ``models/convert.py`` reads (``cfg.stacked``).
 
 Attention is ``dense`` (the einsum path, scores materialised), ``flash``
 (``ops/flash_attention.py``: the CUDA kernels on the card, their plain
@@ -89,10 +92,23 @@ class TransformerConfig:
     sp_axis: str = "sp"
     # With attn_impl="ulysses": the per-head-group attention through flash.
     sp_use_flash: bool = False
+    # Recompute each block's forward in backward (``nn.remat`` in JAX).
+    remat: bool = False
+    # The JAX scan-stacked parameter layout (``stack/layers``, a leading L
+    # axis on every leaf) for a dense-FFN stack: what ``models/convert.py``
+    # reads and ``PipelinedLM`` needs. The modules stay one per layer.
+    scan_layers: bool = False
 
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def stacked(self) -> bool:
+        """Whether the JAX model scan-stacks its layers: ``scan_layers`` with
+        a dense FFN (``horovod_tpu/models/transformer.py:474``); with experts
+        it keeps ``stack/layer_{i}``."""
+        return self.scan_layers and self.n_experts == 0
 
 
 GPT2_CONFIGS = {
@@ -449,17 +465,52 @@ class Embedder(nn.Module):
         return x + pos.to(self.dtype)[None]
 
 
+def run_blocks(blocks, x, mask=None, remat: bool = False):
+    """``x`` through ``blocks`` in order. With ``remat`` each block's forward
+    runs again in backward (``torch.utils.checkpoint``, non-reentrant),
+    which keeps only the blocks' inputs between forward and backward, as
+    ``nn.remat(TransformerBlock)`` does; no dropout is ported, so the
+    recomputation is the forward itself and the gradients are unchanged."""
+    from torch.utils.checkpoint import checkpoint
+
+    for block in blocks:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, x, mask, use_reentrant=False)
+        else:
+            x = block(x, mask)
+    return x
+
+
 class TransformerStack(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
+        self.remat = cfg.remat
         self.layers = nn.ModuleList(
             TransformerBlock(cfg, device=device, use_moe=uses_moe(cfg, i), mesh=mesh)
             for i in range(cfg.n_layers))
 
     def forward(self, x, mask=None):
-        for layer in self.layers:
-            x = layer(x, mask)
-        return x
+        return run_blocks(self.layers, x, mask, self.remat)
+
+
+@torch.no_grad()
+def init_param_(name: str, p: torch.Tensor, generator: Optional[torch.Generator]) -> None:
+    """One parameter's flax initialiser, by its name in the model (see
+    ``_Transformer.init_weights``). The draws of a model's parameters, taken
+    in ``named_parameters`` order from one generator, make its weights."""
+    if name.endswith(".bias"):
+        p.zero_()
+    elif ".ln" in name or name.startswith("ln_f"):
+        p.fill_(1.0)
+    elif hasattr(p, "expert_parallel"):
+        # Draw all E experts and keep this rank's, so that every ep layout
+        # of one seed holds the same experts.
+        first, E = p.expert_parallel
+        full = torch.empty((E, *p.shape[1:]), dtype=p.dtype, device=p.device)
+        p.copy_(full.normal_(0.0, INIT_STD, generator=generator)
+                [first: first + p.shape[0]])
+    else:
+        p.normal_(0.0, INIT_STD, generator=generator)
 
 
 class _Transformer(nn.Module):
@@ -490,19 +541,7 @@ class _Transformer(nn.Module):
         kernels, zeros for biases, ones for LayerNorm scales. Draws from
         ``generator`` (which must live on the parameters' device)."""
         for name, p in self.named_parameters():
-            if name.endswith(".bias"):
-                p.zero_()
-            elif ".ln" in name or name.startswith("ln_f"):
-                p.fill_(1.0)
-            elif hasattr(p, "expert_parallel"):
-                # Draw all E experts and keep this rank's, so that every ep
-                # layout of one seed holds the same experts.
-                first, E = p.expert_parallel
-                full = torch.empty((E, *p.shape[1:]), dtype=p.dtype, device=p.device)
-                p.copy_(full.normal_(0.0, INIT_STD, generator=generator)
-                        [first: first + p.shape[0]])
-            else:
-                p.normal_(0.0, INIT_STD, generator=generator)
+            init_param_(name, p, generator)
 
     def seq_offset(self, s_local: int) -> int:
         comm = _sp_comm(self.cfg, self.mesh)

@@ -3,7 +3,8 @@
 One rank per card; the mesh names the world's ranks along the JAX
 package's axes, outer to inner (``AXIS_ORDER``):
 
-    pp   pipeline stages        (not ported: ROADMAP A7, pipeline)
+    pp   pipeline stages        (GPipe, ``parallel/pipeline.py``,
+                                 ``models/pipelined.py``)
     dp   data parallel          (gradient all-reduce)
     ep   expert parallel        (Switch-MoE experts, ``models/transformer.py``)
     sp   sequence parallel      (ring and Ulysses attention, ``parallel/ring.py``,
@@ -39,7 +40,6 @@ from ..common import basics
 # Canonical axis order, outer -> inner, as in the JAX package.
 AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")
 NOT_PORTED = {
-    "pp": "pipeline parallelism (ROADMAP A7: parallel/pipeline.py, models/pipelined.py)",
     "tp": "tensor parallelism (ROADMAP A7: parallel/sharding.py, the tp axis)",
 }
 
@@ -187,7 +187,7 @@ def current_mesh() -> Optional[Mesh]:
 def create_mesh(axis_sizes: Optional[Dict[str, int]] = None) -> Mesh:
     """Build the mesh over the initialised world and make it current. ``-1``
     fills one axis with whatever the world leaves; ``None`` means
-    ``{"dp": size()}``. pp and tp above 1 raise ``NotImplementedError``.
+    ``{"dp": size()}``. tp above 1 raises ``NotImplementedError``.
     Collective: every rank calls it with the same sizes."""
     global _current
     n = basics.size()

@@ -1,0 +1,88 @@
+"""Logical axes -> mesh axes (counterpart of
+``horovod_tpu/parallel/sharding.py``), the part the port's axes use.
+
+The JAX package names the dimensions of its parameters and activations
+("batch", "seq", "expert", "layers", ...) and a rule table maps each name
+to mesh axes; GSPMD then places every tensor. Here a rank holds its part of
+a parameter outright (the model is built on the mesh), and the rules say
+which parameters a rank holds a part of and which are replicated:
+
+* ``DEFAULT_RULES``: the scan axis "layers" is replicated, "expert" lies
+  over ep (``SwitchMoE`` holds ``E / ep`` experts);
+* ``PIPELINE_RULES``: "layers" over pp, as in JAX: a pp rank holds its
+  stage's blocks (``models/pipelined.py``), and the embeddings, ``ln_f`` and
+  the head are replicated over pp.
+
+``replica_comm`` is a parameter's line of copies: the mesh axes its cut does
+not follow. ``make_train_step`` broadcasts each parameter within that line
+at init. The tensor-parallel rows ("mlp", "heads", "vocab", "expert_mlp"
+over tp) and ``FSDP_RULES`` come with the tp axis (ROADMAP A3).
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+
+from .mesh import Comm, Mesh
+
+# (logical axis, mesh axes) pairs: the JAX table's rows for the port's
+# parameters (``parallel/train.py`` cuts the batch over dp and sp itself).
+DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
+    ("expert", ("ep",)),         # MoE experts -> expert parallel
+    ("layers", None),            # the layer axis; "pp" when pipelining
+)
+
+# Pipeline variant: the layer axis lies over pp (PipelinedLM's stages).
+PIPELINE_RULES: Tuple[Tuple[str, Any], ...] = tuple(
+    ("layers", ("pp",)) if k == "layers" else (k, v) for k, v in DEFAULT_RULES
+)
+
+
+def filter_rules(rules: Sequence[Tuple[str, Any]], mesh: Mesh):
+    """Drop mesh axes that are not in ``mesh`` (the JAX function), so that
+    one rule table serves every mesh."""
+    out = []
+    for logical, axes in rules:
+        if axes is None:
+            out.append((logical, None))
+            continue
+        if isinstance(axes, str):
+            axes = (axes,)
+        present = tuple(a for a in axes if a in mesh.axis_names)
+        if len(present) == 1:
+            out.append((logical, present[0]))
+        elif present:
+            out.append((logical, present))
+        else:
+            out.append((logical, None))
+    return tuple(out)
+
+
+def logical_axis(name: str, param: torch.Tensor) -> Optional[str]:
+    """The logical axis a parameter of the port's models is cut along:
+    "expert" for a Switch FFN's experts, "layers" for a block's parameter
+    (``stack.layers.<i>.*``), None for the rest."""
+    if hasattr(param, "expert_parallel"):
+        return "expert"
+    if name.startswith("stack.layers."):
+        return "layers"
+    return None
+
+
+def mesh_axes(logical: Optional[str], rules, mesh: Mesh) -> Tuple[str, ...]:
+    """The mesh axes of size above one that ``logical`` lies over."""
+    if logical is None:
+        return ()
+    axes = dict(filter_rules(rules, mesh)).get(logical)
+    axes = () if axes is None else (axes,) if isinstance(axes, str) else axes
+    return tuple(a for a in axes if mesh.shape[a] > 1)
+
+
+def replica_comm(name: str, param: torch.Tensor, rules, mesh: Mesh) -> Comm:
+    """The line of ranks that hold the same part of ``param``: the mesh axes
+    its cut does not follow (the whole world for a replicated parameter)."""
+    cut = mesh_axes(logical_axis(name, param), rules, mesh)
+    if not cut:
+        return mesh.comm(mesh.axis_names)
+    return mesh.comm(tuple(a for a in mesh.axis_names if a not in cut))

@@ -33,6 +33,7 @@ from .. import ops
 from ..common import basics
 from ..common.types import ReduceOp
 from .mesh import Comm, Mesh
+from .sharding import DEFAULT_RULES, replica_comm
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -92,14 +93,9 @@ def _lm_loss_sharded(logits: torch.Tensor, ids: torch.Tensor, mesh: Mesh,
     return -picked.sum() * (group / count)
 
 
-def _is_expert(p: torch.Tensor) -> bool:
-    return hasattr(p, "expert_parallel")
-
-
-def _broadcast_(t: torch.Tensor, comm) -> None:
-    """``t`` from the first member of ``comm`` (None: the world's rank 0),
-    in place."""
-    if comm is not None and comm.size == 1:
+def _broadcast_(t: torch.Tensor, comm: Comm) -> None:
+    """``t`` from the first member of ``comm``, in place."""
+    if comm.size == 1:
         return
     dev = basics.device()
     with torch.no_grad():
@@ -115,20 +111,26 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     ) -> Tuple[Callable[[], TrainState], Callable]:
     """Returns ``(init_fn, step_fn)``.
 
-    ``init_fn()`` broadcasts the replicated parameters, buffers and their
-    optimizer state from rank 0, and each expert parameter (and its state)
-    only within its ("dp", "sp") line, from the line's first member, so
-    that every ep rank keeps its own experts; it returns the initial
-    ``TrainState``. ``step_fn(state, inputs, labels)`` takes the global
-    batch, puts the model in train mode, runs this rank's cut of it forward
-    and backward, adds ``moe_aux_weight`` times the model's MoE auxiliary
-    loss, steps ``optimizer`` (a ``DistributedOptimizer`` reducing over the
-    ("dp", "sp") line, for the gradients to be averaged), and returns
-    ``(state, loss)``, the global loss (aux included) as a detached scalar
-    on the device.
+    ``init_fn()`` broadcasts each parameter and buffer, and its optimizer
+    state, from the first member of its line of copies
+    (``sharding.replica_comm`` under the model's ``rules``, default
+    ``DEFAULT_RULES``): the replicated ones from rank 0, an expert within
+    its ("dp", "sp") line, so that every ep rank keeps its own experts, and
+    a ``PipelinedLM`` stage's blocks within the line of ranks that hold
+    that stage; it returns the initial ``TrainState``.
+    ``step_fn(state, inputs, labels)`` takes the global batch, puts the
+    model in train mode, runs this rank's cut of it forward and backward,
+    adds ``moe_aux_weight`` times the model's MoE auxiliary loss, steps
+    ``optimizer`` (a ``DistributedOptimizer`` reducing over the ("dp",
+    "sp") line, for the gradients to be averaged), and returns ``(state,
+    loss)``, the global loss (aux included) as a detached scalar on the
+    device.
 
     ``shard_seq`` cuts dim 1 over sp; a mesh with sp > 1 needs it, since
-    the model then takes this rank's sequence block."""
+    the model then takes this rank's sequence block. With pp > 1 the model
+    is a ``PipelinedLM`` on ``mesh``: every rank of a pp line computes the
+    loss of the pipeline's replicated output, and the optimizer still
+    reduces over the ("dp", "sp") line only."""
     from ..optim.distributed import DistributedOptimizer
 
     sp = mesh.shape.get("sp", 1)
@@ -136,26 +138,37 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     if sp > 1 and not shard_seq:
         raise ValueError("a mesh with sp > 1 needs shard_seq=True: the model takes "
                          "this rank's sequence block")
-    if (sp > 1 or mesh.shape.get("ep", 1) > 1) and getattr(model, "mesh", None) is not mesh:
+    sharded = any(mesh.shape.get(a, 1) > 1 for a in ("pp", "ep", "sp"))
+    if sharded and getattr(model, "mesh", None) is not mesh:
         raise ValueError("the model must be built on the step's mesh "
-                         "(make_model(mesh=...)) when it has sp or ep")
+                         "(make_model(mesh=...), PipelinedLM(cfg, mesh)) when it has "
+                         "pp, sp or ep")
     if isinstance(optimizer, DistributedOptimizer) and optimizer._comm().ranks != data.ranks:
         raise ValueError(
             f"the optimizer reduces over ranks {optimizer._comm().ranks}, the step's "
             f"gradients must be reduced over the ('dp', 'sp') line {data.ranks}: "
             "pass axis_name=('dp', 'sp') to DistributedOptimizer")
     sharded_lm = loss_fn is lm_loss and sp > 1
+    rules = getattr(model, "rules", DEFAULT_RULES)
 
     def init_fn() -> TrainState:
-        for _, t in sorted(model.state_dict(keep_vars=True).items(), key=lambda kv: kv[0]):
-            _broadcast_(t.data, data if _is_expert(t) else None)
-        if getattr(optimizer, "_zero", None) is None:
-            params = [p for g in optimizer.param_groups for p in g["params"]]
-            state = optimizer.state_dict()["state"]
+        # The world's broadcasts first, then each line's; every rank issues
+        # them in the order of the names it holds.
+        tensors = sorted(model.state_dict(keep_vars=True).items(), key=lambda kv: kv[0])
+        line = {id(t): replica_comm(name, t, rules, mesh) for name, t in tensors}
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        state = (optimizer.state_dict()["state"]
+                 if getattr(optimizer, "_zero", None) is None else {})
+        for world in (True, False):
+            for _, t in tensors:
+                if line[id(t)].world == world:
+                    _broadcast_(t.data, line[id(t)])
             for pid in sorted(state):
-                for key in sorted(state[pid]):
-                    if isinstance(state[pid][key], torch.Tensor):
-                        _broadcast_(state[pid][key], data if _is_expert(params[pid]) else None)
+                comm = line[id(params[pid])]
+                if comm.world == world:
+                    for key in sorted(state[pid]):
+                        if isinstance(state[pid][key], torch.Tensor):
+                            _broadcast_(state[pid][key], comm)
         return TrainState(step=0, model=model, optimizer=optimizer)
 
     def step_fn(state: TrainState, inputs: torch.Tensor, labels: torch.Tensor):

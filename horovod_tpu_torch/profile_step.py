@@ -4,6 +4,7 @@
         [--model gpt2-small|resnet50|bert-base] [--steps 3] [--out PATH]
         [--zero 0|1|2] [--no-overlap]
         [--attn flash|dense|ring|ulysses] [--sp N] [--n-experts E] [--seq S]
+        [--pp N] [--remat]
 
 Builds a slice that ``chip_smoke.py`` drives on one card: GPT-2-small (B=4,
 S=2048, bf16 logits, ``DistributedOptimizer(AdamW)``), run with
@@ -45,6 +46,15 @@ index scatter and the (dp, sp) all-reduce), ``hvd.moe.experts``,
 ``hvd.moe.combine`` (forward only: their backward kernels run outside
 the ranges), ``hvd.sp.*`` and ``hvd.ep.*`` (forward and, with ``.bwd``,
 backward).
+
+``--model gpt2-1p3b`` (flash, B=8 over the dp ranks, S=2048, AdamW, the
+pipeline slice of ``chip_smoke.py``) takes ``--pp N`` (a pp x dp mesh over
+the world, ``PipelinedLM`` with S microbatches) and ``--remat`` (each
+block recomputed in backward; ``--remat`` applies to gpt2-small too). The
+device time is split further by the pipeline's ranges: ``hvd.pp.send``,
+``hvd.pp.recv`` (forward activations and backward cotangents between
+stages), ``hvd.pp.replicate`` (the last stage's output to every pp rank)
+and ``hvd.pp.psum`` (the input's cotangent summed over pp).
 """
 from __future__ import annotations
 
@@ -58,12 +68,13 @@ import torch
 import numpy as np
 
 B, S = 4, 2048
+B_1P3B = 8           # the global batch of the pipeline slice
 RESNET_B, RESNET_HW = 256, 224
 BERT_B, BERT_S, BERT_MIN_LEN = 256, 128, 64
-VARIANTS = {"gpt2-small": ("flash", "dense"), "resnet50": ("fused", "unfused"),
-            "bert-base": ("flash", "dense")}
+VARIANTS = {"gpt2-small": ("flash", "dense"), "gpt2-1p3b": ("flash",),
+            "resnet50": ("fused", "unfused"), "bert-base": ("flash", "dense")}
 RANGES = ("hvd.flatten", "hvd.unflatten", "Optimizer.step", "hvd.moe.", "hvd.sp.",
-          "hvd.ep.")
+          "hvd.ep.", "hvd.pp.")
 
 
 def _classify(name: str) -> str:
@@ -90,30 +101,42 @@ def _device_us(evt) -> float:
 
 
 def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
-           n_experts: int = 0, seq: int = S):
+           n_experts: int = 0, seq: int = S, pp: int = 1, remat: bool = False):
     """(step_fn, state, inputs, labels, items per step, item name)."""
+    import dataclasses
+
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.pipelined import PipelinedLM
     from horovod_tpu_torch.models.registry import get_model
+    from horovod_tpu_torch.models.transformer import GPT2_CONFIGS
     from horovod_tpu_torch.parallel.mesh import create_mesh
     from horovod_tpu_torch.parallel import train
 
     spec = get_model(model_name)
     gen = torch.Generator(device=dev).manual_seed(0)
-    if model_name == "gpt2-small":
-        dp = hvd.size() // sp
-        mesh = create_mesh({"dp": dp, "sp": sp})
-        model = spec.make_model(device=dev, generator=gen, mesh=mesh, attn_impl=variant,
-                                sp_use_flash=variant == "ulysses", n_experts=n_experts,
-                                logits_dtype=torch.bfloat16, max_len=max(1024, seq))
+    if model_name.startswith("gpt2"):
+        dp = hvd.size() // (sp * pp)
+        mesh = create_mesh({"pp": pp, "dp": dp, "sp": sp})
+        overrides = dict(attn_impl=variant, sp_use_flash=variant == "ulysses",
+                         n_experts=n_experts, logits_dtype=torch.bfloat16,
+                         max_len=max(GPT2_CONFIGS[model_name].max_len, seq), remat=remat,
+                         scan_layers=pp > 1)
+        if pp > 1:
+            model = PipelinedLM(dataclasses.replace(GPT2_CONFIGS[model_name], **overrides),
+                                mesh, device=dev, generator=gen)
+        else:
+            model = spec.make_model(device=dev, generator=gen, mesh=mesh, **overrides)
         opt = hvd.DistributedOptimizer(torch.optim.AdamW(
             model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8),
             axis_name=("dp", "sp"), **(opt_kw or {}))
-        # B a dp rank: the global batch grows with dp (weak scaling).
-        ids = torch.from_numpy(spec.make_batch(B * dp, seed=42, seq_len=seq)[0]).to(dev)
+        # gpt2-small: B a dp rank, the global batch grows with dp (weak
+        # scaling); gpt2-1p3b: the pipeline slice's global batch.
+        batch = B_1P3B if model_name == "gpt2-1p3b" else B * dp
+        ids = torch.from_numpy(spec.make_batch(batch, seed=42, seq_len=seq)[0]).to(dev)
         init_fn, step_fn = train.make_train_step(
             model, opt, train.lm_loss, mesh=mesh, shard_seq=sp > 1,
             moe_aux_weight=0.01 if n_experts else 0.0)
-        return step_fn, init_fn(), ids, ids, B * seq // sp, "tokens"
+        return step_fn, init_fn(), ids, ids, batch // dp * seq // sp, "tokens"
     mesh = create_mesh({"dp": hvd.size()})
     if model_name == "bert-base":
         return _build_bert(spec, variant, dev, gen)
@@ -251,13 +274,22 @@ def main() -> int:
     ap.add_argument("--n-experts", type=int, default=0,
                     help="GPT-2 only: Switch experts in every other FFN")
     ap.add_argument("--seq", type=int, default=S, help="GPT-2 only: tokens a sequence")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="gpt2-1p3b only: pipeline stages (PipelinedLM)")
+    ap.add_argument("--remat", action="store_true",
+                    help="GPT-2 only: recompute each block in backward")
     args = ap.parse_args()
     if args.model != "gpt2-small" and (args.zero is not None or args.attn or args.sp > 1
                                        or args.n_experts or args.seq != S):
         ap.error("--zero, --attn, --sp, --n-experts and --seq profile gpt2-small")
+    if args.pp > 1 and args.model != "gpt2-1p3b":
+        ap.error("--pp profiles gpt2-1p3b")
+    if args.remat and not args.model.startswith("gpt2"):
+        ap.error("--remat profiles GPT-2")
     variants, opt_kw = VARIANTS[args.model], None
-    shape = ({"sp": args.sp, "n_experts": args.n_experts, "seq": args.seq}
-             if args.model == "gpt2-small" else {})
+    shape = ({"sp": args.sp, "n_experts": args.n_experts, "seq": args.seq,
+              "pp": args.pp, "remat": args.remat}
+             if args.model.startswith("gpt2") else {})
     if args.attn:
         variants = (args.attn,)
     if args.zero is not None:

@@ -1,6 +1,8 @@
 """GPT-2 training across the port's parallel axes (counterpart of
-``examples/jax_gpt2_train.py``): any registry GPT-2 size over a dp x ep x
-sp mesh, with ring or Ulysses attention and an optional Switch-MoE FFN.
+``examples/jax_gpt2_train.py``): any registry GPT-2 size over a pp x dp x
+ep x sp mesh, with ring or Ulysses attention, an optional Switch-MoE FFN,
+the block stack pipelined over pp (``PipelinedLM``, GPipe) and per-block
+recomputation (``--remat``).
 
     torchrun --nproc-per-node 4 -m horovod_tpu_torch.train_gpt2 \\
         --model gpt2-small --seq-len 8192 --batch-size 2 --sp 4 \\
@@ -8,6 +10,8 @@ sp mesh, with ring or Ulysses attention and an optional Switch-MoE FFN.
     torchrun --nproc-per-node 4 -m horovod_tpu_torch.train_gpt2 \\
         --model gpt2-small --seq-len 2048 --batch-size 4 --ep 4 \\
         --n-experts 8 --attn flash
+    torchrun --nproc-per-node 4 -m horovod_tpu_torch.train_gpt2 \\
+        --model gpt2-1p3b --seq-len 2048 --batch-size 8 --pp 4 --attn flash
 
 One process per card; ``hvd.init()`` reads torchrun's ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR``. ``--batch-size`` is
@@ -15,13 +19,16 @@ the global batch, cut over dp (and the sequence over sp); the ids are
 seeded synthetic tokens. AdamW as ``optax.adamw(lr)`` (weight decay 1e-4),
 bf16 logits, the gradients averaged over the ("dp", "sp") line, and the
 MoE auxiliary loss at weight 0.01 when ``--n-experts`` is set, as the JAX
-script trains. Rank 0 prints each step's loss and tokens/s. ``--tp`` and
-``--pp`` above 1 raise ``NotImplementedError`` (ROADMAP A7). ``--device
-cpu`` runs on gloo (the default is the rank's card).
+script trains; with ``--pp`` above 1 the layers take the scan-stacked
+layout (``scan_layers``) and the model is ``PipelinedLM`` with S
+microbatches. Rank 0 prints each step's loss and tokens/s. ``--tp`` above
+1 raises ``NotImplementedError`` (ROADMAP A7). ``--device cpu`` runs on
+gloo (the default is the rank's card).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import List, Optional
 
@@ -45,6 +52,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--sp-use-flash", action="store_true",
                    help="Ulysses' per-head-group attention through the flash kernels")
     p.add_argument("--n-experts", type=int, default=0)
+    p.add_argument("--remat", action="store_true")
     p.add_argument("--device", default=None, help="cpu, or a card (default: the rank's)")
     return p.parse_args(argv)
 
@@ -54,11 +62,12 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
     args = parse_args(argv)
     from .parallel.mesh import NOT_PORTED
 
-    for axis in ("tp", "pp"):
+    for axis in NOT_PORTED:
         if getattr(args, axis) > 1:
             raise NotImplementedError(f"--{axis} {getattr(args, axis)}: {NOT_PORTED[axis]} "
                                       "is not ported yet")
     import horovod_tpu_torch as hvd
+    from .models.pipelined import PipelinedLM
     from .models.registry import get_model
     from .models.transformer import GPT2_CONFIGS
     from .parallel.train import lm_loss, make_train_step
@@ -71,12 +80,16 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
         if spec.kind != "lm":
             raise ValueError(f"--model {args.model}: a GPT-2 configuration is needed")
         dev = hvd.device()
-        cfg = GPT2_CONFIGS[args.model]
-        model = spec.make_model(
-            device=dev, generator=torch.Generator(device=dev).manual_seed(0), mesh=mesh,
-            max_len=max(cfg.max_len, args.seq_len), attn_impl=args.attn,
-            sp_use_flash=args.sp_use_flash, n_experts=args.n_experts,
-            logits_dtype=torch.bfloat16)
+        overrides = dict(
+            max_len=max(GPT2_CONFIGS[args.model].max_len, args.seq_len), attn_impl=args.attn,
+            sp_use_flash=args.sp_use_flash, n_experts=args.n_experts, remat=args.remat,
+            scan_layers=args.pp > 1, logits_dtype=torch.bfloat16)
+        cfg = dataclasses.replace(GPT2_CONFIGS[args.model], **overrides)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if args.pp > 1:
+            model = PipelinedLM(cfg, mesh, device=dev, generator=gen)
+        else:
+            model = spec.make_model(device=dev, generator=gen, mesh=mesh, **overrides)
         ids = torch.from_numpy(np.random.RandomState(0).randint(
             0, cfg.vocab_size, (args.batch_size, args.seq_len), dtype=np.int32))
         opt = hvd.DistributedOptimizer(

@@ -1,7 +1,7 @@
 """Rank bodies for tests/test_torch_port_distributed.py,
 tests/test_torch_port_resnet.py, tests/test_torch_port_collectives.py,
 tests/test_torch_port_bert.py, tests/test_torch_port_{zero,adasum,
-sync_bn,overlap}.py and tests/test_torch_port_{sp,moe,mesh}.py, in a
+sync_bn,overlap}.py and tests/test_torch_port_{sp,moe,mesh,pipeline}.py, in a
 module of their own so spawned ranks import torch and horovod_tpu_torch
 only (no jax, no test module). Each rank returns a dict of numpy arrays
 through a queue; ``spawn_world`` runs a named body on a world of gloo
@@ -1020,4 +1020,181 @@ def _run_wrap_step(rank: int, size: int) -> dict:
     gathered = hvd.wrap_step(lambda xb: xb * 2, replicated_argnums=(),
                              out_replicated=False)(torch.from_numpy(x))
     out["gathered"] = gathered.numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (tests/test_torch_port_pipeline.py).
+GPIPE_S, GPIPE_D, GPIPE_DH, GPIPE_B, GPIPE_M = 4, 8, 16, 8, 4     # test_parallel.py:81-104
+GRAD_S, GRAD_D, GRAD_DH, GRAD_B, GRAD_M = 2, 4, 8, 8, 4           # test_parallel.py:106-133
+GRAD_LR, GRAD_STEPS = 0.1, 10
+PLM_B, PLM_S, PLM_M = 8, 16, 4                                      # test_parallel.py:135-172
+PLM_LR, PLM_STEPS = 1e-3, 4
+
+
+def mlp_stage(torch, params, x):
+    """tests/test_parallel.py's ``_mlp_stage``: one residual tanh MLP."""
+    return x + torch.tanh(x @ params["w1"]) @ params["w2"]
+
+
+def stage_params(seed: int, n_stages: int, d: int, dh: int) -> dict:
+    rng = np.random.RandomState(seed)
+    return {"w1": rng.randn(n_stages, d, dh).astype(np.float32) * 0.1,
+            "w2": rng.randn(n_stages, dh, d).astype(np.float32) * 0.1}
+
+
+def gpipe_inputs():
+    """test_gpipe_matches_sequential's draws: the stage parameters, then x."""
+    rng = np.random.RandomState(0)
+    params = {"w1": rng.randn(GPIPE_S, GPIPE_D, GPIPE_DH).astype(np.float32) * 0.1,
+              "w2": rng.randn(GPIPE_S, GPIPE_DH, GPIPE_D).astype(np.float32) * 0.1}
+    return params, rng.randn(GPIPE_B, GPIPE_D).astype(np.float32)
+
+
+def grad_inputs():
+    """test_gpipe_differentiable_and_trains's draws: parameters, x, y."""
+    rng = np.random.RandomState(1)
+    params = {"w1": rng.randn(GRAD_S, GRAD_D, GRAD_DH).astype(np.float32) * 0.1,
+              "w2": rng.randn(GRAD_S, GRAD_DH, GRAD_D).astype(np.float32) * 0.1}
+    return (params, rng.randn(GRAD_B, GRAD_D).astype(np.float32),
+            rng.randn(GRAD_B, GRAD_D).astype(np.float32))
+
+
+def plm_ids():
+    return np.random.RandomState(0).randint(0, 128, (PLM_B, PLM_S), dtype=np.int32)
+
+
+def _stage_fn(torch):
+    # One layer per stage: the stage's slice keeps a layer dim of 1.
+    return lambda p, act: mlp_stage(torch, {k: v[0] for k, v in p.items()}, act)
+
+
+def _run_gpipe_pp4(rank: int, size: int) -> dict:
+    """gpipe on pp=4 with 4 microbatches: this rank's output."""
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.pipeline import gpipe, stack_stage_params
+
+    mesh = hvd.create_mesh({"pp": size})
+    params, x = gpipe_inputs()
+    stacked = stack_stage_params({k: torch.from_numpy(v) for k, v in params.items()}, size)
+    mine = {k: v[mesh.coords["pp"]] for k, v in stacked.items()}   # this rank's stage
+    out = gpipe(_stage_fn(torch), mine, torch.from_numpy(x), mesh=mesh,
+                num_microbatches=GPIPE_M)
+    return {"out": out.numpy(), "stage": mesh.coords["pp"]}
+
+
+def _run_gpipe_grads(rank: int, size: int, with_train_gpt2: bool) -> dict:
+    """On pp=2: the gradients of the mean-squared loss through gpipe (4
+    microbatches) against the same stack run unpipelined on this rank; 10
+    SGD steps through gpipe (the losses); then, with ``with_train_gpt2``,
+    ``train_gpt2 --pp 2 --remat`` on this world."""
+    import torch
+
+    torch.set_num_threads(2)
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.pipeline import gpipe
+
+    mesh = hvd.create_mesh({"pp": size})
+    params, x, y = grad_inputs()
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+    full = {k: torch.from_numpy(v) for k, v in params.items()}
+    stage = mesh.coords["pp"]
+    mine = {k: torch.nn.Parameter(v[stage:stage + 1].clone()) for k, v in full.items()}
+    fn = _stage_fn(torch)
+
+    def loss_of(p):
+        return torch.mean((gpipe(fn, p, x, mesh=mesh, num_microbatches=GRAD_M) - y) ** 2)
+
+    loss = loss_of(mine)
+    loss.backward()
+    ref = {k: v.clone().requires_grad_(True) for k, v in full.items()}
+    act = x
+    for s in range(size):    # the stack unpipelined
+        act = mlp_stage(torch, {k: v[s] for k, v in ref.items()}, act)
+    ref_loss = torch.mean((act - y) ** 2)
+    ref_loss.backward()
+    out = {"loss": float(loss), "ref_loss": float(ref_loss),
+           "grads": {k: v.grad.numpy().copy() for k, v in mine.items()},
+           "ref_grads": {k: v.grad[stage:stage + 1].numpy().copy() for k, v in ref.items()},
+           "stage": stage}
+    losses = []
+    for _ in range(GRAD_STEPS):
+        for p in mine.values():
+            p.grad = None
+        loss = loss_of(mine)
+        loss.backward()
+        with torch.no_grad():
+            for p in mine.values():
+                p -= GRAD_LR * p.grad
+        losses.append(float(loss))
+    out["losses"] = np.array(losses)
+    if with_train_gpt2:
+        from horovod_tpu_torch import train_gpt2
+
+        # Last: train_gpt2 shuts the world down when it returns.
+        out["train_gpt2"] = np.array(train_gpt2.main(
+            ["--model", "gpt2-tiny", "--batch-size", "4", "--seq-len", "32", "--steps", "2",
+             "--pp", str(size), "--remat", "--device", "cpu"]))
+    return out
+
+
+def _run_pipelined_lm(rank: int, size: int, params_by_dtype) -> dict:
+    """On pp=2 x dp=2: PipelinedLM (4 microbatches) from the JAX scanned
+    TransformerLM's weights, in bf16 and f32: the logits of the whole batch;
+    in f32 this rank's gradients of lm_loss on its dp rows against the
+    port's TransformerLM on the same rows; then 4 Adam steps through
+    make_train_step in bf16 (the losses, the parameters)."""
+    import torch
+
+    torch.set_num_threads(2)
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.convert import flax_to_torch
+    from horovod_tpu_torch.models.pipelined import PipelinedLM
+    from horovod_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    mesh = hvd.create_mesh({"pp": 2, "dp": 2})
+    stage, dpi = mesh.coords["pp"], mesh.coords["dp"]
+    ids = torch.from_numpy(plm_ids())
+    rows = ids[dpi * PLM_B // 2:(dpi + 1) * PLM_B // 2]
+    out = {"coords": np.array([stage, dpi])}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        cfg = TransformerConfig(vocab_size=128, d_model=32, n_heads=4, n_layers=4, d_ff=64,
+                                max_len=64, scan_layers=True, dtype=dtype)
+        params = params_by_dtype[name]
+        model = PipelinedLM(cfg, mesh, num_microbatches=PLM_M, device="cpu")
+        model.load_state_dict(flax_to_torch(params, cfg, stages=2, stage=stage))
+        with torch.no_grad():
+            out[f"logits_{name}"] = model(ids).float().numpy()
+        if name == "f32":
+            full = TransformerLM(cfg, device="cpu")
+            full.load_state_dict(flax_to_torch(params, cfg))
+            # A stage loads from the unpipelined model's state_dict.
+            mine = model.state_dict()
+            model.load_state_dict({k: v for k, v in full.state_dict().items() if k in mine})
+            lm_loss(model(rows), rows).backward()
+            lm_loss(full(rows), rows).backward()
+            ref = dict(full.named_parameters())
+            out["grads"] = {k: p.grad.numpy().copy() for k, p in model.named_parameters()}
+            out["ref_grads"] = {k: ref[k].grad.numpy().copy() for k in out["grads"]}
+    cfg = TransformerConfig(vocab_size=128, d_model=32, n_heads=4, n_layers=4, d_ff=64,
+                            max_len=64, scan_layers=True)
+    model = PipelinedLM(cfg, mesh, num_microbatches=PLM_M, device="cpu")
+    model.load_state_dict(flax_to_torch(params_by_dtype["bf16"], cfg, stages=2, stage=stage))
+    opt = hvd.DistributedOptimizer(torch.optim.Adam(model.parameters(), lr=PLM_LR),
+                                   axis_name="dp")
+    init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh)
+    state = init_fn()
+    losses = []
+    for _ in range(PLM_STEPS):
+        state, loss = step_fn(state, ids, ids)
+        losses.append(float(loss))
+    out["losses"] = np.array(losses)
+    out["params"] = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
     return out

@@ -35,11 +35,14 @@ MODULES = [
     "horovod_tpu_torch.parallel.ulysses",
     "horovod_tpu_torch.parallel.step",
     "horovod_tpu_torch.parallel.train",
+    "horovod_tpu_torch.parallel.pipeline",
+    "horovod_tpu_torch.parallel.sharding",
     "horovod_tpu_torch.train_gpt2",
     "horovod_tpu_torch.models.transformer",
     "horovod_tpu_torch.models.resnet",
     "horovod_tpu_torch.models.registry",
     "horovod_tpu_torch.models.convert",
+    "horovod_tpu_torch.models.pipelined",
     "horovod_tpu_torch.profile_step",
 ]
 # The JAX package's names that the port exports under the same names.

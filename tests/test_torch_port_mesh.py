@@ -8,8 +8,9 @@
   pair of axes the devices that differ from it only there, in mesh order.
   Pure functions, no world needed.
 * ``-1`` filling and the errors: sizes that do not cover or divide the
-  world, two -1s, pp or tp above 1 (``NotImplementedError`` naming the
-  ROADMAP item), an axis that is not in the mesh.
+  world, two -1s, tp above 1 (``NotImplementedError`` naming the ROADMAP
+  item), an axis that is not in the mesh; pp builds (its case once held
+  that pp raised, and keeps that case's id).
 * On 2 gloo ranks, the counterparts of tests/test_parallel.py:174-232: a
   gradient taken inside ``wrap_step`` and averaged by ``hvd.allreduce`` is
   the global-batch gradient (not the cross-rank sum), and linear regression
@@ -86,9 +87,19 @@ def test_factoring_errors_match_jax(sizes):
     ({"dp": 2}, ValueError, "do not divide"),
     ({"dp": -1, "sp": -1}, ValueError, "at most one"),
     ({"dp": 1, "tp": 2}, NotImplementedError, "tp=2.*ROADMAP A7"),
-    ({"pp": 2, "dp": -1}, NotImplementedError, "pp=2.*ROADMAP A7"),
+    # pp is ported: on this world of one, pp fills to 1 and builds; pp=2
+    # meets the factoring like any axis.
+    pytest.param({"pp": -1, "dp": 1}, None, None,
+                 id="sizes3-NotImplementedError-pp=2.*ROADMAP A7"),
 ])
 def test_mesh_errors(cpu_world, sizes, exc, match):
+    if exc is None:     # pp builds
+        mesh = hvd.create_mesh(sizes)
+        assert mesh.axis_names == ("pp", "dp") and mesh.shape == {"pp": 1, "dp": 1}
+        assert mesh.comm("pp").ranks == (0,) and port_mesh.current_mesh() is mesh
+        with pytest.raises(ValueError, match="do not divide"):
+            hvd.create_mesh({"pp": 2, "dp": -1})
+        return
     with pytest.raises(exc, match=match):
         hvd.create_mesh(sizes)
 
@@ -141,6 +152,13 @@ def test_train_gpt2_entry_point_on_the_cpu(capsys):
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert capsys.readouterr().out.count("tokens/sec") == 2
     assert not hvd.is_initialized()
-    for axis in ("tp", "pp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            train_gpt2.main(["--model", "gpt2-tiny", f"--{axis}", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        train_gpt2.main(["--model", "gpt2-tiny", "--tp", "2", "--device", "cpu"])
+    # pp is ported: --pp 2 needs two ranks (tests/test_torch_port_pipeline.py
+    # trains on them), and one rank meets the mesh's factoring.
+    with pytest.raises(ValueError, match="do not divide"):
+        train_gpt2.main(["--model", "gpt2-tiny", "--pp", "2", "--device", "cpu"])
+    assert not hvd.is_initialized()
+    losses = train_gpt2.main(["--model", "gpt2-tiny", "--batch-size", "2", "--seq-len", "32",
+                              "--steps", "2", "--remat", "--attn", "flash", "--device", "cpu"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
