@@ -99,9 +99,11 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
 13. with two cards or more (``sp_multi``), one NCCL rank per card against
    world-1 controls run here on the same global batch: (s1) sp=n, Ulysses
    through flash, ``shard_seq``, B=2, S=8192, against flash; (s2) the same
-   with the ring, against dense attention with remat (the ring rounds q·k
-   to bf16 as dense attention does; against flash it is printed, not
-   gated); (e1) ep=n with phase 12's configuration, against phase
+   with the ring, against the ring's own arithmetic on one card
+   (``ring_on_one_card``: the n sequence blocks folded in the ring's order
+   by its block update; the port's ring is bitwise the JAX ring in bf16);
+   against dense attention with remat and against flash it is printed, not
+   gated; (e1) ep=n with phase 12's configuration, against phase
    12; (se) on four cards ep=2 x sp=2 with MoE and Ulysses-flash at B=2,
    S=8192 against MoE with flash. Each: step-1 loss within 2e-3 relative
    and the 5 steps' within 1e-2; step-1 gradients, experts gathered to full
@@ -125,15 +127,33 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    each kernel a step per rank (K1 twice that with remat); pp-replicated
    parameters bitwise on every rank; the step ms beside GPipe's bubble.
    With one card its line says "not measured";
-16. the ``{"kernels": [...]}`` line (with ``launches_sp``,
-   ``launches_moe``, ``launches_pp`` and the D=128 records ``pp_d128``);
-   then the card line from nvidia-smi and the last line
-   ``{"ok": true, "device": {...}}``.
+16. tensor parallelism (``tp``): GPT-2 1.3B as in 14, ``TransformerLM``
+   built on a dp=1 x tp=1 mesh through the tp layers (``parallel/
+   tensor.py``), 5 steps whose step-1 loss and gradients must be bitwise
+   phase 14's, 48 launches of K1 and 24 of each K2 kernel a step; K1 and
+   the K2 pair at the tp path's (8, 2048, 8, 128) and (8, 2048, 4, 128)
+   against their plain versions, timed beside SDPA and the aten flash
+   backward; the vocab-parallel cross-entropy at tp=1 against ``lm_loss``
+   on (8, 2048, 50257) bf16 logits (loss within 1e-5, gradient within one
+   bf16 ulp);
+17. with two cards or more (``tp_multi``), one NCCL rank per card against
+   phase 14's run: (t1) tp=2, and tp=4 on four cards; (t2) dp=2 x tp=2 on
+   four cards. Gates as in 15, the tp shards joined to the full model
+   (``tp_join``); 48 launches of K1 and 24 of each K2 kernel a step per
+   rank; the tp-replicated parameters bitwise on every rank of their tp
+   line, every parameter on its dp line; per rank the step ms, tokens/s,
+   peak memory and parameters held. With one card its line says "not
+   measured";
+18. the ``{"kernels": [...]}`` line (with ``launches_sp``,
+   ``launches_moe``, ``launches_pp``, ``launches_tp`` and the D=128
+   records ``pp_d128`` and ``tp_d128``); then the card line from
+   nvidia-smi and the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is not available.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -1385,11 +1405,13 @@ DROP_RTOL = 1e-3           # step-1 dropped tokens against the control's
 SP_VARIANTS = {
     "s1_ulysses_flash": (lambda n: {"sp": n}, {"attn_impl": "ulysses", "sp_use_flash": True},
                          (SP_B, SP_S), True, "control_flash_s8192"),
-    # The ring rounds q·k to bf16 as dense attention does (flash keeps f32
-    # scores): its control is dense attention, which fits one card at
-    # B=2, S=8192 only with each block recomputed in backward.
+    # The port's ring is bitwise the JAX ring in bf16 (tests/
+    # test_torch_port_sp.py::test_sp_ring_bf16_matches_jax), whose blocked
+    # f32 accumulation rounds otherwise than dense or flash attention: its
+    # control is the ring's own arithmetic on one card (``ring_on_one_card``).
+    # Against dense attention with remat and against flash it is printed.
     "s2_ring": (lambda n: {"sp": n}, {"attn_impl": "ring"}, (SP_B, SP_S), False,
-                "control_dense_s8192"),
+                "control_ring1_s8192"),
     "e1_moe": (lambda n: {"ep": n}, {"attn_impl": "flash", **MOE_CFG}, (MOE_B, MOE_S), True,
                "control_moe"),
     "se_moe_ulysses_flash": (lambda n: {"ep": 2, "sp": 2},
@@ -1405,9 +1427,67 @@ SP_CONTROLS = {
     "control_dense_f32_s2048": ({"attn_impl": "dense", **F32}, (SP_B, MOE_S)),
     "control_flash_s8192": ({"attn_impl": "flash"}, (SP_B, SP_S)),
     "control_dense_s8192": ({"attn_impl": "dense", "remat": True}, (SP_B, SP_S)),
+    # attn_impl "ring" on a mesh with no sp line, its attention replaced by
+    # the ring's block updates in the ring's order (``world1_ring``).
+    "control_ring1_s8192": ({"attn_impl": "ring"}, (SP_B, SP_S)),
     "control_moe": ({"attn_impl": "flash", **MOE_CFG}, (MOE_B, MOE_S)),
     "control_moe_s8192": ({"attn_impl": "flash", **MOE_CFG}, (SP_B, SP_S)),
 }
+
+
+# Controls a variant is printed against, not gated.
+SP_PRINTED = {"s2_ring": ("control_dense_s8192", "control_flash_s8192")}
+
+
+def ring_on_one_card(q, k, v, n: int, causal: bool):
+    """The ring's arithmetic at sp=n on one card: the sequence in n blocks;
+    query block i folds key block (i - t) mod n at step t = 0..n-1 into its
+    (o, m, l) state with the port's ``_flash_block_update`` (recomputed in
+    backward, as the ring does), then o / l in q's dtype, the blocks
+    concatenated. What a ring rank computes from its own q block and the
+    K/V blocks it receives, in the same order."""
+    from torch.utils.checkpoint import checkpoint
+
+    from horovod_tpu_torch.parallel.ring import _flash_block_update
+
+    B, S, H, Dn = q.shape
+    Sb = S // n
+    scale = 1.0 / math.sqrt(Dn)
+    outs = []
+    for i in range(n):
+        qi = q[:, i * Sb:(i + 1) * Sb]
+        qpos = i * Sb + torch.arange(Sb, device=q.device)
+        o = torch.zeros(B, Sb, H, Dn, dtype=torch.float32, device=q.device)
+        m = torch.full((B, H, Sb), -math.inf, dtype=torch.float32, device=q.device)
+        l = torch.zeros(B, H, Sb, dtype=torch.float32, device=q.device)
+        for t in range(n):
+            src = (i - t) % n
+            blk = slice(src * Sb, (src + 1) * Sb)
+            kpos = src * Sb + torch.arange(Sb, device=q.device)
+            o, m, l = checkpoint(_flash_block_update, o, m, l, qi, k[:, blk], v[:, blk], qpos,
+                                 kpos, scale, causal, None, use_reentrant=False)
+        outs.append((o / l.clamp_min(1e-30).transpose(1, 2)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+@contextlib.contextmanager
+def world1_ring(n: int):
+    """While the block runs, the model's attention is ``ring_on_one_card``
+    at sp=n (the control of (s2))."""
+    from horovod_tpu_torch.models import transformer
+
+    dispatch = transformer._attention_dispatch
+
+    def ring(cfg, q, k, v, mask, mesh=None):
+        if mask is not None:
+            raise ValueError("world1_ring takes no mask")
+        return ring_on_one_card(q, k, v, n, cfg.causal)
+
+    transformer._attention_dispatch = ring
+    try:
+        yield
+    finally:
+        transformer._attention_dispatch = dispatch
 
 
 def sp_variants_for(cards: int) -> list:
@@ -1754,7 +1834,7 @@ def split_noise(hvd, fa, fb, overrides: dict, batch, want: torch.Tensor) -> floa
 def phase_sp_multi(fa, fb, moe_rec, moe_grads) -> dict:
     """With two cards or more: the world-1 controls in this process, then
     the variants of ``sp_variants_for`` on one spawned NCCL rank per card,
-    each held against its control: step-1 loss within 2e-3 relative and
+    each held against its control (and printed against ``SP_PRINTED``'s): step-1 loss within 2e-3 relative and
     the 5 steps' within 1e-2, step-1 gradients (experts gathered) within
     1e-2 in relative norm, 12 launches of each flash kernel a step on every
     rank (0 for the ring), step-1 dropped tokens within 0.1% of the
@@ -1768,17 +1848,22 @@ def phase_sp_multi(fa, fb, moe_rec, moe_grads) -> dict:
     variants = sp_variants_for(cards)
     rec = {"phase": "sp_multi", "cards": cards, "variants": {}, "controls": {}}
     controls = {"control_moe": (moe_rec, *moe_grads)}
-    for name in sorted({SP_VARIANTS[v][4] for v in variants} - set(controls)):
+    wanted = {SP_VARIANTS[v][4] for v in variants}
+    wanted |= {c for v in variants for c in SP_PRINTED.get(v, ())}
+    for name in sorted(wanted - set(controls)):
         overrides, batch = SP_CONTROLS[name]
-        out = train_sp(hvd, fa, fb, full_mesh({}), overrides, batch, keep_grads=True)
-        controls[name] = (out["rec"], out["grads"], out["layout"])
-        rec["controls"][name] = out["rec"]
-        del out
-        gc.collect()    # the step-1 capture closes a cycle through the optimizer
-        torch.cuda.empty_cache()
-        if "n_experts" not in overrides:
-            rec["controls"][name]["step1_grad_rel_norm_split_in_two"] = split_noise(
-                hvd, fa, fb, overrides, batch, controls[name][1])
+        attention = (world1_ring(cards) if name == "control_ring1_s8192"
+                     else contextlib.nullcontext())
+        with attention:
+            out = train_sp(hvd, fa, fb, full_mesh({}), overrides, batch, keep_grads=True)
+            controls[name] = (out["rec"], out["grads"], out["layout"])
+            rec["controls"][name] = out["rec"]
+            del out
+            gc.collect()    # the step-1 capture closes a cycle through the optimizer
+            torch.cuda.empty_cache()
+            if "n_experts" not in overrides:
+                rec["controls"][name]["step1_grad_rel_norm_split_in_two"] = split_noise(
+                    hvd, fa, fb, overrides, batch, controls[name][1])
     failed = []
     with tempfile.TemporaryDirectory() as tmp:
         ranks = spawn_cards(functools.partial(sp_rank, variants=variants, tmp=tmp), cards,
@@ -1815,10 +1900,12 @@ def phase_sp_multi(fa, fb, moe_rec, moe_grads) -> dict:
                     > DROP_RTOL * v["control_dropped_step1"]:
                 failed.append(f"{name}: {v['dropped_step1']} tokens dropped at step 1, "
                               f"control {v['control_dropped_step1']}")
-        if "s2_ring" in variants and "control_flash_s8192" in controls:
-            # Not gated: the ring against flash's f32 scores (ROADMAP C1).
-            rec["variants"]["s2_ring"]["step1_grad_rel_norm_vs_control_flash_s8192"] = rel_norm(
-                torch.load(f"{tmp}/s2_ring.pt"), controls["control_flash_s8192"][1])
+        for name in variants:
+            # Not gated: the variant against controls that round otherwise
+            # (ROADMAP C1).
+            for ctrl in SP_PRINTED.get(name, ()):
+                rec["variants"][name][f"step1_grad_rel_norm_vs_{ctrl}"] = rel_norm(
+                    torch.load(f"{tmp}/{name}.pt"), controls[ctrl][1])
         if {"s1_ulysses_flash", "s2_ring"} <= set(variants):
             # The two sp variants cut the tokens alike and attend otherwise:
             # what they share against the control is the cut's bf16 noise.
@@ -1862,8 +1949,8 @@ def pp_worlds_for(cards: int) -> dict:
 
 def gpt2_1p3b(mesh, pipelined: bool, **overrides):
     """GPT-2 1.3B from torch seed 0 (flash, bf16 logits, the scan-stacked
-    layout): ``PipelinedLM`` on ``mesh`` or ``TransformerLM``; every pp
-    layout of the seed holds the same weights."""
+    layout): ``PipelinedLM`` or ``TransformerLM`` on ``mesh``; every pp and
+    every tp layout of the seed holds the same weights."""
     import dataclasses
 
     from horovod_tpu_torch.models.pipelined import PipelinedLM
@@ -1878,7 +1965,7 @@ def gpt2_1p3b(mesh, pipelined: bool, **overrides):
     if pipelined:
         return PipelinedLM(dataclasses.replace(GPT2_CONFIGS[PP_MODEL], **kw), mesh,
                            num_microbatches=num_microbatches, device=dev, generator=gen)
-    return get_model(PP_MODEL).make_model(device=dev, generator=gen, **kw)
+    return get_model(PP_MODEL).make_model(device=dev, generator=gen, mesh=mesh, **kw)
 
 
 def pp_ids(batch: int = PP_B):
@@ -1908,19 +1995,20 @@ def warm_pp(mesh) -> None:
 
 
 def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bool,
-             steps: int = STEPS) -> dict:
+             steps: int = STEPS, loss_fn=None) -> dict:
     """``steps`` AdamW steps (lr 1e-4, wd 1e-4, eps 1e-8) of GPT-2 1.3B on
     ``mesh`` through ``make_train_step`` on the global batch (B=8, S=2048,
-    numpy seed 42), the optimizer reducing over the ("dp", "sp") line.
-    Returns the record, the model and, with ``keep_grads``, this rank's
-    step-1 gradients by name, in host memory (out of the peak)."""
+    numpy seed 42), the optimizer reducing over the ("dp", "sp") line, the
+    loss ``loss_fn`` (by default ``lm_loss``). Returns the record, the
+    model and, with ``keep_grads``, this rank's step-1 gradients by name,
+    in host memory (out of the peak)."""
     from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
 
     model = gpt2_1p3b(mesh, pipelined, **overrides)
     ids = pp_ids()
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(
         model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), axis_name=("dp", "sp"))
-    init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh)
+    init_fn, step_fn = make_train_step(model, opt, loss_fn or lm_loss, mesh=mesh)
     got = {}
     inner_step = opt._inner.step
 
@@ -2086,8 +2174,7 @@ def phase_pp(fa, fb, gen, dev):
                vocab=model.cfg.vocab_size, lm_step1_bitwise=True,
                lm_step_ms=lm_rec["step_ms"][0], lm_peak_mem_gb=lm_rec["peak_mem_gb"])
     layout = [(n, g.numel()) for n, g in sorted(pp["grads"].items())]
-    flat = (torch.cat([g.float().reshape(-1) for _, g in sorted(pp["grads"].items())])
-            if torch.cuda.device_count() >= 2 else None)
+    flat = torch.cat([g.float().reshape(-1) for _, g in sorted(pp["grads"].items())])
     del pp, model, lm_grads
     gc.collect()
     torch.cuda.empty_cache()
@@ -2222,7 +2309,290 @@ def _pp_world(world: int, variants, rec: dict, pp_rec: dict, ctrl_flat, layout) 
     return failed
 
 
-def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp) -> list:
+# ---------------------------------------------------------------------------
+# Tensor parallelism (phases ``tp`` and, with two cards or more,
+# ``tp_multi``): GPT-2 1.3B (``examples/jax_gpt2_train.py:9-11``, ``--dp 8
+# --tp 4`` at gpt2-1p3b) at full width and depth, flash at H/tp heads.
+TP_HEADS = (8, 4)          # the local heads at tp=2 and tp=4
+XENT_LOSS_RTOL = 1e-5      # f32 sums of 16,376 rows in two orders
+XENT_GRAD_RTOL = 2 ** -7   # the logits' gradient is bf16: one ulp
+# In f32 with dense attention (the kernels take bf16): the tp path without
+# bf16's rounding.
+TP_F32 = {"dtype": torch.float32, "logits_dtype": torch.float32, "attn_impl": "dense"}
+# The multi-card variants: mesh (its world is that many cards), model
+# overrides (beside remat), steps, the world-1 control: "pp" is phase pp's
+# run, "f32" the same model in f32 with dense attention, one step.
+TP_VARIANTS = {
+    "t1_tp2": ({"dp": 1, "tp": 2}, {}, STEPS, "pp"),
+    "t1_tp4": ({"dp": 1, "tp": 4}, {}, STEPS, "pp"),
+    "t2_dp2_tp2": ({"dp": 2, "tp": 2}, {}, STEPS, "pp"),
+    "t1f_tp2_f32": ({"dp": 1, "tp": 2}, TP_F32, 1, "f32"),
+}
+
+
+def tp_worlds_for(cards: int) -> dict:
+    """The variants by world size, each world no larger than the cards:
+    (t1) tp=2 (and its f32 witness), and tp=4 on four cards; (t2) dp=2 x
+    tp=2 on four cards."""
+    out = {}
+    for name, (shape, _, _, _) in TP_VARIANTS.items():
+        world = shape["dp"] * shape["tp"]
+        if world <= cards:
+            out.setdefault(world, []).append(name)
+    return out
+
+
+def xent_at_one_rank(dev) -> dict:
+    """``vocab_parallel_lm_loss`` on a tp line of one member against
+    ``lm_loss`` at the full vocabulary, on bf16 logits of the path's shape
+    (8, 2048, 50257) from torch seed 7 and the path's ids: the loss within
+    XENT_LOSS_RTOL, the logits' gradient within one bf16 ulp; each timed
+    forward and backward."""
+    from horovod_tpu_torch.models.transformer import GPT2_CONFIGS
+    from horovod_tpu_torch.parallel.mesh import Comm
+    from horovod_tpu_torch.parallel.tensor import vocab_parallel_lm_loss
+    from horovod_tpu_torch.parallel.train import lm_loss
+
+    V = GPT2_CONFIGS[PP_MODEL].vocab_size
+    gen = torch.Generator(device=dev).manual_seed(7)
+    logits = torch.randn(PP_B, PP_S, V, generator=gen, device=dev).to(torch.bfloat16)
+    ids = pp_ids().to(dev)
+    one = Comm(None, 1, 0, (0,))
+    fns = {"vocab_parallel": lambda z: vocab_parallel_lm_loss(z, ids, one, V),
+           "lm_loss": lambda z: lm_loss(z, ids)}
+
+    def run(fn):
+        z = logits.detach().requires_grad_(True)
+        loss = fn(z)
+        loss.backward()
+        return loss.detach(), z.grad
+
+    (la, ga), (lb, gb) = run(fns["vocab_parallel"]), run(fns["lm_loss"])
+    rec = {"shape": list(logits.shape), "loss": float(la), "loss_lm_loss": float(lb),
+           "loss_rel_err": abs(float(la) - float(lb)) / abs(float(lb)),
+           "grad_max_abs_err": max_err(ga, gb),
+           "tolerance": {"loss_rtol": XENT_LOSS_RTOL, "grad_rtol": XENT_GRAD_RTOL}}
+    if rec["loss_rel_err"] > XENT_LOSS_RTOL:
+        raise AssertionError(f"tp: vocab-parallel loss {rec['loss']} vs lm_loss {rec['loss_lm_loss']}")
+    bad = ((ga.float() - gb.float()).abs() > XENT_GRAD_RTOL * gb.float().abs()).sum()
+    if int(bad):
+        raise AssertionError(f"tp: {int(bad)} logit gradients past one bf16 ulp of lm_loss's "
+                             f"(max abs err {rec['grad_max_abs_err']})")
+    del ga, gb
+    for name, fn in fns.items():
+        rec[f"{name}_fwd_bwd_ms"] = time_ms(lambda: run(fn), 5, 1)
+    del logits
+    torch.cuda.empty_cache()
+    return rec
+
+
+def vocab_loss_spread(hvd, fa, fb, mesh, ctrl_flat) -> dict:
+    """One step of the world-1 model with ``vocab_parallel_lm_loss`` on a tp
+    line of one member: its step-1 loss and the relative norm of its step-1
+    gradients against ``ctrl_flat`` (``lm_loss``'s)."""
+    import functools
+
+    from horovod_tpu_torch.models.transformer import GPT2_CONFIGS
+    from horovod_tpu_torch.parallel.mesh import Comm
+    from horovod_tpu_torch.parallel.tensor import vocab_parallel_lm_loss
+
+    loss_fn = functools.partial(vocab_parallel_lm_loss, axis=Comm(None, 1, 0, (0,)),
+                                vocab_size=GPT2_CONFIGS[PP_MODEL].vocab_size)
+    out = train_pp(hvd, fa, fb, mesh, False, {"remat": True}, keep_grads=True, steps=1,
+                   loss_fn=loss_fn)
+    flat = torch.cat([g.float().reshape(-1) for _, g in sorted(out["grads"].items())])
+    rec = {"loss1": out["rec"]["losses"][0], "step1_grad_rel_norm_vs_pp": rel_norm(flat, ctrl_flat)}
+    del out, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_tp(fa, fb, gen, dev, pp_rec, control) -> dict:
+    """GPT-2 1.3B at B=8, S=2048, bf16, flash, remat, AdamW: ``TransformerLM``
+    built on a dp=1 x tp=1 mesh through the tp layers takes 5 steps, whose
+    step-1 loss and gradients must be bitwise phase ``pp``'s (the
+    pipelined run, itself bitwise the LM's), with 48 launches of K1 and 24
+    of each K2 kernel a step. Then K1 and the K2 pair at the tp path's
+    shapes (8, 2048, 8, 128) and (8, 2048, 4, 128) against their plain
+    versions, and the vocab-parallel cross-entropy at tp=1 against
+    ``lm_loss``. Printed, not gated: the step-1 gradients of one step with
+    the vocab-parallel loss at tp=1 against phase pp's, the spread a bf16
+    backward gives a change in the last bits of the logits' gradient."""
+    import horovod_tpu_torch as hvd
+
+    ctrl_flat, layout = control
+    mesh = hvd.create_mesh({"dp": 1, "sp": 1, "tp": 1})
+    out = train_pp(hvd, fa, fb, mesh, False, {"remat": True}, keep_grads=True)
+    rec, model = out["rec"], out["model"]
+    check_launches("tp", rec, flash_launches(model.cfg.n_layers, remat=True))
+    if rec["losses"][0] != pp_rec["losses"][0]:
+        raise AssertionError(f"tp: step-1 loss {rec['losses'][0]} is not phase pp's "
+                             f"{pp_rec['losses'][0]}")
+    if [(n, g.numel()) for n, g in sorted(out["grads"].items())] != layout:
+        raise AssertionError("tp: the parameters are not phase pp's")
+    flat = torch.cat([g.float().reshape(-1) for _, g in sorted(out["grads"].items())])
+    if not torch.equal(flat, ctrl_flat):
+        raise AssertionError(f"tp: step-1 gradients not bitwise phase pp's "
+                             f"({rel_norm(flat, ctrl_flat)} in relative norm)")
+    rec.update(phase="tp", model=PP_MODEL, step1_bitwise_pp=True,
+               losses_equal_pp=rec["losses"] == pp_rec["losses"])
+    del out, model, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["world1_vocab_parallel_loss"] = vocab_loss_spread(hvd, fa, fb, mesh, ctrl_flat)
+    rec["kernels_d128"] = {f"{PP_B}x{PP_S}x{Hn}": flash_at(fa, gen, dev, PP_B, PP_S, Hn, 128)
+                           for Hn in TP_HEADS}
+    rec["xent_tp1"] = xent_at_one_rank(dev)
+    emit(rec)
+    return rec
+
+
+def tp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
+    """One spawned NCCL rank of ``tp_multi``: each variant's record; the
+    ranks of dp index 0 write their step-1 gradients by name under ``tmp``;
+    every rank checks after 5 steps that its tp-replicated parameters equal
+    those of its tp line's first rank, and all its parameters those of its
+    dp line's first rank, bitwise."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            recs = {}
+            for name in variants:
+                shape, overrides, steps, _ = TP_VARIANTS[name]
+                mesh = hvd.create_mesh({**shape, "sp": 1})
+                out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, **overrides},
+                               keep_grads=True, steps=steps)
+                rec, model = out["rec"], out["model"]
+                flash = model.cfg.attn_impl == "flash"
+                check_launches(name, rec, flash_launches(model.cfg.n_layers if flash else 0,
+                                                         remat=True))
+                params = list(model.parameters())
+                repl = torch.cat([p.detach().reshape(-1) for p in params
+                                  if not hasattr(p, "tensor_parallel")])
+                mine = torch.cat([p.detach().reshape(-1) for p in params])
+                rec["tp_replicated_bitwise"] = bool(torch.equal(
+                    repl, hvd.broadcast(repl, root_rank=0, axis_name="tp")))
+                rec["dp_replicas_bitwise"] = bool(torch.equal(
+                    mine, hvd.broadcast(mine, root_rank=0, axis_name="dp")))
+                if not (rec["tp_replicated_bitwise"] and rec["dp_replicas_bitwise"]):
+                    raise AssertionError(f"{name}: replicas differ: {rec}")
+                rec["coords"] = dict(mesh.coords)
+                rec["tp_replicated_params"] = repl.numel()
+                if mesh.coords["dp"] == 0:
+                    torch.save({n: g.float() for n, g in out["grads"].items()},
+                               os.path.join(tmp, f"{name}.{mesh.coords['tp']}.pt"))
+                recs[name] = rec
+                del out, model, params, repl, mine
+                gc.collect()
+                torch.cuda.empty_cache()
+            hvd.barrier()
+            queue.put((rank, recs))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_tp_multi(pp_rec, control) -> dict:
+    """With two cards or more: the variants of ``tp_worlds_for`` on one
+    spawned NCCL rank per card, each against its world-1 control (the same
+    model, weights and global batch): phase ``pp``'s run, or for the f32
+    witness the same model in f32 with dense attention, run here for one
+    step. Gates: step-1 loss within 2e-3 relative and the steps' within
+    1e-2, step-1 gradients (the tp shards joined to the full model by
+    ``tp_join``) within 1e-2 in relative norm, 48 launches of K1 and 24 of
+    each K2 kernel a step per rank (none in f32), the tp-replicated
+    parameters bitwise on every rank of their tp line; per rank the step
+    ms, tokens/s, peak memory and parameters held."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import fused_bn_conv as fb
+
+    cards = torch.cuda.device_count()
+    ctrl_flat, layout = control
+    rec = {"phase": "tp_multi", "cards": cards, "variants": {}, "controls": {
+        "pp": {k: pp_rec[k] for k in ("median_step_ms_2_to_5", "peak_mem_gb", "losses")}}}
+    controls = {"pp": (pp_rec, ctrl_flat)}
+    worlds = tp_worlds_for(cards)
+    if any(TP_VARIANTS[v][3] == "f32" for vs in worlds.values() for v in vs):
+        mesh = hvd.create_mesh({"dp": 1, "sp": 1, "tp": 1})
+        out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, **TP_F32}, keep_grads=True,
+                       steps=1)
+        flat = torch.cat([g.float().reshape(-1) for _, g in sorted(out["grads"].items())])
+        controls["f32"] = (out["rec"], flat)
+        rec["controls"]["f32"] = {k: out["rec"][k] for k in ("step_ms", "peak_mem_gb", "losses")}
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    failed = []
+    for world, variants in sorted(worlds.items()):
+        failed += _tp_world(world, variants, rec, controls, layout)
+    emit(rec)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rec
+
+
+def _tp_world(world: int, variants, rec: dict, controls: dict, layout) -> list:
+    """``variants`` on one spawned NCCL rank per card of a world of
+    ``world`` cards, each held against its control; the failed gates."""
+    import functools
+    import tempfile
+
+    from horovod_tpu_torch.models.convert import tp_join
+    from horovod_tpu_torch.models.transformer import GPT2_CONFIGS
+
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_cards(functools.partial(tp_rank, variants=variants, tmp=tmp), world,
+                            timeout=900)
+        for name in variants:
+            ctrl_rec, ctrl_flat = controls[TP_VARIANTS[name][3]]
+            got = ranks[0][name]
+            tp = got["mesh"]["tp"]
+            shards = [torch.load(f"{tmp}/{name}.{t}.pt") for t in range(tp)]
+            joined = tp_join(shards, GPT2_CONFIGS[PP_MODEL])
+            del shards
+            if [(n, joined[n].numel()) for n, _ in layout] != layout:
+                raise AssertionError(f"{name}: the joined gradients are not the full model's")
+            grads = torch.cat([joined[n].reshape(-1) for n, _ in layout])
+            del joined
+            v = {"rank0": got,
+                 "median_step_ms_by_rank": [r[name]["median_step_ms_2_to_5"] for r in ranks],
+                 "tokens_per_s_by_rank": [r[name]["tokens_per_s"] for r in ranks],
+                 "peak_mem_gb_by_rank": [r[name]["peak_mem_gb"] for r in ranks],
+                 "params_held_by_rank": [r[name]["params_held"] for r in ranks],
+                 "launches_per_step_by_rank": [r[name]["launches_per_step"] for r in ranks]}
+            slowest = max(v["median_step_ms_by_rank"])
+            v["tokens_per_s"] = PP_B * PP_S / (slowest / 1e3)
+            v["loss1_rel_err"] = abs(got["losses"][0] - ctrl_rec["losses"][0]) / abs(
+                ctrl_rec["losses"][0])
+            v["loss_max_rel_err"] = max(abs(a - b) / abs(b)
+                                        for a, b in zip(got["losses"], ctrl_rec["losses"]))
+            v["step1_grad_rel_norm_err"] = rel_norm(grads, ctrl_flat)
+            v["step1_grad_worst_params"] = worst_params(grads, ctrl_flat, layout)
+            del grads
+            rec["variants"][name] = v
+            if v["loss1_rel_err"] > SP_LOSS1_RTOL or v["loss_max_rel_err"] > SP_LOSS_RTOL:
+                failed.append(f"{name}: losses {got['losses']} vs {ctrl_rec['losses']}")
+            if v["step1_grad_rel_norm_err"] > SP_GRAD_RTOL:
+                failed.append(f"{name}: step-1 gradients {v['step1_grad_rel_norm_err']} off "
+                              "the control's in relative norm")
+    return failed
+
+
+def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp) -> list:
     """The ``kernels`` line from the phases' records: each kernel's
     launches on the GPT-2 slice (and per path), error, times and bound."""
     kernels = [
@@ -2257,8 +2627,8 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp) -> list:
                         "bound_by": kb[f"{part}_bound_by"],
                         "plain_ms": kb["fwd_plain_ms" if part == "fwd" else "bwd_plain_ms"],
                         "sdpa_ms": kb["sdpa_fwd_ms" if part == "fwd" else "sdpa_bwd_ms"]}
-    for kern, part in zip(kernels[:3], ("fwd", "dkdv", "dq")):
-        kern["pp_d128"] = [
+    def d128(records, part):
+        return [
             {"shape": r["shape"], "causal": True, "ms": r[f"{part}_ms"],
              "bound_ms": r[f"{part}_bound_ms"], "bound_by": r[f"{part}_bound_by"],
              "plain_ms": r["fwd_plain_ms" if part == "fwd" else "bwd_plain_ms"],
@@ -2267,11 +2637,16 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp) -> list:
              "max_abs_err": (r["o_max_abs_err"] if part == "fwd" else
                              max(r["dk_max_abs_err"], r["dv_max_abs_err"])
                              if part == "dkdv" else r["dq_max_abs_err"])}
-            for r in pp["kernels_d128"].values()]
+            for r in records.values()]
+
+    for kern, part in zip(kernels[:3], ("fwd", "dkdv", "dq")):
+        kern["pp_d128"] = d128(pp["kernels_d128"], part)
+        kern["tp_d128"] = d128(tp["kernels_d128"], part)
     for kern in kernels:
         kern["launches_sp"] = sp["launches"].get(kern["name"], 0)
         kern["launches_moe"] = moe["launches"].get(kern["name"], 0)
         kern["launches_pp"] = pp["launches"].get(kern["name"], 0)
+        kern["launches_tp"] = tp["launches"].get(kern["name"], 0)
         kern.update(route="cuda", source=SOURCE[kern["name"]], replaces=REPLACES[kern["name"]])
     return kernels
 
@@ -2321,11 +2696,19 @@ def main() -> int:
         else:
             emit({"phase": "pp_multi", "cards": torch.cuda.device_count(),
                   "result": "not measured: needs two cards or more"})
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp = phase_tp(fa, fb, gen, dev, pp, pp_grads)
+        if torch.cuda.device_count() >= 2:
+            phase_tp_multi(pp, pp_grads)
+        else:
+            emit({"phase": "tp_multi", "cards": torch.cuda.device_count(),
+                  "result": "not measured: needs two cards or more"})
         del pp_grads
     finally:
         hvd.shutdown()
 
-    emit({"kernels": kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp)})
+    emit({"kernels": kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

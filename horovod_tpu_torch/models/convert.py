@@ -17,7 +17,12 @@ index (``flax_to_torch(..., ep=, ep_rank=)``). A missing or extra key
 raises. With ``cfg.stacked`` (``scan_layers`` and a dense FFN) the layers
 are read from JAX's scan-stacked ``stack/layers`` (``unstack_layers``), else
 from ``stack/layer_{i}``; ``flax_to_torch(..., stages=, stage=)`` returns
-one pipeline stage's part (``models/pipelined.py``).
+one pipeline stage's part (``models/pipelined.py``). ``flax_to_torch(...,
+tp=, tp_rank=)`` and ``bert_flax_to_torch(..., tp=, tp_rank=)`` return tp
+rank ``tp_rank``'s shard of each tp-cut parameter, by the rule the model is
+built and initialised with (``parallel/tensor.tp_cut``), and ``tp_join``
+joins the tp ranks' shards (of parameters or of gradients) back into the
+full model's tensors.
 
 ``zero_state_from_jax(state, rank, world)`` takes the JAX traced plane's
 global ``ZeroState`` and returns one rank's shard of it in the form
@@ -25,11 +30,12 @@ global ``ZeroState`` and returns one rank's shard of it in the form
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..parallel.tensor import tp_cut
 from .resnet import BottleneckResNetBlock, ResNet, ResNetBlock
 from .transformer import TransformerConfig, uses_moe
 
@@ -90,8 +96,8 @@ def unstack_layers(params: Mapping, n_layers: int) -> Dict:
 
 
 def _transformer_to_torch(params: Mapping, cfg: TransformerConfig, head: str,
-                          ep: int = 1, ep_rank: int = 0,
-                          layers: Optional[range] = None) -> Dict[str, torch.Tensor]:
+                          ep: int = 1, ep_rank: int = 0, layers: Optional[range] = None,
+                          tp: int = 1, tp_rank: int = 0) -> Dict[str, torch.Tensor]:
     if cfg.stacked:
         params = unstack_layers(params, cfg.n_layers)
     layers = range(cfg.n_layers) if layers is None else layers
@@ -131,23 +137,42 @@ def _transformer_to_torch(params: Mapping, cfg: TransformerConfig, head: str,
                 f"{dst}.mlp.{name}.weight", lambda a, n=fan_in: _dense(a, n))
             plan[f"{src}/mlp/{name}/bias"] = (f"{dst}.mlp.{name}.bias", None)
 
-    return _apply_plan(flat, plan, "params", cfg.param_dtype)
+    out = _apply_plan(flat, plan, "params", cfg.param_dtype)
+    for key, t in out.items():
+        cut = tp_cut(key, cfg, tp, tp_rank)
+        if cut is not None:
+            out[key] = cut.take(t).contiguous()
+    return out
 
 
 def flax_to_torch(params: Mapping, cfg: TransformerConfig, ep: int = 1,
-                  ep_rank: int = 0, stages: int = 1,
-                  stage: int = 0) -> Dict[str, torch.Tensor]:
+                  ep_rank: int = 0, stages: int = 1, stage: int = 0, tp: int = 1,
+                  tp_rank: int = 0) -> Dict[str, torch.Tensor]:
     """With ``stages`` > 1: the ``state_dict`` of ``PipelinedLM`` stage
     ``stage``, the layers ``[stage·L/stages, (stage+1)·L/stages)`` under
-    their global indices, with the embeddings, ``ln_f`` and the head."""
+    their global indices, with the embeddings, ``ln_f`` and the head. With
+    ``tp`` > 1: that of ``TransformerLM`` on tp rank ``tp_rank``."""
     from ..parallel.pipeline import stage_layers
 
     return _transformer_to_torch(params, cfg, "lm_head", ep, ep_rank,
-                                 stage_layers(cfg.n_layers, stages, stage))
+                                 stage_layers(cfg.n_layers, stages, stage), tp, tp_rank)
 
 
-def bert_flax_to_torch(params: Mapping, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
-    return _transformer_to_torch(params, cfg, "mlm_head")
+def bert_flax_to_torch(params: Mapping, cfg: TransformerConfig, tp: int = 1,
+                       tp_rank: int = 0) -> Dict[str, torch.Tensor]:
+    return _transformer_to_torch(params, cfg, "mlm_head", tp=tp, tp_rank=tp_rank)
+
+
+def tp_join(shards: Sequence[Mapping[str, torch.Tensor]],
+            cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """The full model's tensors from the tp ranks' ``state_dict``s (or
+    gradients by name), in tp rank order: each tp-cut tensor joined from
+    its shards, each replicated one taken from rank 0."""
+    out = {}
+    for key, t in shards[0].items():
+        cut = tp_cut(key, cfg, len(shards), 0)
+        out[key] = t if cut is None else cut.join([s[key] for s in shards])
+    return out
 
 
 def _hwio_to_oihw(kernel: np.ndarray) -> np.ndarray:

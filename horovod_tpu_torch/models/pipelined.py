@@ -15,7 +15,7 @@ from one generator as ``TransformerLM`` does.
 The forward is the JAX one: embed, ``parallel/pipeline.gpipe`` over the
 stage's blocks (with ``cfg.remat``, each block recomputed in backward),
 ``ln_f``, the head, logits in ``cfg.logits_dtype``. pp combines with dp;
-sp and ep under pp are not ported.
+sp, ep and tp under pp are not ported.
 """
 from __future__ import annotations
 
@@ -65,6 +65,9 @@ class PipelinedLM(nn.Module):
             if mesh.shape.get(other, 1) > 1:
                 raise NotImplementedError(f"PipelinedLM on a mesh with {other} > 1 is not "
                                           "ported; pp combines with dp")
+        if mesh.shape.get("tp", 1) > 1:
+            raise NotImplementedError(f"PipelinedLM on a mesh with tp={mesh.shape['tp']} is "
+                                      "not ported (ROADMAP A3: tp under pp)")
         if cfg.attn_impl in ("ring", "ulysses"):
             raise NotImplementedError(f"attn_impl={cfg.attn_impl!r} under pp is not ported")
         device = mesh.device if device is None else device

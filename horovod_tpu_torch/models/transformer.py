@@ -49,7 +49,17 @@ there (``horovod_tpu/parallel/train.py`` cuts the batch over dp and, with
   expert region through ``pvary`` over ep, whose backward sums there, so
   the replicated parameters' gradients are equal on every ep rank.
   ``dispatch_combine_einsum`` is the JAX one-hot formulation
-  (``:339-368``), the plain version the index form is held against.
+  (``:339-368``), the plain version the index form is held against;
+* with tp > 1 (``parallel/tensor.py``) a rank holds its tp shard of the
+  qkv projection (H/tp heads of q, k and v) and of ``mlp.wi``, both
+  column-parallel, of ``attn.out`` and ``mlp.wo``, both row-parallel, and
+  of the vocabulary in the token embedding and the head. Attention (dense
+  or flash) runs on the H/tp local heads. The LayerNorms, the positions
+  and the row-parallel biases are replicated. The logits are this rank's
+  vocabulary shard, which ``parallel/tensor.vocab_parallel_xent`` takes.
+  tp combines with dp; with sp, ep, experts, ring or Ulysses it raises
+  ``NotImplementedError`` (``check_tp_supported``). On a tp line of one
+  member (or no mesh) the tp layers are the plain ones, bit for bit.
 """
 from __future__ import annotations
 
@@ -66,6 +76,9 @@ from ..common import basics
 from ..ops.flash_attention import flash_attention
 from ..parallel.collectives import all_gather, psum, pvary
 from ..parallel.mesh import Comm
+from ..parallel.tensor import (ColumnParallel, RowParallel, check_tp_supported,
+                               mark_tensor_parallel, shard_range, tp_comm,
+                               vocab_parallel_embedding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,6 +243,15 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+class ColumnParallelDense(ColumnParallel, Dense):
+    """``Dense`` over this rank's output features (``comm=`` the tp line)."""
+
+
+class RowParallelDense(RowParallel, Dense):
+    """``Dense`` over this rank's input features (``comm=`` the tp line);
+    the bias is added once, after the sum over tp."""
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=...)``: f32 statistics (fast variance,
     clipped at 0), epsilon 1e-6, output in ``dtype``."""
@@ -253,30 +275,38 @@ class LayerNorm(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Fused qkv projection laid out (3, H, Hd) as the flax DenseGeneral
     kernel is; q, k, v are strided views of its output, which the flash
-    kernels read in place."""
+    kernels read in place. Under tp it holds ``H / tp`` heads of each of q,
+    k and v (column-parallel) and the matching rows of ``out``
+    (row-parallel)."""
 
     def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
-        H, Hd = cfg.n_heads, cfg.head_dim
-        self.qkv = Dense(cfg.d_model, 3 * H * Hd, cfg, device=device)
-        self.out = Dense(H * Hd, cfg.d_model, cfg, device=device)
+        comm = tp_comm(mesh)
+        self.n_local = cfg.n_heads // comm.size
+        HHd = self.n_local * cfg.head_dim
+        self.qkv = ColumnParallelDense(cfg.d_model, 3 * HHd, cfg, device=device, comm=comm)
+        self.out = RowParallelDense(HHd, cfg.d_model, cfg, device=device, comm=comm)
 
     def forward(self, x, mask=None):
         cfg = self.cfg
         B, S, _ = x.shape
-        qkv = self.qkv(x).view(B, S, 3, cfg.n_heads, cfg.head_dim)
-        q, k, v = qkv.unbind(dim=2)                        # (B, S, H, Hd)
+        qkv = self.qkv(x).view(B, S, 3, self.n_local, cfg.head_dim)
+        q, k, v = qkv.unbind(dim=2)                        # (B, S, H / tp, Hd)
         ctx = _attention_dispatch(cfg, q, k, v, mask, self.mesh)
-        return self.out(ctx.reshape(B, S, cfg.n_heads * cfg.head_dim))
+        return self.out(ctx.reshape(B, S, self.n_local * cfg.head_dim))
 
 
 class MlpBlock(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    """d_model -> d_ff (column-parallel under tp) -> d_model (row-parallel)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
-        self.wi = Dense(cfg.d_model, cfg.d_ff, cfg, device=device)
-        self.wo = Dense(cfg.d_ff, cfg.d_model, cfg, device=device)
+        comm = tp_comm(mesh)
+        d_ff = len(shard_range(cfg.d_ff, comm.size, comm.rank))
+        self.wi = ColumnParallelDense(cfg.d_model, d_ff, cfg, device=device, comm=comm)
+        self.wo = RowParallelDense(d_ff, cfg.d_model, cfg, device=device, comm=comm)
 
     def forward(self, x):
         return self.wo(F.gelu(self.wi(x), approximate="tanh"))
@@ -440,7 +470,7 @@ class TransformerBlock(nn.Module):
         if use_moe:
             self.moe = SwitchMoE(cfg, device=device, mesh=mesh)
         else:
-            self.mlp = MlpBlock(cfg, device=device)
+            self.mlp = MlpBlock(cfg, device=device, mesh=mesh)
         self.ffn_name = "moe" if use_moe else "mlp"
 
     def forward(self, x, mask=None):
@@ -449,18 +479,24 @@ class TransformerBlock(nn.Module):
 
 
 class Embedder(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    """Token and position embeddings; under tp the token table holds this
+    rank's vocabulary rows (``vocab_parallel_embedding``)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
         self.dtype = cfg.dtype
+        self.comm = tp_comm(mesh)
+        self.rows = shard_range(cfg.vocab_size, self.comm.size, self.comm.rank)
         self.embedding = nn.Parameter(torch.empty(
-            cfg.vocab_size, cfg.d_model, dtype=cfg.param_dtype, device=device))
+            len(self.rows), cfg.d_model, dtype=cfg.param_dtype, device=device))
         self.pos_embedding = nn.Parameter(torch.empty(
             cfg.max_len, cfg.d_model, dtype=cfg.param_dtype, device=device))
 
     def forward(self, ids, offset: int = 0):
         """``offset``: the global position of ``ids``' first column (a
         sequence-parallel rank's block starts at ``sp index · S_local``)."""
-        x = F.embedding(ids, self.embedding).to(self.dtype)
+        x = vocab_parallel_embedding(ids, self.embedding, self.rows.start,
+                                     self.comm).to(self.dtype)
         pos = self.pos_embedding[offset: offset + ids.shape[1]]
         return x + pos.to(self.dtype)[None]
 
@@ -509,6 +545,11 @@ def init_param_(name: str, p: torch.Tensor, generator: Optional[torch.Generator]
         full = torch.empty((E, *p.shape[1:]), dtype=p.dtype, device=p.device)
         p.copy_(full.normal_(0.0, INIT_STD, generator=generator)
                 [first: first + p.shape[0]])
+    elif hasattr(p, "tensor_parallel"):
+        # Likewise the whole tensor, and this tp rank's shard of it.
+        cut = p.tensor_parallel
+        full = torch.empty(cut.full_shape(p.shape), dtype=p.dtype, device=p.device)
+        p.copy_(cut.take(full.normal_(0.0, INIT_STD, generator=generator)))
     else:
         p.normal_(0.0, INIT_STD, generator=generator)
 
@@ -517,7 +558,9 @@ class _Transformer(nn.Module):
     """Embedder, pre-LN stack, final LayerNorm and a bias-free vocabulary
     head named ``HEAD``. ``forward(ids, mask=None)`` returns (B, S, vocab)
     logits in ``cfg.logits_dtype``; with a mesh of sp > 1, ``ids`` and
-    ``mask`` are this rank's sequence block and so are the logits.
+    ``mask`` are this rank's sequence block and so are the logits; with
+    tp > 1 the logits are this rank's vocabulary shard
+    (``shard_range(vocab, tp, rank)``).
     ``moe_aux_loss()`` sums the MoE blocks' auxiliary losses of the last
     forward, ``moe_dropped()`` their dropped-token counts."""
 
@@ -528,11 +571,14 @@ class _Transformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
-        self.embed = Embedder(cfg, device=device)
+        check_tp_supported(cfg, mesh)
+        self.embed = Embedder(cfg, device=device, mesh=mesh)
         self.stack = TransformerStack(cfg, device=device, mesh=mesh)
         self.ln_f = LayerNorm(cfg.d_model, cfg, device=device)
-        self.add_module(self.HEAD, Dense(cfg.d_model, cfg.vocab_size, cfg,
-                                         bias=False, device=device))
+        tp = self.embed.comm
+        self.add_module(self.HEAD, ColumnParallelDense(
+            cfg.d_model, len(self.embed.rows), cfg, bias=False, device=device, comm=tp))
+        mark_tensor_parallel(self, cfg, tp)
         self.init_weights(generator)
 
     @torch.no_grad()

@@ -9,11 +9,14 @@ package's axes, outer to inner (``AXIS_ORDER``):
     ep   expert parallel        (Switch-MoE experts, ``models/transformer.py``)
     sp   sequence parallel      (ring and Ulysses attention, ``parallel/ring.py``,
                                  ``parallel/ulysses.py``)
-    tp   tensor parallel        (not ported: ROADMAP A7, tensor parallelism)
+    tp   tensor parallel        (column- and row-parallel layers, the vocab-
+                                 parallel embedding, head and cross-entropy,
+                                 ``parallel/tensor.py``)
 
 A rank's coordinates are its index unravelled row-major over the axes in
 that order, the layout ``np.asarray(devices).reshape(shape)`` gives the
-JAX mesh, so port rank i holds the shard of JAX device i. A *line* along
+JAX mesh, so port rank i holds the shard of JAX device i; tp is the
+innermost axis, so consecutive ranks form a tp line. A *line* along
 one axis, or along a tuple of axes, is the set of ranks that differ only
 in those coordinates; ``Mesh.comm(axes)`` gives this rank's line as a
 ``Comm`` (the process group, its size, this rank's index in it, and the
@@ -39,9 +42,6 @@ from ..common import basics
 
 # Canonical axis order, outer -> inner, as in the JAX package.
 AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")
-NOT_PORTED = {
-    "tp": "tensor parallelism (ROADMAP A7: parallel/sharding.py, the tp axis)",
-}
 
 Axes = Union[str, Sequence[str]]
 
@@ -187,19 +187,11 @@ def current_mesh() -> Optional[Mesh]:
 def create_mesh(axis_sizes: Optional[Dict[str, int]] = None) -> Mesh:
     """Build the mesh over the initialised world and make it current. ``-1``
     fills one axis with whatever the world leaves; ``None`` means
-    ``{"dp": size()}``. tp above 1 raises ``NotImplementedError``.
-    Collective: every rank calls it with the same sizes."""
+    ``{"dp": size()}``. Collective: every rank calls it with the same
+    sizes."""
     global _current
     n = basics.size()
-    requested = dict(axis_sizes or {"dp": n})
-    for ax, why in NOT_PORTED.items():
-        if requested.get(ax, 1) > 1 or (requested.get(ax) == -1 and n > 1):
-            raise NotImplementedError(
-                f"mesh axis {ax}={requested[ax]}: {why} is not ported yet")
-    sizes = _factor_devices(n, requested)
-    for ax, why in NOT_PORTED.items():
-        if sizes.get(ax, 1) > 1:
-            raise NotImplementedError(f"mesh axis {ax}={sizes[ax]}: {why} is not ported yet")
+    sizes = _factor_devices(n, dict(axis_sizes or {"dp": n}))
     names = axis_names_in_order(sizes)
     me = basics.rank()
     comms: Dict[Tuple[str, ...], Comm] = {}

@@ -7,16 +7,19 @@ to mesh axes; GSPMD then places every tensor. Here a rank holds its part of
 a parameter outright (the model is built on the mesh), and the rules say
 which parameters a rank holds a part of and which are replicated:
 
-* ``DEFAULT_RULES``: the scan axis "layers" is replicated, "expert" lies
-  over ep (``SwitchMoE`` holds ``E / ep`` experts);
+* ``DEFAULT_RULES``: "mlp", "heads" and "vocab" lie over tp (a rank holds
+  its tp shard of the FFN, of the attention heads and of the vocabulary,
+  ``parallel/tensor.py``), the scan axis "layers" is replicated, "expert"
+  lies over ep (``SwitchMoE`` holds ``E / ep`` experts); "expert_mlp" lies
+  over tp, though the Switch FFN under tp is not ported;
 * ``PIPELINE_RULES``: "layers" over pp, as in JAX: a pp rank holds its
   stage's blocks (``models/pipelined.py``), and the embeddings, ``ln_f`` and
   the head are replicated over pp.
 
 ``replica_comm`` is a parameter's line of copies: the mesh axes its cut does
-not follow. ``make_train_step`` broadcasts each parameter within that line
-at init. The tensor-parallel rows ("mlp", "heads", "vocab", "expert_mlp"
-over tp) and ``FSDP_RULES`` come with the tp axis (ROADMAP A3).
+not follow (a tp-cut parameter's (dp, ...) line, the world for a replicated
+one). ``make_train_step`` broadcasts each parameter within that line at
+init. ``FSDP_RULES`` is not ported (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -29,7 +32,11 @@ from .mesh import Comm, Mesh
 # (logical axis, mesh axes) pairs: the JAX table's rows for the port's
 # parameters (``parallel/train.py`` cuts the batch over dp and sp itself).
 DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
+    ("mlp", ("tp",)),            # d_ff column-split
+    ("heads", ("tp",)),          # attention heads split
+    ("vocab", ("tp",)),          # embedding/lm-head vocab split
     ("expert", ("ep",)),         # MoE experts -> expert parallel
+    ("expert_mlp", ("tp",)),
     ("layers", None),            # the layer axis; "pp" when pipelining
 )
 
@@ -61,10 +68,13 @@ def filter_rules(rules: Sequence[Tuple[str, Any]], mesh: Mesh):
 
 def logical_axis(name: str, param: torch.Tensor) -> Optional[str]:
     """The logical axis a parameter of the port's models is cut along:
-    "expert" for a Switch FFN's experts, "layers" for a block's parameter
-    (``stack.layers.<i>.*``), None for the rest."""
+    "expert" for a Switch FFN's experts, "mlp", "heads" or "vocab" for a
+    tp-cut one (its ``tensor_parallel`` mark), "layers" for a block's
+    parameter (``stack.layers.<i>.*``), None for the rest."""
     if hasattr(param, "expert_parallel"):
         return "expert"
+    if hasattr(param, "tensor_parallel"):
+        return param.tensor_parallel.logical
     if name.startswith("stack.layers."):
         return "layers"
     return None

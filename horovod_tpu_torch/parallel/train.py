@@ -20,10 +20,19 @@ come out equal (``models/transformer.py``). ``lm_loss`` under sequence
 sharding is over the global shifted sequence: a rank's last position is
 labelled with the first id of the next sp block, and the last sp block has
 one label fewer, as ``lm_loss`` on the whole sequence has.
+
+Under tp > 1 the batch is not cut over tp: every rank of a tp line takes
+its dp cut whole, and the model's logits are its vocabulary shard, so
+``lm_loss`` and ``softmax_xent`` become their vocab-parallel forms
+(``parallel/tensor.py``), whose value every tp rank computes alike. The
+optimizer still reduces over the ("dp", "sp") line only: the gradients of
+replicated parameters come out equal on every tp rank, those of tp-cut
+ones are the rank's shard.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Tuple
 
 import torch
@@ -34,6 +43,7 @@ from ..common import basics
 from ..common.types import ReduceOp
 from .mesh import Comm, Mesh
 from .sharding import DEFAULT_RULES, replica_comm
+from .tensor import vocab_parallel_lm_loss, vocab_parallel_xent
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -130,7 +140,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     the model then takes this rank's sequence block. With pp > 1 the model
     is a ``PipelinedLM`` on ``mesh``: every rank of a pp line computes the
     loss of the pipeline's replicated output, and the optimizer still
-    reduces over the ("dp", "sp") line only."""
+    reduces over the ("dp", "sp") line only. With tp > 1 the model is built
+    on ``mesh`` too and ``loss_fn`` is ``lm_loss`` or ``softmax_xent``,
+    taken over the vocabulary shards."""
     from ..optim.distributed import DistributedOptimizer
 
     sp = mesh.shape.get("sp", 1)
@@ -138,11 +150,18 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     if sp > 1 and not shard_seq:
         raise ValueError("a mesh with sp > 1 needs shard_seq=True: the model takes "
                          "this rank's sequence block")
-    sharded = any(mesh.shape.get(a, 1) > 1 for a in ("pp", "ep", "sp"))
+    sharded = any(mesh.shape.get(a, 1) > 1 for a in ("pp", "ep", "sp", "tp"))
     if sharded and getattr(model, "mesh", None) is not mesh:
         raise ValueError("the model must be built on the step's mesh "
                          "(make_model(mesh=...), PipelinedLM(cfg, mesh)) when it has "
-                         "pp, sp or ep")
+                         "pp, sp, ep or tp")
+    if mesh.shape.get("tp", 1) > 1:
+        tp_loss = {lm_loss: vocab_parallel_lm_loss, softmax_xent: vocab_parallel_xent}
+        if loss_fn not in tp_loss:
+            raise ValueError("with tp > 1 the logits are this rank's vocabulary shard: "
+                             "loss_fn must be lm_loss or softmax_xent")
+        loss_fn = functools.partial(tp_loss[loss_fn], axis=mesh.comm("tp"),
+                                    vocab_size=model.cfg.vocab_size)
     if isinstance(optimizer, DistributedOptimizer) and optimizer._comm().ranks != data.ranks:
         raise ValueError(
             f"the optimizer reduces over ranks {optimizer._comm().ranks}, the step's "

@@ -4,7 +4,7 @@
         [--model gpt2-small|resnet50|bert-base] [--steps 3] [--out PATH]
         [--zero 0|1|2] [--no-overlap]
         [--attn flash|dense|ring|ulysses] [--sp N] [--n-experts E] [--seq S]
-        [--pp N] [--remat]
+        [--pp N] [--tp N] [--remat]
 
 Builds a slice that ``chip_smoke.py`` drives on one card: GPT-2-small (B=4,
 S=2048, bf16 logits, ``DistributedOptimizer(AdamW)``), run with
@@ -54,7 +54,14 @@ block recomputed in backward; ``--remat`` applies to gpt2-small too). The
 device time is split further by the pipeline's ranges: ``hvd.pp.send``,
 ``hvd.pp.recv`` (forward activations and backward cotangents between
 stages), ``hvd.pp.replicate`` (the last stage's output to every pp rank)
-and ``hvd.pp.psum`` (the input's cotangent summed over pp).
+and ``hvd.pp.psum`` (the input's cotangent summed over pp). It also takes
+``--tp N`` (a dp x tp mesh over the world, ``TransformerLM`` with its
+heads, FFN and vocabulary cut over tp), splitting the step further by the
+tensor-parallel ranges: ``hvd.tp.psum`` (the row-parallel partial
+products summed), ``hvd.tp.pvary.bwd`` (the column-parallel input
+gradients summed, in backward), ``hvd.tp.embed_sum`` (the vocab-parallel
+lookup) and ``hvd.tp.xent`` (the vocab-parallel loss's forward, its max
+and sums over tp).
 """
 from __future__ import annotations
 
@@ -74,7 +81,7 @@ BERT_B, BERT_S, BERT_MIN_LEN = 256, 128, 64
 VARIANTS = {"gpt2-small": ("flash", "dense"), "gpt2-1p3b": ("flash",),
             "resnet50": ("fused", "unfused"), "bert-base": ("flash", "dense")}
 RANGES = ("hvd.flatten", "hvd.unflatten", "Optimizer.step", "hvd.moe.", "hvd.sp.",
-          "hvd.ep.", "hvd.pp.")
+          "hvd.ep.", "hvd.pp.", "hvd.tp.")
 
 
 def _classify(name: str) -> str:
@@ -101,7 +108,8 @@ def _device_us(evt) -> float:
 
 
 def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
-           n_experts: int = 0, seq: int = S, pp: int = 1, remat: bool = False):
+           n_experts: int = 0, seq: int = S, pp: int = 1, remat: bool = False,
+           tp: int = 1):
     """(step_fn, state, inputs, labels, items per step, item name)."""
     import dataclasses
 
@@ -115,8 +123,8 @@ def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
     spec = get_model(model_name)
     gen = torch.Generator(device=dev).manual_seed(0)
     if model_name.startswith("gpt2"):
-        dp = hvd.size() // (sp * pp)
-        mesh = create_mesh({"pp": pp, "dp": dp, "sp": sp})
+        dp = hvd.size() // (sp * pp * tp)
+        mesh = create_mesh({"pp": pp, "dp": dp, "sp": sp, "tp": tp})
         overrides = dict(attn_impl=variant, sp_use_flash=variant == "ulysses",
                          n_experts=n_experts, logits_dtype=torch.bfloat16,
                          max_len=max(GPT2_CONFIGS[model_name].max_len, seq), remat=remat,
@@ -276,19 +284,21 @@ def main() -> int:
     ap.add_argument("--seq", type=int, default=S, help="GPT-2 only: tokens a sequence")
     ap.add_argument("--pp", type=int, default=1,
                     help="gpt2-1p3b only: pipeline stages (PipelinedLM)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="gpt2-1p3b only: the tp axis's size")
     ap.add_argument("--remat", action="store_true",
                     help="GPT-2 only: recompute each block in backward")
     args = ap.parse_args()
     if args.model != "gpt2-small" and (args.zero is not None or args.attn or args.sp > 1
                                        or args.n_experts or args.seq != S):
         ap.error("--zero, --attn, --sp, --n-experts and --seq profile gpt2-small")
-    if args.pp > 1 and args.model != "gpt2-1p3b":
-        ap.error("--pp profiles gpt2-1p3b")
+    if (args.pp > 1 or args.tp > 1) and args.model != "gpt2-1p3b":
+        ap.error("--pp and --tp profile gpt2-1p3b")
     if args.remat and not args.model.startswith("gpt2"):
         ap.error("--remat profiles GPT-2")
     variants, opt_kw = VARIANTS[args.model], None
     shape = ({"sp": args.sp, "n_experts": args.n_experts, "seq": args.seq,
-              "pp": args.pp, "remat": args.remat}
+              "pp": args.pp, "tp": args.tp, "remat": args.remat}
              if args.model.startswith("gpt2") else {})
     if args.attn:
         variants = (args.attn,)

@@ -1,8 +1,9 @@
 """GPT-2 training across the port's parallel axes (counterpart of
 ``examples/jax_gpt2_train.py``): any registry GPT-2 size over a pp x dp x
-ep x sp mesh, with ring or Ulysses attention, an optional Switch-MoE FFN,
-the block stack pipelined over pp (``PipelinedLM``, GPipe) and per-block
-recomputation (``--remat``).
+ep x sp x tp mesh, with ring or Ulysses attention, an optional Switch-MoE
+FFN, the block stack pipelined over pp (``PipelinedLM``, GPipe), the
+layers and the vocabulary cut over tp (``parallel/tensor.py``) and
+per-block recomputation (``--remat``).
 
     torchrun --nproc-per-node 4 -m horovod_tpu_torch.train_gpt2 \\
         --model gpt2-small --seq-len 8192 --batch-size 2 --sp 4 \\
@@ -12,6 +13,9 @@ recomputation (``--remat``).
         --n-experts 8 --attn flash
     torchrun --nproc-per-node 4 -m horovod_tpu_torch.train_gpt2 \\
         --model gpt2-1p3b --seq-len 2048 --batch-size 8 --pp 4 --attn flash
+    torchrun --nproc-per-node 4 -m horovod_tpu_torch.train_gpt2 \\
+        --model gpt2-1p3b --seq-len 2048 --batch-size 8 --dp 2 --tp 2 \\
+        --attn flash --remat
 
 One process per card; ``hvd.init()`` reads torchrun's ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR``. ``--batch-size`` is
@@ -21,9 +25,10 @@ bf16 logits, the gradients averaged over the ("dp", "sp") line, and the
 MoE auxiliary loss at weight 0.01 when ``--n-experts`` is set, as the JAX
 script trains; with ``--pp`` above 1 the layers take the scan-stacked
 layout (``scan_layers``) and the model is ``PipelinedLM`` with S
-microbatches. Rank 0 prints each step's loss and tokens/s. ``--tp`` above
-1 raises ``NotImplementedError`` (ROADMAP A7). ``--device cpu`` runs on
-gloo (the default is the rank's card).
+microbatches. tp combines with dp only: with pp, sp, ep, experts, ring or
+Ulysses it raises ``NotImplementedError``. Rank 0 prints each step's loss
+and tokens/s. ``--device cpu`` runs on gloo (the default is the rank's
+card).
 """
 from __future__ import annotations
 
@@ -60,12 +65,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None) -> List[float]:
     """Trains and returns the losses (rank 0 prints them)."""
     args = parse_args(argv)
-    from .parallel.mesh import NOT_PORTED
-
-    for axis in NOT_PORTED:
-        if getattr(args, axis) > 1:
-            raise NotImplementedError(f"--{axis} {getattr(args, axis)}: {NOT_PORTED[axis]} "
-                                      "is not ported yet")
     import horovod_tpu_torch as hvd
     from .models.pipelined import PipelinedLM
     from .models.registry import get_model

@@ -1,7 +1,7 @@
 """Rank bodies for tests/test_torch_port_distributed.py,
 tests/test_torch_port_resnet.py, tests/test_torch_port_collectives.py,
 tests/test_torch_port_bert.py, tests/test_torch_port_{zero,adasum,
-sync_bn,overlap}.py and tests/test_torch_port_{sp,moe,mesh,pipeline}.py, in a
+sync_bn,overlap}.py and tests/test_torch_port_{sp,moe,mesh,pipeline,tp}.py, in a
 module of their own so spawned ranks import torch and horovod_tpu_torch
 only (no jax, no test module). Each rank returns a dict of numpy arrays
 through a queue; ``spawn_world`` runs a named body on a world of gloo
@@ -794,9 +794,10 @@ def _block(a, rank: int, n: int, dim: int = 1):
     return np.take(a, np.arange(rank * per, (rank + 1) * per), axis=dim)
 
 
-def _run_sp_attention(rank: int, size: int, cases) -> dict:
+def _run_sp_attention(rank: int, size: int, cases, bf16_cases=()) -> dict:
     """o and dq, dk, dv of each (impl, causal, masked) case on this rank's
-    sequence block, at sp=size."""
+    sequence block, at sp=size; then each ``bf16_cases`` case of the ring
+    on the same draws rounded to bf16 (key ``ring-bf16-<causal>``)."""
     import torch
 
     torch.set_num_threads(2)    # four ranks share the host's cores
@@ -817,6 +818,12 @@ def _run_sp_attention(rank: int, size: int, cases) -> dict:
         (o * cot).sum().backward()
         out[f"{impl}-{causal}-{masked}"] = [o.detach().numpy()] + [
             t.grad.numpy() for t in qkv]
+    for causal in bf16_cases:
+        qkv = [t.to(torch.bfloat16).requires_grad_(True) for t in (q, k, v)]
+        o = hvd.ring_attention(*qkv, "sp", causal=causal)
+        o.backward(cot.to(torch.bfloat16))
+        out[f"ring-bf16-{causal}"] = [o.detach().float().numpy()] + [
+            t.grad.float().numpy() for t in qkv]
     return out
 
 
@@ -1198,3 +1205,166 @@ def _run_pipelined_lm(rank: int, size: int, params_by_dtype) -> dict:
     out["losses"] = np.array(losses)
     out["params"] = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (tests/test_torch_port_tp.py).
+TP_VOCAB = 131                      # divisible by neither 2 nor 4
+TP_B, TP_S = 4, 16
+TP_TRAIN_VOCAB = 128                # the dp x tp train step, as JAX needs
+TP_LR, TP_WD, TP_EPS, TP_STEPS = 1e-4, 1e-4, 1e-8, 3
+# name -> (model, dtype, attn_impl, gradients too)
+TP_CASES = {
+    "gpt2_f32_dense": ("gpt2", "float32", "dense", True),
+    "gpt2_bf16_dense": ("gpt2", "bfloat16", "dense", False),
+    "gpt2_f32_flash": ("gpt2", "float32", "flash", True),
+    "bert_f32_dense": ("bert", "float32", "dense", True),
+}
+TP_WORLDS = {2: tuple(TP_CASES), 4: ("gpt2_f32_dense", "gpt2_bf16_dense")}
+TP_RAISES = {   # combination -> (mesh, config overrides, model)
+    "moe": ({"tp": 2}, {"n_experts": 2}, "lm"),
+    "ring": ({"tp": 2}, {"attn_impl": "ring"}, "lm"),
+    "ulysses": ({"tp": 2}, {"attn_impl": "ulysses"}, "lm"),
+    "sp": ({"sp": 2, "tp": 2}, {}, "lm"),
+    "ep": ({"ep": 2, "tp": 2}, {}, "lm"),
+    "pp": ({"pp": 2, "tp": 2}, {"scan_layers": True}, "pipelined"),
+}
+
+
+def tp_batch(vocab: int = TP_VOCAB, seed: int = 5):
+    """Ids (B, S) and a padding mask whose second row keeps 9 tokens."""
+    ids = np.random.RandomState(seed).randint(0, vocab, (TP_B, TP_S)).astype(np.int32)
+    mask = np.ones((TP_B, TP_S), np.int32)
+    mask[1, 9:] = 0
+    return ids, mask
+
+
+def tp_config(torch, name: str, vocab: int = TP_VOCAB):
+    """The port's config of a TP_CASES case: gpt2-tiny (4 heads, 2 layers)
+    or bert-tiny (2 heads) at ``vocab``."""
+    import dataclasses
+
+    from horovod_tpu_torch.models.transformer import BERT_CONFIGS, GPT2_CONFIGS
+
+    model, dtype, attn, _ = TP_CASES[name]
+    base = GPT2_CONFIGS["gpt2-tiny"] if model == "gpt2" else BERT_CONFIGS["bert-tiny"]
+    return dataclasses.replace(base, vocab_size=vocab, max_len=64, attn_impl=attn,
+                               dtype=getattr(torch, dtype))
+
+
+def _tp_model_case(hvd, torch, mesh, name: str, params) -> dict:
+    """One TP_CASES case on ``mesh``'s tp line: this rank's logits shard and,
+    where asked, its gradients of the vocab-parallel loss by name."""
+    from horovod_tpu_torch.models.convert import bert_flax_to_torch, flax_to_torch
+    from horovod_tpu_torch.models.transformer import TransformerEncoder, TransformerLM
+    from horovod_tpu_torch.parallel.tensor import vocab_parallel_lm_loss, vocab_parallel_xent
+
+    kind, _, _, with_grads = TP_CASES[name]
+    cfg = tp_config(torch, name)
+    tp, r = mesh.shape["tp"], mesh.coords["tp"]
+    ids, mask = (torch.from_numpy(a) for a in tp_batch())
+    if kind == "gpt2":
+        model = TransformerLM(cfg, device="cpu", mesh=mesh)
+        model.load_state_dict(flax_to_torch(params, cfg, tp=tp, tp_rank=r))
+        logits = model(ids)
+        loss = vocab_parallel_lm_loss(logits, ids, mesh.comm("tp"), cfg.vocab_size)
+    else:
+        model = TransformerEncoder(cfg, device="cpu", mesh=mesh)
+        model.load_state_dict(bert_flax_to_torch(params, cfg, tp=tp, tp_rank=r))
+        logits = model(ids, mask)
+        loss = vocab_parallel_xent(logits, ids, mesh.comm("tp"), cfg.vocab_size)
+    out = {"logits": logits.detach().float().numpy(), "loss": float(loss)}
+    if with_grads:
+        loss.backward()
+        out["grads"] = {k: p.grad.numpy().copy() for k, p in model.named_parameters()}
+    return out
+
+
+def _tp_init(hvd, torch, mesh) -> dict:
+    """gpt2-tiny at vocab TP_VOCAB built on ``mesh`` from torch seed 0: this
+    rank's state_dict (every tp layout of one seed holds world-1's
+    weights)."""
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    cfg = tp_config(torch, "gpt2_f32_dense")
+    model = TransformerLM(cfg, device="cpu", mesh=mesh,
+                          generator=torch.Generator().manual_seed(0))
+    return {k: v.numpy().copy() for k, v in model.state_dict().items()}
+
+
+def _tp_raises(hvd, torch, combos) -> dict:
+    """The message each combination in ``combos`` raises with (or
+    "no error")."""
+    import dataclasses
+
+    from horovod_tpu_torch.models.pipelined import PipelinedLM
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    out = {}
+    for name in combos:
+        shape, overrides, kind = TP_RAISES[name]
+        mesh = hvd.create_mesh(shape)
+        cfg = dataclasses.replace(tp_config(torch, "gpt2_f32_dense"), **overrides)
+        try:
+            if kind == "pipelined":
+                PipelinedLM(cfg, mesh, device="cpu")
+            else:
+                TransformerLM(cfg, device="cpu", mesh=mesh)
+            out[name] = "no error"
+        except NotImplementedError as e:
+            out[name] = f"NotImplementedError: {e}"
+    return out
+
+
+def _run_tp_world(rank: int, size: int, params_by_case, train_params) -> dict:
+    """On tp=size: each TP_WORLDS[size] case (logits, gradients), the tp
+    initialisation, and the combinations that raise on this world; on four
+    ranks also 3 AdamW steps of gpt2-tiny (vocab TP_TRAIN_VOCAB, f32)
+    through make_train_step on dp=2 x tp=2 from ``train_params`` (the
+    losses, the parameters); on two ranks, last, ``train_gpt2 --tp 2``."""
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+
+    mesh = hvd.create_mesh({"tp": size})
+    out = {name: _tp_model_case(hvd, torch, mesh, name, params_by_case[name])
+           for name in TP_WORLDS[size]}
+    out["init"] = _tp_init(hvd, torch, mesh)
+    out["raises"] = _tp_raises(hvd, torch, [n for n, (shape, _, _) in TP_RAISES.items()
+                                            if np.prod(list(shape.values())) == size])
+    if size == 4:
+        out["train"] = _tp_train(hvd, torch, train_params)
+    if size == 2:
+        from horovod_tpu_torch import train_gpt2
+
+        # Last: train_gpt2 shuts the world down when it returns.
+        out["train_gpt2"] = np.array(train_gpt2.main(
+            ["--model", "gpt2-tiny", "--batch-size", "4", "--seq-len", "32", "--steps", "2",
+             "--tp", str(size), "--attn", "flash", "--remat", "--device", "cpu"]))
+    return out
+
+
+def _tp_train(hvd, torch, params) -> dict:
+    """3 AdamW steps through make_train_step on dp=2 x tp=2."""
+    from horovod_tpu_torch.models.convert import flax_to_torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    mesh = hvd.create_mesh({"dp": 2, "tp": 2})
+    cfg = tp_config(torch, "gpt2_f32_dense", vocab=TP_TRAIN_VOCAB)
+    model = TransformerLM(cfg, device="cpu", mesh=mesh)
+    model.load_state_dict(flax_to_torch(params, cfg, tp=2, tp_rank=mesh.coords["tp"]))
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=TP_LR, weight_decay=TP_WD, eps=TP_EPS), axis_name="dp")
+    init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh)
+    state = init_fn()
+    ids = torch.from_numpy(tp_batch(TP_TRAIN_VOCAB, seed=6)[0])
+    losses = []
+    for _ in range(TP_STEPS):
+        state, loss = step_fn(state, ids, ids)
+        losses.append(float(loss))
+    return {"coords": np.array([mesh.coords["dp"], mesh.coords["tp"]]),
+            "losses": np.array(losses),
+            "params": {k: v.numpy().copy() for k, v in model.state_dict().items()}}

@@ -1,6 +1,6 @@
 """Single-process surface of the port on the CPU: init/shutdown, topology
-from the launcher environment, the dp-only mesh, and what is refused until
-its slice is ported (tp)."""
+from the launcher environment, the dp-only mesh, and every other mesh axis
+at one rank."""
 import pytest
 import torch
 
@@ -53,19 +53,15 @@ def test_dp_mesh(cpu_world, sizes):
 
 @pytest.mark.parametrize("axis", ["tp", "sp", "pp", "ep"])
 def test_other_mesh_axes_are_not_ported(cpu_world, axis):
-    """tp above 1 is still not ported and names its ROADMAP item; sp, ep
+    """Every axis is ported now: tp (parallel/tensor.py), sp, ep
     (parallel/ring.py, parallel/ulysses.py, the Switch MoE) and pp
-    (parallel/pipeline.py) are, and pp=2 on this world of one meets the
-    factoring like any axis."""
-    if axis in ("sp", "ep", "pp"):
-        mesh = create_mesh({"dp": 1, axis: 1})
-        assert mesh.axis_names == (("pp", "dp") if axis == "pp" else ("dp", axis))
-        assert mesh.coords == {"dp": 0, axis: 0}
-        if axis == "pp":
-            with pytest.raises(ValueError, match="do not divide"):
-                create_mesh({"dp": 1, axis: 2})
-        return
-    with pytest.raises(NotImplementedError, match=f"{axis}=2.*ROADMAP A7"):
+    (parallel/pipeline.py). Each builds at size 1, and size 2 on this world
+    of one meets the factoring like any axis."""
+    mesh = create_mesh({"dp": 1, axis: 1})
+    assert mesh.axis_names == (("pp", "dp") if axis == "pp" else ("dp", axis))
+    assert mesh.coords == {"dp": 0, axis: 0}
+    assert mesh.comm(axis).size == 1
+    with pytest.raises(ValueError, match="do not divide"):
         create_mesh({"dp": 1, axis: 2})
 
 

@@ -86,19 +86,22 @@ def test_factoring_errors_match_jax(sizes):
 @pytest.mark.parametrize("sizes,exc,match", [
     ({"dp": 2}, ValueError, "do not divide"),
     ({"dp": -1, "sp": -1}, ValueError, "at most one"),
-    ({"dp": 1, "tp": 2}, NotImplementedError, "tp=2.*ROADMAP A7"),
-    # pp is ported: on this world of one, pp fills to 1 and builds; pp=2
-    # meets the factoring like any axis.
+    # tp and pp are ported: on this world of one, each fills to 1 and
+    # builds; size 2 meets the factoring like any axis.
+    pytest.param({"dp": 1, "tp": -1}, None, None,
+                 id="sizes2-NotImplementedError-tp=2.*ROADMAP A7"),
     pytest.param({"pp": -1, "dp": 1}, None, None,
                  id="sizes3-NotImplementedError-pp=2.*ROADMAP A7"),
 ])
 def test_mesh_errors(cpu_world, sizes, exc, match):
-    if exc is None:     # pp builds
+    if exc is None:     # tp or pp builds
+        axis = next(a for a in sizes if sizes[a] == -1)
         mesh = hvd.create_mesh(sizes)
-        assert mesh.axis_names == ("pp", "dp") and mesh.shape == {"pp": 1, "dp": 1}
-        assert mesh.comm("pp").ranks == (0,) and port_mesh.current_mesh() is mesh
+        assert mesh.axis_names == port_mesh.axis_names_in_order(sizes)
+        assert mesh.shape == {a: 1 for a in sizes}
+        assert mesh.comm(axis).ranks == (0,) and port_mesh.current_mesh() is mesh
         with pytest.raises(ValueError, match="do not divide"):
-            hvd.create_mesh({"pp": 2, "dp": -1})
+            hvd.create_mesh({**sizes, axis: 2, next(a for a in sizes if a != axis): -1})
         return
     with pytest.raises(exc, match=match):
         hvd.create_mesh(sizes)
@@ -152,10 +155,12 @@ def test_train_gpt2_entry_point_on_the_cpu(capsys):
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert capsys.readouterr().out.count("tokens/sec") == 2
     assert not hvd.is_initialized()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    # tp and pp are ported: --tp 2 and --pp 2 need two ranks
+    # (tests/test_torch_port_tp.py and tests/test_torch_port_pipeline.py
+    # train on them), and one rank meets the mesh's factoring.
+    with pytest.raises(ValueError, match="do not divide"):
         train_gpt2.main(["--model", "gpt2-tiny", "--tp", "2", "--device", "cpu"])
-    # pp is ported: --pp 2 needs two ranks (tests/test_torch_port_pipeline.py
-    # trains on them), and one rank meets the mesh's factoring.
+    assert not hvd.is_initialized()
     with pytest.raises(ValueError, match="do not divide"):
         train_gpt2.main(["--model", "gpt2-tiny", "--pp", "2", "--device", "cpu"])
     assert not hvd.is_initialized()

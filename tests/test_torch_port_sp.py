@@ -11,6 +11,11 @@ of the JAX devices they stand for (``np.asarray(devices).reshape``).
   blocks: o and the gradients of q, k, v for one output cotangent against
   the JAX functions under ``shard_map``, at rtol 2e-4, atol 2e-5 (the
   tolerances of tests/test_parallel.py and tests/test_flash_attention.py).
+* ``ring_attention`` in bf16 at sp=4, causal and not, on the same draws
+  rounded to bf16: o and the gradients of q, k, v within 2 bf16 ulps of the
+  JAX ring's (``test_sp_ring_bf16_matches_jax``). Each case also records the
+  JAX ring's relative-norm distance from the JAX model's dense attention on
+  the same inputs, the reference's own spread between the two.
 * bert-tiny (4 heads) with Ulysses through flash under a padding mask on
   dp=2 x sp=2: the logits against the JAX model on the same mesh, at
   rtol 2e-4, atol 2e-4 (``test_model_ulysses_flash_on_dp_sp_mesh``).
@@ -67,7 +72,7 @@ def _jax_mesh(shape: dict) -> Mesh:
 @pytest.fixture(scope="module")
 def sp_ranks(tmp_path_factory):
     return workers.spawn_world(SP, tmp_path_factory.mktemp("sp"), "_run_sp_attention",
-                               ATTN_CASES)
+                               ATTN_CASES, RING_BF16_CASES)
 
 
 def _jax_attention(impl, causal, masked):
@@ -98,6 +103,45 @@ def test_sp_attention_matches_jax(sp_ranks, impl, causal, masked):
         got = np.concatenate([r[key][i] for r in sp_ranks], axis=1)
         assert np.isfinite(got).all(), name
         np.testing.assert_allclose(got, want[i], rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+RING_BF16_CASES = (True, False)      # causal
+
+
+def _bf16_ulps(got, want):
+    """|got - want| in units of the bf16 spacing at |want| (f32's spacing
+    times 2**16: bf16 keeps the top 16 bits of an f32)."""
+    ulp = np.spacing(np.abs(want).astype(np.float32)) * 2.0 ** 16
+    return np.abs(got - want) / ulp
+
+
+def _jax_bf16(fn, causal):
+    q, k, v, cot, _ = workers.sp_inputs()
+    args = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    o, vjp = jax.vjp(fn, *args)
+    return [np.asarray(t, np.float32) for t in (o, *vjp(jnp.asarray(cot, jnp.bfloat16)))]
+
+
+@pytest.mark.parametrize("causal", RING_BF16_CASES)
+def test_sp_ring_bf16_matches_jax(sp_ranks, causal, record_property):
+    from horovod_tpu.models.transformer import _dense_attention_masked
+
+    spec = P(None, "sp")
+    ring = _jax_bf16(jax.jit(shard_map(
+        lambda q, k, v: jax_ring(q, k, v, "sp", causal=causal), mesh=_jax_mesh({"sp": SP}),
+        in_specs=(spec,) * 3, out_specs=spec)), causal)
+    cfg = dataclasses.replace(JAX_GPT2["gpt2-tiny"], dtype=jnp.bfloat16, causal=causal)
+    dense = _jax_bf16(lambda q, k, v: _dense_attention_masked(cfg, q, k, v, None), causal)
+    spread = {}
+    for i, name in enumerate(("o", "dq", "dk", "dv")):
+        got = np.concatenate([r[f"ring-bf16-{causal}"][i] for r in sp_ranks], axis=1)
+        assert np.isfinite(got).all(), name
+        assert _bf16_ulps(got, ring[i]).max() <= 2.0, name
+        spread[name] = float(np.linalg.norm(ring[i] - dense[i]) / np.linalg.norm(dense[i]))
+    # The reference's own spread: the JAX ring against the JAX model's dense
+    # attention (probabilities rounded to bf16 before P·V), relative norm.
+    print(f"JAX ring vs JAX dense, bf16, causal={causal}: {spread}")
+    record_property("jax_ring_vs_dense_rel_norm", spread)
 
 
 TRAIN_ATTNS = ("ring", "dense")
