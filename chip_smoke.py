@@ -138,16 +138,45 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    bf16 ulp);
 17. with two cards or more (``tp_multi``), one NCCL rank per card against
    phase 14's run: (t1) tp=2, and tp=4 on four cards; (t2) dp=2 x tp=2 on
-   four cards. Gates as in 15, the tp shards joined to the full model
-   (``tp_join``); 48 launches of K1 and 24 of each K2 kernel a step per
-   rank; the tp-replicated parameters bitwise on every rank of their tp
-   line, every parameter on its dp line; per rank the step ms, tokens/s,
-   peak memory and parameters held. With one card its line says "not
+   four cards; beside each mesh an f32 witness (dense attention, one step)
+   against the same model in f32 on one card (``f32_control``). Losses as
+   in 15; the step-1 gradients, the tp shards joined to the full model
+   (``tp_join``), by ``grad_gates``: each witness within 1e-4 of the f32
+   control in relative norm over the whole model and in every tensor; each
+   bf16 variant's distance e_v from the f32 control at most twice e_1,
+   phase 14's distance from it (the distance from phase 14's own bf16
+   gradients is printed, not gated: a bf16 backward of 24 layers amplifies
+   any last-bits change near its top to ~1.7%); 48 launches of K1 and 24
+   of each K2 kernel a step per rank; the tp-replicated parameters bitwise
+   on every rank of their tp line, every parameter on its dp line; per
+   rank the step ms, tokens/s, peak memory and parameters held. With one
+   card its line says "not measured";
+18. sharded training state on one card (``zero_mesh``): GPT-2 1.3B as in
+   14 on a dp=1 x tp=1 mesh, 5 steps each of (z0) ``make_train_step(
+   zero=True)`` with a plain AdamW and (f0) the model and step under
+   ``FSDP_RULES``: step-1 loss and gradients and the 5 losses bitwise
+   phase 14's, 48 launches of K1 and 24 of each K2 kernel a step, the
+   parameter, gradient and optimizer-state bytes at their closed forms;
+   step ms, tokens/s, peak memory;
+19. with two cards or more (``zero_mesh_multi``), one NCCL rank per card
+   against phase 14's run: (f1) ``FSDP_RULES`` on dp=2 and dp=4; on four
+   cards (f2) ``FSDP_RULES`` on dp=2 x tp=2 and its f32 witness, (z1)
+   ``zero=True`` on dp=2 x tp=2, (z2) ``zero=True`` on dp=2 x pp=2 with 4
+   microbatches (ZeRO over the dp line of a ``PipelinedLM``); beside each
+   mesh its replicated run in the same world. Losses as in 15; step-1
+   gradients (under ZeRO the slices it reduced, gathered over the line)
+   joined to the full model (``fsdp_join``, ``tp_join``) within
+   1e-2 of phase 14's for dp and pp, by 17's gates where tp > 1; launches
+   per rank; replicas bitwise on every line of copies; per-rank
+   parameter, gradient and optimizer-state bytes at their closed forms
+   (``held_closed_form``); per rank the step ms, tokens/s and peak memory
+   beside the replicated run's. With one card its line says "not
    measured";
-18. the ``{"kernels": [...]}`` line (with ``launches_sp``,
-   ``launches_moe``, ``launches_pp``, ``launches_tp`` and the D=128
-   records ``pp_d128`` and ``tp_d128``); then the card line from
-   nvidia-smi and the last line ``{"ok": true, "device": {...}}``.
+20. the ``{"kernels": [...]}`` line (with ``launches_sp``,
+   ``launches_moe``, ``launches_pp``, ``launches_tp``,
+   ``launches_zero_mesh`` and the D=128 records ``pp_d128`` and
+   ``tp_d128``); then the card line from nvidia-smi and the last line
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is not available.
 """
@@ -1994,31 +2023,72 @@ def warm_pp(mesh) -> None:
     torch.cuda.synchronize()
 
 
+def zero_reduced_grads(sharder, names: dict, chunk: int = 1 << 23) -> dict:
+    """The gradient a ``ZeroSharder`` reduced, by parameter name, in host
+    memory: each group's shard gradient (the reduce-scattered, averaged
+    slice its shard optimizer steps on) all-gathered over the sharder's
+    line ``chunk`` elements at a time, cut to the group's parameters."""
+    from horovod_tpu_torch.parallel.collectives import all_gather
+
+    n, out = sharder.comm.size, {}
+    for g, shard in zip(sharder.groups, sharder.shards):
+        full = torch.empty(n * g.k, dtype=shard.grad.dtype)
+        for c in range(0, g.k, chunk):
+            part = shard.grad[c: c + chunk]
+            got = all_gather(part, sharder.comm).cpu().view(n, -1)
+            full.view(n, g.k)[:, c: c + part.numel()] = got
+        for p, piece in zip(g.params, torch.split(full[:g.total], g.sizes)):
+            out[names[p]] = piece.view(p.shape)
+    return out
+
+
 def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bool,
-             steps: int = STEPS, loss_fn=None) -> dict:
+             steps: int = STEPS, loss_fn=None, zero: bool = False, rules=None) -> dict:
     """``steps`` AdamW steps (lr 1e-4, wd 1e-4, eps 1e-8) of GPT-2 1.3B on
     ``mesh`` through ``make_train_step`` on the global batch (B=8, S=2048,
     numpy seed 42), the optimizer reducing over the ("dp", "sp") line, the
-    loss ``loss_fn`` (by default ``lm_loss``). Returns the record, the
-    model and, with ``keep_grads``, this rank's step-1 gradients by name,
-    in host memory (out of the peak)."""
+    loss ``loss_fn`` (by default ``lm_loss``). The optimizer is a
+    ``DistributedOptimizer``, or with ``zero`` or ``rules`` the plain AdamW,
+    which the step wraps (``zero=True``: ZeRO-1 over the data line;
+    ``rules=FSDP_RULES``: the model built under them). Returns the record
+    (with the parameter, gradient and optimizer-state bytes this rank
+    holds), the model and, with ``keep_grads``, this rank's step-1
+    gradients by name, reduced over the data line, in host memory (out of
+    the peak); under ZeRO, the reduced slices its shard optimizer stepped
+    on, joined over the line (``zero_reduced_grads``)."""
     from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
 
-    model = gpt2_1p3b(mesh, pipelined, **overrides)
+    model = gpt2_1p3b(mesh, pipelined, **overrides, **({"rules": rules} if rules else {}))
     ids = pp_ids()
-    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
-        model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), axis_name=("dp", "sp"))
-    init_fn, step_fn = make_train_step(model, opt, loss_fn or lm_loss, mesh=mesh)
+    inner = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
+    plain = zero or rules is not None
+    opt = inner if plain else hvd.DistributedOptimizer(inner, axis_name=("dp", "sp"))
+    init_fn, step_fn = make_train_step(model, opt, loss_fn or lm_loss, mesh=mesh, zero=zero,
+                                       rules=rules)
     got = {}
-    inner_step = opt._inner.step
+    inner_step = inner.step
 
     def step(*a, **kw):     # the reduced step-1 gradients, as AdamW gets them
         if keep_grads and "grads" not in got:
             got["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
         return inner_step(*a, **kw)
 
-    opt._inner.step = step
+    inner.step = step
     state = init_fn()
+    if zero:
+        # ZeRO steps its shard optimizer on this rank's slice of the reduced
+        # gradient and leaves each rank's own gradients in .grad: record, at
+        # step 1, the slices the shard optimizer gets, joined over the line.
+        sharder = state.optimizer._zero
+        shard_step = sharder.inner.step
+        names = {p: n for n, p in model.named_parameters()}
+
+        def zstep(*a, **kw):
+            if keep_grads and "grads" not in got:
+                got["grads"] = zero_reduced_grads(sharder, names)
+            return shard_step(*a, **kw)
+
+        sharder.inner.step = zstep
     if pipelined and mesh.shape["pp"] > 1:
         warm_pp(mesh)
     torch.cuda.synchronize()
@@ -2039,10 +2109,16 @@ def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bo
         raise AssertionError(f"fused-BN kernels launched: {other}")
     steady = statistics.median(step_ms[1:]) if steps > 1 else step_ms[0]
     flops = model_flops(model.cfg, PP_B, PP_S)
+    params = list(model.parameters())
     rec = {"mesh": dict(mesh.shape), "batch": PP_B, "seq": PP_S,
            "pipelined": pipelined, "remat": model.cfg.remat,
            "microbatches": getattr(model, "num_microbatches", None),
-           "params_held": sum(p.numel() for p in model.parameters()),
+           "zero": zero, "rules": "FSDP_RULES" if rules is not None else None,
+           "params_held": sum(p.numel() for p in params),
+           "param_bytes": sum(p.numel() * p.element_size() for p in params),
+           "grad_bytes": sum(p.grad.numel() * p.grad.element_size() for p in params
+                             if p.grad is not None),
+           "state_bytes": state.optimizer.state_bytes(),
            "losses": losses, "step_ms": step_ms, "median_step_ms_2_to_5": steady,
            "tokens_per_s": PP_B * PP_S / (steady / 1e3),
            "model_tflops_per_step": flops / 1e12,
@@ -2051,7 +2127,7 @@ def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bo
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()}}
-    del opt, inner_step, step, state
+    del opt, inner, inner_step, step, state, params
     return {"rec": rec, "model": model, "grads": got.get("grads")}
 
 
@@ -2226,8 +2302,7 @@ def pp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
                 rec["coords"] = dict(mesh.coords)
                 rec["layers"] = [model.layer_range.start, model.layer_range.stop]
                 if mesh.coords["dp"] == 0:
-                    torch.save({n: g.float() for n, g in out["grads"].items()},
-                               os.path.join(tmp, f"{name}.{mesh.coords['pp']}.pt"))
+                    save_grads(tmp, name, mesh.coords, out["grads"])
                 recs[name] = rec
                 del out, model, params, repl, stage
                 gc.collect()
@@ -2275,11 +2350,7 @@ def _pp_world(world: int, variants, rec: dict, pp_rec: dict, ctrl_flat, layout) 
         for name in variants:
             got = ranks[0][name]
             S, M = got["mesh"]["pp"], got["microbatches"]
-            parts = {}
-            for s in range(S):
-                parts.update(torch.load(f"{tmp}/{name}.{s}.pt"))
-            grads = torch.cat([parts[n].reshape(-1) for n, _ in layout])
-            del parts
+            grads = joined_grads(tmp, name, got["mesh"], False, layout)
             v = {"rank0": got,
                  "median_step_ms_by_rank": [r[name]["median_step_ms_2_to_5"] for r in ranks],
                  "peak_mem_gb_by_rank": [r[name]["peak_mem_gb"] for r in ranks],
@@ -2319,6 +2390,12 @@ XENT_GRAD_RTOL = 2 ** -7   # the logits' gradient is bf16: one ulp
 # In f32 with dense attention (the kernels take bf16): the tp path without
 # bf16's rounding.
 TP_F32 = {"dtype": torch.float32, "logits_dtype": torch.float32, "attn_impl": "dense"}
+# The gates of a variant with tp > 1 (ROADMAP C3): an f32 witness's step-1
+# gradients within WITNESS_RTOL of the f32 control, over the whole model
+# and in every tensor; a bf16 variant's distance from the f32 control at
+# most BF16_AMPLIFICATION times the world-1 bf16 run's (phase pp's).
+WITNESS_RTOL = 1e-4
+BF16_AMPLIFICATION = 2.0
 # The multi-card variants: mesh (its world is that many cards), model
 # overrides (beside remat), steps, the world-1 control: "pp" is phase pp's
 # run, "f32" the same model in f32 with dense attention, one step.
@@ -2327,13 +2404,15 @@ TP_VARIANTS = {
     "t1_tp4": ({"dp": 1, "tp": 4}, {}, STEPS, "pp"),
     "t2_dp2_tp2": ({"dp": 2, "tp": 2}, {}, STEPS, "pp"),
     "t1f_tp2_f32": ({"dp": 1, "tp": 2}, TP_F32, 1, "f32"),
+    "t1f_tp4_f32": ({"dp": 1, "tp": 4}, TP_F32, 1, "f32"),
+    "t2f_dp2_tp2_f32": ({"dp": 2, "tp": 2}, TP_F32, 1, "f32"),
 }
 
 
 def tp_worlds_for(cards: int) -> dict:
     """The variants by world size, each world no larger than the cards:
-    (t1) tp=2 (and its f32 witness), and tp=4 on four cards; (t2) dp=2 x
-    tp=2 on four cards."""
+    (t1) tp=2, and tp=4 on four cards; (t2) dp=2 x tp=2 on four cards; each
+    beside its f32 witness."""
     out = {}
     for name, (shape, _, _, _) in TP_VARIANTS.items():
         world = shape["dp"] * shape["tp"]
@@ -2490,8 +2569,7 @@ def tp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
                 rec["coords"] = dict(mesh.coords)
                 rec["tp_replicated_params"] = repl.numel()
                 if mesh.coords["dp"] == 0:
-                    torch.save({n: g.float() for n, g in out["grads"].items()},
-                               os.path.join(tmp, f"{name}.{mesh.coords['tp']}.pt"))
+                    save_grads(tmp, name, mesh.coords, out["grads"])
                 recs[name] = rec
                 del out, model, params, repl, mine
                 gc.collect()
@@ -2504,40 +2582,92 @@ def tp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
         queue.put((rank, traceback.format_exc()))
 
 
-def phase_tp_multi(pp_rec, control) -> dict:
+def f32_control(hvd, fa, fb) -> tuple:
+    """One step of the world-1 model in f32 with dense attention (the f32
+    witnesses' control, and the reference a bf16 variant's distance is
+    taken from): its record and its step-1 gradients, flat in name order."""
+    mesh = hvd.create_mesh({"dp": 1, "sp": 1, "tp": 1})
+    out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, **TP_F32}, keep_grads=True,
+                   steps=1)
+    flat = torch.cat([g.float().reshape(-1) for _, g in sorted(out["grads"].items())])
+    rec = out["rec"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, flat
+
+
+def multi_controls(pp_rec, control, f32) -> dict:
+    """The world-1 controls of the multi-card phases: phase pp's bf16 run,
+    the f32 run, and e_1, the bf16 run's distance from the f32 one (the
+    relative norm of the difference of their step-1 gradients)."""
+    return {"pp": (pp_rec, control[0]), "f32": f32,
+            "e_1": rel_norm(control[0], f32[1])}
+
+
+def param_rel_norms(got: torch.Tensor, want: torch.Tensor, layout) -> dict:
+    """Each parameter's relative norm of ``got - want``."""
+    out, off = {}, 0
+    for name, n in layout:
+        w = want[off:off + n]
+        out[name] = float((got[off:off + n] - w).norm() / max(float(w.norm()), 1e-30))
+        off += n
+    return out
+
+
+def grad_gates(name: str, kind: str, grads: torch.Tensor, controls: dict, layout) -> tuple:
+    """The step-1 gradient gate of a multi-card variant: ``kind`` "pp"
+    within SP_GRAD_RTOL of phase pp's in relative norm; "bf16" (tp > 1) its
+    distance e_v from the f32 control at most BF16_AMPLIFICATION · e_1, the
+    distance from phase pp's printed; "f32" (a witness) within WITNESS_RTOL
+    of the f32 control over the whole model and in every tensor. Returns
+    the record's fields and the failures."""
+    want = controls["f32" if kind == "f32" else "pp"][1]
+    v = {"grad_gate": kind, "step1_grad_rel_norm_err": rel_norm(grads, want),
+         "step1_grad_worst_params": worst_params(grads, want, layout)}
+    failed = []
+    if kind == "pp" and v["step1_grad_rel_norm_err"] > SP_GRAD_RTOL:
+        failed.append(f"{name}: step-1 gradients {v['step1_grad_rel_norm_err']} off the "
+                      "control's in relative norm")
+    if kind == "bf16":
+        v["e_v"], v["e_1"] = rel_norm(grads, controls["f32"][1]), controls["e_1"]
+        v["e_v_over_e_1"] = v["e_v"] / v["e_1"]
+        if v["e_v"] > BF16_AMPLIFICATION * v["e_1"]:
+            failed.append(f"{name}: step-1 gradients {v['e_v']} from the f32 control, past "
+                          f"{BF16_AMPLIFICATION} x world 1's {v['e_1']}")
+    if kind == "f32":
+        per = param_rel_norms(grads, want, layout)
+        worst = max(per, key=per.get)
+        v["step1_grad_max_param_rel_norm_err"] = [worst, per[worst]]
+        if v["step1_grad_rel_norm_err"] > WITNESS_RTOL or per[worst] > WITNESS_RTOL:
+            failed.append(f"{name}: step-1 gradients {v['step1_grad_rel_norm_err']} off the "
+                          f"f32 control ({worst}: {per[worst]}), past {WITNESS_RTOL}")
+    return v, failed
+
+
+def phase_tp_multi(pp_rec, control, f32) -> dict:
     """With two cards or more: the variants of ``tp_worlds_for`` on one
     spawned NCCL rank per card, each against its world-1 control (the same
     model, weights and global batch): phase ``pp``'s run, or for the f32
-    witness the same model in f32 with dense attention, run here for one
+    witnesses ``f32``, the same model in f32 with dense attention, one
     step. Gates: step-1 loss within 2e-3 relative and the steps' within
-    1e-2, step-1 gradients (the tp shards joined to the full model by
-    ``tp_join``) within 1e-2 in relative norm, 48 launches of K1 and 24 of
-    each K2 kernel a step per rank (none in f32), the tp-replicated
-    parameters bitwise on every rank of their tp line; per rank the step
-    ms, tokens/s, peak memory and parameters held."""
-    import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.ops import flash_attention as fa
-    from horovod_tpu_torch.ops import fused_bn_conv as fb
-
+    1e-2; step-1 gradients (the tp shards joined to the full model by
+    ``tp_join``) by ``grad_gates``: a witness within 1e-4 of the f32
+    control over the whole model and in every tensor, a bf16 variant's
+    distance from the f32 control at most twice phase pp's (the distance
+    from phase pp's printed); 48 launches of K1 and 24 of each K2 kernel a
+    step per rank (none in f32), the tp-replicated parameters bitwise on
+    every rank of their tp line; per rank the step ms, tokens/s, peak
+    memory and parameters held."""
     cards = torch.cuda.device_count()
-    ctrl_flat, layout = control
+    controls = multi_controls(pp_rec, control, f32)
     rec = {"phase": "tp_multi", "cards": cards, "variants": {}, "controls": {
-        "pp": {k: pp_rec[k] for k in ("median_step_ms_2_to_5", "peak_mem_gb", "losses")}}}
-    controls = {"pp": (pp_rec, ctrl_flat)}
-    worlds = tp_worlds_for(cards)
-    if any(TP_VARIANTS[v][3] == "f32" for vs in worlds.values() for v in vs):
-        mesh = hvd.create_mesh({"dp": 1, "sp": 1, "tp": 1})
-        out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, **TP_F32}, keep_grads=True,
-                       steps=1)
-        flat = torch.cat([g.float().reshape(-1) for _, g in sorted(out["grads"].items())])
-        controls["f32"] = (out["rec"], flat)
-        rec["controls"]["f32"] = {k: out["rec"][k] for k in ("step_ms", "peak_mem_gb", "losses")}
-        del out
-        gc.collect()
-        torch.cuda.empty_cache()
+        "pp": {k: pp_rec[k] for k in ("median_step_ms_2_to_5", "peak_mem_gb", "losses")},
+        "f32": {k: f32[0][k] for k in ("step_ms", "peak_mem_gb", "losses")},
+        "e_1": controls["e_1"]}}
     failed = []
-    for world, variants in sorted(worlds.items()):
-        failed += _tp_world(world, variants, rec, controls, layout)
+    for world, variants in sorted(tp_worlds_for(cards).items()):
+        failed += _tp_world(world, variants, rec, controls, control[1])
     emit(rec)
     if failed:
         raise AssertionError("; ".join(failed))
@@ -2550,24 +2680,15 @@ def _tp_world(world: int, variants, rec: dict, controls: dict, layout) -> list:
     import functools
     import tempfile
 
-    from horovod_tpu_torch.models.convert import tp_join
-    from horovod_tpu_torch.models.transformer import GPT2_CONFIGS
-
     failed = []
     with tempfile.TemporaryDirectory() as tmp:
         ranks = spawn_cards(functools.partial(tp_rank, variants=variants, tmp=tmp), world,
                             timeout=900)
         for name in variants:
-            ctrl_rec, ctrl_flat = controls[TP_VARIANTS[name][3]]
+            kind = TP_VARIANTS[name][3]
+            ctrl_rec = controls[kind][0]
             got = ranks[0][name]
-            tp = got["mesh"]["tp"]
-            shards = [torch.load(f"{tmp}/{name}.{t}.pt") for t in range(tp)]
-            joined = tp_join(shards, GPT2_CONFIGS[PP_MODEL])
-            del shards
-            if [(n, joined[n].numel()) for n, _ in layout] != layout:
-                raise AssertionError(f"{name}: the joined gradients are not the full model's")
-            grads = torch.cat([joined[n].reshape(-1) for n, _ in layout])
-            del joined
+            grads = joined_grads(tmp, name, got["mesh"], False, layout)
             v = {"rank0": got,
                  "median_step_ms_by_rank": [r[name]["median_step_ms_2_to_5"] for r in ranks],
                  "tokens_per_s_by_rank": [r[name]["tokens_per_s"] for r in ranks],
@@ -2580,19 +2701,303 @@ def _tp_world(world: int, variants, rec: dict, controls: dict, layout) -> list:
                 ctrl_rec["losses"][0])
             v["loss_max_rel_err"] = max(abs(a - b) / abs(b)
                                         for a, b in zip(got["losses"], ctrl_rec["losses"]))
-            v["step1_grad_rel_norm_err"] = rel_norm(grads, ctrl_flat)
-            v["step1_grad_worst_params"] = worst_params(grads, ctrl_flat, layout)
+            fields, bad = grad_gates(name, "f32" if kind == "f32" else "bf16", grads,
+                                     controls, layout)
+            v.update(fields)
             del grads
             rec["variants"][name] = v
             if v["loss1_rel_err"] > SP_LOSS1_RTOL or v["loss_max_rel_err"] > SP_LOSS_RTOL:
                 failed.append(f"{name}: losses {got['losses']} vs {ctrl_rec['losses']}")
-            if v["step1_grad_rel_norm_err"] > SP_GRAD_RTOL:
-                failed.append(f"{name}: step-1 gradients {v['step1_grad_rel_norm_err']} off "
-                              "the control's in relative norm")
+            failed += bad
     return failed
 
 
-def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp) -> list:
+# ---------------------------------------------------------------------------
+# Sharded training state on the mesh (phases ``zero_mesh`` and, with two
+# cards or more, ``zero_mesh_multi``): GPT-2 1.3B as phases pp and tp run it,
+# trained through ``make_train_step(zero=True)`` (ZeRO-1 over the data line)
+# and under ``FSDP_RULES`` (the parameters cut over dp, ``parallel/fsdp.py``).
+# One card: variant -> make_train_step's zero= and whether FSDP_RULES.
+ZERO_MESH_ONE = {"z0_zero": (True, False), "f0_fsdp": (False, True)}
+# The multi-card variants: mesh (its world is that many cards), "zero",
+# "fsdp" or "replicated" (the same mesh's DistributedOptimizer run, the
+# yardstick of memory and time), model overrides (beside remat), steps, and
+# the step-1 gradient gate (``grad_gates``; None: not compared).
+ZERO_MESH_VARIANTS = {
+    "f1_fsdp_dp2": ({"dp": 2}, "fsdp", {}, STEPS, "pp"),
+    "r_dp2": ({"dp": 2}, "replicated", {}, STEPS, None),
+    "f1_fsdp_dp4": ({"dp": 4}, "fsdp", {}, STEPS, "pp"),
+    "r_dp4": ({"dp": 4}, "replicated", {}, STEPS, None),
+    "f2_fsdp_dp2_tp2": ({"dp": 2, "tp": 2}, "fsdp", {}, STEPS, "bf16"),
+    "f2f_fsdp_dp2_tp2_f32": ({"dp": 2, "tp": 2}, "fsdp", TP_F32, 1, "f32"),
+    "z1_zero_dp2_tp2": ({"dp": 2, "tp": 2}, "zero", {}, STEPS, "bf16"),
+    "r_dp2_tp2": ({"dp": 2, "tp": 2}, "replicated", {}, STEPS, None),
+    "z2_zero_dp2_pp2": ({"pp": 2, "dp": 2}, "zero", {"num_microbatches": 4}, STEPS, "pp"),
+    "r_dp2_pp2": ({"pp": 2, "dp": 2}, "replicated", {"num_microbatches": 4}, STEPS, None),
+}
+
+
+def zero_mesh_worlds_for(cards: int) -> dict:
+    """The variants by world size, each world no larger than the cards:
+    (f1) FSDP on dp=2 and dp=4; on four cards (f2) FSDP on dp=2 x tp=2 and
+    its f32 witness, (z1) ZeRO on dp=2 x tp=2, (z2) ZeRO on dp=2 x pp=2;
+    each mesh's replicated run beside them."""
+    out = {}
+    for name, (shape, _, _, _, _) in ZERO_MESH_VARIANTS.items():
+        world = math.prod(shape.values())
+        if world <= cards:
+            out.setdefault(world, []).append(name)
+    return out
+
+
+def held_closed_form(cfg, mesh, fsdp: bool, pipelined: bool) -> int:
+    """The parameters a rank holds, from the configuration: per block the
+    LayerNorms and the row-parallel biases (6 d_model, over dp under FSDP),
+    the four kernels (4 d² + 2 d·d_ff, over tp, and over dp under FSDP), the
+    qkv and wi biases (3 d + d_ff, over tp); the token embedding and the
+    head (its tp rank's ⌈V/tp⌉-split rows each), the positions and ln_f,
+    over dp under FSDP; a pipeline stage's L/pp blocks."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    tp, n = mesh.shape.get("tp", 1), (mesh.shape.get("dp", 1) if fsdp else 1)
+    per = -(-cfg.vocab_size // tp)
+    r = mesh.coords.get("tp", 0)
+    rows = min(cfg.vocab_size, (r + 1) * per) - r * per
+    blocks = L // mesh.shape.get("pp", 1) if pipelined else L
+    block = 6 * d // n + (4 * d * d + 2 * d * f) // (tp * n) + (3 * d + f) // tp
+    return blocks * block + (2 * rows * d + cfg.max_len * d + 2 * d) // n
+
+
+def check_bytes(name: str, rec: dict, cfg, mesh, kind: str, pipelined: bool) -> dict:
+    """The parameter, gradient and optimizer-state bytes a rank holds (all
+    f32) against their closed forms: 4 bytes a held parameter, 4 a
+    gradient, 8 for AdamW's two moments, over ⌈held / n⌉ elements under
+    ZeRO on a data line of n."""
+    held = held_closed_form(cfg, mesh, kind == "fsdp", pipelined)
+    n = mesh.shape.get("dp", 1) * mesh.shape.get("sp", 1) if kind == "zero" else 1
+    want = {"params_held": held, "param_bytes": 4 * held, "grad_bytes": 4 * held,
+            "state_bytes": 8 * -(-held // n)}
+    got = {k: rec[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: bytes {got}, closed form {want}")
+    return want
+
+
+def phase_zero_mesh(fa, fb, pp_rec, control) -> dict:
+    """GPT-2 1.3B at B=8, S=2048, bf16, flash, remat, AdamW on a dp=1 x tp=1
+    mesh, 5 steps each of (z0) ``make_train_step(zero=True)`` with the
+    plain AdamW and (f0) the model and step under ``FSDP_RULES``: the step-1
+    loss and every step-1 gradient, and the 5 losses, bitwise phase
+    ``pp``'s; 48 launches of K1 and 24 of each K2 kernel a step; parameter,
+    gradient and optimizer-state bytes at their closed forms; step ms,
+    tokens/s and peak memory."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.sharding import FSDP_RULES
+
+    ctrl_flat, layout = control
+    mesh = hvd.create_mesh({"dp": 1, "sp": 1, "tp": 1})
+    rec = {"phase": "zero_mesh", "model": PP_MODEL, "control_losses": pp_rec["losses"],
+           "control_median_step_ms_2_to_5": pp_rec["median_step_ms_2_to_5"],
+           "control_peak_mem_gb": pp_rec["peak_mem_gb"], "variants": {}}
+    for name, (zero, fsdp) in ZERO_MESH_ONE.items():
+        out = train_pp(hvd, fa, fb, mesh, False, {"remat": True}, keep_grads=True, zero=zero,
+                       rules=FSDP_RULES if fsdp else None)
+        r, model = out["rec"], out["model"]
+        check_launches(name, r, flash_launches(model.cfg.n_layers, remat=True))
+        if r["losses"] != pp_rec["losses"]:
+            raise AssertionError(f"{name}: losses {r['losses']} are not phase pp's "
+                                 f"{pp_rec['losses']}")
+        if [(n, g.numel()) for n, g in sorted(out["grads"].items())] != layout:
+            raise AssertionError(f"{name}: the parameters are not phase pp's")
+        flat = torch.cat([g.float().reshape(-1) for _, g in sorted(out["grads"].items())])
+        if not torch.equal(flat, ctrl_flat):
+            raise AssertionError(f"{name}: step-1 gradients not bitwise phase pp's "
+                                 f"({rel_norm(flat, ctrl_flat)} in relative norm)")
+        r["closed_form"] = check_bytes(name, r, model.cfg, mesh,
+                                       "zero" if zero else "fsdp", False)
+        r.update(step1_bitwise_pp=True, losses_bitwise_pp=True)
+        rec["variants"][name] = r
+        del out, model, flat
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+def replicas_bitwise(hvd, model, mesh) -> dict:
+    """Every parameter against the first member of its line of copies (the
+    mesh axes its cuts do not follow under the model's rules), one
+    broadcast a line: True where every parameter on that line is bitwise
+    its first member's."""
+    from horovod_tpu_torch.parallel.sharding import logical_axes, mesh_axes
+
+    by_line = {}
+    for name, p in model.named_parameters():
+        cut = {a for logical in logical_axes(name, p)
+               for a in mesh_axes(logical, model.rules, mesh)}
+        line = tuple(a for a in mesh.axis_names if a not in cut and mesh.shape[a] > 1)
+        if line:
+            by_line.setdefault(line, []).append(p.detach().reshape(-1))
+    out = {}
+    for line in sorted(by_line):
+        flat = torch.cat(by_line[line])
+        out["+".join(line)] = bool(torch.equal(
+            flat, hvd.broadcast(flat, root_rank=0, axis_name=line)))
+        del flat
+    return out
+
+
+def zero_mesh_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
+    """One spawned NCCL rank of ``zero_mesh_multi``: each variant's record
+    (bytes against their closed forms, replicas bitwise on every line of
+    copies, launches); the step-1 gradients by name under ``tmp``, from
+    every rank under FSDP, from the ranks of dp index 0 otherwise."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+        from horovod_tpu_torch.parallel.sharding import FSDP_RULES
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            recs = {}
+            for name in variants:
+                shape, kind, overrides, steps, gate = ZERO_MESH_VARIANTS[name]
+                pipelined = "pp" in shape
+                mesh = hvd.create_mesh({**shape, "sp": 1})
+                rules = FSDP_RULES if kind == "fsdp" else None
+                out = train_pp(hvd, fa, fb, mesh, pipelined, {"remat": True, **overrides},
+                               keep_grads=gate is not None, steps=steps, zero=kind == "zero",
+                               rules=rules)
+                rec, model = out["rec"], out["model"]
+                blocks = model.cfg.n_layers // mesh.shape.get("pp", 1) * (
+                    overrides.get("num_microbatches", 1))
+                flash = model.cfg.attn_impl == "flash"
+                check_launches(name, rec, flash_launches(blocks if flash else 0, remat=True))
+                rec["closed_form"] = check_bytes(name, rec, model.cfg, mesh, kind, pipelined)
+                rec["replicas_bitwise"] = replicas_bitwise(hvd, model, mesh)
+                if not all(rec["replicas_bitwise"].values()):
+                    raise AssertionError(f"{name}: replicas differ: {rec['replicas_bitwise']}")
+                rec["coords"] = dict(mesh.coords)
+                if gate is not None and (kind == "fsdp" or mesh.coords["dp"] == 0):
+                    save_grads(tmp, name, mesh.coords, out["grads"])
+                recs[name] = rec
+                del out, model
+                gc.collect()
+                torch.cuda.empty_cache()
+            hvd.barrier()
+            queue.put((rank, recs))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def save_grads(tmp: str, name: str, coords: dict, grads: dict) -> None:
+    """This rank's step-1 gradients by name, in f32, under ``tmp``, keyed
+    by the variant and the rank's dp, tp and pp coordinates."""
+    torch.save({n: g.float() for n, g in grads.items()},
+               f"{tmp}/{name}.{coords.get('dp', 0)}.{coords.get('tp', 0)}."
+               f"{coords.get('pp', 0)}.pt")
+
+
+def joined_grads(tmp: str, name: str, shape: dict, fsdp: bool, layout) -> torch.Tensor:
+    """A variant's step-1 gradients (``save_grads``) as the full model's,
+    flat in name order: each tp rank's dp shards joined (``fsdp_join``;
+    without ``fsdp`` dp index 0's alone), the tp ranks' joined
+    (``tp_join``), the pipeline stages' taken together."""
+    from horovod_tpu_torch.models.convert import fsdp_join, tp_join
+    from horovod_tpu_torch.models.transformer import GPT2_CONFIGS
+
+    full = {}
+    for s in range(shape.get("pp", 1)):
+        tps = [fsdp_join([torch.load(f"{tmp}/{name}.{d}.{t}.{s}.pt")
+                          for d in range(shape["dp"] if fsdp else 1)])
+               for t in range(shape.get("tp", 1))]
+        full.update(tps[0] if len(tps) == 1 else tp_join(tps, GPT2_CONFIGS[PP_MODEL]))
+        del tps
+    if [(n, full[n].numel()) for n, _ in layout] != layout:
+        raise AssertionError(f"{name}: the joined gradients are not the full model's")
+    return torch.cat([full.pop(n).reshape(-1) for n, _ in layout])
+
+
+def phase_zero_mesh_multi(pp_rec, control, f32) -> dict:
+    """With two cards or more: the variants of ``zero_mesh_worlds_for`` on
+    one spawned NCCL rank per card, against phase ``pp``'s run (the f32
+    witness against ``f32``). Gates: the losses as ``pp_multi``'s (step 1
+    within 2e-3, the steps within 1e-2; a witness against the f32 control);
+    step-1 gradients, joined to the full model, by ``grad_gates`` ("pp":
+    1e-2 in relative norm for dp and pp; tp > 1: e_v at most twice e_1, the
+    witness within 1e-4 over the model and in every tensor); launches per
+    rank; replicas bitwise on every line of copies; per-rank parameter,
+    gradient and optimizer-state bytes at their closed forms. Per rank the
+    step ms, tokens/s and peak memory, beside the replicated run of the
+    same mesh."""
+    import functools
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    controls = multi_controls(pp_rec, control, f32)
+    layout = control[1]
+    rec = {"phase": "zero_mesh_multi", "cards": cards, "variants": {}, "controls": {
+        "pp": {k: pp_rec[k] for k in ("median_step_ms_2_to_5", "peak_mem_gb", "losses")},
+        "f32": {k: f32[0][k] for k in ("step_ms", "peak_mem_gb", "losses")},
+        "e_1": controls["e_1"]}}
+    failed = []
+    for world, variants in sorted(zero_mesh_worlds_for(cards).items()):
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = spawn_cards(functools.partial(zero_mesh_rank, variants=variants, tmp=tmp),
+                                world, timeout=900)
+            for name in variants:
+                shape, kind, _, _, gate = ZERO_MESH_VARIANTS[name]
+                got = ranks[0][name]
+                v = {"rank0": got, "kind": kind,
+                     "by_rank": {k: [r[name][k] for r in ranks] for k in (
+                         "median_step_ms_2_to_5", "tokens_per_s", "peak_mem_gb",
+                         "params_held", "param_bytes", "grad_bytes", "state_bytes",
+                         "launches_per_step")}}
+                v["tokens_per_s"] = PP_B * PP_S / (max(v["by_rank"]["median_step_ms_2_to_5"])
+                                                   / 1e3)
+                ctrl_rec = controls["f32" if gate == "f32" else "pp"][0]
+                v["loss1_rel_err"] = abs(got["losses"][0] - ctrl_rec["losses"][0]) / abs(
+                    ctrl_rec["losses"][0])
+                v["loss_max_rel_err"] = max(abs(a - b) / abs(b)
+                                            for a, b in zip(got["losses"], ctrl_rec["losses"]))
+                if v["loss1_rel_err"] > SP_LOSS1_RTOL or v["loss_max_rel_err"] > SP_LOSS_RTOL:
+                    failed.append(f"{name}: losses {got['losses']} vs {ctrl_rec['losses']}")
+                if gate is not None:
+                    grads = joined_grads(tmp, name, shape, kind == "fsdp", layout)
+                    fields, bad = grad_gates(name, gate, grads, controls, layout)
+                    v.update(fields)
+                    failed += bad
+                    del grads
+                rec["variants"][name] = v
+    for name, v in rec["variants"].items():     # beside the same mesh's replicated run
+        shape = ZERO_MESH_VARIANTS[name][0]
+        mate = next((m for m, (sh, kind, *_) in ZERO_MESH_VARIANTS.items()
+                     if sh == shape and kind == "replicated" and m != name), None)
+        if mate in rec["variants"]:
+            r = rec["variants"][mate]
+            v["beside_replicated"] = {
+                "variant": mate,
+                "step_ms_ratio": (max(v["by_rank"]["median_step_ms_2_to_5"])
+                                  / max(r["by_rank"]["median_step_ms_2_to_5"])),
+                "peak_mem_gb_ratio": max(v["by_rank"]["peak_mem_gb"])
+                / max(r["by_rank"]["peak_mem_gb"]),
+                "state_bytes_ratio": v["by_rank"]["state_bytes"][0]
+                / r["by_rank"]["state_bytes"][0]}
+    emit(rec)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rec
+
+
+def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm) -> list:
     """The ``kernels`` line from the phases' records: each kernel's
     launches on the GPT-2 slice (and per path), error, times and bound."""
     kernels = [
@@ -2647,6 +3052,8 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp) -> list:
         kern["launches_moe"] = moe["launches"].get(kern["name"], 0)
         kern["launches_pp"] = pp["launches"].get(kern["name"], 0)
         kern["launches_tp"] = tp["launches"].get(kern["name"], 0)
+        kern["launches_zero_mesh"] = {v: rec["launches"].get(kern["name"], 0)
+                                      for v, rec in zm["variants"].items()}
         kern.update(route="cuda", source=SOURCE[kern["name"]], replaces=REPLACES[kern["name"]])
     return kernels
 
@@ -2699,16 +3106,26 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         tp = phase_tp(fa, fb, gen, dev, pp, pp_grads)
-        if torch.cuda.device_count() >= 2:
-            phase_tp_multi(pp, pp_grads)
+        multi = torch.cuda.device_count() >= 2
+        f32 = f32_control(hvd, fa, fb) if multi else None
+        if multi:
+            phase_tp_multi(pp, pp_grads, f32)
         else:
             emit({"phase": "tp_multi", "cards": torch.cuda.device_count(),
                   "result": "not measured: needs two cards or more"})
-        del pp_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        zm = phase_zero_mesh(fa, fb, pp, pp_grads)
+        if multi:
+            phase_zero_mesh_multi(pp, pp_grads, f32)
+        else:
+            emit({"phase": "zero_mesh_multi", "cards": torch.cuda.device_count(),
+                  "result": "not measured: needs two cards or more"})
+        del pp_grads, f32
     finally:
         hvd.shutdown()
 
-    emit({"kernels": kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp)})
+    emit({"kernels": kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

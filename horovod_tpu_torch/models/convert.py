@@ -22,7 +22,11 @@ tp=, tp_rank=)`` and ``bert_flax_to_torch(..., tp=, tp_rank=)`` return tp
 rank ``tp_rank``'s shard of each tp-cut parameter, by the rule the model is
 built and initialised with (``parallel/tensor.tp_cut``), and ``tp_join``
 joins the tp ranks' shards (of parameters or of gradients) back into the
-full model's tensors.
+full model's tensors. Under ``FSDP_RULES``, ``flax_to_torch(..., dp=,
+dp_rank=)`` also cuts each parameter with a d_model dimension
+(``parallel/fsdp.FSDP_PARAMS``) to dp rank ``dp_rank``'s units
+``shard_range(d_model, dp, dp_rank)`` of it, after the tp cut, and
+``fsdp_join`` joins the dp ranks' shards back.
 
 ``zero_state_from_jax(state, rank, world)`` takes the JAX traced plane's
 global ``ZeroState`` and returns one rank's shard of it in the form
@@ -35,7 +39,8 @@ from typing import Any, Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from ..parallel.tensor import tp_cut
+from ..parallel.fsdp import fsdp_dim
+from ..parallel.tensor import shard_range, tp_cut
 from .resnet import BottleneckResNetBlock, ResNet, ResNetBlock
 from .transformer import TransformerConfig, uses_moe
 
@@ -97,7 +102,8 @@ def unstack_layers(params: Mapping, n_layers: int) -> Dict:
 
 def _transformer_to_torch(params: Mapping, cfg: TransformerConfig, head: str,
                           ep: int = 1, ep_rank: int = 0, layers: Optional[range] = None,
-                          tp: int = 1, tp_rank: int = 0) -> Dict[str, torch.Tensor]:
+                          tp: int = 1, tp_rank: int = 0, dp: int = 1,
+                          dp_rank: int = 0) -> Dict[str, torch.Tensor]:
     if cfg.stacked:
         params = unstack_layers(params, cfg.n_layers)
     layers = range(cfg.n_layers) if layers is None else layers
@@ -138,24 +144,31 @@ def _transformer_to_torch(params: Mapping, cfg: TransformerConfig, head: str,
             plan[f"{src}/mlp/{name}/bias"] = (f"{dst}.mlp.{name}.bias", None)
 
     out = _apply_plan(flat, plan, "params", cfg.param_dtype)
+    units = shard_range(cfg.d_model, dp, dp_rank)
     for key, t in out.items():
-        cut = tp_cut(key, cfg, tp, tp_rank)
+        cut, dim = tp_cut(key, cfg, tp, tp_rank), fsdp_dim(key)
         if cut is not None:
-            out[key] = cut.take(t).contiguous()
+            t = cut.take(t).contiguous()
+        if dim is not None and dp > 1:
+            t = t.narrow(dim, units.start, len(units)).contiguous()
+        out[key] = t
     return out
 
 
 def flax_to_torch(params: Mapping, cfg: TransformerConfig, ep: int = 1,
                   ep_rank: int = 0, stages: int = 1, stage: int = 0, tp: int = 1,
-                  tp_rank: int = 0) -> Dict[str, torch.Tensor]:
+                  tp_rank: int = 0, dp: int = 1, dp_rank: int = 0) -> Dict[str, torch.Tensor]:
     """With ``stages`` > 1: the ``state_dict`` of ``PipelinedLM`` stage
     ``stage``, the layers ``[stage·L/stages, (stage+1)·L/stages)`` under
     their global indices, with the embeddings, ``ln_f`` and the head. With
-    ``tp`` > 1: that of ``TransformerLM`` on tp rank ``tp_rank``."""
+    ``tp`` > 1: that of ``TransformerLM`` on tp rank ``tp_rank``; with
+    ``dp`` > 1, that of ``TransformerLM(rules=FSDP_RULES)`` on dp rank
+    ``dp_rank`` (and tp rank ``tp_rank``)."""
     from ..parallel.pipeline import stage_layers
 
     return _transformer_to_torch(params, cfg, "lm_head", ep, ep_rank,
-                                 stage_layers(cfg.n_layers, stages, stage), tp, tp_rank)
+                                 stage_layers(cfg.n_layers, stages, stage), tp, tp_rank,
+                                 dp, dp_rank)
 
 
 def bert_flax_to_torch(params: Mapping, cfg: TransformerConfig, tp: int = 1,
@@ -172,6 +185,19 @@ def tp_join(shards: Sequence[Mapping[str, torch.Tensor]],
     for key, t in shards[0].items():
         cut = tp_cut(key, cfg, len(shards), 0)
         out[key] = t if cut is None else cut.join([s[key] for s in shards])
+    return out
+
+
+def fsdp_join(shards: Sequence[Mapping[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """The tensors of one tp rank's model from the dp ranks'
+    ``state_dict``s (or gradients by name) under ``FSDP_RULES``, in dp rank
+    order: each tensor with a d_model dimension joined along it, each other
+    one taken from dp rank 0. ``tp_join`` then joins the tp ranks'."""
+    out = {}
+    for key, t in shards[0].items():
+        dim = fsdp_dim(key)
+        out[key] = t if dim is None or len(shards) == 1 else torch.cat(
+            [s[key] for s in shards], dim=dim)
     return out
 
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..common import basics
+from ..parallel.sharding import DEFAULT_RULES
 from .resnet import RESNET_CONFIGS
 from .transformer import BERT_CONFIGS, GPT2_CONFIGS, TransformerEncoder, TransformerLM
 
@@ -22,7 +23,7 @@ from .transformer import BERT_CONFIGS, GPT2_CONFIGS, TransformerEncoder, Transfo
 @dataclasses.dataclass
 class ModelSpec:
     name: str
-    make_model: Callable[..., Any]     # (device=None, generator=None, [mesh=None,] **overrides)
+    make_model: Callable[..., Any]     # (device=None, generator=None, [mesh=None, rules=,] **overrides)
     make_batch: Callable[..., Any]     # batch_size -> example inputs tuple
     kind: str                          # "image" | "lm" | "encoder"
 
@@ -59,9 +60,10 @@ def _token_batch(seq_len: int, vocab: int):
 
 
 def _transformer_factory(cls, cfg):
-    def make(device=None, generator=None, mesh=None, **overrides):
+    def make(device=None, generator=None, mesh=None, rules=DEFAULT_RULES, **overrides):
         c = dataclasses.replace(cfg, **overrides) if overrides else cfg
-        return cls(c, device=_resolve_device(device), generator=generator, mesh=mesh)
+        return cls(c, device=_resolve_device(device), generator=generator, mesh=mesh,
+                   rules=rules)
 
     return make
 

@@ -59,7 +59,15 @@ there (``horovod_tpu/parallel/train.py`` cuts the batch over dp and, with
   vocabulary shard, which ``parallel/tensor.vocab_parallel_xent`` takes.
   tp combines with dp; with sp, ep, experts, ring or Ulysses it raises
   ``NotImplementedError`` (``check_tp_supported``). On a tp line of one
-  member (or no mesh) the tp layers are the plain ones, bit for bit.
+  member (or no mesh) the tp layers are the plain ones, bit for bit;
+* under ``rules=FSDP_RULES`` with dp > 1 (``parallel/fsdp.py``) a rank
+  holds its dp shard of every parameter with a d_model dimension, along
+  that dimension, beside its tp cut; each layer gathers the full parameter
+  over dp where it uses it (``gathered``), inside the remat block, and the
+  gather's backward reduce-scatters the gradient. FSDP combines with dp
+  and tp; with sp, ep, pp or experts it raises ``NotImplementedError``
+  (``check_fsdp_supported``). ``rules`` is ``DEFAULT_RULES`` by default;
+  ``PipelinedLM`` holds ``PIPELINE_RULES``.
 """
 from __future__ import annotations
 
@@ -75,7 +83,9 @@ from .. import ops
 from ..common import basics
 from ..ops.flash_attention import flash_attention
 from ..parallel.collectives import all_gather, psum, pvary
+from ..parallel.fsdp import check_fsdp_supported, gathered, mark_fsdp
 from ..parallel.mesh import Comm
+from ..parallel.sharding import DEFAULT_RULES, FSDP_RULES, mesh_axes
 from ..parallel.tensor import (ColumnParallel, RowParallel, check_tp_supported,
                                mark_tensor_parallel, shard_range, tp_comm,
                                vocab_parallel_embedding)
@@ -237,10 +247,14 @@ class Dense(nn.Linear):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
+    def params_at_use(self):
+        """The weight and the bias, gathered over dp where FSDP cuts them."""
+        return gathered(self.weight), None if self.bias is None else gathered(self.bias)
+
     def forward(self, x):
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        weight, bias = self.params_at_use()
+        return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
 
 
 class ColumnParallelDense(ColumnParallel, Dense):
@@ -268,8 +282,8 @@ class LayerNorm(nn.Module):
         xf = x.float()
         mean = xf.mean(-1, keepdim=True)
         var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return ((xf - mean) * mul + self.bias.float()).to(self.dtype)
+        mul = torch.rsqrt(var + self.eps) * gathered(self.weight).float()
+        return ((xf - mean) * mul + gathered(self.bias).float()).to(self.dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -495,9 +509,9 @@ class Embedder(nn.Module):
     def forward(self, ids, offset: int = 0):
         """``offset``: the global position of ``ids``' first column (a
         sequence-parallel rank's block starts at ``sp index · S_local``)."""
-        x = vocab_parallel_embedding(ids, self.embedding, self.rows.start,
+        x = vocab_parallel_embedding(ids, gathered(self.embedding), self.rows.start,
                                      self.comm).to(self.dtype)
-        pos = self.pos_embedding[offset: offset + ids.shape[1]]
+        pos = gathered(self.pos_embedding)[offset: offset + ids.shape[1]]
         return x + pos.to(self.dtype)[None]
 
 
@@ -545,11 +559,19 @@ def init_param_(name: str, p: torch.Tensor, generator: Optional[torch.Generator]
         full = torch.empty((E, *p.shape[1:]), dtype=p.dtype, device=p.device)
         p.copy_(full.normal_(0.0, INIT_STD, generator=generator)
                 [first: first + p.shape[0]])
-    elif hasattr(p, "tensor_parallel"):
-        # Likewise the whole tensor, and this tp rank's shard of it.
-        cut = p.tensor_parallel
-        full = torch.empty(cut.full_shape(p.shape), dtype=p.dtype, device=p.device)
-        p.copy_(cut.take(full.normal_(0.0, INIT_STD, generator=generator)))
+    elif hasattr(p, "tensor_parallel") or getattr(p, "fsdp", None) is not None:
+        # Likewise the whole tensor, and this rank's tp and dp shard of it
+        # (along two different dimensions).
+        cuts = [c for c in (getattr(p, "tensor_parallel", None), getattr(p, "fsdp", None))
+                if c is not None]
+        shape = p.shape
+        for cut in cuts:
+            shape = cut.full_shape(shape)
+        full = torch.empty(shape, dtype=p.dtype, device=p.device)
+        full.normal_(0.0, INIT_STD, generator=generator)
+        for cut in cuts:
+            full = cut.take(full)
+        p.copy_(full)
     else:
         p.normal_(0.0, INIT_STD, generator=generator)
 
@@ -562,16 +584,26 @@ class _Transformer(nn.Module):
     tp > 1 the logits are this rank's vocabulary shard
     (``shard_range(vocab, tp, rank)``).
     ``moe_aux_loss()`` sums the MoE blocks' auxiliary losses of the last
-    forward, ``moe_dropped()`` their dropped-token counts."""
+    forward, ``moe_dropped()`` their dropped-token counts. ``rules`` is
+    ``DEFAULT_RULES`` or ``FSDP_RULES`` (``parallel/sharding.py``)."""
 
     HEAD = ""
 
     def __init__(self, cfg: TransformerConfig, device=None,
-                 generator: Optional[torch.Generator] = None, mesh=None):
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 rules=DEFAULT_RULES):
         super().__init__()
+        if rules not in (DEFAULT_RULES, FSDP_RULES):
+            raise ValueError("the transformer takes rules=DEFAULT_RULES or FSDP_RULES "
+                             "(PipelinedLM holds PIPELINE_RULES)")
         self.cfg = cfg
         self.mesh = mesh
+        self.rules = rules
         check_tp_supported(cfg, mesh)
+        embed = mesh_axes("embed", rules, mesh) if mesh is not None else ()
+        dp = mesh.comm(embed) if embed else Comm(None, 1, 0, (0,))
+        if dp.size > 1:
+            check_fsdp_supported(cfg, mesh)
         self.embed = Embedder(cfg, device=device, mesh=mesh)
         self.stack = TransformerStack(cfg, device=device, mesh=mesh)
         self.ln_f = LayerNorm(cfg.d_model, cfg, device=device)
@@ -579,6 +611,7 @@ class _Transformer(nn.Module):
         self.add_module(self.HEAD, ColumnParallelDense(
             cfg.d_model, len(self.embed.rows), cfg, bias=False, device=device, comm=tp))
         mark_tensor_parallel(self, cfg, tp)
+        mark_fsdp(self, cfg, dp)
         self.init_weights(generator)
 
     @torch.no_grad()
@@ -618,11 +651,17 @@ class TransformerLM(_Transformer):
 
 class TransformerEncoder(_Transformer):
     """Bidirectional encoder with an MLM head, the BERT shape: attention is
-    never causal, whatever ``cfg.causal`` says."""
+    never causal, whatever ``cfg.causal`` says. It takes no ``FSDP_RULES``
+    (ROADMAP A3)."""
 
     HEAD = "mlm_head"
 
     def __init__(self, cfg: TransformerConfig, device=None,
-                 generator: Optional[torch.Generator] = None, mesh=None):
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 rules=DEFAULT_RULES):
+        if rules is FSDP_RULES:
+            raise NotImplementedError(
+                "FSDP_RULES on TransformerEncoder is not ported (ROADMAP A3: FSDP with sp, "
+                "ep, pp, MoE, gradient accumulation or the BERT encoder)")
         super().__init__(dataclasses.replace(cfg, causal=False), device=device,
-                         generator=generator, mesh=mesh)
+                         generator=generator, mesh=mesh, rules=rules)

@@ -23,7 +23,8 @@ sums) and then decompressed. Three paths:
   gradients to ``.grad``. As in Horovod, the reduction overwrites ``.grad``:
   code that edits the gradients (clipping) calls ``synchronize()`` first;
 * **ZeRO** (``zero=1|2``) and **error feedback** (``error_feedback=True``):
-  ``optim/zero.py``. ``zero=None`` defers to ``HOROVOD_ZERO_SHARDING``;
+  ``optim/zero.py``, over the same line as the all-reduce. ``zero=None``
+  defers to ``HOROVOD_ZERO_SHARDING``;
 * **Adasum** (``op=Adasum``): after backward, the gradients combined by
   ``ops/adasum.py``, the grouped buffer as one vector when ``fuse``, else
   each gradient.
@@ -32,6 +33,13 @@ On every path a parameter that requires grad but got none on this rank
 (a branch this rank's batch did not take, an MoE expert without tokens)
 counts as a zero gradient, as in Horovod and the JAX package: every rank
 writes the reduced value to every ``.grad``, so the replicas stay equal.
+
+A parameter cut over the line's axes (FSDP, ``parallel/fsdp.py``) has its
+gradient summed over the line in backward, by the reduce-scatter of its
+gather. The optimizer skips the line for it and applies only the op's
+scale (1/n for AVERAGE) and the pre- and postscale; ZeRO, error feedback,
+Adasum, compression and ``backward_passes_per_step`` > 1 refuse such a
+parameter.
 
 ``synchronize()`` is the explicit form of the reduction; a ``step()`` after
 it only steps the inner optimizer. The ranks' gradient signatures (count,
@@ -169,8 +177,8 @@ class DistributedOptimizer(torch.optim.Optimizer):
     over this rank's line along those axes of the mesh current at
     construction, instead of the world (inside a ``wrap_step`` body None
     binds its axis);
-    the sequence- and expert-parallel training step reduces over
-    ``("dp", "sp")``. ZeRO and error feedback shard over the world only."""
+    the training step reduces over ``("dp", "sp")``. ZeRO and error
+    feedback shard over that line too."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  op: ReduceOp = ReduceOp.AVERAGE,
@@ -188,11 +196,6 @@ class DistributedOptimizer(torch.optim.Optimizer):
         if zero not in (0, 1, 2):
             raise ValueError(f"zero stage must be 0, 1 or 2, got {zero!r}")
         error_feedback = bool(error_feedback)
-        if axis_name is not None and not resolve_comm(axis_name).world and (
-                zero or error_feedback):
-            raise NotImplementedError(
-                f"zero= and error_feedback= shard over the world; over the mesh line "
-                f"axis_name={axis_name!r} they are not ported (ROADMAP A7)")
         if (zero or error_feedback) and compression is not None:
             raise ValueError("compression= does not combine with zero= or "
                              "error_feedback=: their wire cast is "
@@ -211,11 +214,18 @@ class DistributedOptimizer(torch.optim.Optimizer):
         self._acc: Dict[torch.Tensor, torch.Tensor] = {}
         self._synchronized = False
         self._signature_checked = False
+        # ZeRO and error feedback shard over the line of axis_name, or the
+        # world (resolved after their own argument checks).
+        line = self._comm() if axis_name is not None else None
         self._zero = (zero_mod.ZeroSharder(optimizer, zero, error_feedback, op,
-                                           prescale_factor, postscale_factor)
+                                           prescale_factor, postscale_factor, line)
                       if zero else None)
-        self._ef = (zero_mod.EFReducer(optimizer, op, prescale_factor, postscale_factor)
+        self._ef = (zero_mod.EFReducer(optimizer, op, prescale_factor, postscale_factor,
+                                       line)
                     if error_feedback and not zero else None)
+        self._presummed = {p for p in self._params() if getattr(p, "fsdp", None) is not None}
+        if self._presummed:
+            self._check_presummed(self._comm())
         self._buckets: Optional[List[_Bucket]] = None
         self._hooks = []
         if (_schedule != "grouped" and not zero and not error_feedback
@@ -289,6 +299,41 @@ class DistributedOptimizer(torch.optim.Optimizer):
                     out.append(p)
         return out
 
+    def _reduced(self) -> List[torch.Tensor]:
+        """The parameters whose gradients this optimizer reduces."""
+        return [p for p in self._params() if p not in self._presummed]
+
+    # -- parameters whose gradients backward already summed (FSDP) -----------
+    def _check_presummed(self, comm: Comm) -> None:
+        if self.op not in (ReduceOp.SUM, ReduceOp.AVERAGE) or self.compression is not None:
+            raise ValueError("parameters cut over dp (FSDP_RULES) have their gradients "
+                             "reduce-scattered in backward: the op must be SUM or AVERAGE, "
+                             "with no compression")
+        if self.backward_passes_per_step > 1:
+            raise NotImplementedError(
+                "backward_passes_per_step > 1 with parameters cut over dp is not ported "
+                "(ROADMAP A3: FSDP with sp, ep, pp, MoE, gradient accumulation "
+                "or the BERT encoder)")
+        for p in self._presummed:
+            if p.fsdp.comm.ranks != comm.ranks:
+                raise ValueError(
+                    f"a parameter cut over dp has its gradient summed over ranks "
+                    f"{p.fsdp.comm.ranks} in backward; the optimizer reduces over "
+                    f"{comm.ranks}: pass the model's dp line as axis_name")
+
+    @torch.no_grad()
+    def _scale_presummed(self) -> None:
+        """The op's scale and the pre- and postscale on the summed gradients
+        (zeros for a parameter without one)."""
+        factor = self.prescale_factor * self.postscale_factor
+        if self.op == ReduceOp.AVERAGE:
+            factor /= self._comm().size
+        for p in self._presummed:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            elif factor != 1.0:
+                p.grad.mul_(factor)
+
     def _comm(self) -> Comm:
         if self._mesh is not None:
             return self._mesh.comm(self.axis_name)
@@ -307,7 +352,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
         comp = self.compression or Compression.none
         threshold = env.fusion_threshold_bytes() if self.fuse else 0
         self._buckets, self._slot = [], {}
-        for p in reversed(self._params()):
+        for p in reversed(self._reduced()):
             dt = comp.compress(torch.empty(0, dtype=p.dtype, device=p.device))[0].dtype
             last = self._buckets[-1] if self._buckets else None
             if (last is None or last.dtype != dt
@@ -320,11 +365,11 @@ class DistributedOptimizer(torch.optim.Optimizer):
         if hooks:
             ref = weakref.ref(self)
             self._hooks = [p.register_post_accumulate_grad_hook(_hook(ref))
-                           for p in self._params()]
+                           for p in self._reduced()]
 
     def _check_bucket_signature(self) -> None:
         # Before the first bucket launches: every rank fires its first hook.
-        if not self._signature_checked:
+        if not self._signature_checked and self._buckets:
             self._check_signature(self._buckets[0].dtype,
                                   [p.numel() for b in self._buckets for p in b.params])
 
@@ -381,15 +426,16 @@ class DistributedOptimizer(torch.optim.Optimizer):
     def _finish_overlap(self) -> bool:
         """Fill what the hooks did not, wait for every bucket and write the
         reduced gradients; False on a pass that only accumulates."""
-        for p in self._params():
+        for p in self._reduced():
             if p not in self._filled and p.grad is not None:
                 self._on_grad(p)
         if self._passes < self.backward_passes_per_step - 1:
             self._passes += 1
             self._filled = set()
             return False
+        self._scale_presummed()
         self._check_bucket_signature()
-        for p in self._params():
+        for p in self._reduced():
             if p not in self._filled:
                 acc = self._acc.pop(p, None)
                 self._filled.add(p)
@@ -444,7 +490,8 @@ class DistributedOptimizer(torch.optim.Optimizer):
         if self._ef:
             self._ef.synchronize()
             return
-        params = self._params()
+        self._scale_presummed()
+        params = self._reduced()
         if not params:
             return
         grads = zero_mod._grads(params)

@@ -4,10 +4,15 @@ traced plane's layout; Rajbhandari et al., "ZeRO: Memory Optimizations
 Toward Training Trillion Parameter Models").
 
 ``DistributedOptimizer(opt, zero=1|2)`` stops keeping a full copy of the
-inner optimizer's state on every rank. Each param group's gradients are
-packed into one flat buffer (f32, or f64 if a parameter is), padded to a
-multiple of the world size n (``_shard_geometry``), and rank r owns
-elements ``[r·k, (r+1)·k)``. A step:
+inner optimizer's state on every rank of its line: the world, or with
+``axis_name=`` the line of the mesh it names (one axis or a tuple such as
+``("dp", "sp")``, ``parallel/mesh.py``), the ``axis_name`` of the JAX
+``zero_optimizer``. Each param group's gradients are packed into one flat
+buffer (f32, or f64 if a parameter is), padded to a multiple of the line's
+size n (``_shard_geometry``), and the member of index r in the line owns
+elements ``[r·k, (r+1)·k)``. Every member of a line holds parameters of
+the same shapes (a tp or ep rank's own shards, a pp rank's own stage), so
+the line shards what its members hold alike. A step:
 
 a. reduce-scatters the flat gradient (the port's ``ops`` reducescatter:
    NCCL's ``reduce_scatter_tensor``, an all-reduce and a slice on gloo),
@@ -38,9 +43,12 @@ state and corrects the all-reduce's wire cast with a full-size residual
 Only elementwise inner optimizers shard: SGD (with or without momentum),
 Adam, AdamW and RMSprop. Under ZeRO the wrapper's ``state_dict()`` is the
 shard's (plus the residuals and the geometry); ``state_to_global``
-gathers every rank's shard into the world-stacked form, ``recut_state``
-re-cuts that form for another world size bitwise, and
-``state_from_global`` takes one rank's shard back out of it.
+gathers every member's shard into the line-stacked form, ``recut_state``
+re-cuts that form for another line size bitwise, and
+``state_from_global`` takes one member's shard back out of it. A
+parameter cut over the line's own axes (``parallel/fsdp.py``) has its
+gradient reduce-scattered in backward and cannot be sharded again: both
+reducers refuse it.
 """
 from __future__ import annotations
 
@@ -51,9 +59,9 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from .. import ops
-from ..common import basics
 from ..common.types import ReduceOp
 from ..ops import wire
+from ..parallel.mesh import Comm, world_comm
 
 ELEMENTWISE = (torch.optim.SGD, torch.optim.Adam, torch.optim.AdamW,
                torch.optim.RMSprop)
@@ -100,22 +108,23 @@ def _update_wire_mode(h: torch.Tensor) -> Optional[str]:
     return "fp16" if dt == torch.float16 else "bf16"
 
 
-def _encode_gather(h: torch.Tensor):
-    """Encode the owned update shard, all-gather, decode: returns (the full
-    (n·k,) updates, this rank's own decoded shard). The own decode is
-    bitwise what every receiver computes for it, so the residual accounts
-    exactly the error that was shipped."""
+def _encode_gather(h: torch.Tensor, comm: Comm):
+    """Encode the owned update shard, all-gather it over ``comm``, decode:
+    returns (the full (n·k,) updates, this rank's own decoded shard). The
+    own decode is bitwise what every receiver computes for it, so the
+    residual accounts exactly the error that was shipped."""
     mode = _update_wire_mode(h)
     if mode == "int8":
         q, scale = wire.int8_encode(h.to(torch.float32))
-        qs = wire.all_gather_launch(q, False)[1]()
-        ss = wire.all_gather_launch(scale.reshape(1), False)[1]()
+        qs = wire.all_gather_launch(q, False, comm)[1]()
+        ss = wire.all_gather_launch(scale.reshape(1), False, comm)[1]()
         full = (qs.to(torch.float32) * ss).reshape(-1).to(h.dtype)
         return full, wire.int8_decode(q, scale).to(h.dtype)
     if mode is not None:
         w = h.to(torch.float16 if mode == "fp16" else torch.bfloat16)
-        return wire.all_gather_launch(w, False)[1]().reshape(-1).to(h.dtype), w.to(h.dtype)
-    return wire.all_gather_launch(h, False)[1]().reshape(-1), h
+        return (wire.all_gather_launch(w, False, comm)[1]().reshape(-1).to(h.dtype),
+                w.to(h.dtype))
+    return wire.all_gather_launch(h, False, comm)[1]().reshape(-1), h
 
 
 def _pack(tensors: Sequence[torch.Tensor], acc: torch.dtype) -> torch.Tensor:
@@ -132,6 +141,15 @@ def _check_elementwise(optimizer: torch.optim.Optimizer) -> None:
             f"ZeRO shards only elementwise optimizers "
             f"({', '.join(c.__name__ for c in ELEMENTWISE)}), got "
             f"{type(optimizer).__name__}")
+
+
+def _check_not_presummed(params, what: str) -> None:
+    """A parameter cut over the line (FSDP) already has its gradient summed
+    there in backward, and its state is already this rank's shard."""
+    if any(getattr(p, "fsdp", None) is not None for p in params):
+        raise ValueError(f"{what} does not take parameters cut over dp (FSDP_RULES): "
+                         "their gradients are reduce-scattered in backward and their "
+                         "optimizer state is already sharded")
 
 
 def _hyper(group: dict) -> dict:
@@ -186,15 +204,19 @@ class ZeroSharder:
 
     def __init__(self, optimizer: torch.optim.Optimizer, stage: int,
                  error_feedback: bool, op: ReduceOp, prescale_factor: float,
-                 postscale_factor: float):
+                 postscale_factor: float, comm: Optional[Comm] = None):
         _check_elementwise(optimizer)
         if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
             raise ValueError(f"ZeRO reduces gradients by SUM or AVERAGE, not "
                              f"{ReduceOp(op).name}")
+        _check_not_presummed([p for g in optimizer.param_groups for p in g["params"]],
+                             "ZeRO")
         self.user = optimizer
         self.stage, self.error_feedback = stage, error_feedback
         self.op, self.pre, self.post = op, prescale_factor, postscale_factor
-        self.world, self.rank = basics.size(), basics.rank()
+        self.comm = comm or world_comm()
+        # "world" and "rank" are the line's size and this rank's index in it.
+        self.world, self.rank = self.comm.size, self.comm.rank
         self.groups = [_Group([p for p in g["params"] if p.requires_grad],
                               self.world, self.rank) for g in optimizer.param_groups]
         for g in self.groups:
@@ -222,7 +244,7 @@ class ZeroSharder:
                 flat = torch.cat([flat, flat.new_zeros(g.pad)])
         dt = None if self.error_feedback else wire.wire_dtype(flat, self.op)
         shard = ops._reducescatter(flat if dt is None else flat.to(dt),
-                                   ReduceOp.SUM).to(g.acc)
+                                   ReduceOp.SUM, self.comm).to(g.acc)
         if self.op == ReduceOp.AVERAGE:
             shard = shard / self.world
         return ops._scale(shard, self.post)
@@ -246,14 +268,14 @@ class ZeroSharder:
                 # Full width: gather the new shards themselves, so every rank
                 # holds the inner optimizer's values bitwise (old + (new − old)
                 # rounds where new and old are not within a factor of 2).
-                full = wire.all_gather_launch(shard, False)[1]().reshape(-1)
+                full = wire.all_gather_launch(shard, False, self.comm)[1]().reshape(-1)
                 with ops.span("hvd.unflatten"):
                     g.set_params(full)
                 continue
             h = shard - old
             if self.error_feedback:
                 h = h + self.residuals[i]
-            full, own = _encode_gather(h)
+            full, own = _encode_gather(h, self.comm)
             if self.error_feedback:
                 self.residuals[i] = h - own
             with ops.span("hvd.unflatten"):
@@ -341,33 +363,38 @@ class EFReducer:
     so the shipped values telescope to the true sum."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, op: ReduceOp,
-                 prescale_factor: float, postscale_factor: float):
+                 prescale_factor: float, postscale_factor: float,
+                 comm: Optional[Comm] = None):
         if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
             raise ValueError(f"error feedback reduces by SUM or AVERAGE, not "
                              f"{ReduceOp(op).name}")
+        _check_not_presummed([p for g in optimizer.param_groups for p in g["params"]],
+                             "error feedback")
         self.op, self.pre, self.post = op, prescale_factor, postscale_factor
+        self.comm = comm or world_comm()
         groups = ([p for p in g["params"] if p.requires_grad]
                   for g in optimizer.param_groups)
         self.groups = [ps for ps in groups if ps]
         self.residuals = [torch.zeros(sum(p.numel() for p in ps), dtype=_acc_dtype(ps),
                                       device=ps[0].device) for ps in self.groups]
-        _note_status(enabled=True, plane="torch", stage=0, world=basics.size(),
+        _note_status(enabled=True, plane="torch", stage=0, world=self.comm.size,
                      error_feedback=True)
 
     @torch.no_grad()
     def synchronize(self) -> None:
-        n = basics.size()
+        n = self.comm.size
         for i, params in enumerate(self.groups):
             res = self.residuals[i]
             e = ops._scale(_pack(_grads(params), res.dtype), self.pre) + res
             if wire.int8_enabled(e, self.op):
-                red = wire.int8_allreduce_launch(e, False)[1]()
+                red = wire.int8_allreduce_launch(e, False, self.comm)[1]()
                 own = wire.int8_decode(*wire.int8_encode(e))
             else:
                 dt = wire.wire_dtype(e, self.op)
                 own = e if dt is None else e.to(dt)
                 buf = own.clone()
-                torch.distributed.all_reduce(buf)
+                if not self.comm.trivial:
+                    torch.distributed.all_reduce(buf, group=self.comm.group)
                 red, own = buf.to(e.dtype), own.to(e.dtype)
             self.residuals[i] = e - own
             if self.op == ReduceOp.AVERAGE:
@@ -378,12 +405,14 @@ class EFReducer:
 
 
 # ---------------------------------------------------------------------------
-# The world-stacked form: every rank's shard state, leaves (n, k) or (n,).
+# The line-stacked form: every member's shard state, leaves (n, k) or (n,)
+# ("world" is the line's size n).
 def state_to_global(optimizer) -> dict:
-    """Gather every rank's shard state of a ZeRO ``DistributedOptimizer``
-    into the stacked form every rank then holds: per group, each (k,) leaf
-    as (n, k) and each scalar as (n,), plus the world and each group's
-    element count (collective: every rank calls it)."""
+    """Gather every member's shard state of a ZeRO ``DistributedOptimizer``
+    over its line into the stacked form every member then holds: per
+    group, each (k,) leaf as (n, k) and each scalar as (n,), plus the
+    line's size and each group's element count (collective: every member
+    of the line calls it)."""
     sharder = optimizer._zero
     if not isinstance(sharder, ZeroSharder):
         raise ValueError("state_to_global needs a DistributedOptimizer(zero=1|2)")
@@ -393,7 +422,7 @@ def state_to_global(optimizer) -> dict:
         for key in sorted(st):
             val = st[key].to(shard.device)
             stacked = wire.all_gather_launch(val.reshape(-1) if val.dim() else val.reshape(1),
-                                             False)[1]()
+                                             False, sharder.comm)[1]()
             out[key] = stacked if val.dim() else stacked.reshape(-1)
         groups.append(out)
     return {"world": sharder.world, "totals": [g.total for g in sharder.groups],

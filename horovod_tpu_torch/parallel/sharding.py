@@ -14,12 +14,20 @@ which parameters a rank holds a part of and which are replicated:
   over tp, though the Switch FFN under tp is not ported;
 * ``PIPELINE_RULES``: "layers" over pp, as in JAX: a pp rank holds its
   stage's blocks (``models/pipelined.py``), and the embeddings, ``ln_f`` and
-  the head are replicated over pp.
+  the head are replicated over pp;
+* ``FSDP_RULES``: ``DEFAULT_RULES`` with "embed" (d_model) over dp as well,
+  the JAX ZeRO-3 analogue: a dp rank holds its dp shard of every parameter
+  with a d_model dimension (``parallel/fsdp.py``), beside the tp cuts of
+  the same table. As in flax, a mesh axis serves one dimension of a tensor
+  only; the port's parameters carry no batch dimension, so every "embed"
+  dimension goes over dp (no parameter has two).
 
-``replica_comm`` is a parameter's line of copies: the mesh axes its cut does
-not follow (a tp-cut parameter's (dp, ...) line, the world for a replicated
-one). ``make_train_step`` broadcasts each parameter within that line at
-init. ``FSDP_RULES`` is not ported (ROADMAP A3).
+A parameter's cut is marked on it (``tensor_parallel``, ``fsdp``,
+``expert_parallel``) by the model that holds it; ``logical_axes`` reads the
+marks back. ``replica_comm`` is a parameter's line of copies: the mesh axes
+its cuts do not follow (a tp-cut parameter's (dp, ...) line, an FSDP-cut
+one's line without dp, the world for a replicated one). ``make_train_step``
+broadcasts each parameter within that line at init.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from .mesh import Comm, Mesh
 # (logical axis, mesh axes) pairs: the JAX table's rows for the port's
 # parameters (``parallel/train.py`` cuts the batch over dp and sp itself).
 DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
+    ("embed", None),             # d_model replicated (megatron layout)
     ("mlp", ("tp",)),            # d_ff column-split
     ("heads", ("tp",)),          # attention heads split
     ("vocab", ("tp",)),          # embedding/lm-head vocab split
@@ -43,6 +52,11 @@ DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
 # Pipeline variant: the layer axis lies over pp (PipelinedLM's stages).
 PIPELINE_RULES: Tuple[Tuple[str, Any], ...] = tuple(
     ("layers", ("pp",)) if k == "layers" else (k, v) for k, v in DEFAULT_RULES
+)
+
+# FSDP variant: d_model over dp as well (``parallel/fsdp.py``).
+FSDP_RULES: Tuple[Tuple[str, Any], ...] = tuple(
+    ("embed", ("dp",)) if k == "embed" else (k, v) for k, v in DEFAULT_RULES
 )
 
 
@@ -66,18 +80,22 @@ def filter_rules(rules: Sequence[Tuple[str, Any]], mesh: Mesh):
     return tuple(out)
 
 
-def logical_axis(name: str, param: torch.Tensor) -> Optional[str]:
-    """The logical axis a parameter of the port's models is cut along:
+def logical_axes(name: str, param: torch.Tensor) -> Tuple[str, ...]:
+    """The logical axes a parameter of the port's models is cut along:
     "expert" for a Switch FFN's experts, "mlp", "heads" or "vocab" for a
-    tp-cut one (its ``tensor_parallel`` mark), "layers" for a block's
-    parameter (``stack.layers.<i>.*``), None for the rest."""
+    tp-cut one (its ``tensor_parallel`` mark), "embed" for an FSDP-cut one
+    (its ``fsdp`` mark), "layers" for a block's parameter
+    (``stack.layers.<i>.*``); none for the rest."""
+    out = []
     if hasattr(param, "expert_parallel"):
-        return "expert"
+        out.append("expert")
     if hasattr(param, "tensor_parallel"):
-        return param.tensor_parallel.logical
+        out.append(param.tensor_parallel.logical)
+    if getattr(param, "fsdp", None) is not None:
+        out.append(param.fsdp.logical)
     if name.startswith("stack.layers."):
-        return "layers"
-    return None
+        out.append("layers")
+    return tuple(out)
 
 
 def mesh_axes(logical: Optional[str], rules, mesh: Mesh) -> Tuple[str, ...]:
@@ -91,8 +109,9 @@ def mesh_axes(logical: Optional[str], rules, mesh: Mesh) -> Tuple[str, ...]:
 
 def replica_comm(name: str, param: torch.Tensor, rules, mesh: Mesh) -> Comm:
     """The line of ranks that hold the same part of ``param``: the mesh axes
-    its cut does not follow (the whole world for a replicated parameter)."""
-    cut = mesh_axes(logical_axis(name, param), rules, mesh)
+    its cuts do not follow (the whole world for a replicated parameter)."""
+    cut = {a for logical in logical_axes(name, param)
+           for a in mesh_axes(logical, rules, mesh)}
     if not cut:
         return mesh.comm(mesh.axis_names)
     return mesh.comm(tuple(a for a in mesh.axis_names if a not in cut))

@@ -208,9 +208,10 @@ class RowParallel(_OnTP):
         if self.comm.size == 1:
             return super().forward(x)
         dt = self.compute_dtype
-        y = psum(F.linear(x.to(dt), self.weight.to(dt)), self.comm, grad="identity",
+        weight, bias = self.params_at_use()     # gathered over dp under FSDP
+        y = psum(F.linear(x.to(dt), weight.to(dt)), self.comm, grad="identity",
                  name=f"{SPAN}.psum")
-        return y if self.bias is None else y + self.bias.to(dt)
+        return y if bias is None else y + bias.to(dt)
 
 
 def vocab_parallel_embedding(ids: torch.Tensor, weight: torch.Tensor, start: int,

@@ -28,6 +28,17 @@ its dp cut whole, and the model's logits are its vocabulary shard, so
 optimizer still reduces over the ("dp", "sp") line only: the gradients of
 replicated parameters come out equal on every tp rank, those of tp-cut
 ones are the rank's shard.
+
+As in JAX, ``optimizer`` may be a plain ``torch.optim`` optimizer: the step
+wraps it in ``DistributedOptimizer(..., axis_name=<the ("dp", "sp")
+line>)``, since GSPMD averages the JAX step's gradients over the batch's
+axes whatever ``tx`` is. ``zero=True`` is the JAX spelling of ZeRO
+(``horovod_tpu/parallel/train.py:99-113``, ``:175-201``): the moments are
+sharded over the data line. JAX stacks the dp shard in front of each
+moment's own tp spec; here each rank's flat buffer already holds only its
+tp shards, so ``DistributedOptimizer(opt, zero=1, axis_name=<the data
+line>)`` is the same layout. ``rules`` is the model's (``FSDP_RULES``: the
+parameters themselves cut over dp, ``parallel/fsdp.py``).
 """
 from __future__ import annotations
 
@@ -42,7 +53,7 @@ from .. import ops
 from ..common import basics
 from ..common.types import ReduceOp
 from .mesh import Comm, Mesh
-from .sharding import DEFAULT_RULES, replica_comm
+from .sharding import DEFAULT_RULES, FSDP_RULES, replica_comm
 from .tensor import vocab_parallel_lm_loss, vocab_parallel_xent
 
 
@@ -117,7 +128,7 @@ def _broadcast_(t: torch.Tensor, comm: Comm) -> None:
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable, *, mesh: Mesh, shard_seq: bool = False,
-                    moe_aux_weight: float = 0.0
+                    moe_aux_weight: float = 0.0, zero: bool = False, rules=None
                     ) -> Tuple[Callable[[], TrainState], Callable]:
     """Returns ``(init_fn, step_fn)``.
 
@@ -131,10 +142,16 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``step_fn(state, inputs, labels)`` takes the global batch, puts the
     model in train mode, runs this rank's cut of it forward and backward,
     adds ``moe_aux_weight`` times the model's MoE auxiliary loss, steps
-    ``optimizer`` (a ``DistributedOptimizer`` reducing over the ("dp",
-    "sp") line, for the gradients to be averaged), and returns ``(state,
-    loss)``, the global loss (aux included) as a detached scalar on the
-    device.
+    the optimizer, and returns ``(state, loss)``, the global loss (aux
+    included) as a detached scalar on the device.
+
+    ``optimizer`` is a plain ``torch.optim`` optimizer, which the step
+    wraps in a ``DistributedOptimizer`` over the ("dp", "sp") line (with
+    ``zero=True``: ``zero=1`` on that line), or a ``DistributedOptimizer``
+    already reducing over that line (ZeRO there when ``zero=True``); the
+    ``TrainState`` holds the one that steps. ``zero=True`` needs a dp axis
+    and does not combine with ``FSDP_RULES``. ``rules``, where given, must
+    be the model's ``rules`` (the model is built with them).
 
     ``shard_seq`` cuts dim 1 over sp; a mesh with sp > 1 needs it, since
     the model then takes this rank's sequence block. With pp > 1 the model
@@ -162,13 +179,31 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                              "loss_fn must be lm_loss or softmax_xent")
         loss_fn = functools.partial(tp_loss[loss_fn], axis=mesh.comm("tp"),
                                     vocab_size=model.cfg.vocab_size)
-    if isinstance(optimizer, DistributedOptimizer) and optimizer._comm().ranks != data.ranks:
-        raise ValueError(
-            f"the optimizer reduces over ranks {optimizer._comm().ranks}, the step's "
-            f"gradients must be reduced over the ('dp', 'sp') line {data.ranks}: "
-            "pass axis_name=('dp', 'sp') to DistributedOptimizer")
+    model_rules = getattr(model, "rules", DEFAULT_RULES)
+    if rules is not None and tuple(rules) != tuple(model_rules):
+        raise ValueError("rules= must be the model's rules: build the model with them "
+                         "(make_model(rules=...))")
+    rules = model_rules
+    if zero:
+        if "dp" not in mesh.axis_names:
+            raise ValueError("make_train_step(zero=True) needs a 'dp' axis in the mesh "
+                             "to shard optimizer state over")
+        if rules == FSDP_RULES:
+            raise ValueError("zero=True does not combine with FSDP_RULES: the moments of "
+                             "the parameters cut over dp are already sharded")
+    if isinstance(optimizer, DistributedOptimizer):
+        if optimizer._comm().ranks != data.ranks:
+            raise ValueError(
+                f"the optimizer reduces over ranks {optimizer._comm().ranks}, the step's "
+                f"gradients must be reduced over the ('dp', 'sp') line {data.ranks}: "
+                "pass axis_name=('dp', 'sp') to DistributedOptimizer")
+        if zero and optimizer._zero is None:
+            raise ValueError("zero=True with a DistributedOptimizer that is not ZeRO: pass "
+                             "the plain optimizer, or DistributedOptimizer(zero=1, "
+                             "axis_name=('dp', 'sp'))")
+    else:
+        optimizer = DistributedOptimizer(optimizer, zero=1 if zero else 0, axis_name=data)
     sharded_lm = loss_fn is lm_loss and sp > 1
-    rules = getattr(model, "rules", DEFAULT_RULES)
 
     def init_fn() -> TrainState:
         # The world's broadcasts first, then each line's; every rank issues

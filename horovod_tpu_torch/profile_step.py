@@ -4,7 +4,7 @@
         [--model gpt2-small|resnet50|bert-base] [--steps 3] [--out PATH]
         [--zero 0|1|2] [--no-overlap]
         [--attn flash|dense|ring|ulysses] [--sp N] [--n-experts E] [--seq S]
-        [--pp N] [--tp N] [--remat]
+        [--pp N] [--tp N] [--remat] [--fsdp]
 
 Builds a slice that ``chip_smoke.py`` drives on one card: GPT-2-small (B=4,
 S=2048, bf16 logits, ``DistributedOptimizer(AdamW)``), run with
@@ -61,7 +61,12 @@ tensor-parallel ranges: ``hvd.tp.psum`` (the row-parallel partial
 products summed), ``hvd.tp.pvary.bwd`` (the column-parallel input
 gradients summed, in backward), ``hvd.tp.embed_sum`` (the vocab-parallel
 lookup) and ``hvd.tp.xent`` (the vocab-parallel loss's forward, its max
-and sums over tp).
+and sums over tp). ``--zero Z`` takes it too (ZeRO over the ("dp", "sp")
+line, the layout of ``make_train_step(zero=True)``), and ``--fsdp`` builds
+it under ``FSDP_RULES`` (every d_model dimension cut over dp), splitting
+the step further by ``hvd.fsdp.all_gather`` (each parameter gathered at its
+use, again in backward under remat) and ``hvd.fsdp.all_gather.bwd`` (its
+gradient reduce-scattered).
 """
 from __future__ import annotations
 
@@ -81,7 +86,7 @@ BERT_B, BERT_S, BERT_MIN_LEN = 256, 128, 64
 VARIANTS = {"gpt2-small": ("flash", "dense"), "gpt2-1p3b": ("flash",),
             "resnet50": ("fused", "unfused"), "bert-base": ("flash", "dense")}
 RANGES = ("hvd.flatten", "hvd.unflatten", "Optimizer.step", "hvd.moe.", "hvd.sp.",
-          "hvd.ep.", "hvd.pp.", "hvd.tp.")
+          "hvd.ep.", "hvd.pp.", "hvd.tp.", "hvd.fsdp.")
 
 
 def _classify(name: str) -> str:
@@ -109,7 +114,7 @@ def _device_us(evt) -> float:
 
 def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
            n_experts: int = 0, seq: int = S, pp: int = 1, remat: bool = False,
-           tp: int = 1):
+           tp: int = 1, fsdp: bool = False):
     """(step_fn, state, inputs, labels, items per step, item name)."""
     import dataclasses
 
@@ -119,6 +124,7 @@ def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
     from horovod_tpu_torch.models.transformer import GPT2_CONFIGS
     from horovod_tpu_torch.parallel.mesh import create_mesh
     from horovod_tpu_torch.parallel import train
+    from horovod_tpu_torch.parallel.sharding import DEFAULT_RULES, FSDP_RULES
 
     spec = get_model(model_name)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -133,7 +139,8 @@ def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
             model = PipelinedLM(dataclasses.replace(GPT2_CONFIGS[model_name], **overrides),
                                 mesh, device=dev, generator=gen)
         else:
-            model = spec.make_model(device=dev, generator=gen, mesh=mesh, **overrides)
+            model = spec.make_model(device=dev, generator=gen, mesh=mesh,
+                                    rules=FSDP_RULES if fsdp else DEFAULT_RULES, **overrides)
         opt = hvd.DistributedOptimizer(torch.optim.AdamW(
             model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8),
             axis_name=("dp", "sp"), **(opt_kw or {}))
@@ -288,17 +295,23 @@ def main() -> int:
                     help="gpt2-1p3b only: the tp axis's size")
     ap.add_argument("--remat", action="store_true",
                     help="GPT-2 only: recompute each block in backward")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="gpt2-1p3b only: the model under FSDP_RULES")
     args = ap.parse_args()
-    if args.model != "gpt2-small" and (args.zero is not None or args.attn or args.sp > 1
-                                       or args.n_experts or args.seq != S):
-        ap.error("--zero, --attn, --sp, --n-experts and --seq profile gpt2-small")
-    if (args.pp > 1 or args.tp > 1) and args.model != "gpt2-1p3b":
-        ap.error("--pp and --tp profile gpt2-1p3b")
+    if args.model != "gpt2-small" and (args.attn or args.sp > 1 or args.n_experts
+                                       or args.seq != S):
+        ap.error("--attn, --sp, --n-experts and --seq profile gpt2-small")
+    if args.zero is not None and not args.model.startswith("gpt2"):
+        ap.error("--zero profiles GPT-2")
+    if (args.pp > 1 or args.tp > 1 or args.fsdp) and args.model != "gpt2-1p3b":
+        ap.error("--pp, --tp and --fsdp profile gpt2-1p3b")
+    if args.fsdp and (args.pp > 1 or args.zero):
+        ap.error("--fsdp does not combine with --pp or --zero")
     if args.remat and not args.model.startswith("gpt2"):
         ap.error("--remat profiles GPT-2")
     variants, opt_kw = VARIANTS[args.model], None
     shape = ({"sp": args.sp, "n_experts": args.n_experts, "seq": args.seq,
-              "pp": args.pp, "tp": args.tp, "remat": args.remat}
+              "pp": args.pp, "tp": args.tp, "remat": args.remat, "fsdp": args.fsdp}
              if args.model.startswith("gpt2") else {})
     if args.attn:
         variants = (args.attn,)

@@ -1,7 +1,8 @@
 """Rank bodies for tests/test_torch_port_distributed.py,
 tests/test_torch_port_resnet.py, tests/test_torch_port_collectives.py,
 tests/test_torch_port_bert.py, tests/test_torch_port_{zero,adasum,
-sync_bn,overlap}.py and tests/test_torch_port_{sp,moe,mesh,pipeline,tp}.py, in a
+sync_bn,overlap}.py, tests/test_torch_port_{sp,moe,mesh,pipeline,tp}.py and
+tests/test_torch_port_{zero_mesh,fsdp}.py, in a
 module of their own so spawned ranks import torch and horovod_tpu_torch
 only (no jax, no test module). Each rank returns a dict of numpy arrays
 through a queue; ``spawn_world`` runs a named body on a world of gloo
@@ -1368,3 +1369,272 @@ def _tp_train(hvd, torch, params) -> dict:
     return {"coords": np.array([mesh.coords["dp"], mesh.coords["tp"]]),
             "losses": np.array(losses),
             "params": {k: v.numpy().copy() for k, v in model.state_dict().items()}}
+
+
+# ---------------------------------------------------------------------------
+# Sharded training state on the mesh (tests/test_torch_port_{zero_mesh,
+# fsdp}.py): gpt2-tiny cut to vocab 128, d_model 32 (4 heads of 8), d_ff 64,
+# 2 layers, S=16, B=4.
+ZM_VOCAB, ZM_B, ZM_S = 128, 4, 16
+ZM_LR, ZM_WD, ZM_EPS, ZM_STEPS = 1e-4, 1e-4, 1e-8, 3
+ZM_SHAPES = {"dp2": {"dp": 2}, "dp2_tp2": {"dp": 2, "tp": 2}}
+
+
+def zm_config(torch, dtype: str = "float32", **overrides):
+    import dataclasses
+
+    from horovod_tpu_torch.models.transformer import GPT2_CONFIGS
+
+    fields = dict(vocab_size=ZM_VOCAB, d_model=32, n_heads=4, d_ff=64, max_len=ZM_S,
+                  dtype=getattr(torch, dtype))
+    return dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], **{**fields, **overrides})
+
+
+def zm_ids(seed: int = 7) -> np.ndarray:
+    return np.random.RandomState(seed).randint(0, ZM_VOCAB, (ZM_B, ZM_S)).astype(np.int32)
+
+
+def _zm_train(hvd, torch, shape: dict, params=None, dtype: str = "float32", *,
+              zero: bool = False, fsdp: bool = False, plain: bool = True,
+              shard_seq: bool = False, moe_aux_weight: float = 0.0, **overrides) -> dict:
+    """ZM_STEPS AdamW steps of the zm model on a mesh of ``shape`` through
+    ``make_train_step`` (``zero=``; ``rules=FSDP_RULES`` with ``fsdp``),
+    from the numpy weights ``params`` (each rank loading its cut), or from
+    torch seed 0 without them; the optimizer passed plain, or with
+    ``plain=False`` as ``DistributedOptimizer`` over the mesh's dp and sp
+    axes. Returns
+    the losses, this rank's coordinates, its state_dict, its optimizer's
+    state bytes and the rank's step-1 gradients by name."""
+    from horovod_tpu_torch.models.convert import flax_to_torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    mesh = hvd.create_mesh(shape)
+    cfg = zm_config(torch, dtype, **overrides)
+    c = {a: (mesh.shape.get(a, 1), mesh.coords.get(a, 0)) for a in ("dp", "tp", "ep")}
+    # The FSDP and ZeRO keywords only where they are used, so that the
+    # plain-optimizer case runs on a tree without them.
+    rules = {}
+    if fsdp:
+        from horovod_tpu_torch.parallel.sharding import FSDP_RULES
+
+        rules = {"rules": FSDP_RULES}
+    model = TransformerLM(cfg, device="cpu", mesh=mesh,
+                          generator=torch.Generator().manual_seed(0), **rules)
+    if params is not None:
+        cut = {"dp": c["dp"][0], "dp_rank": c["dp"][1]} if fsdp else {}
+        model.load_state_dict(flax_to_torch(params, cfg, ep=c["ep"][0], ep_rank=c["ep"][1],
+                                            tp=c["tp"][0], tp_rank=c["tp"][1], **cut))
+    opt = torch.optim.AdamW(model.parameters(), lr=ZM_LR, weight_decay=ZM_WD, eps=ZM_EPS)
+    if not plain:
+        line = tuple(a for a in ("dp", "sp") if a in mesh.axis_names)
+        opt = hvd.DistributedOptimizer(opt, zero=int(zero), axis_name=line)
+    init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh, shard_seq=shard_seq,
+                                       moe_aux_weight=moe_aux_weight,
+                                       **({"zero": True} if zero else {}), **rules)
+    state = init_fn()
+    ids = torch.from_numpy(zm_ids())
+    losses, grads = [], None
+    for _ in range(ZM_STEPS):
+        state, loss = step_fn(state, ids, ids)
+        losses.append(float(loss))
+        if grads is None:
+            grads = {k: p.grad.detach().float().numpy().copy()
+                     for k, p in model.named_parameters()}
+    return {"losses": np.array(losses), "coords": dict(mesh.coords),
+            "params": {k: v.detach().float().numpy().copy()
+                       for k, v in model.state_dict().items()},
+            "grads": grads,
+            "state_bytes": getattr(state.optimizer, "state_bytes", lambda: None)(),
+            "optimizer": type(state.optimizer).__name__}
+
+
+def _raises(fn, kinds=(ValueError, NotImplementedError)) -> str:
+    """What ``fn()`` raises, as "Kind: message", or "no error"."""
+    try:
+        fn()
+    except kinds as e:
+        return f"{type(e).__name__}: {e}"
+    return "no error"
+
+
+def _zero_mesh_raises(hvd, torch) -> dict:
+    """The combinations make_train_step(zero=...) and ZeRO refuse, on a
+    world of four."""
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel.sharding import DEFAULT_RULES, FSDP_RULES
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    def step(shape, zero, rules=FSDP_RULES, model_rules=None, opt_kw=None):
+        def run():
+            mesh = hvd.create_mesh(shape)
+            model = TransformerLM(zm_config(torch), device="cpu", mesh=mesh,
+                                  rules=model_rules or rules)
+            opt = torch.optim.AdamW(model.parameters())
+            if opt_kw is not None:
+                opt = hvd.DistributedOptimizer(opt, axis_name="dp", **opt_kw)
+            make_train_step(model, opt, lm_loss, mesh=mesh, zero=zero, rules=rules)
+        return run
+
+    return {
+        "zero_without_dp": _raises(step({"tp": 4}, True, DEFAULT_RULES)),
+        "zero_with_fsdp": _raises(step({"dp": 4}, True)),
+        "zero_with_replicated_optimizer": _raises(
+            step({"dp": 4}, True, DEFAULT_RULES, opt_kw={"zero": 0})),
+        "rules_not_the_models": _raises(step({"dp": 4}, False, FSDP_RULES, DEFAULT_RULES)),
+        "zero_optimizer_on_fsdp_params": _raises(
+            step({"dp": 4}, False, FSDP_RULES, opt_kw={"zero": 1})),
+        "error_feedback_on_fsdp_params": _raises(
+            step({"dp": 4}, False, FSDP_RULES, opt_kw={"error_feedback": True})),
+    }
+
+
+def _zero_on_line(hvd, torch, rank: int) -> dict:
+    """On a dp=2 x tp=2 mesh, the optimizer over the dp line (ranks {0, 2}
+    and {1, 3}), each rank stepping its own gradients: ZeRO-1 and the
+    replicated optimizer, their state bytes, ZeRO-1, ZeRO-2 and the
+    replicated optimizer with SGD, the line-stacked state re-cut
+    2 -> 3 -> 2, one member's shard out of it, the HOROVOD_ZERO_SHARDING
+    default on the line, and the drift of error feedback on the bf16
+    lane."""
+    mesh = hvd.create_mesh({"dp": 2, "tp": 2})
+    line = mesh.comm("dp")
+    p0, grads = zero_params(), zero_grads(4, 3)
+    out = {"line": np.array(line.ranks), "line_rank": line.rank}
+    out["zero"], opt = _zero_steps(hvd, p0, grads, rank, zero=1, axis_name="dp")
+    out["zero_bytes"] = opt.state_bytes()
+    out["replicated"], rep = _zero_steps(hvd, p0, grads, rank, axis_name="dp")
+    out["replicated_bytes"] = rep.state_bytes()
+    # SGD steps by the reduced gradient itself, so a wrong divisor shows.
+    for stage in (1, 2):
+        out[f"sgd_zero{stage}"] = _zero_steps(hvd, p0, grads, rank, "sgd", zero=stage,
+                                              axis_name="dp")[0]
+    out["sgd_replicated"] = _zero_steps(hvd, p0, grads, rank, "sgd", axis_name="dp")[0]
+    glob = hvd.zero.state_to_global(opt)
+    back = hvd.zero.recut_state(hvd.zero.recut_state(glob, 3), 2)
+    out["global_world"] = glob["world"]
+    out["global"] = {k: v.numpy() for k, v in glob["groups"][0].items()}
+    out["recut_back"] = {k: v.numpy() for k, v in back["groups"][0].items()}
+    mine = hvd.zero.state_from_global(glob, line.rank)["groups"][0]
+    own = opt.shard_state()["groups"][0]
+    out["from_global_matches"] = sorted(mine) == sorted(own) and all(
+        torch.equal(mine[k].reshape(-1), own[k].reshape(-1)) for k in own)
+    out["status_world"] = hvd.zero.status_snapshot()["world"]
+    os.environ["HOROVOD_ZERO_SHARDING"] = "2"     # the default stage, on the line
+    try:
+        env_opt = hvd.DistributedOptimizer(torch.optim.SGD(
+            [torch.nn.Parameter(torch.zeros(5))], lr=0.1), axis_name="dp")
+    finally:
+        del os.environ["HOROVOD_ZERO_SHARDING"]
+    out["env_default"] = (env_opt._zero.stage, env_opt._zero.comm.ranks)
+    out["drift"] = {name: _ef_drift(hvd, axis_name="dp", **kw) for name, kw in (
+        ("stateless", {}), ("ef0", {"error_feedback": True}),
+        ("zero1_ef", {"zero": 1, "error_feedback": True}))}
+    return out
+
+
+def _run_plain_step_world(rank: int, size: int, params_f32) -> dict:
+    """A plain AdamW through ``make_train_step`` on dp=2, with none of the
+    ZeRO or FSDP keywords."""
+    import torch
+
+    torch.set_num_threads(2)
+
+    import horovod_tpu_torch as hvd
+
+    return _zm_train(hvd, torch, ZM_SHAPES["dp2"], params_f32)
+
+
+def _run_zero_mesh_world(rank: int, size: int, params_f32, params_bf16) -> dict:
+    """On two ranks: ZeRO on dp=2. On
+    four: ZeRO on dp=2 x tp=2 (f32 and bf16), ZeRO over ("dp", "sp") with
+    shard_seq and over dp with ep=2 and a Switch FFN, each beside zero=False
+    on the same mesh, the optimizer over a line, and what raises."""
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+
+    out = {}
+    if size == 2:
+        out["zero_dp2"] = _zm_train(hvd, torch, ZM_SHAPES["dp2"], params_f32, zero=True)
+        out["zero_dp2_passed"] = _zm_train(hvd, torch, ZM_SHAPES["dp2"], params_f32,
+                                           zero=True, plain=False)
+        return out
+    out["zero_dp2_tp2"] = _zm_train(hvd, torch, ZM_SHAPES["dp2_tp2"], params_f32, zero=True)
+    out["replicated_dp2_tp2"] = _zm_train(hvd, torch, ZM_SHAPES["dp2_tp2"], params_f32)
+    out["zero_dp2_tp2_bf16"] = _zm_train(hvd, torch, ZM_SHAPES["dp2_tp2"], params_bf16,
+                                         "bfloat16", zero=True)
+    for zero in (True, False):
+        out[f"sp_zero{int(zero)}"] = _zm_train(hvd, torch, {"dp": 2, "sp": 2}, zero=zero,
+                                               shard_seq=True)
+        out[f"moe_zero{int(zero)}"] = _zm_train(
+            hvd, torch, {"dp": 2, "ep": 2}, zero=zero, moe_aux_weight=0.01, n_experts=4,
+            moe_every=2)
+    out["line"] = _zero_on_line(hvd, torch, rank)
+    out["raises"] = _zero_mesh_raises(hvd, torch)
+    return out
+
+
+def _fsdp_raises(hvd, torch) -> dict:
+    """The combinations FSDP_RULES does not run (and the optimizer's
+    gradient accumulation on FSDP-cut parameters, and the BERT encoder),
+    on a world of four."""
+    import dataclasses
+
+    from horovod_tpu_torch.models.transformer import TransformerEncoder, TransformerLM
+    from horovod_tpu_torch.parallel.sharding import FSDP_RULES
+
+    def build(shape, **overrides):
+        def run():
+            mesh = hvd.create_mesh(shape)
+            cfg = dataclasses.replace(zm_config(torch), **overrides)
+            TransformerLM(cfg, device="cpu", mesh=mesh, rules=FSDP_RULES)
+        return run
+
+    def accumulate():
+        mesh = hvd.create_mesh({"dp": 4})
+        model = TransformerLM(zm_config(torch), device="cpu", mesh=mesh, rules=FSDP_RULES)
+        hvd.DistributedOptimizer(torch.optim.AdamW(model.parameters()), axis_name="dp",
+                                 backward_passes_per_step=2)
+
+    return {"sp": _raises(build({"dp": 2, "sp": 2})),
+            "ep": _raises(build({"dp": 2, "ep": 2})),
+            "pp": _raises(build({"dp": 2, "pp": 2})),
+            "moe": _raises(build({"dp": 4}, n_experts=4)),
+            "accumulation": _raises(accumulate),
+            "bert": _raises(lambda: TransformerEncoder(
+                zm_config(torch), device="cpu", mesh=hvd.create_mesh({"dp": 4}),
+                rules=FSDP_RULES))}
+
+
+def _run_fsdp_world(rank: int, size: int, params_f32, params_bf16) -> dict:
+    """On two ranks: FSDP_RULES on dp=2 (the plain optimizer and a
+    DistributedOptimizer passed in), the initialisation from torch seed 0.
+    On four: FSDP_RULES on dp=2 x tp=2, f32 and bf16, the initialisation,
+    and what raises."""
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel.sharding import FSDP_RULES
+
+    name = "dp2" if size == 2 else "dp2_tp2"
+    shape = ZM_SHAPES[name]
+    out = {f"fsdp_{name}": _zm_train(hvd, torch, shape, params_f32, fsdp=True)}
+    mesh = hvd.create_mesh(shape)
+    model = TransformerLM(zm_config(torch), device="cpu", mesh=mesh, rules=FSDP_RULES,
+                          generator=torch.Generator().manual_seed(0))
+    out["init"] = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    out["marked"] = sorted(n for n, p in model.named_parameters() if hasattr(p, "fsdp"))
+    if size == 2:
+        out["fsdp_dp2_passed"] = _zm_train(hvd, torch, shape, params_f32, fsdp=True,
+                                           plain=False)
+        return out
+    out[f"fsdp_{name}_bf16"] = _zm_train(hvd, torch, shape, params_bf16, "bfloat16",
+                                         fsdp=True)
+    out["raises"] = _fsdp_raises(hvd, torch)
+    return out

@@ -38,6 +38,7 @@ MODULES = [
     "horovod_tpu_torch.parallel.pipeline",
     "horovod_tpu_torch.parallel.sharding",
     "horovod_tpu_torch.parallel.tensor",
+    "horovod_tpu_torch.parallel.fsdp",
     "horovod_tpu_torch.train_gpt2",
     "horovod_tpu_torch.models.transformer",
     "horovod_tpu_torch.models.resnet",
