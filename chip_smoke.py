@@ -172,11 +172,34 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    (``held_closed_form``); per rank the step ms, tokens/s and peak memory
    beside the replicated run's. With one card its line says "not
    measured";
-20. the ``{"kernels": [...]}`` line (with ``launches_sp``,
+20. tp composed with sp (``tp_sp``): GPT-2 1.3B as in 14 with ``max_len``
+   8192 at B=2, S=8192 (the same 16,384 tokens a step), on a dp=1 x sp=1 x
+   tp=1 mesh through the tp x sp code, 5 steps each with flash and with
+   the ring (dense attention on a line of one member), each bitwise the
+   model built with no mesh (losses and step-1 gradients); 48 launches of
+   K1 and 24 of each K2 kernel a step with flash; the world-1 controls of
+   21 (flash; the ring's arithmetic on one card over 2 blocks,
+   ``ring_on_one_card``, in bf16 and, one step, in f32); K1 and the K2
+   pair at (2, 8192, H, 128) for H in 16, 8 and 4 against their plain
+   versions (at B=1 where their f32 scores pass 4 GiB), timed beside SDPA
+   and the aten flash backward;
+21. with four cards (``tp_sp_multi``), one NCCL rank per card on dp=1 x
+   sp=2 x tp=2 against 20's controls: (ts1) the ring, (ts2) Ulysses through
+   flash (K1/K2 at (2, 8192, 4, 128) a rank), (ts3) the gathered flash
+   ((2, 8192, 8, 128) a rank), (ts1f) the ring in f32, one step. Losses as
+   in 15; the step-1 gradients joined over tp by ``grad_gates``: the f32
+   witness within 1e-4 of the f32 control over the whole model and in
+   every tensor, each bf16 variant's distance e_v from the f32 control at
+   most twice its control's e_1; 48/24/24 launches a step per rank with
+   flash, none with the ring; the parameters held at their closed form,
+   replicas bitwise on every tp and sp line; per rank the step ms,
+   tokens/s and peak memory. With fewer cards its line says "not
+   measured";
+22. the ``{"kernels": [...]}`` line (with ``launches_sp``,
    ``launches_moe``, ``launches_pp``, ``launches_tp``,
-   ``launches_zero_mesh`` and the D=128 records ``pp_d128`` and
-   ``tp_d128``); then the card line from nvidia-smi and the last line
-   ``{"ok": true, "device": {...}}``.
+   ``launches_zero_mesh``, ``launches_tp_sp`` and the D=128 records
+   ``pp_d128``, ``tp_d128`` and ``tp_sp_d128``); then the card line from
+   nvidia-smi and the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is not available.
 """
@@ -1563,6 +1586,11 @@ def flat_grads(hvd, model) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def flat_by_name(grads: dict) -> torch.Tensor:
+    """Gradients by name, flattened in f32 in name order."""
+    return torch.cat([g.float().reshape(-1) for _, g in sorted(grads.items())])
+
+
 def train_sp(hvd, fa, fb, mesh, overrides: dict, batch, keep_grads: bool) -> dict:
     """STEPS AdamW steps (lr 1e-4, wd 1e-4, eps 1e-8) of GPT-2-small on
     ``mesh`` through ``make_train_step`` (``shard_seq`` where sp > 1, the
@@ -1976,10 +2004,12 @@ def pp_worlds_for(cards: int) -> dict:
     return out
 
 
-def gpt2_1p3b(mesh, pipelined: bool, **overrides):
+def gpt2_1p3b(mesh, pipelined: bool, seq: int = PP_S, bare: bool = False, **overrides):
     """GPT-2 1.3B from torch seed 0 (flash, bf16 logits, the scan-stacked
-    layout): ``PipelinedLM`` or ``TransformerLM`` on ``mesh``; every pp and
-    every tp layout of the seed holds the same weights."""
+    layout, ``max_len`` the larger of its 2048 and ``seq``): ``PipelinedLM``
+    or ``TransformerLM`` on ``mesh`` (``bare``: a ``TransformerLM`` built
+    with no mesh); every pp and every tp layout of the seed holds the same
+    weights."""
     import dataclasses
 
     from horovod_tpu_torch.models.pipelined import PipelinedLM
@@ -1989,18 +2019,19 @@ def gpt2_1p3b(mesh, pipelined: bool, **overrides):
     dev = mesh.device
     gen = torch.Generator(device=dev).manual_seed(0)
     kw = {"attn_impl": "flash", "logits_dtype": torch.bfloat16, "scan_layers": True,
-          **overrides}
+          "max_len": max(GPT2_CONFIGS[PP_MODEL].max_len, seq), **overrides}
     num_microbatches = kw.pop("num_microbatches", None)
     if pipelined:
         return PipelinedLM(dataclasses.replace(GPT2_CONFIGS[PP_MODEL], **kw), mesh,
                            num_microbatches=num_microbatches, device=dev, generator=gen)
-    return get_model(PP_MODEL).make_model(device=dev, generator=gen, mesh=mesh, **kw)
+    return get_model(PP_MODEL).make_model(device=dev, generator=gen,
+                                          mesh=None if bare else mesh, **kw)
 
 
-def pp_ids(batch: int = PP_B):
+def pp_ids(batch: int = PP_B, seq: int = PP_S):
     from horovod_tpu_torch.models.registry import get_model
 
-    return torch.from_numpy(get_model(PP_MODEL).make_batch(batch, seed=42, seq_len=PP_S)[0])
+    return torch.from_numpy(get_model(PP_MODEL).make_batch(batch, seed=42, seq_len=seq)[0])
 
 
 def model_flops(cfg, Bn: int, Sn: int) -> float:
@@ -2043,11 +2074,14 @@ def zero_reduced_grads(sharder, names: dict, chunk: int = 1 << 23) -> dict:
 
 
 def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bool,
-             steps: int = STEPS, loss_fn=None, zero: bool = False, rules=None) -> dict:
+             steps: int = STEPS, loss_fn=None, zero: bool = False, rules=None,
+             batch=(PP_B, PP_S), bare: bool = False) -> dict:
     """``steps`` AdamW steps (lr 1e-4, wd 1e-4, eps 1e-8) of GPT-2 1.3B on
-    ``mesh`` through ``make_train_step`` on the global batch (B=8, S=2048,
-    numpy seed 42), the optimizer reducing over the ("dp", "sp") line, the
-    loss ``loss_fn`` (by default ``lm_loss``). The optimizer is a
+    ``mesh`` through ``make_train_step`` on the global ``batch`` (B, S) of
+    numpy seed 42 (by default B=8, S=2048; the sequence cut over sp where
+    the mesh has sp > 1), the optimizer reducing over the ("dp", "sp")
+    line, the loss ``loss_fn`` (by default ``lm_loss``); ``bare``: the
+    model built with no mesh (``gpt2_1p3b``). The optimizer is a
     ``DistributedOptimizer``, or with ``zero`` or ``rules`` the plain AdamW,
     which the step wraps (``zero=True``: ZeRO-1 over the data line;
     ``rules=FSDP_RULES``: the model built under them). Returns the record
@@ -2058,13 +2092,15 @@ def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bo
     on, joined over the line (``zero_reduced_grads``)."""
     from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
 
-    model = gpt2_1p3b(mesh, pipelined, **overrides, **({"rules": rules} if rules else {}))
-    ids = pp_ids()
+    Bn, Sn = batch
+    model = gpt2_1p3b(mesh, pipelined, seq=Sn, bare=bare, **overrides,
+                      **({"rules": rules} if rules else {}))
+    ids = pp_ids(Bn, Sn)
     inner = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
     plain = zero or rules is not None
     opt = inner if plain else hvd.DistributedOptimizer(inner, axis_name=("dp", "sp"))
     init_fn, step_fn = make_train_step(model, opt, loss_fn or lm_loss, mesh=mesh, zero=zero,
-                                       rules=rules)
+                                       rules=rules, shard_seq=mesh.shape.get("sp", 1) > 1)
     got = {}
     inner_step = inner.step
 
@@ -2108,9 +2144,9 @@ def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bo
     if any(other.values()):
         raise AssertionError(f"fused-BN kernels launched: {other}")
     steady = statistics.median(step_ms[1:]) if steps > 1 else step_ms[0]
-    flops = model_flops(model.cfg, PP_B, PP_S)
+    flops = model_flops(model.cfg, Bn, Sn)
     params = list(model.parameters())
-    rec = {"mesh": dict(mesh.shape), "batch": PP_B, "seq": PP_S,
+    rec = {"mesh": dict(mesh.shape), "batch": Bn, "seq": Sn,
            "pipelined": pipelined, "remat": model.cfg.remat,
            "microbatches": getattr(model, "num_microbatches", None),
            "zero": zero, "rules": "FSDP_RULES" if rules is not None else None,
@@ -2120,7 +2156,7 @@ def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bo
                              if p.grad is not None),
            "state_bytes": state.optimizer.state_bytes(),
            "losses": losses, "step_ms": step_ms, "median_step_ms_2_to_5": steady,
-           "tokens_per_s": PP_B * PP_S / (steady / 1e3),
+           "tokens_per_s": Bn * Sn / (steady / 1e3),
            "model_tflops_per_step": flops / 1e12,
            "model_tflops_per_s": flops / (steady / 1e3) / 1e12,
            "model_flops_share_of_989": flops / (steady / 1e3) / PEAK_BF16_FLOPS,
@@ -2131,39 +2167,52 @@ def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bo
     return {"rec": rec, "model": model, "grads": got.get("grads")}
 
 
+# The plain version materialises (B, H, S, S) f32 scores, and its backward
+# several such tensors: above this many bytes of one, it is held and timed
+# on the first batch row alone (rows are independent).
+PLAIN_SCORE_BYTES = 2 ** 32
+
+
 def flash_at(fa, gen, dev, Bn: int, Sn: int, Hn: int, Dn: int) -> dict:
     """K1 and the K2 pair at (Bn, Sn, Hn, Dn), causal, against their plain
     versions (O_ATOL, LSE_ATOL, GRAD_TOL), timed alone beside SDPA and the
-    aten flash backward (yardsticks the port never calls), with bounds."""
+    aten flash backward (yardsticks the port never calls), with bounds. The
+    plain version runs on ``plain_batch`` rows: all of them, or the first
+    where their f32 scores pass PLAIN_SCORE_BYTES."""
     import torch.nn.functional as F
 
     q, k, v = qkv_views(Bn, Sn, Hn, Dn, gen, dev)
+    pb = Bn if Bn * Hn * Sn * Sn * 4 <= PLAIN_SCORE_BYTES else 1
+    qp, kp, vp = q[:pb], k[:pb], v[:pb]
     o, lse = fa.flash_fwd_cuda(q, k, v, None, True)
-    o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, None, True)
+    o_ref, lse_ref = fa._flash_fwd_plain(qp, kp, vp, None, True)
     dout = torch.randn(Bn, Sn, Hn, Dn, generator=gen, device=dev).to(torch.bfloat16)
     delta = (dout.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
     dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, None, dout, lse, delta, True)
     dq = fa.flash_bwd_dq_cuda(q, k, v, None, dout, lse, delta, True)
-    refs = fa._flash_bwd_plain(q, k, v, None, dout, True)
     torch.cuda.synchronize()
     tag = f"({Bn}, {Sn}, {Hn}, {Dn})"
-    rec = {"shape": [Bn, Sn, Hn, Dn], "causal": True,
+    rec = {"shape": [Bn, Sn, Hn, Dn], "causal": True, "plain_batch": pb,
            "tolerance": {"o_atol": O_ATOL, "lse_atol": LSE_ATOL, "grad_tol": GRAD_TOL},
-           "o_max_abs_err": check_close(f"K1 o {tag}", o, o_ref, O_ATOL),
-           "lse_max_abs_err": check_close(f"K1 lse {tag}", lse, lse_ref, LSE_ATOL)}
+           "o_max_abs_err": check_close(f"K1 o {tag}", o[:pb], o_ref, O_ATOL),
+           "lse_max_abs_err": check_close(f"K1 lse {tag}", lse[:pb], lse_ref, LSE_ATOL)}
+    del o_ref, lse_ref
+    torch.cuda.empty_cache()
+    refs = fa._flash_bwd_plain(qp, kp, vp, None, dout[:pb], True)
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-        rec[f"{name}_max_abs_err"] = check_close(f"K2 {name} {tag}", got, want,
+        rec[f"{name}_max_abs_err"] = check_close(f"K2 {name} {tag}", got[:pb], want,
                                                  GRAD_TOL, GRAD_TOL)
-    del o_ref, lse_ref, refs
+    del refs
     torch.cuda.empty_cache()
     rec["fwd_ms"] = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, None, True), 30)
-    rec["fwd_plain_ms"] = time_ms(lambda: fa._flash_fwd_plain(q, k, v, None, True), 3)
+    rec["fwd_plain_ms"] = time_ms(lambda: fa._flash_fwd_plain(qp, kp, vp, None, True), 3)
     rec["dkdv_ms"] = time_ms(
         lambda: fa.flash_bwd_dkdv_cuda(q, k, v, None, dout, lse, delta, True), 20)
     rec["dq_ms"] = time_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, None, dout, lse, delta, True),
                            20)
     rec["pair_ms"] = rec["dkdv_ms"] + rec["dq_ms"]
-    rec["bwd_plain_ms"] = time_ms(lambda: fa._flash_bwd_plain(q, k, v, None, dout, True), 2)
+    rec["bwd_plain_ms"] = time_ms(
+        lambda: fa._flash_bwd_plain(qp, kp, vp, None, dout[:pb], True), 2)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     rec["sdpa_fwd_ms"] = time_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 30)
@@ -2250,7 +2299,7 @@ def phase_pp(fa, fb, gen, dev):
                vocab=model.cfg.vocab_size, lm_step1_bitwise=True,
                lm_step_ms=lm_rec["step_ms"][0], lm_peak_mem_gb=lm_rec["peak_mem_gb"])
     layout = [(n, g.numel()) for n, g in sorted(pp["grads"].items())]
-    flat = torch.cat([g.float().reshape(-1) for _, g in sorted(pp["grads"].items())])
+    flat = flat_by_name(pp["grads"])
     del pp, model, lm_grads
     gc.collect()
     torch.cuda.empty_cache()
@@ -2479,7 +2528,7 @@ def vocab_loss_spread(hvd, fa, fb, mesh, ctrl_flat) -> dict:
                                 vocab_size=GPT2_CONFIGS[PP_MODEL].vocab_size)
     out = train_pp(hvd, fa, fb, mesh, False, {"remat": True}, keep_grads=True, steps=1,
                    loss_fn=loss_fn)
-    flat = torch.cat([g.float().reshape(-1) for _, g in sorted(out["grads"].items())])
+    flat = flat_by_name(out["grads"])
     rec = {"loss1": out["rec"]["losses"][0], "step1_grad_rel_norm_vs_pp": rel_norm(flat, ctrl_flat)}
     del out, flat
     gc.collect()
@@ -2510,7 +2559,7 @@ def phase_tp(fa, fb, gen, dev, pp_rec, control) -> dict:
                              f"{pp_rec['losses'][0]}")
     if [(n, g.numel()) for n, g in sorted(out["grads"].items())] != layout:
         raise AssertionError("tp: the parameters are not phase pp's")
-    flat = torch.cat([g.float().reshape(-1) for _, g in sorted(out["grads"].items())])
+    flat = flat_by_name(out["grads"])
     if not torch.equal(flat, ctrl_flat):
         raise AssertionError(f"tp: step-1 gradients not bitwise phase pp's "
                              f"({rel_norm(flat, ctrl_flat)} in relative norm)")
@@ -2589,7 +2638,7 @@ def f32_control(hvd, fa, fb) -> tuple:
     mesh = hvd.create_mesh({"dp": 1, "sp": 1, "tp": 1})
     out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, **TP_F32}, keep_grads=True,
                    steps=1)
-    flat = torch.cat([g.float().reshape(-1) for _, g in sorted(out["grads"].items())])
+    flat = flat_by_name(out["grads"])
     rec = out["rec"]
     del out
     gc.collect()
@@ -2808,7 +2857,7 @@ def phase_zero_mesh(fa, fb, pp_rec, control) -> dict:
                                  f"{pp_rec['losses']}")
         if [(n, g.numel()) for n, g in sorted(out["grads"].items())] != layout:
             raise AssertionError(f"{name}: the parameters are not phase pp's")
-        flat = torch.cat([g.float().reshape(-1) for _, g in sorted(out["grads"].items())])
+        flat = flat_by_name(out["grads"])
         if not torch.equal(flat, ctrl_flat):
             raise AssertionError(f"{name}: step-1 gradients not bitwise phase pp's "
                                  f"({rel_norm(flat, ctrl_flat)} in relative norm)")
@@ -2997,7 +3046,221 @@ def phase_zero_mesh_multi(pp_rec, control, f32) -> dict:
     return rec
 
 
-def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm) -> list:
+# ---------------------------------------------------------------------------
+# tp composed with sp (phases ``tp_sp`` and, with four cards, ``tp_sp_multi``):
+# GPT-2 1.3B at S=8192 over tp=2 x sp=2, ``examples/jax_gpt2_train.py:9-11``
+# (``--dp 8 --tp 4 --sp 2 --attn ring --remat`` at gpt2-1p3b) cut to one
+# node. B=2 x S=8192 is the 16,384 tokens a step of phases pp and tp.
+TS_B, TS_S = 2, 8192
+TS_HEADS = (16, 8, 4)      # K1/K2 at world 1, the gathered flash and Ulysses-flash
+TS_BLOCKS = 2              # the sp line of the four-card variants
+# The f32 control and witness: the ring's arithmetic in f32 (the kernels
+# take no f32, and dense attention's f32 scores at S=8192 crowd one card).
+TS_F32 = {"dtype": torch.float32, "logits_dtype": torch.float32, "attn_impl": "ring"}
+# The four-card variants on dp=1 x sp=2 x tp=2: model overrides (beside
+# remat), steps, the world-1 control of ``phase_tp_sp``: "ring1" the ring's
+# arithmetic on one card over TS_BLOCKS blocks, "flash" the flash run, "f32"
+# the f32 ring arithmetic, one step.
+TS_VARIANTS = {
+    "ts1_ring": ({"attn_impl": "ring"}, STEPS, "ring1"),
+    "ts2_ulysses_flash": ({"attn_impl": "ulysses", "sp_use_flash": True}, STEPS, "flash"),
+    "ts3_flash": ({"attn_impl": "flash"}, STEPS, "flash"),
+    "ts1f_ring_f32": (TS_F32, 1, "f32"),
+}
+
+
+def phase_tp_sp(fa, fb, gen, dev) -> tuple:
+    """GPT-2 1.3B (``max_len`` 8192) at B=2, S=8192, bf16, remat, AdamW on a
+    dp=1 x sp=1 x tp=1 mesh through the tp x sp code, with flash and with
+    the ring (dense attention on a line of one member): each 5 steps whose
+    losses and step-1 gradients must be bitwise those of the model built
+    with no mesh; 48 launches of K1 and 24 of each K2 kernel a step with
+    flash, none with the ring. Then the world-1 controls of
+    ``tp_sp_multi``: the ring's arithmetic on one card over 2 blocks in bf16
+    (5 steps) and in f32 (one step), and K1 and the K2 pair at (2, 8192, H,
+    128) for H in 16, 8 and 4 (world 1, the gathered flash at tp=2, Ulysses
+    at tp=2 x sp=2) against their plain versions. Returns the record and
+    the controls: (record, step-1 gradients flat in name order) by name,
+    and the layout."""
+    import horovod_tpu_torch as hvd
+
+    mesh = hvd.create_mesh({"dp": 1, "sp": 1, "tp": 1})
+    rec = {"phase": "tp_sp", "model": PP_MODEL, "batch": TS_B, "seq": TS_S, "configs": {}}
+    controls = {}
+    for attn in ("flash", "ring"):
+        runs = {}
+        for bare in (True, False):
+            out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, "attn_impl": attn},
+                           keep_grads=True, batch=(TS_B, TS_S), bare=bare)
+            runs[bare] = (out["rec"], flat_by_name(out["grads"]), out["model"].cfg.n_layers)
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+        (r, flat, n_layers), (bare_rec, bare_flat, _) = runs[False], runs[True]
+        check_launches(f"tp_sp {attn}", r,
+                       flash_launches(n_layers if attn == "flash" else 0, remat=True))
+        if r["losses"] != bare_rec["losses"] or not torch.equal(flat, bare_flat):
+            raise AssertionError(f"tp_sp {attn}: not bitwise the model with no mesh (losses "
+                                 f"{r['losses']} vs {bare_rec['losses']}, step-1 gradients "
+                                 f"{rel_norm(flat, bare_flat)} in relative norm)")
+        r.update(bitwise_no_mesh=True,
+                 no_mesh_median_step_ms_2_to_5=bare_rec["median_step_ms_2_to_5"])
+        rec["configs"][attn] = r
+        if attn == "flash":
+            controls["flash"] = (r, flat)
+        del runs, flat, bare_flat
+    controls = tp_sp_controls(hvd, fa, fb, controls)
+    for name in ("ring1", "f32"):
+        rec[f"control_{name}"] = controls[name][0]
+    rec["e_1"] = {name: rel_norm(controls[name][1], controls["f32"][1])
+                  for name in ("flash", "ring1")}
+    rec["ring1_vs_flash_step1_grad_rel_norm"] = rel_norm(controls["ring1"][1],
+                                                         controls["flash"][1])
+    rec["kernels_d128"] = {f"{TS_B}x{TS_S}x{Hn}": flash_at(fa, gen, dev, TS_B, TS_S, Hn, 128)
+                           for Hn in TS_HEADS}
+    rec["launches"] = rec["configs"]["flash"]["launches"]
+    emit(rec)
+    return rec, controls
+
+
+def tp_sp_controls(hvd, fa, fb, controls=None) -> dict:
+    """The world-1 controls of ``tp_sp_multi`` at B=2, S=8192 on one card,
+    beside those given: "flash" (5 steps), "ring1" (the ring's arithmetic
+    over TS_BLOCKS blocks, ``world1_ring``, 5 steps) and "f32" (the same in
+    f32, one step), each (record, step-1 gradients flat in name order);
+    "layout" the parameters' (name, size) in that order."""
+    mesh = hvd.create_mesh({"dp": 1, "sp": 1, "tp": 1})
+    controls = dict(controls or {})
+    for name, overrides, steps in (("flash", {"attn_impl": "flash"}, STEPS),
+                                   ("ring1", {"attn_impl": "ring"}, STEPS),
+                                   ("f32", TS_F32, 1)):
+        if name in controls:
+            continue
+        attention = world1_ring(TS_BLOCKS) if name != "flash" else contextlib.nullcontext()
+        with attention:
+            out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, **overrides},
+                           keep_grads=True, steps=steps, batch=(TS_B, TS_S))
+        controls[name] = (out["rec"], flat_by_name(out["grads"]))
+        controls["layout"] = [(n, g.numel()) for n, g in sorted(out["grads"].items())]
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return controls
+
+
+def tp_sp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
+    """One spawned NCCL rank of ``tp_sp_multi`` on dp=1 x sp=2 x tp=2: each
+    variant's record (the parameters held against their closed form,
+    replicas bitwise on every line of copies, launches); the ranks of sp
+    index 0 write their step-1 gradients by name under ``tmp``."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            recs = {}
+            for name in variants:
+                overrides, steps, _ = TS_VARIANTS[name]
+                mesh = hvd.create_mesh({"dp": 1, "sp": TS_BLOCKS, "tp": 2})
+                out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, **overrides},
+                               keep_grads=True, steps=steps, batch=(TS_B, TS_S))
+                rec, model = out["rec"], out["model"]
+                cfg = model.cfg
+                flash = cfg.attn_impl == "flash" or (cfg.attn_impl == "ulysses"
+                                                     and cfg.sp_use_flash)
+                check_launches(name, rec, flash_launches(cfg.n_layers if flash else 0,
+                                                         remat=True))
+                rec["params_closed_form"] = held_closed_form(cfg, mesh, False, False)
+                if rec["params_held"] != rec["params_closed_form"]:
+                    raise AssertionError(f"{name}: {rec['params_held']} parameters held, "
+                                         f"closed form {rec['params_closed_form']}")
+                rec["replicas_bitwise"] = replicas_bitwise(hvd, model, mesh)
+                if not all(rec["replicas_bitwise"].values()):
+                    raise AssertionError(f"{name}: replicas differ: {rec['replicas_bitwise']}")
+                rec["coords"] = dict(mesh.coords)
+                if mesh.coords["sp"] == 0:
+                    save_grads(tmp, name, mesh.coords, out["grads"])
+                recs[name] = rec
+                del out, model
+                gc.collect()
+                torch.cuda.empty_cache()
+            hvd.barrier()
+            queue.put((rank, recs))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_tp_sp_multi(controls) -> dict:
+    """On four cards: the TS_VARIANTS on one spawned NCCL rank per card
+    (dp=1 x sp=2 x tp=2), each against its world-1 control from
+    ``phase_tp_sp``. Gates: step-1 loss within 2e-3 relative and the steps'
+    within 1e-2; step-1 gradients, the tp shards joined to the full model,
+    by ``grad_gates``: the f32 witness within 1e-4 of the f32 control over
+    the whole model and in every tensor, a bf16 variant's distance e_v from
+    the f32 control at most twice e_1, its world-1 control's distance from
+    it; the exact launches, the parameters held at their closed form and
+    the replicas bitwise on every line, per rank. Per rank the step ms,
+    tokens/s and peak memory."""
+    import functools
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    world = TS_BLOCKS * 2
+    if cards < world:
+        rec = {"phase": "tp_sp_multi", "cards": cards,
+               "result": f"not measured: needs {world} cards"}
+        emit(rec)
+        return rec
+    layout = controls["layout"]
+    rec = {"phase": "tp_sp_multi", "cards": world, "mesh": {"dp": 1, "sp": TS_BLOCKS, "tp": 2},
+           "variants": {}, "controls": {
+               name: {k: controls[name][0][k] for k in ("median_step_ms_2_to_5",
+                                                         "peak_mem_gb", "losses")}
+               for name in ("flash", "ring1", "f32")}}
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_cards(functools.partial(tp_sp_rank, variants=list(TS_VARIANTS),
+                                              tmp=tmp), world, timeout=1200)
+        for name, (_, _, kind) in TS_VARIANTS.items():
+            ctrl_rec, ctrl_flat = controls[kind]
+            got = ranks[0][name]
+            grads = joined_grads(tmp, name, got["mesh"], False, layout)
+            v = {"rank0": got, "control": kind,
+                 "by_rank": {k: [r[name][k] for r in ranks] for k in (
+                     "median_step_ms_2_to_5", "tokens_per_s", "peak_mem_gb", "params_held",
+                     "launches_per_step")}}
+            v["tokens_per_s"] = TS_B * TS_S / (max(v["by_rank"]["median_step_ms_2_to_5"]) / 1e3)
+            v["loss1_rel_err"] = abs(got["losses"][0] - ctrl_rec["losses"][0]) / abs(
+                ctrl_rec["losses"][0])
+            v["loss_max_rel_err"] = max(abs(a - b) / abs(b)
+                                        for a, b in zip(got["losses"], ctrl_rec["losses"]))
+            if v["loss1_rel_err"] > SP_LOSS1_RTOL or v["loss_max_rel_err"] > SP_LOSS_RTOL:
+                failed.append(f"{name}: losses {got['losses']} vs {ctrl_rec['losses']}")
+            gate = {"pp": (ctrl_rec, ctrl_flat), "f32": controls["f32"],
+                    "e_1": rel_norm(ctrl_flat, controls["f32"][1])}
+            fields, bad = grad_gates(name, "f32" if kind == "f32" else "bf16", grads, gate,
+                                     layout)
+            v.update(fields)
+            failed += bad
+            del grads
+            rec["variants"][name] = v
+    emit(rec)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rec
+
+
+def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts) -> list:
     """The ``kernels`` line from the phases' records: each kernel's
     launches on the GPT-2 slice (and per path), error, times and bound."""
     kernels = [
@@ -3039,6 +3302,7 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm) -> list:
              "plain_ms": r["fwd_plain_ms" if part == "fwd" else "bwd_plain_ms"],
              "library_ms": r["sdpa_fwd_ms"] if part == "fwd" else None,
              "library_pair_ms": None if part == "fwd" else r["library_pair_ms"],
+             "plain_batch": r["plain_batch"],
              "max_abs_err": (r["o_max_abs_err"] if part == "fwd" else
                              max(r["dk_max_abs_err"], r["dv_max_abs_err"])
                              if part == "dkdv" else r["dq_max_abs_err"])}
@@ -3047,6 +3311,7 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm) -> list:
     for kern, part in zip(kernels[:3], ("fwd", "dkdv", "dq")):
         kern["pp_d128"] = d128(pp["kernels_d128"], part)
         kern["tp_d128"] = d128(tp["kernels_d128"], part)
+        kern["tp_sp_d128"] = d128(ts["kernels_d128"], part)
     for kern in kernels:
         kern["launches_sp"] = sp["launches"].get(kern["name"], 0)
         kern["launches_moe"] = moe["launches"].get(kern["name"], 0)
@@ -3054,6 +3319,7 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm) -> list:
         kern["launches_tp"] = tp["launches"].get(kern["name"], 0)
         kern["launches_zero_mesh"] = {v: rec["launches"].get(kern["name"], 0)
                                       for v, rec in zm["variants"].items()}
+        kern["launches_tp_sp"] = ts["launches"].get(kern["name"], 0)
         kern.update(route="cuda", source=SOURCE[kern["name"]], replaces=REPLACES[kern["name"]])
     return kernels
 
@@ -3122,10 +3388,16 @@ def main() -> int:
             emit({"phase": "zero_mesh_multi", "cards": torch.cuda.device_count(),
                   "result": "not measured: needs two cards or more"})
         del pp_grads, f32
+        gc.collect()
+        torch.cuda.empty_cache()
+        ts, ts_controls = phase_tp_sp(fa, fb, gen, dev)
+        phase_tp_sp_multi(ts_controls)
+        del ts_controls
     finally:
         hvd.shutdown()
 
-    emit({"kernels": kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm)})
+    emit({"kernels": kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm,
+                                  ts)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -57,9 +57,13 @@ there (``horovod_tpu/parallel/train.py`` cuts the batch over dp and, with
   or flash) runs on the H/tp local heads. The LayerNorms, the positions
   and the row-parallel biases are replicated. The logits are this rank's
   vocabulary shard, which ``parallel/tensor.vocab_parallel_xent`` takes.
-  tp combines with dp; with sp, ep, experts, ring or Ulysses it raises
-  ``NotImplementedError`` (``check_tp_supported``). On a tp line of one
-  member (or no mesh) the tp layers are the plain ones, bit for bit;
+  tp combines with dp and with sp: under sp every attention takes the
+  H/tp local heads over the sp line (the ring rotates their K/V blocks,
+  Ulysses exchanges them, which needs ``(n_heads / tp) % sp == 0``, dense
+  and flash gather them), as the JAX dispatch manualizes sp beside tp.
+  With ep, pp or experts it raises ``NotImplementedError``
+  (``check_tp_supported``). On a tp line of one member (or no mesh) the
+  tp layers are the plain ones, bit for bit;
 * under ``rules=FSDP_RULES`` with dp > 1 (``parallel/fsdp.py``) a rank
   holds its dp shard of every parameter with a d_model dimension, along
   that dimension, beside its tp cut; each layer gathers the full parameter
@@ -206,9 +210,10 @@ def _local_attention(cfg: TransformerConfig, q, k, v, mask):
 
 def _attention_dispatch(cfg: TransformerConfig, q, k, v, mask, mesh=None):
     """Dense, flash, or the sequence-parallel kernels over the mesh's sp
-    line. Under sp, dense and flash attend over the gathered sequence and
-    keep this rank's rows, the logical result GSPMD gives; ring and
-    Ulysses without an sp line fall back to dense, as in JAX."""
+    line, on the heads this rank holds (H/tp under tp). Under sp, dense and
+    flash attend over the gathered sequence and keep this rank's rows, the
+    logical result GSPMD gives; ring and Ulysses without an sp line fall
+    back to dense, as in JAX."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={cfg.attn_impl!r}: one of {ATTN_IMPLS}")
     comm = _sp_comm(cfg, mesh)

@@ -150,12 +150,13 @@ def tp_comm(mesh) -> Comm:
 
 def check_tp_supported(cfg, mesh) -> None:
     """The combinations this port does not run under tp > 1 raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    ``NotImplementedError`` naming their ROADMAP item. tp combines with dp
+    and sp, under every ``attn_impl``; Ulysses then exchanges the H/tp
+    local heads over the sp line, so they must split over it."""
     tp = tp_comm(mesh).size
     if tp == 1:
         return
-    for axis, item in (("sp", "tp with sp, ring or Ulysses"),
-                       ("ep", "expert_mlp over tp (MoE under tp)"),
+    for axis, item in (("ep", "expert_mlp over tp (MoE under tp)"),
                        ("pp", "tp under pp")):
         if mesh.shape.get(axis, 1) > 1:
             raise NotImplementedError(f"tp={tp} with {axis}={mesh.shape[axis]} is not ported "
@@ -163,11 +164,12 @@ def check_tp_supported(cfg, mesh) -> None:
     if cfg.n_experts:
         raise NotImplementedError(f"tp={tp} with n_experts={cfg.n_experts} is not ported "
                                   "(ROADMAP A3: expert_mlp over tp (MoE under tp))")
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(f"tp={tp} with attn_impl={cfg.attn_impl!r} is not ported "
-                                  "(ROADMAP A3: tp with sp, ring or Ulysses)")
     if cfg.n_heads % tp:
         raise ValueError(f"n_heads={cfg.n_heads} must be divisible by tp={tp}")
+    sp = mesh.shape.get(cfg.sp_axis, 1)
+    if cfg.attn_impl == "ulysses" and (cfg.n_heads // tp) % sp:
+        raise ValueError(f"Ulysses under tp: the {cfg.n_heads // tp} local heads "
+                         f"(n_heads={cfg.n_heads} / tp={tp}) must be divisible by sp={sp}")
 
 
 def mark_tensor_parallel(model: torch.nn.Module, cfg, comm: Comm) -> None:
@@ -263,17 +265,23 @@ class _VocabXent(torch.autograd.Function):
         return (p * g[..., None]).to(logits.dtype), None, None, None
 
 
-def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor, axis,
-                        vocab_size: int) -> torch.Tensor:
-    """Mean cross-entropy of ``logits``, this rank's vocabulary shard
-    (``shard_range(vocab_size, tp, rank)`` of the last dim), against the
-    global ``labels``; the same value on every rank of the tp line ``axis``
-    (a ``Comm``)."""
+def vocab_parallel_token_xent(logits: torch.Tensor, labels: torch.Tensor, axis,
+                              vocab_size: int) -> torch.Tensor:
+    """Each token's cross-entropy (f32) of ``logits``, this rank's
+    vocabulary shard (``shard_range(vocab_size, tp, rank)`` of the last
+    dim), against the global ``labels``; the same values on every rank of
+    the tp line ``axis`` (a ``Comm``)."""
     units = shard_range(vocab_size, axis.size, axis.rank)
     if logits.shape[-1] != len(units):
         raise ValueError(f"logits hold {logits.shape[-1]} vocabulary columns, tp rank "
                          f"{axis.rank} of {axis.size} holds {len(units)} of {vocab_size}")
-    return _VocabXent.apply(logits, labels, axis, units.start).mean()
+    return _VocabXent.apply(logits, labels, axis, units.start)
+
+
+def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor, axis,
+                        vocab_size: int) -> torch.Tensor:
+    """Mean of ``vocab_parallel_token_xent``."""
+    return vocab_parallel_token_xent(logits, labels, axis, vocab_size).mean()
 
 
 def vocab_parallel_lm_loss(logits: torch.Tensor, ids: torch.Tensor, axis,

@@ -27,7 +27,10 @@ its dp cut whole, and the model's logits are its vocabulary shard, so
 (``parallel/tensor.py``), whose value every tp rank computes alike. The
 optimizer still reduces over the ("dp", "sp") line only: the gradients of
 replicated parameters come out equal on every tp rank, those of tp-cut
-ones are the rank's shard.
+ones are the rank's shard. Under tp and sp together ``lm_loss`` is both:
+the labels of this rank's sequence block are taken from the global ids
+across the sp boundary, and the cross-entropies over the tp line's
+vocabulary shards (``vocab_parallel_token_xent``).
 
 As in JAX, ``optimizer`` may be a plain ``torch.optim`` optimizer: the step
 wraps it in ``DistributedOptimizer(..., axis_name=<the ("dp", "sp")
@@ -44,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,7 +57,7 @@ from ..common import basics
 from ..common.types import ReduceOp
 from .mesh import Comm, Mesh
 from .sharding import DEFAULT_RULES, FSDP_RULES, replica_comm
-from .tensor import vocab_parallel_lm_loss, vocab_parallel_xent
+from .tensor import vocab_parallel_lm_loss, vocab_parallel_token_xent, vocab_parallel_xent
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -100,17 +103,24 @@ def _cut(x: torch.Tensor, mesh: Mesh, shard_seq: bool) -> torch.Tensor:
 
 
 def _lm_loss_sharded(logits: torch.Tensor, ids: torch.Tensor, mesh: Mesh,
-                     group: int) -> torch.Tensor:
+                     group: int, vocab: Optional[Tuple[Comm, int]] = None) -> torch.Tensor:
     """This rank's share of ``lm_loss`` over the global shifted sequence:
     ``group · Σ(its cross-entropies) / (B · (S - 1))``. ``ids`` is the
-    global (B, S) batch."""
+    global (B, S) batch. ``vocab`` = (the tp line, the vocabulary size):
+    the logits are this rank's vocabulary shard, and the cross-entropies
+    are taken over the line's shards (``vocab_parallel_token_xent``), the
+    same on every tp rank."""
     rows = _cut(ids, mesh, False)
     Bl, Sl = logits.shape[:2]
     start = mesh.coords["sp"] * Sl
     labels = rows[:, start + 1: start + Sl + 1]
-    logp = F.log_softmax(logits[:, :labels.shape[1]].float(), dim=-1)
-    picked = logp.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+    z = logits[:, :labels.shape[1]]
     count = ids.shape[0] * (ids.shape[1] - 1)
+    if vocab is not None:
+        xent = vocab_parallel_token_xent(z, labels, vocab[0], vocab[1])
+        return xent.sum() * (group / count)
+    logp = F.log_softmax(z.float(), dim=-1)
+    picked = logp.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
     return -picked.sum() * (group / count)
 
 
@@ -172,13 +182,17 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         raise ValueError("the model must be built on the step's mesh "
                          "(make_model(mesh=...), PipelinedLM(cfg, mesh)) when it has "
                          "pp, sp, ep or tp")
+    # Decided before tp swaps the loss: under sp, lm_loss is over the
+    # global shifted sequence (its labels cross the sp blocks).
+    sharded_lm = loss_fn is lm_loss and sp > 1
+    vocab = None
     if mesh.shape.get("tp", 1) > 1:
         tp_loss = {lm_loss: vocab_parallel_lm_loss, softmax_xent: vocab_parallel_xent}
         if loss_fn not in tp_loss:
             raise ValueError("with tp > 1 the logits are this rank's vocabulary shard: "
                              "loss_fn must be lm_loss or softmax_xent")
-        loss_fn = functools.partial(tp_loss[loss_fn], axis=mesh.comm("tp"),
-                                    vocab_size=model.cfg.vocab_size)
+        vocab = (mesh.comm("tp"), model.cfg.vocab_size)
+        loss_fn = functools.partial(tp_loss[loss_fn], axis=vocab[0], vocab_size=vocab[1])
     model_rules = getattr(model, "rules", DEFAULT_RULES)
     if rules is not None and tuple(rules) != tuple(model_rules):
         raise ValueError("rules= must be the model's rules: build the model with them "
@@ -203,7 +217,6 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                              "axis_name=('dp', 'sp'))")
     else:
         optimizer = DistributedOptimizer(optimizer, zero=1 if zero else 0, axis_name=data)
-    sharded_lm = loss_fn is lm_loss and sp > 1
 
     def init_fn() -> TrainState:
         # The world's broadcasts first, then each line's; every rank issues
@@ -231,7 +244,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         logits = model(x)
         if sharded_lm:
-            loss = _lm_loss_sharded(logits, labels.to(mesh.device), mesh, data.size)
+            loss = _lm_loss_sharded(logits, labels.to(mesh.device), mesh, data.size, vocab)
         else:
             loss = loss_fn(logits, _cut(labels, mesh, shard_seq).to(mesh.device))
         if moe_aux_weight > 0.0:

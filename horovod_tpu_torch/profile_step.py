@@ -3,8 +3,8 @@
     python -m horovod_tpu_torch.profile_step
         [--model gpt2-small|resnet50|bert-base] [--steps 3] [--out PATH]
         [--zero 0|1|2] [--no-overlap]
-        [--attn flash|dense|ring|ulysses] [--sp N] [--n-experts E] [--seq S]
-        [--pp N] [--tp N] [--remat] [--fsdp]
+        [--attn flash|dense|ring|ulysses] [--sp-use-flash] [--sp N]
+        [--n-experts E] [--seq S] [--pp N] [--tp N] [--remat] [--fsdp]
 
 Builds a slice that ``chip_smoke.py`` drives on one card: GPT-2-small (B=4,
 S=2048, bf16 logits, ``DistributedOptimizer(AdamW)``), run with
@@ -36,7 +36,8 @@ world of several cards, GPT-2 at B=4 a rank.
 
 ``--attn``, ``--sp``, ``--n-experts`` and ``--seq`` (GPT-2 only) profile
 one variant of the sequence- and expert-parallel path: the attention
-(``ulysses`` runs its per-head-group attention through flash), a mesh of
+(``ulysses`` runs its per-head-group attention through flash with
+``--sp-use-flash``, dense attention without), a mesh of
 dp x sp over the world (``shard_seq`` where sp > 1, the gradients averaged
 over the ("dp", "sp") line), E Switch experts in every other FFN
 (capacity factor 1.25, auxiliary loss at 0.01) and S tokens a sequence.
@@ -66,7 +67,12 @@ line, the layout of ``make_train_step(zero=True)``), and ``--fsdp`` builds
 it under ``FSDP_RULES`` (every d_model dimension cut over dp), splitting
 the step further by ``hvd.fsdp.all_gather`` (each parameter gathered at its
 use, again in backward under remat) and ``hvd.fsdp.all_gather.bwd`` (its
-gradient reduce-scattered).
+gradient reduce-scattered). ``--tp`` combines with ``--sp``, ``--attn``
+and ``--seq`` (tp x sp: ``--model gpt2-1p3b --tp 2 --sp 2 --attn ring
+--seq 8192 --remat``, the layout of ``examples/jax_gpt2_train.py:9-11``
+cut to one node); at ``--seq`` above 2048 the global batch shrinks to keep
+its 16,384 tokens (B=2 at S=8192), and the step splits by the ``hvd.tp.*``
+and the ``hvd.sp.*`` ranges together.
 """
 from __future__ import annotations
 
@@ -114,7 +120,7 @@ def _device_us(evt) -> float:
 
 def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
            n_experts: int = 0, seq: int = S, pp: int = 1, remat: bool = False,
-           tp: int = 1, fsdp: bool = False):
+           tp: int = 1, fsdp: bool = False, sp_use_flash: bool = False):
     """(step_fn, state, inputs, labels, items per step, item name)."""
     import dataclasses
 
@@ -131,7 +137,7 @@ def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
     if model_name.startswith("gpt2"):
         dp = hvd.size() // (sp * pp * tp)
         mesh = create_mesh({"pp": pp, "dp": dp, "sp": sp, "tp": tp})
-        overrides = dict(attn_impl=variant, sp_use_flash=variant == "ulysses",
+        overrides = dict(attn_impl=variant, sp_use_flash=sp_use_flash,
                          n_experts=n_experts, logits_dtype=torch.bfloat16,
                          max_len=max(GPT2_CONFIGS[model_name].max_len, seq), remat=remat,
                          scan_layers=pp > 1)
@@ -145,8 +151,8 @@ def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
             model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8),
             axis_name=("dp", "sp"), **(opt_kw or {}))
         # gpt2-small: B a dp rank, the global batch grows with dp (weak
-        # scaling); gpt2-1p3b: the pipeline slice's global batch.
-        batch = B_1P3B if model_name == "gpt2-1p3b" else B * dp
+        # scaling); gpt2-1p3b: the pipeline slice's 16,384 tokens a step.
+        batch = max(1, B_1P3B * S // seq) if model_name == "gpt2-1p3b" else B * dp
         ids = torch.from_numpy(spec.make_batch(batch, seed=42, seq_len=seq)[0]).to(dev)
         init_fn, step_fn = train.make_train_step(
             model, opt, train.lm_loss, mesh=mesh, shard_seq=sp > 1,
@@ -285,6 +291,8 @@ def main() -> int:
                     help="with --zero 0: the all-reduce after backward")
     ap.add_argument("--attn", choices=("flash", "dense", "ring", "ulysses"), default=None,
                     help="GPT-2 only: this attention alone")
+    ap.add_argument("--sp-use-flash", action="store_true",
+                    help="with --attn ulysses: its per-head-group attention through flash")
     ap.add_argument("--sp", type=int, default=1, help="GPT-2 only: the sp axis's size")
     ap.add_argument("--n-experts", type=int, default=0,
                     help="GPT-2 only: Switch experts in every other FFN")
@@ -298,9 +306,10 @@ def main() -> int:
     ap.add_argument("--fsdp", action="store_true",
                     help="gpt2-1p3b only: the model under FSDP_RULES")
     args = ap.parse_args()
-    if args.model != "gpt2-small" and (args.attn or args.sp > 1 or args.n_experts
-                                       or args.seq != S):
-        ap.error("--attn, --sp, --n-experts and --seq profile gpt2-small")
+    if not args.model.startswith("gpt2") and (args.attn or args.sp > 1 or args.seq != S):
+        ap.error("--attn, --sp and --seq profile GPT-2")
+    if args.model != "gpt2-small" and args.n_experts:
+        ap.error("--n-experts profiles gpt2-small")
     if args.zero is not None and not args.model.startswith("gpt2"):
         ap.error("--zero profiles GPT-2")
     if (args.pp > 1 or args.tp > 1 or args.fsdp) and args.model != "gpt2-1p3b":
@@ -311,7 +320,8 @@ def main() -> int:
         ap.error("--remat profiles GPT-2")
     variants, opt_kw = VARIANTS[args.model], None
     shape = ({"sp": args.sp, "n_experts": args.n_experts, "seq": args.seq,
-              "pp": args.pp, "tp": args.tp, "remat": args.remat, "fsdp": args.fsdp}
+              "pp": args.pp, "tp": args.tp, "remat": args.remat, "fsdp": args.fsdp,
+              "sp_use_flash": args.sp_use_flash}
              if args.model.startswith("gpt2") else {})
     if args.attn:
         variants = (args.attn,)

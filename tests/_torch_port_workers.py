@@ -1,8 +1,8 @@
 """Rank bodies for tests/test_torch_port_distributed.py,
 tests/test_torch_port_resnet.py, tests/test_torch_port_collectives.py,
 tests/test_torch_port_bert.py, tests/test_torch_port_{zero,adasum,
-sync_bn,overlap}.py, tests/test_torch_port_{sp,moe,mesh,pipeline,tp}.py and
-tests/test_torch_port_{zero_mesh,fsdp}.py, in a
+sync_bn,overlap}.py, tests/test_torch_port_{sp,moe,mesh,pipeline,tp,tp_sp}.py
+and tests/test_torch_port_{zero_mesh,fsdp}.py, in a
 module of their own so spawned ranks import torch and horovod_tpu_torch
 only (no jax, no test module). Each rank returns a dict of numpy arrays
 through a queue; ``spawn_world`` runs a named body on a world of gloo
@@ -1224,12 +1224,18 @@ TP_CASES = {
 TP_WORLDS = {2: tuple(TP_CASES), 4: ("gpt2_f32_dense", "gpt2_bf16_dense")}
 TP_RAISES = {   # combination -> (mesh, config overrides, model)
     "moe": ({"tp": 2}, {"n_experts": 2}, "lm"),
-    "ring": ({"tp": 2}, {"attn_impl": "ring"}, "lm"),
-    "ulysses": ({"tp": 2}, {"attn_impl": "ulysses"}, "lm"),
-    "sp": ({"sp": 2, "tp": 2}, {}, "lm"),
     "ep": ({"ep": 2, "tp": 2}, {}, "lm"),
     "pp": ({"pp": 2, "tp": 2}, {"scan_layers": True}, "pipelined"),
 }
+# Combinations that ran into NotImplementedError before tp composed with sp
+# -> (mesh, config overrides): ring and Ulysses with no sp line fall back
+# to dense; sp trains.
+TP_RUNS = {
+    "ring": ({"tp": 2}, {"attn_impl": "ring"}),
+    "ulysses": ({"tp": 2}, {"attn_impl": "ulysses"}),
+    "sp": ({"sp": 2, "tp": 2}, {}),
+}
+TP_RUN_STEPS = 2
 
 
 def tp_batch(vocab: int = TP_VOCAB, seed: int = 5):
@@ -1317,10 +1323,44 @@ def _tp_raises(hvd, torch, combos) -> dict:
     return out
 
 
+def _tp_runs(hvd, torch, combos, params) -> dict:
+    """Each combination of ``combos`` (TP_RUNS) with the weights of the
+    gpt2_f32_dense case: ring and Ulysses on a tp line with no sp line,
+    this rank's logits shard of the whole sequence; sp, TP_RUN_STEPS steps
+    of make_train_step(shard_seq=True) from those weights (the losses)."""
+    import dataclasses
+
+    from horovod_tpu_torch.models.convert import flax_to_torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    out = {}
+    ids = torch.from_numpy(tp_batch()[0])
+    for name in combos:
+        shape, overrides = TP_RUNS[name]
+        mesh = hvd.create_mesh(shape)
+        cfg = dataclasses.replace(tp_config(torch, "gpt2_f32_dense"), **overrides)
+        model = TransformerLM(cfg, device="cpu", mesh=mesh)
+        model.load_state_dict(flax_to_torch(params, cfg, tp=2, tp_rank=mesh.coords["tp"]))
+        if "sp" not in shape:
+            with torch.no_grad():
+                out[name] = {"logits": model(ids).numpy()}
+            continue
+        opt = torch.optim.AdamW(model.parameters(), lr=TP_LR, weight_decay=TP_WD, eps=TP_EPS)
+        init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh, shard_seq=True)
+        state = init_fn()
+        losses = []
+        for _ in range(TP_RUN_STEPS):
+            state, loss = step_fn(state, ids, ids)
+            losses.append(float(loss))
+        out[name] = {"losses": np.array(losses)}
+    return out
+
+
 def _run_tp_world(rank: int, size: int, params_by_case, train_params) -> dict:
     """On tp=size: each TP_WORLDS[size] case (logits, gradients), the tp
-    initialisation, and the combinations that raise on this world; on four
-    ranks also 3 AdamW steps of gpt2-tiny (vocab TP_TRAIN_VOCAB, f32)
+    initialisation, the combinations that raise on this world and those of
+    TP_RUNS that run on it; on four ranks also 3 AdamW steps of gpt2-tiny (vocab TP_TRAIN_VOCAB, f32)
     through make_train_step on dp=2 x tp=2 from ``train_params`` (the
     losses, the parameters); on two ranks, last, ``train_gpt2 --tp 2``."""
     import torch
@@ -1335,6 +1375,9 @@ def _run_tp_world(rank: int, size: int, params_by_case, train_params) -> dict:
     out["init"] = _tp_init(hvd, torch, mesh)
     out["raises"] = _tp_raises(hvd, torch, [n for n, (shape, _, _) in TP_RAISES.items()
                                             if np.prod(list(shape.values())) == size])
+    out["runs"] = _tp_runs(hvd, torch, [n for n, (shape, _) in TP_RUNS.items()
+                                        if np.prod(list(shape.values())) == size],
+                           params_by_case["gpt2_f32_dense"])
     if size == 4:
         out["train"] = _tp_train(hvd, torch, train_params)
     if size == 2:
@@ -1369,6 +1412,226 @@ def _tp_train(hvd, torch, params) -> dict:
     return {"coords": np.array([mesh.coords["dp"], mesh.coords["tp"]]),
             "losses": np.array(losses),
             "params": {k: v.numpy().copy() for k, v in model.state_dict().items()}}
+
+
+# ---------------------------------------------------------------------------
+# tp composed with sp (tests/test_torch_port_tp_sp.py): gpt2-tiny (4 heads,
+# 2 layers) and bert-tiny at 4 heads, at vocabulary TP_VOCAB (TP_TRAIN_VOCAB
+# for the train step), on sp=2 x tp=2: rank 2·s + t holds sp index s and
+# tp index t, the JAX device of that index in the {"sp": 2, "tp": 2} mesh.
+TPSP_MESH = {"sp": 2, "tp": 2}
+TPSP_ATTNS = ("dense", "flash", "ring", "ulysses", "ulysses_flash")
+TPSP_BERT_ATTNS = ("dense", "ring", "ulysses_flash")
+TPSP_TRAIN_ATTNS = ("dense", "flash", "ring", "ulysses")
+TPSP_STEPS = 3
+
+
+def tpsp_config(torch, kind: str, attn: str, vocab: int = TP_VOCAB, **overrides):
+    """The port's config of a tp x sp case: gpt2-tiny or bert-tiny at 4
+    heads, f32, ``attn`` one of TPSP_ATTNS (``ulysses_flash``: Ulysses
+    through flash)."""
+    import dataclasses
+
+    from horovod_tpu_torch.models.transformer import BERT_CONFIGS, GPT2_CONFIGS
+
+    base = GPT2_CONFIGS["gpt2-tiny"] if kind == "gpt2" else BERT_CONFIGS["bert-tiny"]
+    impl = "ulysses" if attn == "ulysses_flash" else attn
+    return dataclasses.replace(base, **{
+        "n_heads": 4, "vocab_size": vocab, "max_len": 64, "attn_impl": impl,
+        "sp_use_flash": attn == "ulysses_flash", "dtype": torch.float32, **overrides})
+
+
+def tpsp_logits(seed: int = 11) -> np.ndarray:
+    """(TP_B, TP_S, TP_VOCAB) logits for the loss case."""
+    return np.random.RandomState(seed).randn(TP_B, TP_S, TP_VOCAB).astype(np.float32)
+
+
+def _tpsp_block(a, mesh, vocab_dim: bool = False):
+    """This rank's sequence block of ``a`` (dim 1 over sp) and, with
+    ``vocab_dim``, its vocabulary shard of the last dim (over tp)."""
+    from horovod_tpu_torch.parallel.tensor import shard_range
+
+    a = _block(a, mesh.coords["sp"], mesh.shape["sp"])
+    if vocab_dim:
+        cols = shard_range(a.shape[-1], mesh.shape["tp"], mesh.coords["tp"])
+        a = a[..., cols.start: cols.stop]
+    return np.ascontiguousarray(a)
+
+
+def _tpsp_model_case(hvd, torch, mesh, kind: str, attn: str, params, remat=False) -> dict:
+    """One model on sp x tp with the JAX weights cut to this rank's tp
+    shard: its logits (this rank's sequence block and vocabulary shard) and
+    the gradients of the loss, averaged over the sp line (the whole batch's
+    gradient of this rank's tp shard): gpt2 the sequence-sharded
+    vocab-parallel ``lm_loss`` of ``make_train_step``, bert
+    ``vocab_parallel_xent`` of this rank's labels under the padding mask."""
+    from horovod_tpu_torch.models.convert import bert_flax_to_torch, flax_to_torch
+    from horovod_tpu_torch.models.transformer import TransformerEncoder, TransformerLM
+    from horovod_tpu_torch.parallel.tensor import vocab_parallel_xent
+    from horovod_tpu_torch.parallel.train import _lm_loss_sharded
+
+    cfg = tpsp_config(torch, kind, attn, remat=remat)
+    tp, t = mesh.comm("tp"), mesh.coords["tp"]
+    ids, mask = tp_batch()
+    ids_blk, mask_blk = (torch.from_numpy(_tpsp_block(a, mesh)) for a in (ids, mask))
+    out = {}
+    if kind == "gpt2":
+        model = TransformerLM(cfg, device="cpu", mesh=mesh)
+        model.load_state_dict(flax_to_torch(params, cfg, tp=2, tp_rank=t))
+        model.train()
+        logits = model(ids_blk)
+        loss = _lm_loss_sharded(logits, torch.from_numpy(ids), mesh, mesh.shape["sp"],
+                                (tp, cfg.vocab_size))
+        with torch.no_grad():
+            offset = model.seq_offset(ids_blk.shape[1])
+            out["embed"] = model.embed(ids_blk, offset).numpy()
+            out["seq_offset"] = np.array(offset)
+    else:
+        model = TransformerEncoder(cfg, device="cpu", mesh=mesh)
+        model.load_state_dict(bert_flax_to_torch(params, cfg, tp=2, tp_rank=t))
+        logits = model(ids_blk, mask_blk)
+        loss = vocab_parallel_xent(logits, ids_blk, tp, cfg.vocab_size)
+    loss.backward()
+    out.update(logits=logits.detach().numpy(),
+               loss=float(hvd.allreduce(loss.detach(), axis_name="sp")),
+               grads={k: hvd.allreduce(p.grad, axis_name="sp").numpy().copy()
+                      for k, p in model.named_parameters()})
+    return out
+
+
+def _tpsp_loss(hvd, torch, mesh) -> dict:
+    """The sequence-sharded vocab-parallel ``lm_loss`` on ``tpsp_logits``:
+    this rank's share (every tp rank alike), the sp line's average of the
+    shares (the global loss) and the gradient of its share over the line's
+    size (the global loss's gradient of this rank's block)."""
+    from horovod_tpu_torch.parallel.train import _lm_loss_sharded
+
+    z = torch.from_numpy(_tpsp_block(tpsp_logits(), mesh, vocab_dim=True)).requires_grad_(True)
+    n = mesh.shape["sp"]
+    share = _lm_loss_sharded(z, torch.from_numpy(tp_batch()[0]), mesh, n,
+                             (mesh.comm("tp"), TP_VOCAB))
+    (share / n).backward()
+    return {"share": float(share.detach()), "loss": float(hvd.allreduce(share.detach(), axis_name="sp")),
+            "grad": z.grad.numpy()}
+
+
+def _tpsp_ring_bf16(hvd, torch, mesh) -> dict:
+    """``ring_attention`` over the sp line in bf16 on this rank's sequence
+    block and tp head shard of ``sp_inputs`` (rounded to bf16): o and the
+    gradients of q, k, v, causal and not."""
+    def blk(a):
+        a = _block(a, mesh.coords["sp"], mesh.shape["sp"], 1)
+        return torch.from_numpy(_block(a, mesh.coords["tp"], mesh.shape["tp"], 2))
+
+    q, k, v, cot, _ = sp_inputs()
+    out = {}
+    for causal in (True, False):
+        qkv = [blk(a).to(torch.bfloat16).requires_grad_(True) for a in (q, k, v)]
+        o = hvd.ring_attention(*qkv, "sp", causal=causal)
+        o.backward(blk(cot).to(torch.bfloat16))
+        out[causal] = [o.detach().float().numpy()] + [t.grad.float().numpy() for t in qkv]
+    return out
+
+
+def _tpsp_perturb(sd: dict, mesh, cfg) -> dict:
+    """``sd`` with every tensor that ``make_train_step``'s init broadcasts
+    onto this rank moved off: the tp-cut ones where this rank is not its
+    (dp, sp) line's first member, the replicated ones off world rank 0."""
+    from horovod_tpu_torch.parallel.tensor import tp_cut
+
+    rank = mesh.coords["sp"] * mesh.shape["tp"] + mesh.coords["tp"]
+    out = {}
+    for k, v in sd.items():
+        cut = tp_cut(k, cfg, mesh.shape["tp"], mesh.coords["tp"]) is not None
+        moved = mesh.coords["sp"] > 0 if cut else rank > 0
+        out[k] = v + 0.01 * (rank + 1) if moved else v
+    return out
+
+
+def _tpsp_train(hvd, torch, mesh, attn: str, params) -> dict:
+    """TPSP_STEPS AdamW steps of gpt2-tiny (vocab TP_TRAIN_VOCAB) through
+    ``make_train_step(shard_seq=True)`` with the plain optimizer, from the
+    JAX weights, each rank loaded with them moved off where init's
+    broadcasts must restore them (``_tpsp_perturb``): whether init restored
+    them bitwise, each tensor's line of copies, the step-1 gradients
+    AdamW steps on, the losses and the parameters."""
+    from horovod_tpu_torch.models.convert import flax_to_torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel.sharding import replica_comm
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    cfg = tpsp_config(torch, "gpt2", attn, vocab=TP_TRAIN_VOCAB)
+    model = TransformerLM(cfg, device="cpu", mesh=mesh)
+    sd = flax_to_torch(params, cfg, tp=2, tp_rank=mesh.coords["tp"])
+    model.load_state_dict(_tpsp_perturb(sd, mesh, cfg))
+    inner = torch.optim.AdamW(model.parameters(), lr=TP_LR, weight_decay=TP_WD, eps=TP_EPS)
+    init_fn, step_fn = make_train_step(model, inner, lm_loss, mesh=mesh, shard_seq=True)
+    got = {}
+    inner_step = inner.step
+
+    def step(*a, **kw):     # the reduced step-1 gradients, as AdamW gets them
+        got.setdefault("grads", {n: p.grad.numpy().copy()
+                                 for n, p in model.named_parameters()})
+        return inner_step(*a, **kw)
+
+    inner.step = step
+    state = init_fn()
+    restored = all(torch.equal(v, sd[k]) for k, v in model.state_dict().items())
+    ids = torch.from_numpy(tp_batch(TP_TRAIN_VOCAB, seed=6)[0])
+    losses = []
+    for _ in range(TPSP_STEPS):
+        state, loss = step_fn(state, ids, ids)
+        losses.append(float(loss))
+    return {"init_restored": np.array(restored), "losses": np.array(losses),
+            "lines": {n: np.array(replica_comm(n, p, model.rules, mesh).ranks)
+                      for n, p in model.named_parameters()},
+            "grads": got["grads"],
+            "params": {k: v.numpy().copy() for k, v in model.state_dict().items()}}
+
+
+def _tpsp_raises(torch, mesh) -> str:
+    """The message Ulysses raises with when the local heads do not split
+    over sp: 2 heads at tp=2 leave 1 a rank, over sp=2."""
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    return _raises(lambda: TransformerLM(tpsp_config(torch, "gpt2", "ulysses", n_heads=2),
+                                         device="cpu", mesh=mesh))
+
+
+def _run_tp_sp_world(rank: int, size: int, gpt_params, bert_params, train_params) -> dict:
+    """On sp=2 x tp=2: gpt2-tiny under each of TPSP_ATTNS and bert-tiny
+    under each of TPSP_BERT_ATTNS (``_tpsp_model_case``), gpt2 with the
+    ring under remat; the tp initialisation; the sequence-sharded
+    vocab-parallel loss; the ring in bf16; the Ulysses head count that does
+    not split; 3 steps of make_train_step under each of TPSP_TRAIN_ATTNS;
+    last, ``train_gpt2 --tp 2 --sp 2 --attn ring --remat``."""
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+
+    mesh = hvd.create_mesh(TPSP_MESH)
+    out = {"coords": np.array([mesh.coords["sp"], mesh.coords["tp"]])}
+    for attn in TPSP_ATTNS:
+        out[f"gpt2_{attn}"] = _tpsp_model_case(hvd, torch, mesh, "gpt2", attn, gpt_params)
+    out["gpt2_ring_remat"] = _tpsp_model_case(hvd, torch, mesh, "gpt2", "ring", gpt_params,
+                                              remat=True)
+    for attn in TPSP_BERT_ATTNS:
+        out[f"bert_{attn}"] = _tpsp_model_case(hvd, torch, mesh, "bert", attn, bert_params)
+    out["init"] = _tp_init(hvd, torch, mesh)
+    out["loss"] = _tpsp_loss(hvd, torch, mesh)
+    out["ring_bf16"] = _tpsp_ring_bf16(hvd, torch, mesh)
+    out["raises"] = _tpsp_raises(torch, mesh)
+    for attn in TPSP_TRAIN_ATTNS:
+        out[f"train_{attn}"] = _tpsp_train(hvd, torch, mesh, attn, train_params)
+    from horovod_tpu_torch import train_gpt2
+
+    # Last: train_gpt2 shuts the world down when it returns.
+    out["train_gpt2"] = np.array(train_gpt2.main(
+        ["--model", "gpt2-tiny", "--batch-size", "4", "--seq-len", "32", "--steps", "2",
+         "--tp", "2", "--sp", "2", "--attn", "ring", "--remat", "--device", "cpu"]))
+    return out
 
 
 # ---------------------------------------------------------------------------

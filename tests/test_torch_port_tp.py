@@ -25,9 +25,13 @@ on spawned gloo ranks.
   atol 1e-6 wherever the step-1 gradient exceeds 100 x AdamW's eps (the
   rule of tests/test_torch_port_sp.py for the rest); the tp-replicated
   parameters bitwise equal across the tp line.
-* Each combination that is not ported (tp with sp, ep, experts, ring,
-  Ulysses or pp) raises ``NotImplementedError`` naming its ROADMAP item,
-  and ``train_gpt2 --tp 2`` trains on two ranks.
+* Each combination that is not ported (tp with ep, experts or pp) raises
+  ``NotImplementedError`` naming its ROADMAP item; ring and Ulysses on a tp
+  line with no sp line fall back to dense attention (bitwise the dense
+  case, and the JAX model's logits), and tp with sp trains (its step-1
+  loss the JAX model's ``lm_loss``; tests/test_torch_port_tp_sp.py holds
+  the composition against JAX in full); ``train_gpt2 --tp 2`` trains on
+  two ranks.
 """
 import dataclasses
 
@@ -205,6 +209,30 @@ def test_tp_combinations_not_ported_raise(tp_worlds, combo):
     for res in tp_worlds["ranks"][size]:
         msg = res["raises"][combo]
         assert msg.startswith("NotImplementedError") and "ROADMAP A3" in msg, msg
+
+
+@pytest.mark.parametrize("combo", sorted(workers.TP_RUNS))
+def test_tp_combinations_now_run(tp_worlds, combo):
+    shape, overrides = workers.TP_RUNS[combo]
+    size = int(np.prod(list(shape.values())))
+    ranks = tp_worlds["ranks"][size]
+    params = tp_worlds["params"]["gpt2_f32_dense"]
+    if "sp" not in shape:
+        # No sp line: dense attention, as the JAX dispatch falls back.
+        for res in ranks:
+            np.testing.assert_array_equal(res["runs"][combo]["logits"],
+                                          res["gpt2_f32_dense"]["logits"])
+        got = np.concatenate([r["runs"][combo]["logits"] for r in ranks], axis=-1)
+        np.testing.assert_allclose(got, _jax_reference("gpt2_f32_dense", params)["logits"],
+                                   **TOL["float32"])
+        return
+    ids = jnp.asarray(workers.tp_batch()[0])
+    want = float(jax_lm_loss(_jax_model("gpt2_f32_dense").apply({"params": params}, ids), ids))
+    for res in ranks:
+        losses = res["runs"][combo]["losses"]
+        assert len(losses) == workers.TP_RUN_STEPS and np.all(np.isfinite(losses))
+        np.testing.assert_allclose(losses[0], want, rtol=1e-5)
+        np.testing.assert_array_equal(losses, ranks[0]["runs"][combo]["losses"])
 
 
 def test_train_gpt2_tp_on_two_ranks(tp_worlds):
