@@ -195,11 +195,34 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    replicas bitwise on every tp and sp line; per rank the step ms,
    tokens/s and peak memory. With fewer cards its line says "not
    measured";
-22. the ``{"kernels": [...]}`` line (with ``launches_sp``,
+22. MoE under tensor parallelism (``tp_moe``): GPT-2 1.3B with 8 Switch
+   experts in every other block (capacity 1.25, auxiliary loss 0.01;
+   4,237,295,616 parameters, whose AdamW state does not fit one card) at
+   full width and 16 layers, B=8, S=2048, bf16, flash, remat, AdamW, built
+   on a dp=1 x ep=1 x sp=1 x tp=1 mesh through the MoE-under-tp code and
+   with no mesh, 5 steps each: losses, step-1 gradients and dropped tokens
+   bitwise equal, 32 launches of K1 and 16 of each K2 kernel a step; then
+   the full-depth world-1 controls of 23, one forward and backward each
+   with no optimizer: bf16 with flash, and f32 with dense attention;
+23. with four cards (``tp_moe_multi``), each variant on its own world of
+   one NCCL rank per card, at full depth: (tm1) tp=2 x ep=2, (tm2) tp=4,
+   (tm3) dp=2 x tp=2, (tm4) ep=4 (13's (e1) path at this size, the
+   reference of the others' 5 losses), (tm1f) tp=2 x ep=2 in f32 with
+   dense attention, one step. Step-1 loss within 2e-3 of the full-depth
+   control, the 5 losses within 1e-2 of (tm4)'s; the step-1 gradients,
+   joined over tp and ep, by 17's gates; step-1 dropped tokens within 0.1%
+   of the control's; per rank 48/24/24 launches a step (none in f32), the
+   parameters held at their closed form, every Switch FFN's routes
+   bitwise on every tp and ep line after every step (an all-gather), the
+   replicas bitwise on every line of copies; per rank the step ms,
+   tokens/s and peak memory. With fewer cards its line says "not
+   measured";
+24. the ``{"kernels": [...]}`` line (with ``launches_sp``,
    ``launches_moe``, ``launches_pp``, ``launches_tp``,
-   ``launches_zero_mesh``, ``launches_tp_sp`` and the D=128 records
-   ``pp_d128``, ``tp_d128`` and ``tp_sp_d128``); then the card line from
-   nvidia-smi and the last line ``{"ok": true, "device": {...}}``.
+   ``launches_zero_mesh``, ``launches_tp_sp``, ``launches_tp_moe`` and the
+   D=128 records ``pp_d128``, ``tp_d128`` and ``tp_sp_d128``); then the
+   card line from nvidia-smi and the last line ``{"ok": true, "device":
+   {...}}``.
 
 It exits non-zero, printing no result, when CUDA is not available.
 """
@@ -1556,11 +1579,11 @@ def sp_variants_for(cards: int) -> list:
 
 
 def full_mesh(shape: dict):
-    """A dp x ep x sp mesh with every axis named (size 1 where not given)."""
+    """A dp x ep x sp x tp mesh with every axis named (size 1 where not
+    given)."""
     import horovod_tpu_torch as hvd
 
-    return hvd.create_mesh({"dp": shape.get("dp", 1), "ep": shape.get("ep", 1),
-                            "sp": shape.get("sp", 1)})
+    return hvd.create_mesh({a: shape.get(a, 1) for a in ("dp", "ep", "sp", "tp")})
 
 
 def gpt2_on(mesh, seq: int, **overrides):
@@ -2037,9 +2060,14 @@ def pp_ids(batch: int = PP_B, seq: int = PP_S):
 def model_flops(cfg, Bn: int, Sn: int) -> float:
     """The model's training operations a step (forward and backward, 3x the
     forward; remat's recomputation not counted): 6 · (the matrix products'
-    parameters) · tokens plus the causal attention products."""
+    parameters a token runs through: one expert and the router in a Switch
+    FFN) · tokens plus the causal attention products."""
+    from horovod_tpu_torch.models.transformer import uses_moe
+
     d, L = cfg.d_model, cfg.n_layers
-    matmul_params = L * (4 * d * d + 2 * d * cfg.d_ff) + d * cfg.vocab_size
+    moe = sum(uses_moe(cfg, i) for i in range(L))
+    matmul_params = (L * (4 * d * d + 2 * d * cfg.d_ff) + moe * d * cfg.n_experts
+                     + d * cfg.vocab_size)
     return (6 * matmul_params * Bn * Sn
             + 3 * L * 4 * cfg.head_dim * valid_pairs(Bn, Sn, cfg.n_heads, None, True))
 
@@ -2075,13 +2103,16 @@ def zero_reduced_grads(sharder, names: dict, chunk: int = 1 << 23) -> dict:
 
 def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bool,
              steps: int = STEPS, loss_fn=None, zero: bool = False, rules=None,
-             batch=(PP_B, PP_S), bare: bool = False) -> dict:
+             batch=(PP_B, PP_S), bare: bool = False, each_step=None) -> dict:
     """``steps`` AdamW steps (lr 1e-4, wd 1e-4, eps 1e-8) of GPT-2 1.3B on
     ``mesh`` through ``make_train_step`` on the global ``batch`` (B, S) of
     numpy seed 42 (by default B=8, S=2048; the sequence cut over sp where
     the mesh has sp > 1), the optimizer reducing over the ("dp", "sp")
     line, the loss ``loss_fn`` (by default ``lm_loss``); ``bare``: the
-    model built with no mesh (``gpt2_1p3b``). The optimizer is a
+    model built with no mesh (``gpt2_1p3b``). With Switch experts the
+    auxiliary loss enters at MOE_AUX and the record holds each step's
+    dropped tokens; ``each_step(model)``, where given, runs after each
+    step, outside its time. The optimizer is a
     ``DistributedOptimizer``, or with ``zero`` or ``rules`` the plain AdamW,
     which the step wraps (``zero=True``: ZeRO-1 over the data line;
     ``rules=FSDP_RULES``: the model built under them). Returns the record
@@ -2099,8 +2130,10 @@ def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bo
     inner = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
     plain = zero or rules is not None
     opt = inner if plain else hvd.DistributedOptimizer(inner, axis_name=("dp", "sp"))
+    moe = bool(model.cfg.n_experts)
     init_fn, step_fn = make_train_step(model, opt, loss_fn or lm_loss, mesh=mesh, zero=zero,
-                                       rules=rules, shard_seq=mesh.shape.get("sp", 1) > 1)
+                                       rules=rules, shard_seq=mesh.shape.get("sp", 1) > 1,
+                                       moe_aux_weight=MOE_AUX if moe else 0.0)
     got = {}
     inner_step = inner.step
 
@@ -2131,13 +2164,17 @@ def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bo
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     fb.reset_launches()
-    losses, step_ms = [], []
+    losses, step_ms, dropped = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         state, loss = step_fn(state, ids, ids)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
+        if moe:
+            dropped.append(sum(int(d) for d in model.moe_dropped()))
+        if each_step is not None:
+            each_step(model)
     launches, other = fa.launches(), fb.launches()
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite losses {losses}")
@@ -2163,6 +2200,8 @@ def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bo
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    if moe:
+        rec["dropped_per_step"] = dropped
     del opt, inner, inner_step, step, state, params
     return {"rec": rec, "model": model, "grads": got.get("grads")}
 
@@ -2803,9 +2842,14 @@ def held_closed_form(cfg, mesh, fsdp: bool, pipelined: bool) -> int:
     """The parameters a rank holds, from the configuration: per block the
     LayerNorms and the row-parallel biases (6 d_model, over dp under FSDP),
     the four kernels (4 d² + 2 d·d_ff, over tp, and over dp under FSDP), the
-    qkv and wi biases (3 d + d_ff, over tp); the token embedding and the
-    head (its tp rank's ⌈V/tp⌉-split rows each), the positions and ln_f,
-    over dp under FSDP; a pipeline stage's L/pp blocks."""
+    qkv and wi biases (3 d + d_ff, over tp); per Switch block instead of the
+    FFN's kernels and biases the router (E·d) and its E/ep experts' two
+    kernels at its tp rank's d_ff/tp each (5 d_model of LayerNorms and
+    bias); the token embedding and the head (its tp rank's ⌈V/tp⌉-split
+    rows each), the positions and ln_f, over dp under FSDP; a pipeline
+    stage's L/pp blocks."""
+    from horovod_tpu_torch.models.transformer import uses_moe
+
     d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     tp, n = mesh.shape.get("tp", 1), (mesh.shape.get("dp", 1) if fsdp else 1)
     per = -(-cfg.vocab_size // tp)
@@ -2813,7 +2857,12 @@ def held_closed_form(cfg, mesh, fsdp: bool, pipelined: bool) -> int:
     rows = min(cfg.vocab_size, (r + 1) * per) - r * per
     blocks = L // mesh.shape.get("pp", 1) if pipelined else L
     block = 6 * d // n + (4 * d * d + 2 * d * f) // (tp * n) + (3 * d + f) // tp
-    return blocks * block + (2 * rows * d + cfg.max_len * d + 2 * d) // n
+    moe = sum(uses_moe(cfg, i) for i in range(blocks))
+    f_local = min(f, (r + 1) * -(-f // tp)) - r * -(-f // tp)
+    switch = (5 * d + 4 * d * d // tp + 3 * d // tp + cfg.n_experts * d
+              + 2 * cfg.n_experts // mesh.shape.get("ep", 1) * d * f_local)
+    return ((blocks - moe) * block + moe * switch
+            + (2 * rows * d + cfg.max_len * d + 2 * d) // n)
 
 
 def check_bytes(name: str, rec: dict, cfg, mesh, kind: str, pipelined: bool) -> dict:
@@ -2949,29 +2998,37 @@ def zero_mesh_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -
 
 def save_grads(tmp: str, name: str, coords: dict, grads: dict) -> None:
     """This rank's step-1 gradients by name, in f32, under ``tmp``, keyed
-    by the variant and the rank's dp, tp and pp coordinates."""
+    by the variant and the rank's dp, tp, pp and ep coordinates."""
     torch.save({n: g.float() for n, g in grads.items()},
                f"{tmp}/{name}.{coords.get('dp', 0)}.{coords.get('tp', 0)}."
-               f"{coords.get('pp', 0)}.pt")
+               f"{coords.get('pp', 0)}.{coords.get('ep', 0)}.pt")
 
 
 def joined_grads(tmp: str, name: str, shape: dict, fsdp: bool, layout) -> torch.Tensor:
     """A variant's step-1 gradients (``save_grads``) as the full model's,
     flat in name order: each tp rank's dp shards joined (``fsdp_join``;
     without ``fsdp`` dp index 0's alone), the tp ranks' joined
-    (``tp_join``), the pipeline stages' taken together."""
-    from horovod_tpu_torch.models.convert import fsdp_join, tp_join
+    (``tp_join``), the ep ranks' experts put together (``ep_join``), the
+    pipeline stages' taken together."""
+    from horovod_tpu_torch.models.convert import ep_join, fsdp_join, tp_join
     from horovod_tpu_torch.models.transformer import GPT2_CONFIGS
 
     full = {}
     for s in range(shape.get("pp", 1)):
-        tps = [fsdp_join([torch.load(f"{tmp}/{name}.{d}.{t}.{s}.pt")
-                          for d in range(shape["dp"] if fsdp else 1)])
-               for t in range(shape.get("tp", 1))]
-        full.update(tps[0] if len(tps) == 1 else tp_join(tps, GPT2_CONFIGS[PP_MODEL]))
-        del tps
-    if [(n, full[n].numel()) for n, _ in layout] != layout:
-        raise AssertionError(f"{name}: the joined gradients are not the full model's")
+        per_ep = []
+        for e in range(shape.get("ep", 1)):
+            tps = [fsdp_join([torch.load(f"{tmp}/{name}.{d}.{t}.{s}.{e}.pt")
+                              for d in range(shape["dp"] if fsdp else 1)])
+                   for t in range(shape.get("tp", 1))]
+            per_ep.append(tps[0] if len(tps) == 1 else tp_join(tps, GPT2_CONFIGS[PP_MODEL]))
+            del tps
+        full.update(ep_join(per_ep))
+        del per_ep
+    got = [(n, full[n].numel() if n in full else None) for n, _ in layout]
+    if got != layout or len(full) != len(layout):
+        bad = [(g, w) for g, w in zip(got, layout) if g != w][:4]
+        raise AssertionError(f"{name}: the joined gradients are not the full model's: "
+                             f"{len(full)} tensors for {len(layout)}; {bad}")
     return torch.cat([full.pop(n).reshape(-1) for n, _ in layout])
 
 
@@ -3260,7 +3317,300 @@ def phase_tp_sp_multi(controls) -> dict:
     return rec
 
 
-def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts) -> list:
+# ---------------------------------------------------------------------------
+# MoE under tensor parallelism (phases ``tp_moe`` and, with four cards,
+# ``tp_moe_multi``): GPT-2 1.3B with 8 Switch experts in every other block
+# (MOE_CFG, Switch-Base-8's layout; ``examples/jax_gpt2_train.py --model
+# gpt2-1p3b --tp 2 --ep 2 --n-experts 8 --remat``), 4,237,295,616
+# parameters, at B=8, S=2048 (phases pp and tp's 16,384 tokens a step).
+# Its AdamW state (16 bytes a parameter, 67.8 GB) does not fit one card:
+# the one-card run trains the largest even depth whose state and
+# activations fit (2,894,880,768 parameters, 46.3 GB of state), and the
+# full depth takes one forward and backward there, with no optimizer, as
+# the four-card variants' control.
+TM_DEPTH = 16
+# The four-card variants: mesh, model overrides (beside remat and
+# MOE_CFG), steps, the step-1 gradient gate (``grad_gates``: "bf16" e_v
+# at most twice e_1, "f32" the witness within 1e-4 of the f32 control).
+TM_VARIANTS = {
+    "tm1_tp2_ep2": ({"ep": 2, "tp": 2}, {}, STEPS, "bf16"),
+    "tm2_tp4": ({"tp": 4}, {}, STEPS, "bf16"),
+    "tm3_dp2_tp2": ({"dp": 2, "tp": 2}, {}, STEPS, "bf16"),
+    # sp_multi's expert-parallel path (e1) at this size: the reference of
+    # the other variants' 5 losses, since the full depth cannot take 5
+    # AdamW steps on one card.
+    "tm4_ep4": ({"ep": 4}, {}, STEPS, "bf16"),
+    "tm1f_tp2_ep2_f32": ({"ep": 2, "tp": 2}, TP_F32, 1, "f32"),
+}
+TM_REFERENCE = "tm4_ep4"
+
+
+def routes_agree(hvd, model, mesh) -> bool:
+    """Whether every Switch FFN's routes (``expert_idx`` of the last
+    forward) are bitwise equal on every rank of this rank's tp line and of
+    its ep line: one all-gather a block and line."""
+    ok = True
+    for axis in ("tp", "ep"):
+        if mesh.shape.get(axis, 1) == 1:
+            continue
+        for block in model.moe_blocks():
+            got = hvd.allgather(block.expert_idx[None], axis_name=axis)
+            ok = ok and bool(torch.equal(got, got[:1].expand_as(got)))
+    return ok
+
+
+def world1_fwd_bwd(hvd, fa, fb, overrides: dict) -> tuple:
+    """One forward and backward, with no optimizer (so no AdamW state), of
+    the full-depth model (MOE_CFG, remat, ``overrides``) built with no mesh
+    on one card: ``lm_loss`` plus MOE_AUX times the auxiliary loss on the
+    global batch of numpy seed 42, as a step-1 of ``make_train_step``
+    computes it. Each gradient moves to host memory as backward completes
+    it, so that the card holds the f32 weights and the activations alone
+    (the f32 run with dense attention would not fit beside its
+    gradients). Returns (record, gradients flat in name order, layout)."""
+    from horovod_tpu_torch.parallel.train import lm_loss
+
+    mesh = full_mesh({})
+    model = gpt2_1p3b(mesh, False, seq=PP_S, bare=True, remat=True, **MOE_CFG, **overrides)
+    ids = pp_ids(PP_B, PP_S).to(mesh.device)
+    grads = {}
+
+    def to_host(name):
+        def hook(p):
+            g = p.grad.detach().cpu()
+            grads[name] = grads[name] + g if name in grads else g
+            p.grad = None
+        return hook
+
+    hooks = [p.register_post_accumulate_grad_hook(to_host(n))
+             for n, p in model.named_parameters()]
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    fb.reset_launches()
+    t0 = time.perf_counter()
+    loss = lm_loss(model(ids), ids) + MOE_AUX * model.moe_aux_loss()
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    for h in hooks:
+        h.remove()
+    rec = {"overrides": {k: str(v) if isinstance(v, torch.dtype) else v
+                         for k, v in overrides.items()},
+           "batch": PP_B, "seq": PP_S, "n_layers": model.cfg.n_layers,
+           "params": sum(p.numel() for p in model.parameters()),
+           "losses": [float(loss.detach())],
+           "dropped_per_step": [sum(int(d) for d in model.moe_dropped())],
+           "fwd_bwd_ms": ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": fa.launches()}
+    if len(grads) != len(list(model.parameters())):
+        raise AssertionError(f"tp_moe control: {len(grads)} gradients reached the host")
+    layout = [(n, g.numel()) for n, g in sorted(grads.items())]
+    flat = flat_by_name(grads)
+    del model, loss, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, flat, layout
+
+
+def phase_tp_moe(fa, fb) -> tuple:
+    """GPT-2 1.3B with 8 Switch experts at full width and TM_DEPTH layers,
+    B=8, S=2048, bf16, flash, remat, AdamW with the auxiliary loss: built
+    on a dp=1 x ep=1 x sp=1 x tp=1 mesh through the MoE-under-tp code and
+    with no mesh, 5 steps each, whose losses, step-1 gradients and dropped
+    tokens must be bitwise equal; 2·L launches of K1 and L of each K2
+    kernel a step. Then the full-depth world-1 controls of ``tp_moe_multi``
+    (``world1_fwd_bwd``): bf16 with flash, and f32 with dense attention.
+    Returns the record and the controls: "bf16" and "f32" (record, step-1
+    gradients flat in name order), "layout" and "e_1", the bf16 control's
+    distance from the f32 one."""
+    import horovod_tpu_torch as hvd
+
+    mesh = full_mesh({})
+    rec = {"phase": "tp_moe", "model": PP_MODEL, "moe": MOE_CFG, "n_layers": TM_DEPTH,
+           "batch": PP_B, "seq": PP_S}
+    runs = {}
+    for bare in (True, False):
+        out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, "n_layers": TM_DEPTH,
+                                                  **MOE_CFG},
+                       keep_grads=True, bare=bare)
+        runs[bare] = (out["rec"], flat_by_name(out["grads"]))
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    (r, flat), (bare_rec, bare_flat) = runs[False], runs[True]
+    check_launches("tp_moe", r, flash_launches(TM_DEPTH, remat=True))
+    if (r["losses"] != bare_rec["losses"] or not torch.equal(flat, bare_flat)
+            or r["dropped_per_step"] != bare_rec["dropped_per_step"]):
+        raise AssertionError(f"tp_moe: not bitwise the model with no mesh (losses "
+                             f"{r['losses']} vs {bare_rec['losses']}, dropped "
+                             f"{r['dropped_per_step']} vs {bare_rec['dropped_per_step']}, "
+                             f"step-1 gradients {rel_norm(flat, bare_flat)} in relative norm)")
+    if r["losses"][-1] >= r["losses"][0]:
+        raise AssertionError(f"tp_moe: the loss did not fall: {r['losses']}")
+    r.update(bitwise_no_mesh=True,
+             no_mesh_median_step_ms_2_to_5=bare_rec["median_step_ms_2_to_5"],
+             no_mesh_peak_mem_gb=bare_rec["peak_mem_gb"])
+    rec.update(r)
+    del runs, flat, bare_flat
+    controls = tp_moe_controls(hvd, fa, fb)
+    rec.update(control_bf16=controls["bf16"][0], control_f32=controls["f32"][0],
+               e_1=controls["e_1"])
+    emit(rec)
+    return rec, controls
+
+
+def tp_moe_controls(hvd, fa, fb) -> dict:
+    """The full-depth world-1 controls of ``tp_moe_multi``
+    (``world1_fwd_bwd``): "bf16" with flash (48/24/24 launches) and "f32"
+    with dense attention, each (record, step-1 gradients flat in name
+    order); "layout" the parameters' (name, size) in that order, and
+    "e_1" the bf16 control's distance from the f32 one."""
+    controls = {}
+    for kind, overrides in (("bf16", {}), ("f32", TP_F32)):
+        ctrl, ctrl_flat, layout = world1_fwd_bwd(hvd, fa, fb, overrides)
+        controls[kind] = (ctrl, ctrl_flat)
+        controls["layout"] = layout
+    check_launches("tp_moe control", {"launches_per_step": controls["bf16"][0]["launches"]},
+                   flash_launches(controls["bf16"][0]["n_layers"], remat=True))
+    controls["e_1"] = rel_norm(controls["bf16"][1], controls["f32"][1])
+    return controls
+
+
+def tp_moe_rank(rank: int, size: int, init_file: str, queue, name: str, tmp) -> None:
+    """One spawned NCCL rank of ``tp_moe_multi``'s variant ``name``: its
+    record (launches, the parameters held against their closed form, the
+    routes bitwise on every tp and ep line after every step, the replicas
+    bitwise on every line of copies); the ranks of dp index 0 write their
+    step-1 gradients by name under ``tmp``, each once (17 GB a variant)."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.models.convert import EXPERT_PARAMS
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+        from horovod_tpu_torch.parallel.tensor import tp_cut
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            shape, overrides, steps, _ = TM_VARIANTS[name]
+            mesh = full_mesh(shape)
+            routes = []
+            out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, **MOE_CFG, **overrides},
+                           keep_grads=True, steps=steps,
+                           each_step=lambda m: routes.append(routes_agree(hvd, m, mesh)))
+            rec, model = out["rec"], out["model"]
+            cfg = model.cfg
+            check_launches(name, rec, flash_launches(
+                cfg.n_layers if cfg.attn_impl == "flash" else 0, remat=True))
+            rec["params_closed_form"] = held_closed_form(cfg, mesh, False, False)
+            if rec["params_held"] != rec["params_closed_form"]:
+                raise AssertionError(f"{name}: {rec['params_held']} parameters held, "
+                                     f"closed form {rec['params_closed_form']}")
+            rec["routes_bitwise_by_step"] = routes
+            if not all(routes):
+                raise AssertionError(f"{name}: routes differ on a tp or ep line: {routes}")
+            rec["replicas_bitwise"] = replicas_bitwise(hvd, model, mesh)
+            if not all(rec["replicas_bitwise"].values()):
+                raise AssertionError(f"{name}: replicas differ: {rec['replicas_bitwise']}")
+            rec["coords"] = c = dict(mesh.coords)
+            if c["dp"] == 0:
+                # Each gradient once: the experts from every ep rank, the
+                # tp-cut ones from every tp rank, the rest from the first.
+                save_grads(tmp, name, c, {
+                    n: g for n, g in out["grads"].items()
+                    if (n.endswith(EXPERT_PARAMS) or c["ep"] == 0)
+                    and (tp_cut(n, cfg, mesh.shape["tp"], c["tp"]) is not None or c["tp"] == 0)})
+            del out, model
+            gc.collect()
+            torch.cuda.empty_cache()
+            hvd.barrier()
+            queue.put((rank, rec))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_tp_moe_multi(controls) -> dict:
+    """On four cards: each TM_VARIANTS variant on its own world of one
+    spawned NCCL rank per card (its step-1 gradients joined and dropped
+    before the next), against ``phase_tp_moe``'s full-depth controls.
+    Gates: step-1 loss within 2e-3 relative of the control's; the 5 losses
+    of every bf16 variant within 1e-2 of (tm4)'s, the ep path sp_multi holds
+    against world 1; step-1 gradients, joined over tp and ep to the full
+    model, by ``grad_gates`` (the f32 witness within 1e-4 of the f32
+    control over the whole model and in every tensor, each bf16 variant's
+    e_v at most twice e_1); step-1 dropped tokens within 0.1% of the
+    control's; and per rank (``tp_moe_rank``) the exact launches, the
+    parameters held at their closed form, the routes bitwise on every tp
+    and ep line at every step, the replicas bitwise on every line. Per
+    rank the step ms, tokens/s and peak memory, read on the slowest."""
+    import functools
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        rec = {"phase": "tp_moe_multi", "cards": cards, "result": "not measured: needs 4 cards"}
+        emit(rec)
+        return rec
+    layout = controls["layout"]
+    rec = {"phase": "tp_moe_multi", "cards": 4, "variants": {}, "e_1": controls["e_1"],
+           "controls": {k: {f: controls[k][0][f] for f in (
+               "fwd_bwd_ms", "peak_mem_gb", "losses", "dropped_per_step")}
+               for k in ("bf16", "f32")}}
+    failed = []
+    for name, (shape, _, _, gate) in TM_VARIANTS.items():
+        ctrl_rec = controls["f32" if gate == "f32" else "bf16"][0]
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = spawn_cards(functools.partial(tp_moe_rank, name=name, tmp=tmp), 4,
+                                timeout=900)
+            grads = joined_grads(tmp, name, {a: shape.get(a, 1) for a in ("dp", "ep", "tp")},
+                                 False, layout)
+        got = ranks[0]
+        v = {"rank0": got, "mesh": shape,
+             "by_rank": {k: [r[k] for r in ranks] for k in (
+                 "median_step_ms_2_to_5", "tokens_per_s", "peak_mem_gb", "params_held",
+                 "launches_per_step", "routes_bitwise_by_step")}}
+        v["tokens_per_s"] = PP_B * PP_S / (max(v["by_rank"]["median_step_ms_2_to_5"]) / 1e3)
+        v["loss1_rel_err"] = abs(got["losses"][0] - ctrl_rec["losses"][0]) / abs(
+            ctrl_rec["losses"][0])
+        if v["loss1_rel_err"] > SP_LOSS1_RTOL:
+            failed.append(f"{name}: step-1 loss {got['losses'][0]} vs {ctrl_rec['losses'][0]}")
+        v["dropped_step1"] = got["dropped_per_step"][0]
+        v["control_dropped_step1"] = ctrl_rec["dropped_per_step"][0]
+        if abs(v["dropped_step1"] - v["control_dropped_step1"]) \
+                > DROP_RTOL * v["control_dropped_step1"]:
+            failed.append(f"{name}: {v['dropped_step1']} tokens dropped at step 1, control "
+                          f"{v['control_dropped_step1']}")
+        fields, bad = grad_gates(name, gate, grads, {"pp": controls["bf16"],
+                                                     "f32": controls["f32"],
+                                                     "e_1": controls["e_1"]}, layout)
+        v.update(fields)
+        failed += bad
+        del grads
+        gc.collect()
+        rec["variants"][name] = v
+    ref = rec["variants"][TM_REFERENCE]["rank0"]["losses"]
+    for name, v in rec["variants"].items():
+        if TM_VARIANTS[name][3] == "bf16" and name != TM_REFERENCE:
+            got = v["rank0"]["losses"]
+            v["loss_max_rel_err_vs_tm4"] = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+            if v["loss_max_rel_err_vs_tm4"] > SP_LOSS_RTOL:
+                failed.append(f"{name}: losses {got} vs {TM_REFERENCE}'s {ref}")
+    emit(rec)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rec
+
+
+def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm) -> list:
     """The ``kernels`` line from the phases' records: each kernel's
     launches on the GPT-2 slice (and per path), error, times and bound."""
     kernels = [
@@ -3320,6 +3670,7 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts) -> li
         kern["launches_zero_mesh"] = {v: rec["launches"].get(kern["name"], 0)
                                       for v, rec in zm["variants"].items()}
         kern["launches_tp_sp"] = ts["launches"].get(kern["name"], 0)
+        kern["launches_tp_moe"] = tm["launches"].get(kern["name"], 0)
         kern.update(route="cuda", source=SOURCE[kern["name"]], replaces=REPLACES[kern["name"]])
     return kernels
 
@@ -3393,11 +3744,16 @@ def main() -> int:
         ts, ts_controls = phase_tp_sp(fa, fb, gen, dev)
         phase_tp_sp_multi(ts_controls)
         del ts_controls
+        gc.collect()
+        torch.cuda.empty_cache()
+        tm, tm_controls = phase_tp_moe(fa, fb)
+        phase_tp_moe_multi(tm_controls)
+        del tm_controls
     finally:
         hvd.shutdown()
 
     emit({"kernels": kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm,
-                                  ts)})
+                                  ts, tm)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

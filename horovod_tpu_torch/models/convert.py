@@ -13,7 +13,9 @@ are (in, out), the transpose of ``nn.Linear.weight``; the qkv kernel
 kernel (H, Hd, D) flattens to (H*Hd, D). A Switch-MoE block's router
 kernel (D, E) becomes the Linear weight (E, D), and its ``wi`` (E, D, F)
 and ``wo`` (E, F, D) are cut to this rank's ``E / ep`` experts by its ep
-index (``flax_to_torch(..., ep=, ep_rank=)``). A missing or extra key
+index (``flax_to_torch(..., ep=, ep_rank=)``), then, with ``tp``, to its tp
+shard of F; ``ep_join`` concatenates the ep ranks' experts (each joined
+over tp first) back into the full model's. A missing or extra key
 raises. With ``cfg.stacked`` (``scan_layers`` and a dense FFN) the layers
 are read from JAX's scan-stacked ``stack/layers`` (``unstack_layers``), else
 from ``stack/layer_{i}``; ``flax_to_torch(..., stages=, stage=)`` returns
@@ -185,6 +187,21 @@ def tp_join(shards: Sequence[Mapping[str, torch.Tensor]],
     for key, t in shards[0].items():
         cut = tp_cut(key, cfg, len(shards), 0)
         out[key] = t if cut is None else cut.join([s[key] for s in shards])
+    return out
+
+
+EXPERT_PARAMS = ("moe.wi", "moe.wo")
+
+
+def ep_join(shards: Sequence[Mapping[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """The full model's tensors from the ep ranks' ``state_dict``s (or
+    gradients by name), in ep rank order, each already joined over tp
+    (``tp_join``): each Switch expert tensor concatenated along its expert
+    dimension, each other one taken from ep rank 0."""
+    out = {}
+    for key, t in shards[0].items():
+        expert = key.endswith(tuple("." + n for n in EXPERT_PARAMS))
+        out[key] = torch.cat([s[key] for s in shards]) if expert and len(shards) > 1 else t
     return out
 
 

@@ -61,7 +61,15 @@ there (``horovod_tpu/parallel/train.py`` cuts the batch over dp and, with
   H/tp local heads over the sp line (the ring rotates their K/V blocks,
   Ulysses exchanges them, which needs ``(n_heads / tp) % sp == 0``, dense
   and flash gather them), as the JAX dispatch manualizes sp beside tp.
-  With ep, pp or experts it raises ``NotImplementedError``
+  A ``SwitchMoE`` under tp holds each of its experts' d_ff cut over tp
+  (the JAX "expert_mlp" axis; with ep, a tp shard of each of its E/ep
+  experts): the router is replicated and runs on every tp rank, the
+  experts' partial outputs are summed over tp in the compute dtype (as
+  ``RowParallel`` sums), and the tokens enter the expert region through
+  ``pvary`` over ep and tp together, so that backward sums each rank's
+  share of their cotangent. Routing is identical on every rank of a tp
+  line: the router reads the same bits there, the row-parallel sums'
+  output. With pp it raises ``NotImplementedError``
   (``check_tp_supported``). On a tp line of one member (or no mesh) the
   tp layers are the plain ones, bit for bit;
 * under ``rules=FSDP_RULES`` with dp > 1 (``parallel/fsdp.py``) a rank
@@ -75,6 +83,8 @@ there (``horovod_tpu/parallel/train.py`` cuts the batch over dp and, with
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Optional
@@ -332,18 +342,19 @@ class MlpBlock(nn.Module):
 
 
 def _lines(mesh):
-    """The (dp, sp) line and the ep line of ``mesh`` (one-member lines for
-    absent axes), and the dp and sp sizes."""
+    """The (dp, sp) line, the ep line and the (ep, tp) line of ``mesh``
+    (one-member lines for absent axes), and the dp and sp sizes."""
     if mesh is None:
         if basics.is_initialized() and basics.size() > 1:
             raise ValueError("SwitchMoE on a world of more than one rank needs the "
                              "mesh (make_model(mesh=...)): capacity and the slot "
                              "order are over the global batch")
         one = Comm(None, 1, 0, (0,))
-        return one, one, 1, 1
+        return one, one, one, 1, 1
     present = lambda axes: tuple(a for a in axes if a in mesh.axis_names)  # noqa: E731
     return (mesh.comm(present(("dp", "sp"))), mesh.comm(present(("ep",))),
-            mesh.shape.get("dp", 1), mesh.shape.get("sp", 1))
+            mesh.comm(present(("ep", "tp"))), mesh.shape.get("dp", 1),
+            mesh.shape.get("sp", 1))
 
 
 def dispatch_combine_einsum(tokens, expert_idx, gate, pos, keep, n_experts: int,
@@ -384,36 +395,44 @@ def combine_by_index(expert_out, slots, gate):
 class SwitchMoE(nn.Module):
     """Switch-transformer top-1 MoE FFN with static capacity (counterpart of
     ``horovod_tpu/models/transformer.py:307-375``), over this rank's
-    ``n_experts / ep`` experts; see the module docstring for the layout.
-    After each forward ``aux`` holds the load-balancing loss
-    ``E · Σ density · density_proxy`` over the global batch (what the JAX
-    block sows as ``moe_aux``) and ``dropped`` the global count of tokens
-    past capacity (a 0-d int64 tensor)."""
+    ``n_experts / ep`` experts, each of their d_ff cut over tp; see the
+    module docstring for the layout. After each forward ``aux`` holds the
+    load-balancing loss ``E · Σ density · density_proxy`` over the global
+    batch (what the JAX block sows as ``moe_aux``), ``dropped`` the global
+    count of tokens past capacity (a 0-d int64 tensor) and ``expert_idx``
+    each local token's expert (the routes)."""
 
     def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
         E = cfg.n_experts
         self.cfg, self.mesh = cfg, mesh
-        self.data, self.ep, self.dp, self.sp = _lines(mesh)
+        self.data, self.ep, self.ep_tp, self.dp, self.sp = _lines(mesh)
+        self.tp = tp_comm(mesh)
         if E % self.ep.size:
             raise ValueError(f"n_experts={E} must be divisible by ep={self.ep.size}")
         self.n_local = E // self.ep.size
         self.first = self.ep.rank * self.n_local
+        d_ff = len(shard_range(cfg.d_ff, self.tp.size, self.tp.rank))
         self.router = Dense(cfg.d_model, E, cfg, bias=False, device=device)
-        self.wi = nn.Parameter(torch.empty(self.n_local, cfg.d_model, cfg.d_ff,
+        self.wi = nn.Parameter(torch.empty(self.n_local, cfg.d_model, d_ff,
                                            dtype=cfg.param_dtype, device=device))
-        self.wo = nn.Parameter(torch.empty(self.n_local, cfg.d_ff, cfg.d_model,
+        self.wo = nn.Parameter(torch.empty(self.n_local, d_ff, cfg.d_model,
                                            dtype=cfg.param_dtype, device=device))
         for p in (self.wi, self.wo):
             p.expert_parallel = (self.first, E)   # this rank's slice of E experts
         self.aux = None
         self.dropped = None
+        self.expert_idx = None
 
     def experts(self, expert_in):
+        """The experts' output on this rank's tp shard of their d_ff,
+        summed over tp (in the compute dtype, each partial product rounded
+        before the sum)."""
         dt = self.cfg.dtype
         h = torch.einsum("ecd,edf->ecf", expert_in, self.wi.to(dt))
         h = F.gelu(h, approximate="tanh")
-        return torch.einsum("ecf,efd->ecd", h, self.wo.to(dt))
+        return psum(torch.einsum("ecf,efd->ecd", h, self.wo.to(dt)), self.tp,
+                    grad="identity", name="hvd.tp.expert_psum")
 
     def route(self, x):
         """Router, top-1 choice, global slot positions: (tokens, probs,
@@ -454,9 +473,17 @@ class SwitchMoE(nn.Module):
         # The load-balancing loss over the global batch (Switch eq. 4).
         density = total.float() / T
         proxy = psum(probs.sum(dim=0), self.data, name="hvd.moe.psum")
-        self.aux = cfg.n_experts * torch.sum(density * (proxy / T))
-        self.dropped = (total - C).clamp_min(0).sum()
-        tok = pvary(tokens.to(cfg.dtype), self.ep, name="hvd.ep.pvary")
+        aux = cfg.n_experts * torch.sum(density * (proxy / T))
+        if not _RECOMPUTING.get():
+            # Under remat backward runs this forward again: its aux would
+            # keep the recomputed block's activations alive through its graph.
+            self.aux = aux
+            self.dropped = (total - C).clamp_min(0).sum()
+            self.expert_idx = expert_idx.detach()
+        # Each ep rank's experts, and each tp rank's d_ff shard of them,
+        # give their share of the tokens' cotangent; the gate's, over ep
+        # alone (every tp rank combines the whole expert output alike).
+        tok = pvary(tokens.to(cfg.dtype), self.ep_tp, name="hvd.ep.pvary")
         g = pvary(gate, self.ep, name="hvd.ep.pvary")
         sel = keep & (expert_idx >= self.first) & (expert_idx < self.first + self.n_local)
         slots = torch.where(sel, (expert_idx - self.first) * C + pos, self.n_local * C)
@@ -520,17 +547,36 @@ class Embedder(nn.Module):
         return x + pos.to(self.dtype)[None]
 
 
+# True while remat recomputes a block's forward in backward.
+_RECOMPUTING = contextvars.ContextVar("recomputing", default=False)
+
+
+@contextlib.contextmanager
+def _recomputing():
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
 def run_blocks(blocks, x, mask=None, remat: bool = False):
     """``x`` through ``blocks`` in order. With ``remat`` each block's forward
     runs again in backward (``torch.utils.checkpoint``, non-reentrant),
     which keeps only the blocks' inputs between forward and backward, as
     ``nn.remat(TransformerBlock)`` does; no dropout is ported, so the
-    recomputation is the forward itself and the gradients are unchanged."""
+    recomputation is the forward itself and the gradients are unchanged.
+    The recomputation leaves the state a block keeps of its forward
+    (``SwitchMoE``'s ``aux``, ``dropped`` and routes) as the forward set it."""
     from torch.utils.checkpoint import checkpoint
 
     for block in blocks:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(block, x, mask, use_reentrant=False)
+            x = checkpoint(block, x, mask, use_reentrant=False, context_fn=_remat_contexts)
         else:
             x = block(x, mask)
     return x
@@ -557,23 +603,23 @@ def init_param_(name: str, p: torch.Tensor, generator: Optional[torch.Generator]
         p.zero_()
     elif ".ln" in name or name.startswith("ln_f"):
         p.fill_(1.0)
-    elif hasattr(p, "expert_parallel"):
-        # Draw all E experts and keep this rank's, so that every ep layout
-        # of one seed holds the same experts.
-        first, E = p.expert_parallel
-        full = torch.empty((E, *p.shape[1:]), dtype=p.dtype, device=p.device)
-        p.copy_(full.normal_(0.0, INIT_STD, generator=generator)
-                [first: first + p.shape[0]])
-    elif hasattr(p, "tensor_parallel") or getattr(p, "fsdp", None) is not None:
-        # Likewise the whole tensor, and this rank's tp and dp shard of it
-        # (along two different dimensions).
+    elif any(hasattr(p, a) for a in ("expert_parallel", "tensor_parallel")) \
+            or getattr(p, "fsdp", None) is not None:
+        # Draw the whole tensor (all E experts) and keep this rank's ep
+        # slice, then its tp and dp shards (along other dimensions), so
+        # that every ep, tp and dp layout of one seed holds the same weights.
         cuts = [c for c in (getattr(p, "tensor_parallel", None), getattr(p, "fsdp", None))
                 if c is not None]
         shape = p.shape
         for cut in cuts:
             shape = cut.full_shape(shape)
+        expert = getattr(p, "expert_parallel", None)
+        if expert is not None:
+            shape = (expert[1], *shape[1:])
         full = torch.empty(shape, dtype=p.dtype, device=p.device)
         full.normal_(0.0, INIT_STD, generator=generator)
+        if expert is not None:
+            full = full[expert[0]: expert[0] + p.shape[0]]
         for cut in cuts:
             full = cut.take(full)
         p.copy_(full)

@@ -10,8 +10,8 @@ which parameters a rank holds a part of and which are replicated:
 * ``DEFAULT_RULES``: "mlp", "heads" and "vocab" lie over tp (a rank holds
   its tp shard of the FFN, of the attention heads and of the vocabulary,
   ``parallel/tensor.py``), the scan axis "layers" is replicated, "expert"
-  lies over ep (``SwitchMoE`` holds ``E / ep`` experts); "expert_mlp" lies
-  over tp, though the Switch FFN under tp is not ported;
+  lies over ep (``SwitchMoE`` holds ``E / ep`` experts) and "expert_mlp"
+  over tp (each of them holds its tp shard of the experts' d_ff);
 * ``PIPELINE_RULES``: "layers" over pp, as in JAX: a pp rank holds its
   stage's blocks (``models/pipelined.py``), and the embeddings, ``ln_f`` and
   the head are replicated over pp;
@@ -82,9 +82,10 @@ def filter_rules(rules: Sequence[Tuple[str, Any]], mesh: Mesh):
 
 def logical_axes(name: str, param: torch.Tensor) -> Tuple[str, ...]:
     """The logical axes a parameter of the port's models is cut along:
-    "expert" for a Switch FFN's experts, "mlp", "heads" or "vocab" for a
-    tp-cut one (its ``tensor_parallel`` mark), "embed" for an FSDP-cut one
-    (its ``fsdp`` mark), "layers" for a block's parameter
+    "expert" for a Switch FFN's experts, "mlp", "heads", "vocab" or
+    "expert_mlp" for a tp-cut one (its ``tensor_parallel`` mark; an expert
+    weight under tp has both "expert" and "expert_mlp"), "embed" for an
+    FSDP-cut one (its ``fsdp`` mark), "layers" for a block's parameter
     (``stack.layers.<i>.*``); none for the rest."""
     out = []
     if hasattr(param, "expert_parallel"):

@@ -18,8 +18,12 @@ Rule by rule (the logical axes of ``horovod_tpu/models/transformer.py``):
   vocab-parallel lookup; the head ``(embed, vocab)`` is column-parallel and
   returns this rank's vocabulary shard of the logits; the loss over those
   shards is ``vocab_parallel_xent``.
-* ``("expert_mlp", "tp")`` is in the table, but the Switch FFN under tp is
-  not ported (``check_tp_supported``).
+* ``("expert_mlp", "tp")``: every Switch expert's ``wi`` ``(expert, embed,
+  expert_mlp)`` is column-parallel along its d_ff, ``wo`` ``(expert,
+  expert_mlp, embed)`` row-parallel, beside the "expert" cut over ep
+  (``models/transformer.py`` ``SwitchMoE``): a rank computes its partial
+  expert output, which a sum over tp completes, where GSPMD puts the
+  all-reduce of ``einsum("ecf,efd->ecd")`` over a tp-cut ``f``.
 
 A **column-parallel** ``Dense`` holds this rank's output features; its
 input passes through ``pvary`` over tp (identity forward, all-reduce
@@ -67,6 +71,8 @@ TP_PARAMS: Dict[str, Tuple[str, int, int]] = {
     "mlp.wi.weight": ("mlp", 0, 1),
     "mlp.wi.bias": ("mlp", 0, 1),
     "mlp.wo.weight": ("mlp", 1, 1),
+    "moe.wi": ("expert_mlp", 2, 1),     # (E / ep, D, F)
+    "moe.wo": ("expert_mlp", 1, 1),     # (E / ep, F, D)
     "embed.embedding": ("vocab", 0, 1),
     "lm_head.weight": ("vocab", 0, 1),
     "mlm_head.weight": ("vocab", 0, 1),
@@ -136,7 +142,7 @@ def tp_cut(name: str, cfg, tp: int, rank: int) -> Optional[TPCut]:
     for suffix, (logical, dim, groups) in TP_PARAMS.items():
         if name == suffix or name.endswith("." + suffix):
             n, unit = {"heads": (cfg.n_heads, cfg.head_dim), "mlp": (cfg.d_ff, 1),
-                       "vocab": (cfg.vocab_size, 1)}[logical]
+                       "expert_mlp": (cfg.d_ff, 1), "vocab": (cfg.vocab_size, 1)}[logical]
             return TPCut(logical, dim, groups, n, unit, tp, rank)
     return None
 
@@ -150,20 +156,16 @@ def tp_comm(mesh) -> Comm:
 
 def check_tp_supported(cfg, mesh) -> None:
     """The combinations this port does not run under tp > 1 raise
-    ``NotImplementedError`` naming their ROADMAP item. tp combines with dp
-    and sp, under every ``attn_impl``; Ulysses then exchanges the H/tp
-    local heads over the sp line, so they must split over it."""
+    ``NotImplementedError`` naming their ROADMAP item. tp combines with dp,
+    sp and ep, under every ``attn_impl`` and with Switch experts (each
+    expert's d_ff cut over tp); Ulysses then exchanges the H/tp local heads
+    over the sp line, so they must split over it."""
     tp = tp_comm(mesh).size
     if tp == 1:
         return
-    for axis, item in (("ep", "expert_mlp over tp (MoE under tp)"),
-                       ("pp", "tp under pp")):
-        if mesh.shape.get(axis, 1) > 1:
-            raise NotImplementedError(f"tp={tp} with {axis}={mesh.shape[axis]} is not ported "
-                                      f"(ROADMAP A3: {item})")
-    if cfg.n_experts:
-        raise NotImplementedError(f"tp={tp} with n_experts={cfg.n_experts} is not ported "
-                                  "(ROADMAP A3: expert_mlp over tp (MoE under tp))")
+    if mesh.shape.get("pp", 1) > 1:
+        raise NotImplementedError(f"tp={tp} with pp={mesh.shape['pp']} is not ported "
+                                  "(ROADMAP A3: tp under pp)")
     if cfg.n_heads % tp:
         raise ValueError(f"n_heads={cfg.n_heads} must be divisible by tp={tp}")
     sp = mesh.shape.get(cfg.sp_axis, 1)
@@ -174,7 +176,9 @@ def check_tp_supported(cfg, mesh) -> None:
 
 def mark_tensor_parallel(model: torch.nn.Module, cfg, comm: Comm) -> None:
     """Mark each tp-cut parameter of ``model`` with its ``TPCut``
-    (``tensor_parallel``), checking that the module holds that shard."""
+    (``tensor_parallel``), checking that the module holds that shard along
+    the cut dimension (an expert weight's first dimension is its ep
+    slice)."""
     if comm.size == 1:
         return
     for name, p in model.named_parameters():

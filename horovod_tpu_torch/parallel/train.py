@@ -27,10 +27,14 @@ its dp cut whole, and the model's logits are its vocabulary shard, so
 (``parallel/tensor.py``), whose value every tp rank computes alike. The
 optimizer still reduces over the ("dp", "sp") line only: the gradients of
 replicated parameters come out equal on every tp rank, those of tp-cut
-ones are the rank's shard. Under tp and sp together ``lm_loss`` is both:
-the labels of this rank's sequence block are taken from the global ids
-across the sp boundary, and the cross-entropies over the tp line's
-vocabulary shards (``vocab_parallel_token_xent``).
+ones are the rank's shard. With Switch experts under tp (and ep) a
+rank's expert weights are its ep slice of the experts and its tp shard of
+their d_ff; their gradients, like every other, are reduced over the
+("dp", "sp") line only, and ``moe_aux_weight`` adds the auxiliary loss,
+the same on every tp and ep rank, once. Under tp and sp together
+``lm_loss`` is both: the labels of this rank's sequence block are taken
+from the global ids across the sp boundary, and the cross-entropies over
+the tp line's vocabulary shards (``vocab_parallel_token_xent``).
 
 As in JAX, ``optimizer`` may be a plain ``torch.optim`` optimizer: the step
 wraps it in ``DistributedOptimizer(..., axis_name=<the ("dp", "sp")

@@ -4,7 +4,7 @@
         [--model gpt2-small|resnet50|bert-base] [--steps 3] [--out PATH]
         [--zero 0|1|2] [--no-overlap]
         [--attn flash|dense|ring|ulysses] [--sp-use-flash] [--sp N]
-        [--n-experts E] [--seq S] [--pp N] [--tp N] [--remat] [--fsdp]
+        [--n-experts E] [--ep N] [--seq S] [--pp N] [--tp N] [--remat] [--fsdp]
 
 Builds a slice that ``chip_smoke.py`` drives on one card: GPT-2-small (B=4,
 S=2048, bf16 logits, ``DistributedOptimizer(AdamW)``), run with
@@ -72,7 +72,13 @@ and ``--seq`` (tp x sp: ``--model gpt2-1p3b --tp 2 --sp 2 --attn ring
 --seq 8192 --remat``, the layout of ``examples/jax_gpt2_train.py:9-11``
 cut to one node); at ``--seq`` above 2048 the global batch shrinks to keep
 its 16,384 tokens (B=2 at S=8192), and the step splits by the ``hvd.tp.*``
-and the ``hvd.sp.*`` ranges together.
+and the ``hvd.sp.*`` ranges together. ``--n-experts`` and ``--ep N`` (the
+ep axis's size; tokens replicated over it) profile either model with
+Switch experts, with ``--tp`` too (``--model gpt2-1p3b --n-experts 8 --tp 2
+--ep 2 --remat``: each expert's d_ff cut over tp): ``hvd.tp.expert_psum``
+is the experts' partial outputs summed over tp, ``hvd.ep.psum`` the
+combine's sum over ep, ``hvd.ep.pvary.bwd`` the tokens' cotangent summed
+over ep and tp and the gate's over ep.
 """
 from __future__ import annotations
 
@@ -120,7 +126,7 @@ def _device_us(evt) -> float:
 
 def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
            n_experts: int = 0, seq: int = S, pp: int = 1, remat: bool = False,
-           tp: int = 1, fsdp: bool = False, sp_use_flash: bool = False):
+           tp: int = 1, fsdp: bool = False, sp_use_flash: bool = False, ep: int = 1):
     """(step_fn, state, inputs, labels, items per step, item name)."""
     import dataclasses
 
@@ -135,8 +141,8 @@ def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
     spec = get_model(model_name)
     gen = torch.Generator(device=dev).manual_seed(0)
     if model_name.startswith("gpt2"):
-        dp = hvd.size() // (sp * pp * tp)
-        mesh = create_mesh({"pp": pp, "dp": dp, "sp": sp, "tp": tp})
+        dp = hvd.size() // (sp * pp * tp * ep)
+        mesh = create_mesh({"pp": pp, "dp": dp, "ep": ep, "sp": sp, "tp": tp})
         overrides = dict(attn_impl=variant, sp_use_flash=sp_use_flash,
                          n_experts=n_experts, logits_dtype=torch.bfloat16,
                          max_len=max(GPT2_CONFIGS[model_name].max_len, seq), remat=remat,
@@ -296,6 +302,8 @@ def main() -> int:
     ap.add_argument("--sp", type=int, default=1, help="GPT-2 only: the sp axis's size")
     ap.add_argument("--n-experts", type=int, default=0,
                     help="GPT-2 only: Switch experts in every other FFN")
+    ap.add_argument("--ep", type=int, default=1,
+                    help="GPT-2 only, with --n-experts: the ep axis's size")
     ap.add_argument("--seq", type=int, default=S, help="GPT-2 only: tokens a sequence")
     ap.add_argument("--pp", type=int, default=1,
                     help="gpt2-1p3b only: pipeline stages (PipelinedLM)")
@@ -308,8 +316,10 @@ def main() -> int:
     args = ap.parse_args()
     if not args.model.startswith("gpt2") and (args.attn or args.sp > 1 or args.seq != S):
         ap.error("--attn, --sp and --seq profile GPT-2")
-    if args.model != "gpt2-small" and args.n_experts:
-        ap.error("--n-experts profiles gpt2-small")
+    if (args.n_experts or args.ep > 1) and not args.model.startswith("gpt2"):
+        ap.error("--n-experts and --ep profile GPT-2")
+    if args.ep > 1 and not args.n_experts:
+        ap.error("--ep needs --n-experts")
     if args.zero is not None and not args.model.startswith("gpt2"):
         ap.error("--zero profiles GPT-2")
     if (args.pp > 1 or args.tp > 1 or args.fsdp) and args.model != "gpt2-1p3b":
@@ -321,7 +331,7 @@ def main() -> int:
     variants, opt_kw = VARIANTS[args.model], None
     shape = ({"sp": args.sp, "n_experts": args.n_experts, "seq": args.seq,
               "pp": args.pp, "tp": args.tp, "remat": args.remat, "fsdp": args.fsdp,
-              "sp_use_flash": args.sp_use_flash}
+              "sp_use_flash": args.sp_use_flash, "ep": args.ep}
              if args.model.startswith("gpt2") else {})
     if args.attn:
         variants = (args.attn,)

@@ -1223,16 +1223,17 @@ TP_CASES = {
 }
 TP_WORLDS = {2: tuple(TP_CASES), 4: ("gpt2_f32_dense", "gpt2_bf16_dense")}
 TP_RAISES = {   # combination -> (mesh, config overrides, model)
-    "moe": ({"tp": 2}, {"n_experts": 2}, "lm"),
-    "ep": ({"ep": 2, "tp": 2}, {}, "lm"),
     "pp": ({"pp": 2, "tp": 2}, {"scan_layers": True}, "pipelined"),
 }
 # Combinations that ran into NotImplementedError before tp composed with sp
-# -> (mesh, config overrides): ring and Ulysses with no sp line fall back
-# to dense; sp trains.
+# and with the Switch FFN -> (mesh, config overrides): ring and Ulysses with
+# no sp line fall back to dense; experts run with each one's d_ff cut over
+# tp, an ep axis beside tp holds its replicas of the dense model; sp trains.
 TP_RUNS = {
     "ring": ({"tp": 2}, {"attn_impl": "ring"}),
     "ulysses": ({"tp": 2}, {"attn_impl": "ulysses"}),
+    "moe": ({"tp": 2}, {"n_experts": 2}),
+    "ep": ({"ep": 2, "tp": 2}, {}),
     "sp": ({"sp": 2, "tp": 2}, {}),
 }
 TP_RUN_STEPS = 2
@@ -1323,11 +1324,12 @@ def _tp_raises(hvd, torch, combos) -> dict:
     return out
 
 
-def _tp_runs(hvd, torch, combos, params) -> dict:
-    """Each combination of ``combos`` (TP_RUNS) with the weights of the
-    gpt2_f32_dense case: ring and Ulysses on a tp line with no sp line,
-    this rank's logits shard of the whole sequence; sp, TP_RUN_STEPS steps
-    of make_train_step(shard_seq=True) from those weights (the losses)."""
+def _tp_runs(hvd, torch, combos, params_by_combo) -> dict:
+    """Each combination of ``combos`` (TP_RUNS) from its weights (those of
+    the gpt2_f32_dense case, with experts where it has them): with no sp
+    line, this rank's logits shard of the whole sequence and its mesh
+    coordinates; sp, TP_RUN_STEPS steps of make_train_step(shard_seq=True)
+    from those weights (the losses)."""
     import dataclasses
 
     from horovod_tpu_torch.models.convert import flax_to_torch
@@ -1341,10 +1343,12 @@ def _tp_runs(hvd, torch, combos, params) -> dict:
         mesh = hvd.create_mesh(shape)
         cfg = dataclasses.replace(tp_config(torch, "gpt2_f32_dense"), **overrides)
         model = TransformerLM(cfg, device="cpu", mesh=mesh)
-        model.load_state_dict(flax_to_torch(params, cfg, tp=2, tp_rank=mesh.coords["tp"]))
+        model.load_state_dict(flax_to_torch(
+            params_by_combo[name], cfg, ep=mesh.shape.get("ep", 1),
+            ep_rank=mesh.coords.get("ep", 0), tp=2, tp_rank=mesh.coords["tp"]))
         if "sp" not in shape:
             with torch.no_grad():
-                out[name] = {"logits": model(ids).numpy()}
+                out[name] = {"logits": model(ids).numpy(), "coords": dict(mesh.coords)}
             continue
         opt = torch.optim.AdamW(model.parameters(), lr=TP_LR, weight_decay=TP_WD, eps=TP_EPS)
         init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh, shard_seq=True)
@@ -1357,10 +1361,11 @@ def _tp_runs(hvd, torch, combos, params) -> dict:
     return out
 
 
-def _run_tp_world(rank: int, size: int, params_by_case, train_params) -> dict:
+def _run_tp_world(rank: int, size: int, params_by_case, train_params, run_params) -> dict:
     """On tp=size: each TP_WORLDS[size] case (logits, gradients), the tp
     initialisation, the combinations that raise on this world and those of
-    TP_RUNS that run on it; on four ranks also 3 AdamW steps of gpt2-tiny (vocab TP_TRAIN_VOCAB, f32)
+    TP_RUNS that run on it (from ``run_params``, by combination); on four
+    ranks also 3 AdamW steps of gpt2-tiny (vocab TP_TRAIN_VOCAB, f32)
     through make_train_step on dp=2 x tp=2 from ``train_params`` (the
     losses, the parameters); on two ranks, last, ``train_gpt2 --tp 2``."""
     import torch
@@ -1377,7 +1382,7 @@ def _run_tp_world(rank: int, size: int, params_by_case, train_params) -> dict:
                                             if np.prod(list(shape.values())) == size])
     out["runs"] = _tp_runs(hvd, torch, [n for n, (shape, _) in TP_RUNS.items()
                                         if np.prod(list(shape.values())) == size],
-                           params_by_case["gpt2_f32_dense"])
+                           run_params)
     if size == 4:
         out["train"] = _tp_train(hvd, torch, train_params)
     if size == 2:
@@ -1631,6 +1636,185 @@ def _run_tp_sp_world(rank: int, size: int, gpt_params, bert_params, train_params
     out["train_gpt2"] = np.array(train_gpt2.main(
         ["--model", "gpt2-tiny", "--batch-size", "4", "--seq-len", "32", "--steps", "2",
          "--tp", "2", "--sp", "2", "--attn", "ring", "--remat", "--device", "cpu"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MoE under tensor parallelism (tests/test_torch_port_tp_moe.py): gpt2-tiny
+# (4 heads, 2 layers, f32) with TPMOE_E Switch experts in block 1, each
+# expert's d_ff cut over tp, at vocabulary TP_VOCAB (TP_TRAIN_VOCAB for the
+# train step), on four gloo ranks. Every mesh names dp, ep, sp and tp (size
+# 1 where a case has none); a rank's results carry its coordinates.
+TPMOE_E, TPMOE_AUX, TPMOE_STEPS = 4, 0.01, 3
+# name -> (mesh, capacity factor, attention as in TPSP_ATTNS)
+TPMOE_CASES = {
+    "ep2_tp2": ({"ep": 2, "tp": 2}, 1.25, "dense"),
+    "dp2_tp2": ({"dp": 2, "tp": 2}, 0.5, "dense"),
+    "tp4": ({"tp": 4}, 1.25, "dense"),
+    "sp2_tp2": ({"sp": 2, "tp": 2}, 1.25, "ulysses_flash"),
+}
+
+
+def tpmoe_config(torch, name: str, vocab: int = TP_VOCAB):
+    _, cf, attn = TPMOE_CASES[name]
+    return tpsp_config(torch, "gpt2", attn, vocab=vocab, n_experts=TPMOE_E,
+                       capacity_factor=cf)
+
+
+def tpmoe_mesh(hvd, name: str):
+    shape = TPMOE_CASES[name][0]
+    return hvd.create_mesh({a: shape.get(a, 1) for a in ("dp", "ep", "sp", "tp")})
+
+
+def _tpmoe_model(torch, mesh, cfg, params):
+    """gpt2 of ``cfg`` on ``mesh`` with its ep slice and tp shard of the
+    numpy JAX weights ``params``."""
+    from horovod_tpu_torch.models.convert import flax_to_torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    model = TransformerLM(cfg, device="cpu", mesh=mesh)
+    model.load_state_dict(flax_to_torch(
+        params, cfg, ep=mesh.shape["ep"], ep_rank=mesh.coords["ep"], tp=mesh.shape["tp"],
+        tp_rank=mesh.coords["tp"]))
+    return model
+
+
+def _routes(model) -> list:
+    return [b.expert_idx.numpy().copy() for b in model.moe_blocks()]
+
+
+def _tpmoe_model_case(hvd, torch, mesh, name: str, params) -> dict:
+    """One case's model from the JAX weights on ``tp_batch``: this rank's
+    logits (its dp rows, sp block and vocabulary shard), and the gradients
+    of the global objective (``lm_loss`` over the global shifted sequence
+    plus TPMOE_AUX times the auxiliary loss, this rank's share as
+    ``make_train_step`` takes it), averaged over the (dp, sp) line; the
+    global objective, the dropped tokens and the routes."""
+    from horovod_tpu_torch.parallel.train import _cut, _lm_loss_sharded
+
+    cfg = tpmoe_config(torch, name)
+    model = _tpmoe_model(torch, mesh, cfg, params)
+    ids = torch.from_numpy(tp_batch()[0])
+    model.train()
+    logits = model(_cut(ids, mesh, True))
+    data = mesh.comm(("dp", "sp"))
+    loss = (_lm_loss_sharded(logits, ids, mesh, data.size, (mesh.comm("tp"), cfg.vocab_size))
+            + TPMOE_AUX * model.moe_aux_loss())
+    loss.backward()
+    return {"logits": logits.detach().numpy(),
+            "loss": float(hvd.allreduce(loss.detach(), axis_name=("dp", "sp"))),
+            "grads": {k: hvd.allreduce(p.grad, axis_name=("dp", "sp")).numpy().copy()
+                      for k, p in model.named_parameters()},
+            "dropped": np.array([int(d) for d in model.moe_dropped()]),
+            "routes": _routes(model)}
+
+
+def _tpmoe_train(hvd, torch, mesh, name: str, params) -> dict:
+    """TPMOE_STEPS AdamW steps of ``make_train_step(moe_aux_weight=
+    TPMOE_AUX)`` with the plain optimizer from the JAX weights (vocab
+    TP_TRAIN_VOCAB): the losses, the reduced step-1 gradients AdamW steps
+    on, each step's dropped tokens and routes, the final parameters."""
+    from horovod_tpu_torch.parallel.sharding import replica_comm
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    cfg = tpmoe_config(torch, name, vocab=TP_TRAIN_VOCAB)
+    model = _tpmoe_model(torch, mesh, cfg, params)
+    inner = torch.optim.AdamW(model.parameters(), lr=TP_LR, weight_decay=TP_WD, eps=TP_EPS)
+    init_fn, step_fn = make_train_step(model, inner, lm_loss, mesh=mesh,
+                                       shard_seq=mesh.shape["sp"] > 1,
+                                       moe_aux_weight=TPMOE_AUX)
+    got = {}
+    inner_step = inner.step
+
+    def step(*a, **kw):     # the reduced step-1 gradients, as AdamW gets them
+        got.setdefault("grads", {n: p.grad.numpy().copy()
+                                 for n, p in model.named_parameters()})
+        return inner_step(*a, **kw)
+
+    inner.step = step
+    state = init_fn()
+    ids = torch.from_numpy(tp_batch(TP_TRAIN_VOCAB, seed=6)[0])
+    losses, dropped, routes = [], [], []
+    for _ in range(TPMOE_STEPS):
+        state, loss = step_fn(state, ids, ids)
+        losses.append(float(loss))
+        dropped.append([int(d) for d in model.moe_dropped()])
+        routes.append(_routes(model))
+    return {"losses": np.array(losses), "dropped": np.array(dropped), "routes": routes,
+            "grads": got["grads"],
+            "params": {k: v.numpy().copy() for k, v in model.state_dict().items()},
+            "lines": {n: np.array(replica_comm(n, p, model.rules, mesh).ranks)
+                      for n, p in model.named_parameters()},
+            "data_line": np.array(mesh.comm(("dp", "sp")).ranks)}
+
+
+def _tpmoe_init(torch, mesh) -> dict:
+    """The MoE gpt2 built on ``mesh`` from torch seed 0: this rank's
+    state_dict."""
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    model = TransformerLM(tpmoe_config(torch, "ep2_tp2"), device="cpu", mesh=mesh,
+                          generator=torch.Generator().manual_seed(0))
+    return {k: v.numpy().copy() for k, v in model.state_dict().items()}
+
+
+def _run_tp_moe_world(rank: int, size: int, params, train_params) -> dict:
+    """Each TPMOE_CASES case on its mesh: the model case, the train step and
+    the seeded initialisation (``_tpmoe_*``), with the rank's coordinates;
+    last, ``train_gpt2 --tp 2 --ep 2 --n-experts 4 --remat``."""
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+
+    out = {}
+    for name in TPMOE_CASES:
+        mesh = tpmoe_mesh(hvd, name)
+        out[name] = {"coords": dict(mesh.coords),
+                     "model": _tpmoe_model_case(hvd, torch, mesh, name, params),
+                     "train": _tpmoe_train(hvd, torch, mesh, name, train_params),
+                     "init": _tpmoe_init(torch, mesh)}
+    from horovod_tpu_torch import train_gpt2
+
+    # Last: train_gpt2 shuts the world down when it returns.
+    out["train_gpt2"] = np.array(train_gpt2.main(
+        ["--model", "gpt2-tiny", "--batch-size", "4", "--seq-len", "32", "--steps", "2",
+         "--tp", "2", "--ep", "2", "--n-experts", "4", "--remat", "--device", "cpu"]))
+    return out
+
+
+def _run_tp_moe_one(rank: int, size: int) -> dict:
+    """On a world of one: the MoE gpt2 (vocab TP_TRAIN_VOCAB, capacity 0.5)
+    from torch seed 0 built on a dp=1 x ep=1 x sp=1 x tp=1 mesh and with
+    no mesh, TPMOE_STEPS AdamW steps of each through make_train_step: the
+    losses, the step-1 gradients and the dropped tokens of each."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    cfg = tpmoe_config(torch, "dp2_tp2", vocab=TP_TRAIN_VOCAB)
+    mesh = hvd.create_mesh({"dp": 1, "ep": 1, "sp": 1, "tp": 1})
+    ids = torch.from_numpy(tp_batch(TP_TRAIN_VOCAB, seed=6)[0])
+    out = {}
+    for kind, on in (("mesh", mesh), ("bare", None)):
+        model = TransformerLM(cfg, device="cpu", mesh=on,
+                              generator=torch.Generator().manual_seed(0))
+        opt = torch.optim.AdamW(model.parameters(), lr=TP_LR, weight_decay=TP_WD, eps=TP_EPS)
+        init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh,
+                                           moe_aux_weight=TPMOE_AUX)
+        state = init_fn()
+        losses, dropped = [], []
+        for i in range(TPMOE_STEPS):
+            state, loss = step_fn(state, ids, ids)
+            losses.append(float(loss))
+            dropped.append([int(d) for d in model.moe_dropped()])
+            if i == 0:
+                grads = {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
+        out[kind] = {"losses": np.array(losses), "dropped": np.array(dropped),
+                     "grads": grads}
     return out
 
 

@@ -25,13 +25,15 @@ on spawned gloo ranks.
   atol 1e-6 wherever the step-1 gradient exceeds 100 x AdamW's eps (the
   rule of tests/test_torch_port_sp.py for the rest); the tp-replicated
   parameters bitwise equal across the tp line.
-* Each combination that is not ported (tp with ep, experts or pp) raises
+* The combination that is not ported (tp with pp) raises
   ``NotImplementedError`` naming its ROADMAP item; ring and Ulysses on a tp
   line with no sp line fall back to dense attention (bitwise the dense
-  case, and the JAX model's logits), and tp with sp trains (its step-1
-  loss the JAX model's ``lm_loss``; tests/test_torch_port_tp_sp.py holds
-  the composition against JAX in full); ``train_gpt2 --tp 2`` trains on
-  two ranks.
+  case, and the JAX model's logits), Switch experts under tp and an ep axis
+  beside tp give the JAX model's logits (tests/test_torch_port_tp_moe.py
+  holds MoE under tp and ep against JAX in full), and tp with sp trains
+  (its step-1 loss the JAX model's ``lm_loss``;
+  tests/test_torch_port_tp_sp.py holds the composition against JAX in
+  full); ``train_gpt2 --tp 2`` trains on two ranks.
 """
 import dataclasses
 
@@ -66,24 +68,24 @@ TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=5e-2, atol=2
 GRAD_TOL = dict(rtol=1e-5, atol=1e-7)
 
 
-def _jax_config(name: str, vocab: int = workers.TP_VOCAB):
+def _jax_config(name: str, vocab: int = workers.TP_VOCAB, **overrides):
     kind, dtype, attn, _ = workers.TP_CASES[name]
     base = JAX_GPT2["gpt2-tiny"] if kind == "gpt2" else JAX_BERT["bert-tiny"]
-    return dataclasses.replace(base, vocab_size=vocab, max_len=64, attn_impl=attn,
-                               dtype=getattr(jnp, dtype))
+    return dataclasses.replace(base, **{"vocab_size": vocab, "max_len": 64, "attn_impl": attn,
+                                        "dtype": getattr(jnp, dtype), **overrides})
 
 
-def _jax_model(name: str, vocab: int = workers.TP_VOCAB):
+def _jax_model(name: str, vocab: int = workers.TP_VOCAB, **overrides):
     cls = JaxLM if workers.TP_CASES[name][0] == "gpt2" else JaxEncoder
-    return cls(_jax_config(name, vocab))
+    return cls(_jax_config(name, vocab, **overrides))
 
 
-def _numpy_params(name: str, vocab: int = workers.TP_VOCAB, seed: int = 0):
+def _numpy_params(name: str, vocab: int = workers.TP_VOCAB, seed: int = 0, **overrides):
     """The JAX model's parameter tree drawn with numpy: kernels, embeddings
     and biases normal(0, 0.02), LayerNorm scales 1 + normal(0, 0.1), so a
     misplaced bias or a wrong head cut shows."""
     ids, mask = workers.tp_batch(vocab)
-    shapes = jax.eval_shape(lambda: nn.unbox(_jax_model(name, vocab).init(
+    shapes = jax.eval_shape(lambda: nn.unbox(_jax_model(name, vocab, **overrides).init(
         jax.random.PRNGKey(0), ids))["params"])
     rng = np.random.RandomState(seed)
 
@@ -135,12 +137,25 @@ def _jax_mesh(shape: dict) -> Mesh:
 def tp_worlds(tmp_path_factory):
     params = {name: _numpy_params(name) for name in workers.TP_CASES}
     train_params = _numpy_params("gpt2_f32_dense", vocab=workers.TP_TRAIN_VOCAB, seed=1)
+    # Each combination that runs: the dense case's weights, drawn with its
+    # experts where it has them.
+    run_params = {combo: _numpy_params("gpt2_f32_dense", **_param_overrides(combo))
+                  for combo in workers.TP_RUNS}
     np_params = {k: jax.tree.map(np.asarray, v) for k, v in params.items()}
     worlds = {size: workers.spawn_world(size, tmp_path_factory.mktemp(f"tp{size}"),
                                         "_run_tp_world", np_params,
-                                        jax.tree.map(np.asarray, train_params))
+                                        jax.tree.map(np.asarray, train_params),
+                                        jax.tree.map(np.asarray, run_params))
               for size in workers.TP_WORLDS}
-    return {"ranks": worlds, "params": params, "train_params": train_params}
+    return {"ranks": worlds, "params": params, "train_params": train_params,
+            "run_params": run_params}
+
+
+def _param_overrides(combo: str) -> dict:
+    """The configuration overrides of a TP_RUNS combination that shape its
+    weights or its function with no sp line (not the attention, which falls
+    back to dense there)."""
+    return {k: v for k, v in workers.TP_RUNS[combo][1].items() if k != "attn_impl"}
 
 
 CASES = [(size, name) for size, names in workers.TP_WORLDS.items() for name in names]
@@ -218,13 +233,23 @@ def test_tp_combinations_now_run(tp_worlds, combo):
     ranks = tp_worlds["ranks"][size]
     params = tp_worlds["params"]["gpt2_f32_dense"]
     if "sp" not in shape:
-        # No sp line: dense attention, as the JAX dispatch falls back.
-        for res in ranks:
-            np.testing.assert_array_equal(res["runs"][combo]["logits"],
-                                          res["gpt2_f32_dense"]["logits"])
-        got = np.concatenate([r["runs"][combo]["logits"] for r in ranks], axis=-1)
-        np.testing.assert_allclose(got, _jax_reference("gpt2_f32_dense", params)["logits"],
-                                   **TOL["float32"])
+        # No sp line: dense attention, as the JAX dispatch falls back; the
+        # tp shards of the first ep index put together, the others equal.
+        runs = [r["runs"][combo] for r in ranks]
+        if "attn_impl" in overrides:
+            for res in ranks:
+                np.testing.assert_array_equal(res["runs"][combo]["logits"],
+                                              res["gpt2_f32_dense"]["logits"])
+        first = sorted((r for r in runs if r["coords"].get("ep", 0) == 0),
+                       key=lambda r: r["coords"]["tp"])
+        assert len(first) == shape["tp"]
+        for r in runs:
+            np.testing.assert_array_equal(r["logits"], first[r["coords"]["tp"]]["logits"])
+        got = np.concatenate([r["logits"] for r in first], axis=-1)
+        ids = jnp.asarray(workers.tp_batch()[0])
+        jmodel = _jax_model("gpt2_f32_dense", **_param_overrides(combo))
+        want = np.asarray(jmodel.apply({"params": tp_worlds["run_params"][combo]}, ids))
+        np.testing.assert_allclose(got, want, **TOL["float32"])
         return
     ids = jnp.asarray(workers.tp_batch()[0])
     want = float(jax_lm_loss(_jax_model("gpt2_f32_dense").apply({"params": params}, ids), ids))
@@ -324,6 +349,8 @@ def test_tp_cut_take_and_join_round_trip(key):
 
     bert = key.startswith("mlm_head")
     cfg = workers.tp_config(torch, "bert_f32_dense" if bert else "gpt2_f32_dense")
+    if key.startswith("moe."):
+        cfg = dataclasses.replace(cfg, n_experts=2)
     full = dict((TransformerEncoder if bert else TransformerLM)(cfg, device="cpu").state_dict())
     key = next(k for k in full if k == key or k.endswith("." + key))
     t = torch.randn(full[key].shape)
