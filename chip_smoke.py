@@ -48,10 +48,12 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
 8. the collectives: every collective of the port on CUDA tensors of f32,
    bf16, uint8 and bool against closed forms (allgather; alltoall with
    ``splits=[n]`` and without; reducescatter under SUM, AVERAGE, MIN and
-   MAX; each ``*_async`` through ``poll`` and ``synchronize``;
+   MAX; the PRODUCT all-reduce, async and grouped, with pre- and
+   postscale; each ``*_async`` through ``poll`` and ``synchronize``;
    ``broadcast_object`` and ``allgather_object``) in this process's world;
    with two cards or more, one spawned NCCL rank per card checks ragged
-   allgather, uneven alltoall and reducescatter and times a 64 MiB bf16
+   allgather, uneven alltoall, reducescatter and PRODUCT across ranks
+   (n!) and times a 64 MiB bf16
    allreduce, allgather and reducescatter (algorithm bandwidth). At one card
    the line says ``"world": 1``;
 9. the BERT slice: BERT-base (12 x 768, vocab 30522) with flash attention
@@ -217,12 +219,45 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    replicas bitwise on every line of copies; per rank the step ms,
    tokens/s and peak memory. With fewer cards its line says "not
    measured";
-24. the ``{"kernels": [...]}`` line (with ``launches_sp``,
+24. ViT-L/16 (``vit``; BASELINE.json's "ViT-L/16 ImageNet DP": 24 x 1024,
+   16 heads, d_ff 4096, 224x224, patch 16, 197 tokens, 1000 classes,
+   dense attention as the JAX ViT runs) on one card at 32 images
+   (``examples/jax_synthetic_benchmark.py``'s per-chip default): its
+   parameters against the JAX tree's closed form (304,326,632), the bf16
+   forward loss within 2e-2 of the same weights in f32, then 5 steps of
+   ``make_train_step`` with SGD(0.01, momentum 0.9) on bench.py's seeded
+   images and labels; no launch of K1-K4; step ms, images/s, peak memory;
+25. with four cards (``vit_multi``), one NCCL rank per card over dp=4 at 32
+   images a card against a world-1 control on the global 128, by 13's
+   gates (step-1 loss, 5 losses, step-1 gradients, replicas bitwise);
+26. ``train_mnist`` (``mnist``; ``examples/jax_mnist.py``'s example) for one
+   epoch of the synthetic set on one card: the loss falls, no launch;
+27. with two cards (``mnist_multi``), ``train_mnist`` on two NCCL ranks, one
+   step and then one epoch: the step-1 parameters within 1e-5 of a
+   world-1 control fed the mean of the two shards' gradients (cuDNN's
+   deterministic algorithms on both sides), replicas bitwise, the loss
+   falls;
+28. with four cards (``adasum_1p3b_multi``), GPT-2 1.3B as in 14 over dp=4
+   at B=8 a card under ``DistributedOptimizer(AdamW, op=Adasum)`` at its
+   defaults (each gradient combined on its own), beside (a2) the mean
+   after backward at the same shape: 48/24/24 launches a step, replicas
+   bitwise, and the step-1 combined gradient of the token embedding, block
+   0's qkv kernel and ``ln_f``'s scale against ``adasum_numpy`` (f64) of the
+   four ranks' raw gradients, elementwise within 1e-4 relative plus 1e-5
+   of the tensor's largest element; step ms, tokens/s, peak memory. With
+   fewer cards, 25, 27 and 28 say "not measured";
+29. Adasum's pair combination as the default runs it (each gradient's
+   range apart, ``adasum_combine``) on one card at GPT-2 1.3B's 293
+   gradients (5.67 GB of f32 a side), three ranges against the same
+   combination in f64 numpy by 28's rule; its ms beside the one-vector
+   combination's and the bytes bound;
+30. the ``{"kernels": [...]}`` line (with ``launches_sp``,
    ``launches_moe``, ``launches_pp``, ``launches_tp``,
-   ``launches_zero_mesh``, ``launches_tp_sp``, ``launches_tp_moe`` and the
-   D=128 records ``pp_d128``, ``tp_d128`` and ``tp_sp_d128``); then the
-   card line from nvidia-smi and the last line ``{"ok": true, "device":
-   {...}}``.
+   ``launches_zero_mesh``, ``launches_tp_sp``, ``launches_tp_moe``,
+   ``launches_vit``, ``launches_vit_multi``, ``launches_mnist``,
+   ``launches_mnist_multi``, ``launches_adasum_1p3b_multi`` and the D=128
+   records ``pp_d128``, ``tp_d128`` and ``tp_sp_d128``); then the card line
+   from nvidia-smi and the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is not available.
 """
@@ -912,6 +947,18 @@ def _closed_form_checks(hvd, dev) -> dict:
         while not hvd.poll(h):
             pass
         same(f"allreduce_async {tag}", hvd.synchronize(h), x)
+        # PRODUCT: n copies of integers up to 6 multiply exactly in f32 and
+        # bf16 (6^4 = 1296 has 7 significant bits); scales of powers of two.
+        if dtype.is_floating_point:
+            same(f"allreduce {tag} PRODUCT", hvd.allreduce(
+                x, op=hvd.Product, prescale_factor=0.5, postscale_factor=2.0),
+                (x * 0.5) ** n * 2)
+            same(f"allreduce_async {tag} PRODUCT",
+                 hvd.synchronize(hvd.allreduce_async(x, op=hvd.Product)), x ** n)
+            same(f"grouped_allreduce {tag} PRODUCT",
+                 hvd.grouped_allreduce([x, x[:1]], op=hvd.Product)[1], x[:1] ** n)
+        elif dtype == torch.bool:
+            same("allreduce bool PRODUCT", hvd.allreduce(x, op=hvd.Product), x)
     obj = {"rank": r, "bytes": bytes(range(256)), "nested": [1.5, None, "bert"]}
     if hvd.broadcast_object(obj if r == 0 else None, root_rank=0) != dict(obj, rank=0):
         raise AssertionError("broadcast_object")
@@ -943,7 +990,12 @@ def _rank_checks(hvd, dev) -> dict:
         * (n * (n + 1) // 2)
     if not torch.equal(got, want):
         raise AssertionError("reducescatter across ranks")
-    return {"ragged_allgather": True, "uneven_alltoall": True, "reducescatter": True}
+    # PRODUCT of the ranks' r + 1: n!.
+    got = hvd.allreduce(torch.full((3,), float(r + 1), device=dev), op=hvd.Product)
+    if not torch.equal(got, torch.full((3,), float(math.factorial(n)), device=dev)):
+        raise AssertionError(f"PRODUCT across ranks: {got}")
+    return {"ragged_allgather": True, "uneven_alltoall": True, "reducescatter": True,
+            "product": True}
 
 
 def _collective_times(hvd, dev) -> dict:
@@ -2103,7 +2155,8 @@ def zero_reduced_grads(sharder, names: dict, chunk: int = 1 << 23) -> dict:
 
 def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bool,
              steps: int = STEPS, loss_fn=None, zero: bool = False, rules=None,
-             batch=(PP_B, PP_S), bare: bool = False, each_step=None) -> dict:
+             batch=(PP_B, PP_S), bare: bool = False, each_step=None, opt_kw=None,
+             setup=None) -> dict:
     """``steps`` AdamW steps (lr 1e-4, wd 1e-4, eps 1e-8) of GPT-2 1.3B on
     ``mesh`` through ``make_train_step`` on the global ``batch`` (B, S) of
     numpy seed 42 (by default B=8, S=2048; the sequence cut over sp where
@@ -2112,8 +2165,9 @@ def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bo
     model built with no mesh (``gpt2_1p3b``). With Switch experts the
     auxiliary loss enters at MOE_AUX and the record holds each step's
     dropped tokens; ``each_step(model)``, where given, runs after each
-    step, outside its time. The optimizer is a
-    ``DistributedOptimizer``, or with ``zero`` or ``rules`` the plain AdamW,
+    step, outside its time; ``setup(model, opt)``, once the optimizer is
+    built. The optimizer is a ``DistributedOptimizer`` (with ``opt_kw``),
+    or with ``zero`` or ``rules`` the plain AdamW,
     which the step wraps (``zero=True``: ZeRO-1 over the data line;
     ``rules=FSDP_RULES``: the model built under them). Returns the record
     (with the parameter, gradient and optimizer-state bytes this rank
@@ -2129,8 +2183,11 @@ def train_pp(hvd, fa, fb, mesh, pipelined: bool, overrides: dict, keep_grads: bo
     ids = pp_ids(Bn, Sn)
     inner = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
     plain = zero or rules is not None
-    opt = inner if plain else hvd.DistributedOptimizer(inner, axis_name=("dp", "sp"))
+    opt = inner if plain else hvd.DistributedOptimizer(inner, axis_name=("dp", "sp"),
+                                                       **(opt_kw or {}))
     moe = bool(model.cfg.n_experts)
+    if setup is not None:
+        setup(model, opt)
     init_fn, step_fn = make_train_step(model, opt, loss_fn or lm_loss, mesh=mesh, zero=zero,
                                        rules=rules, shard_seq=mesh.shape.get("sp", 1) > 1,
                                        moe_aux_weight=MOE_AUX if moe else 0.0)
@@ -3610,9 +3667,551 @@ def phase_tp_moe_multi(controls) -> dict:
     return rec
 
 
-def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm) -> list:
+# ---------------------------------------------------------------------------
+# The configurations of record not yet run (phases ``vit``, ``mnist`` and,
+# with cards enough, ``vit_multi``, ``mnist_multi``, ``adasum_1p3b_multi``):
+# BASELINE.json's "ViT-L/16 ImageNet DP" at
+# ``examples/jax_synthetic_benchmark.py``'s 32 images a card, its 2-process
+# MNIST allreduce (``examples/jax_mnist.py``) and "GPT-2 1.3B + Adasum".
+VIT_MODEL = "vit-l16"
+VIT_B = 32                  # a card's batch
+VIT_PARAMS = 304_326_632    # the JAX ViT-L/16 tree (tests/test_torch_port_vit.py)
+VIT_CARDS = 4
+MNIST_CARDS = 2
+MNIST_STEP1_ATOL = 1e-5
+ADASUM_CARDS = 4
+# The combined gradient is held against adasum_numpy on these tensors.
+ADASUM_TENSORS = ("embed.embedding", "stack.layers.0.attn.qkv.weight", "ln_f.weight")
+# tests/test_adasum.py's rtol, and its atol on O(1) values scaled by the
+# tensor's largest element.
+ADASUM_RTOL, ADASUM_ATOL = 1e-4, 1e-5
+
+
+def vit_params_closed_form(cfg) -> int:
+    """The JAX ViT's parameters from its shapes: the patch kernel and bias,
+    the CLS token, the positions, L blocks (two LayerNorms, qkv and out with
+    biases, wi and wo with biases), ``ln_f`` and the head with its bias."""
+    D, F, p = cfg.d_model, cfg.d_ff, cfg.patch_size
+    block = 4 * D + (3 * D * D + 3 * D) + (D * D + D) + (D * F + F) + (F * D + D)
+    return ((p * p * 3 * D + D) + D + (cfg.n_patches + 1) * D + cfg.n_layers * block
+            + 2 * D + D * cfg.num_classes + cfg.num_classes)
+
+
+def vit_flops(cfg, Bn: int) -> float:
+    """A training step's operations (3x the forward): the matrix products'
+    parameters times the tokens, and the two attention products."""
+    T, D, L = cfg.n_patches + 1, cfg.d_model, cfg.n_layers
+    matmul = (cfg.patch_size ** 2 * 3 * D * cfg.n_patches / T
+              + L * (4 * D * D + 2 * D * cfg.d_ff))
+    return 6 * matmul * Bn * T + 3 * L * 4 * T * T * D * Bn + 6 * D * cfg.num_classes * Bn
+
+
+def vit_batch(batch: int):
+    """bench.py's synthetic batch: numpy seed 42, images, then labels (for
+    ViT-L/16, 224x224 and [0, 1000))."""
+    from horovod_tpu_torch.models.vit import VIT_CONFIGS
+
+    cfg = VIT_CONFIGS[VIT_MODEL]
+    rng = np.random.RandomState(42)
+    images = rng.rand(batch, cfg.image_size, cfg.image_size, 3).astype(np.float32)
+    return torch.from_numpy(images), torch.from_numpy(
+        rng.randint(0, cfg.num_classes, size=(batch,), dtype=np.int32))
+
+
+def train_vit(hvd, fa, fb, mesh, batch: int, keep_grads: bool) -> dict:
+    """STEPS SGD(0.01, momentum 0.9) steps of ViT-L/16 from torch seed 0
+    through ``make_train_step`` over ``mesh``'s dp on the global ``batch``;
+    no flash or fused-BN launch. Returns the record, the model and, with
+    ``keep_grads``, the reduced step-1 gradients (what SGD gets), flat in
+    host memory."""
+    from horovod_tpu_torch.models.registry import get_model
+    from horovod_tpu_torch.parallel.train import make_train_step, softmax_xent
+
+    dev = mesh.device
+    model = get_model(VIT_MODEL).make_model(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(0), mesh=mesh)
+    images, labels = (t.to(dev) for t in vit_batch(batch))
+    inner = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    got, inner_step = {}, inner.step
+
+    def step(*a, **kw):
+        if keep_grads and "grads" not in got:
+            got["grads"] = torch.cat([p.grad.detach().reshape(-1).cpu()
+                                      for p in model.parameters()])
+        return inner_step(*a, **kw)
+
+    inner.step = step
+    init_fn, step_fn = make_train_step(model, inner, softmax_xent, mesh=mesh)
+    state = init_fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    fb.reset_launches()
+    state, losses, step_ms = steps(step_fn, state, images, labels)
+    launches = {**fa.launches(), **fb.launches()}
+    if any(launches.values()):
+        raise AssertionError(f"ViT launched kernels: {launches}")
+    steady = statistics.median(step_ms[1:])
+    per_card = batch // mesh.shape["dp"]
+    flops = vit_flops(model.cfg, per_card)
+    rec = {"model": VIT_MODEL, "mesh": dict(mesh.shape), "batch": batch,
+           "batch_per_card": per_card, "losses": losses, "step_ms": step_ms,
+           "median_step_ms_2_to_5": steady, "images_per_s": per_card / (steady / 1e3),
+           "model_tflops_per_s": flops / (steady / 1e3) / 1e12,
+           "model_flops_share_of_989": flops / (steady / 1e3) / PEAK_BF16_FLOPS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+           "launches_per_step": {k: v / STEPS for k, v in launches.items()}}
+    del inner, inner_step, step, state, images, labels
+    return {"rec": rec, "model": model, "grads": got.get("grads")}
+
+
+def phase_vit(fa, fb) -> dict:
+    """ViT-L/16 on one card: its parameters against the JAX tree's closed
+    form, the bf16 forward loss within 2e-2 of the same weights in f32, then
+    5 SGD-momentum steps at B=32; no kernel of K1-K4 runs."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.registry import get_model
+    from horovod_tpu_torch.parallel.train import softmax_xent
+
+    dev = hvd.device()
+    mesh = hvd.create_mesh({"dp": 1})
+    spec = get_model(VIT_MODEL)
+    model = spec.make_model(device=dev, generator=torch.Generator(device=dev).manual_seed(0),
+                            mesh=mesh)
+    held = sum(p.numel() for p in model.parameters())
+    closed = vit_params_closed_form(model.cfg)
+    if not held == closed == VIT_PARAMS:
+        raise AssertionError(f"vit: {held} parameters, closed form {closed}, JAX {VIT_PARAMS}")
+    f32 = spec.make_model(device=dev, mesh=mesh, dtype=torch.float32)
+    f32.load_state_dict(model.state_dict())
+    images, labels = (t.to(dev) for t in vit_batch(VIT_B))
+    with torch.no_grad():
+        loss_bf16 = float(softmax_xent(model(images), labels))
+        loss_f32 = float(softmax_xent(f32(images), labels))
+    check_loss("vit-l16 bf16 vs f32", loss_bf16, loss_f32)
+    del model, f32, images, labels
+    torch.cuda.empty_cache()
+    out = train_vit(hvd, fa, fb, mesh, VIT_B, keep_grads=False)
+    rec = {"phase": "vit", "params": held, "params_closed_form": closed,
+           "loss_bf16_fwd": loss_bf16, "loss_f32_fwd": loss_f32, **out["rec"]}
+    emit(rec)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def vit_rank(rank: int, size: int, init_file: str, queue, tmp) -> None:
+    """One spawned NCCL rank of ``vit_multi``: ViT-L/16 over dp=size at
+    VIT_B a card; rank 0 writes the reduced step-1 gradients under
+    ``tmp``; every rank checks its parameters bitwise rank 0's."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            out = train_vit(hvd, fa, fb, hvd.create_mesh({"dp": size}), VIT_B * size,
+                            keep_grads=rank == 0)
+            rec = out["rec"]
+            flat = torch.cat([p.detach().reshape(-1) for p in out["model"].parameters()])
+            rec["replicas_bitwise"] = bool(torch.equal(flat, hvd.broadcast(flat, 0)))
+            if not rec["replicas_bitwise"]:
+                raise AssertionError(f"vit_multi rank {rank}: replicas differ")
+            if rank == 0:
+                torch.save(out["grads"], f"{tmp}/vit_grads.pt")
+            hvd.barrier()
+            queue.put((rank, rec))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_vit_multi(fa, fb) -> dict:
+    """With four cards: ViT-L/16 over dp=4 at 32 images a card against a
+    world-1 control on the global 128: step-1 loss within 2e-3, the 5
+    losses within 1e-2, step-1 gradients within 1e-2 in relative norm,
+    replicas bitwise (the gates of ``sp_multi``)."""
+    import functools
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+
+    cards = torch.cuda.device_count()
+    if cards < VIT_CARDS:
+        emit({"phase": "vit_multi", "cards": cards,
+              "result": f"not measured: needs {VIT_CARDS} cards"})
+        return {"launches": "not measured"}
+    ctrl = train_vit(hvd, fa, fb, hvd.create_mesh({"dp": 1}), VIT_B * VIT_CARDS,
+                     keep_grads=True)
+    ctrl_rec, ctrl_grads = ctrl["rec"], ctrl["grads"]
+    del ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_cards(functools.partial(vit_rank, tmp=tmp), VIT_CARDS, timeout=900)
+        grads = torch.load(f"{tmp}/vit_grads.pt")
+    got = ranks[0]
+    rec = {"phase": "vit_multi", "cards": cards, "control": ctrl_rec, "rank0": got,
+           "median_step_ms_by_rank": [r["median_step_ms_2_to_5"] for r in ranks],
+           "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in ranks],
+           "launches_per_step_by_rank": [r["launches_per_step"] for r in ranks],
+           "replicas_bitwise_by_rank": [r["replicas_bitwise"] for r in ranks]}
+    slowest = max(rec["median_step_ms_by_rank"])
+    rec["images_per_s_per_card"] = VIT_B / (slowest / 1e3)
+    rec["weak_scaling_efficiency_vs_control"] = (ctrl_rec["median_step_ms_2_to_5"] / VIT_CARDS
+                                                 / slowest)
+    rec["loss1_rel_err"] = abs(got["losses"][0] - ctrl_rec["losses"][0]) / abs(
+        ctrl_rec["losses"][0])
+    rec["loss_max_rel_err"] = max(abs(a - b) / abs(b)
+                                  for a, b in zip(got["losses"], ctrl_rec["losses"]))
+    rec["step1_grad_rel_norm_err"] = rel_norm(grads, ctrl_grads)
+    emit(rec)
+    if rec["loss1_rel_err"] > SP_LOSS1_RTOL or rec["loss_max_rel_err"] > SP_LOSS_RTOL:
+        raise AssertionError(f"vit_multi: losses {got['losses']} vs {ctrl_rec['losses']}")
+    if rec["step1_grad_rel_norm_err"] > SP_GRAD_RTOL:
+        raise AssertionError(f"vit_multi: step-1 gradients {rec['step1_grad_rel_norm_err']} "
+                             "off the control's in relative norm")
+    return {"launches": got["launches"]}
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN's deterministic algorithms: one shard's gradients are then the
+    same bits on a rank and in the control."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def mnist_args(*extra: str):
+    from horovod_tpu_torch import train_mnist
+
+    return train_mnist.parse_args(["--epochs", "1", *extra])
+
+
+def mnist_record(out: dict, world: int) -> dict:
+    losses = out["losses"]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not (all(math.isfinite(x) for x in losses) and last < first):
+        raise AssertionError(f"mnist: the loss did not fall: {first} -> {last}")
+    per_step = out["seconds"] * 1e3 / len(losses)
+    return {"world": world, "steps": len(losses), "batch_per_rank": 64,
+            "loss_first10": first, "loss_last10": last, "epoch_losses": out["epoch_losses"],
+            "accuracy_first_1024": out["accuracy"], "seconds": out["seconds"],
+            "ms_per_step": per_step, "images_per_s_per_rank": 64 / (per_step / 1e3)}
+
+
+def phase_mnist(fa, fb) -> dict:
+    """``train_mnist`` for one epoch of the synthetic set on this card (128
+    steps of 64 images, Adam): the loss falls; no kernel of K1-K4 runs."""
+    from horovod_tpu_torch import train_mnist
+
+    fa.reset_launches()
+    fb.reset_launches()
+    with deterministic_convolutions():
+        out = train_mnist.train(mnist_args())
+    launches = {**fa.launches(), **fb.launches()}
+    if any(launches.values()):
+        raise AssertionError(f"mnist launched kernels: {launches}")
+    rec = {"phase": "mnist", **mnist_record(out, 1), "launches": launches}
+    emit(rec)
+    return rec
+
+
+def mnist_rank(rank: int, size: int, init_file: str, queue) -> None:
+    """One spawned NCCL rank of ``mnist_multi``: ``train_mnist`` one step,
+    then one epoch; both runs' final parameters, bitwise rank 0's."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch import train_mnist
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+
+        full_precision_products()      # no TF32 convolutions, as in the control
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            with deterministic_convolutions():
+                one = train_mnist.train(mnist_args("--steps", "1"))
+                fa.reset_launches()
+                fb.reset_launches()
+                epoch = train_mnist.train(mnist_args())
+            rec = {"step1_params": {k: v.numpy() for k, v in one["final"].items()},
+                   **mnist_record(epoch, size), "launches": {**fa.launches(), **fb.launches()}}
+            if any(rec["launches"].values()):
+                raise AssertionError(f"mnist_multi launched kernels: {rec['launches']}")
+            flat = torch.cat([v.reshape(-1) for v in epoch["final"].values()]).to(hvd.device())
+            rec["replicas_bitwise"] = bool(torch.equal(flat, hvd.broadcast(flat, 0)))
+            hvd.barrier()
+            queue.put((rank, rec))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def mnist_control(size: int) -> dict:
+    """The step-1 parameters of a world-1 ``MnistCNN`` from torch seed 0
+    fed the mean of the ``size`` shards' first-batch gradients, Adam at
+    lr · size (what ``train_mnist``'s first step does on ``size`` ranks)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import train_mnist
+    from horovod_tpu_torch.models.mnist import MnistCNN
+    from horovod_tpu_torch.parallel.train import softmax_xent
+
+    dev = hvd.device()
+    args = mnist_args()
+    x, y = train_mnist.synthetic_mnist()
+    model = MnistCNN(device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=args.lr * size)
+    grads = []
+    with deterministic_convolutions():
+        for r in range(size):
+            xs, ys = x[r::size], y[r::size]
+            idx = np.random.RandomState(0).permutation(len(xs))[:args.batch_size]
+            model.zero_grad(set_to_none=True)
+            softmax_xent(model(torch.from_numpy(xs[idx]).to(dev)),
+                         torch.from_numpy(ys[idx]).to(dev)).backward()
+            grads.append([p.grad.clone() for p in model.parameters()])
+    for p, *gs in zip(model.parameters(), *grads):
+        p.grad = sum(gs) / size
+    opt.step()
+    return {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+
+
+def phase_mnist_multi() -> dict:
+    """With two cards: ``train_mnist`` on two NCCL ranks, one step and then
+    one epoch: replicas bitwise, the step-1 parameters within 1e-5 of
+    ``mnist_control``, the loss falls. Both sides run cuDNN's deterministic
+    algorithms without TF32 (``full_precision_products``): with TF32 on one
+    side, Adam's first step moves the coordinates whose two shard gradients
+    nearly cancel by ±lr on either side (four H100s: 0.004, 2 lr · 2)."""
+    cards = torch.cuda.device_count()
+    if cards < MNIST_CARDS:
+        emit({"phase": "mnist_multi", "cards": cards,
+              "result": f"not measured: needs {MNIST_CARDS} cards"})
+        return {"launches": "not measured"}
+    full_precision_products()
+    want = mnist_control(MNIST_CARDS)
+    ranks = spawn_cards(mnist_rank, MNIST_CARDS)
+    step1_err = max(float(np.abs(r["step1_params"][k] - w).max())
+                    for r in ranks for k, w in want.items())
+    step1_bitwise = all(np.array_equal(r["step1_params"][k], w)
+                        for r in ranks for k, w in want.items())
+    rec = {"phase": "mnist_multi", "cards": cards, "world": MNIST_CARDS,
+           "step1_max_abs_err_vs_control": step1_err, "step1_bitwise_control": step1_bitwise,
+           "ranks": [{k: v for k, v in r.items() if k != "step1_params"} for r in ranks]}
+    emit(rec)
+    if step1_err > MNIST_STEP1_ATOL:
+        raise AssertionError(f"mnist_multi: step-1 parameters {step1_err} off the control")
+    if not all(r["replicas_bitwise"] for r in ranks):
+        raise AssertionError("mnist_multi: replicas differ")
+    return {"launches": ranks[0]["launches"]}
+
+
+def phase_adasum_combine(dev) -> dict:
+    """Adasum's pair combination as the default runs it (``ops/adasum.py``
+    ``_combine`` with each gradient's range apart) on this card, at GPT-2
+    1.3B's 293 gradients, 5.67 GB of f32 a side (seeded normals, b = 0.5 a
+    + noise, so the projections matter): ADASUM_TENSORS' ranges against the
+    same combination in f64 numpy, by ``adasum_1p3b_multi``'s rule; its
+    time beside the one-vector combination's and the bound of reading both
+    sides and writing the result once."""
+    import dataclasses
+
+    from horovod_tpu_torch.models.transformer import GPT2_CONFIGS, TransformerLM
+    from horovod_tpu_torch.ops.adasum import _combine
+
+    layout = [(n, p.numel()) for n, p in TransformerLM(
+        dataclasses.replace(GPT2_CONFIGS[PP_MODEL], attn_impl="flash"),
+        device="meta").named_parameters()]
+    sizes = [k for _, k in layout]
+    total = sum(sizes)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    a = torch.randn(total, generator=gen, device=dev)
+    b = torch.randn(total, generator=gen, device=dev).mul_(0.5).add_(a, alpha=0.5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = _combine(a, b, sizes)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    checks, offsets = {}, dict(zip((n for n, _ in layout), np.cumsum([0] + sizes[:-1])))
+    sizes_by = dict(layout)
+    for n in ADASUM_TENSORS:
+        lo, k = int(offsets[n]), sizes_by[n]
+        x, y = (t[lo: lo + k].cpu().numpy().astype(np.float64) for t in (a, b))
+        dot, na, nb = float(x @ y), float(x @ x), float(y @ y)
+        want = (1 - dot / (2 * na)) * x + (1 - dot / (2 * nb)) * y
+        err = np.abs(got[lo: lo + k].cpu().numpy().astype(np.float64) - want)
+        scale = float(np.abs(want).max())
+        checks[n] = {"numel": k, "max_abs_err": float(err.max()), "max_abs": scale,
+                     "rel_norm_err": float(np.linalg.norm(err) / np.linalg.norm(want)),
+                     "within_tolerance": bool(
+                         (err <= ADASUM_RTOL * np.abs(want) + ADASUM_ATOL * scale).all())}
+    del got
+    ms = time_ms(lambda: _combine(a, b, sizes), 5, warmup=1)
+    ms_one = time_ms(lambda: _combine(a, b), 5, warmup=1)
+    # Reading both sides and writing the result, f32; its ~9 operations an
+    # element take 0.19 ms even at f32's 67 TFLOP/s.
+    bound_ms, bound_by = 3 * 4 * total / PEAK_BYTES * 1e3, "bytes"
+    rec = {"phase": "adasum_combine", "model": PP_MODEL, "tensors": len(sizes),
+           "elements": total, "per_tensor_ms": ms, "one_vector_ms": ms_one,
+           "bound_ms": bound_ms, "bound_by": bound_by, "peak_mem_gb": peak,
+           "checks": checks}
+    emit(rec)
+    del a, b
+    torch.cuda.empty_cache()
+    bad = [n for n, c in checks.items() if not c["within_tolerance"]]
+    if bad:
+        raise AssertionError(f"adasum_combine: {bad} off the f64 combination: {checks}")
+    return rec
+
+
+def adasum_rank(rank: int, size: int, init_file: str, queue, tmp) -> None:
+    """One spawned NCCL rank of ``adasum_1p3b_multi``: GPT-2 1.3B over
+    dp=size, B=8 a card, remat, (a2) the mean after backward and then
+    ``DistributedOptimizer(AdamW, op=Adasum)`` at its defaults. Under
+    Adasum each rank writes the raw step-1 gradients of ADASUM_TENSORS
+    under ``tmp``, and rank 0 the combined ones."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            mesh = full_mesh({"dp": size})
+
+            def capture(model, opt):
+                named = dict(model.named_parameters())
+                reduce, inner_step, done = opt._reduce, opt._inner.step, set()
+
+                def save(kind):
+                    if kind not in done:
+                        done.add(kind)
+                        for n in ADASUM_TENSORS:
+                            torch.save(named[n].grad.detach().float().cpu(),
+                                       f"{tmp}/{kind}_{n}.pt")
+
+                def reduce_first():
+                    save(f"raw{rank}")
+                    return reduce()
+
+                def step(*a, **kw):
+                    if rank == 0:
+                        save("combined")
+                    return inner_step(*a, **kw)
+
+                opt._reduce, opt._inner.step = reduce_first, step
+
+            recs = {}
+            for name, kw in (("a2_mean_after_backward", {"_schedule": "buckets"}),
+                             ("adasum", {"op": hvd.Adasum})):
+                out = train_pp(hvd, fa, fb, mesh, False, {"remat": True}, keep_grads=False,
+                               batch=(PP_B * size, PP_S), opt_kw=kw,
+                               setup=capture if name == "adasum" else None)
+                rec, model = out["rec"], out["model"]
+                check_launches(name, rec, flash_launches(model.cfg.n_layers, remat=True))
+                rec["replicas_bitwise"] = replicas_bitwise(hvd, model, mesh)
+                if not all(rec["replicas_bitwise"].values()):
+                    raise AssertionError(f"{name}: replicas differ: {rec['replicas_bitwise']}")
+                rec["tokens_per_s_per_card"] = PP_B * PP_S / (rec["median_step_ms_2_to_5"]
+                                                              / 1e3)
+                recs[name] = rec
+                del out, model
+                gc.collect()
+                torch.cuda.empty_cache()
+            hvd.barrier()
+            queue.put((rank, recs))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_adasum_1p3b_multi() -> dict:
+    """With four cards: GPT-2 1.3B (flash, remat, bf16 logits) at B=8 a card
+    over dp=4, beside (a2) the mean after backward at the same shape, under
+    ``DistributedOptimizer(AdamW, op=Adasum)`` at its defaults: 48/24/24
+    launches a step, replicas bitwise, and the step-1 combined gradient of
+    ADASUM_TENSORS against ``adasum_numpy`` (f64) of the four ranks' raw
+    gradients, each tensor apart: |got - want| <= 1e-4 |want| + 1e-5
+    max|want| elementwise."""
+    import functools
+    import tempfile
+
+    from horovod_tpu_torch.ops.adasum import adasum_numpy
+
+    cards = torch.cuda.device_count()
+    if cards < ADASUM_CARDS:
+        emit({"phase": "adasum_1p3b_multi", "cards": cards,
+              "result": f"not measured: needs {ADASUM_CARDS} cards"})
+        return {"launches": "not measured"}
+    checks, failed = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_cards(functools.partial(adasum_rank, tmp=tmp), ADASUM_CARDS,
+                            timeout=1200)
+        for n in ADASUM_TENSORS:
+            raw = [torch.load(f"{tmp}/raw{r}_{n}.pt").numpy() for r in range(ADASUM_CARDS)]
+            want = adasum_numpy(raw)[0].astype(np.float64)
+            got = torch.load(f"{tmp}/combined_{n}.pt").numpy().astype(np.float64)
+            scale = float(np.abs(want).max())
+            excess = np.abs(got - want) - (ADASUM_RTOL * np.abs(want) + ADASUM_ATOL * scale)
+            checks[n] = {"numel": int(want.size), "max_abs": scale,
+                         "max_abs_err": float(np.abs(got - want).max()),
+                         "rel_norm_err": float(np.linalg.norm(got - want)
+                                               / np.linalg.norm(want)),
+                         "mean_rel_norm_err": float(np.linalg.norm(got - np.mean(raw, 0))
+                                                    / np.linalg.norm(want)),
+                         "within_tolerance": bool(excess.max() <= 0)}
+            if not checks[n]["within_tolerance"]:
+                failed.append(f"{n}: combined step-1 gradient off adasum_numpy by "
+                              f"{checks[n]['max_abs_err']}")
+            del raw, want, got, excess
+    rec = {"phase": "adasum_1p3b_multi", "cards": cards, "batch_per_card": PP_B, "seq": PP_S,
+           "step1_vs_adasum_numpy": checks, "variants": {}}
+    for name in ranks[0]:
+        rec["variants"][name] = {
+            "rank0": ranks[0][name],
+            "median_step_ms_by_rank": [r[name]["median_step_ms_2_to_5"] for r in ranks],
+            "peak_mem_gb_by_rank": [r[name]["peak_mem_gb"] for r in ranks],
+            "tokens_per_s_per_card": PP_B * PP_S / (
+                max(r[name]["median_step_ms_2_to_5"] for r in ranks) / 1e3)}
+    emit(rec)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"launches": ranks[0]["adasum"]["launches"]}
+
+
+def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm,
+                 later) -> list:
     """The ``kernels`` line from the phases' records: each kernel's
-    launches on the GPT-2 slice (and per path), error, times and bound."""
+    launches on the GPT-2 slice (and per path), error, times and bound.
+    ``later``: the records of the vit, vit_multi, mnist, mnist_multi and
+    adasum_1p3b_multi phases by name (launches "not measured" where a
+    phase had too few cards)."""
     kernels = [
         {"name": "flash_fwd", "launches": sl["launches"]["flash_fwd"],
          "max_abs_err": k1["o_max_abs_err"], "ms": k1["kernel_ms"],
@@ -3671,6 +4270,10 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm) -
                                       for v, rec in zm["variants"].items()}
         kern["launches_tp_sp"] = ts["launches"].get(kern["name"], 0)
         kern["launches_tp_moe"] = tm["launches"].get(kern["name"], 0)
+        for phase, rec in later.items():
+            got = rec["launches"]
+            kern[f"launches_{phase}"] = got if isinstance(got, str) else got.get(
+                kern["name"], 0)
         kern.update(route="cuda", source=SOURCE[kern["name"]], replaces=REPLACES[kern["name"]])
     return kernels
 
@@ -3749,11 +4352,17 @@ def main() -> int:
         tm, tm_controls = phase_tp_moe(fa, fb)
         phase_tp_moe_multi(tm_controls)
         del tm_controls
+        gc.collect()
+        torch.cuda.empty_cache()
+        later = {"vit": phase_vit(fa, fb), "vit_multi": phase_vit_multi(fa, fb),
+                 "mnist": phase_mnist(fa, fb), "mnist_multi": phase_mnist_multi(),
+                 "adasum_1p3b_multi": phase_adasum_1p3b_multi()}
+        phase_adasum_combine(dev)
     finally:
         hvd.shutdown()
 
     emit({"kernels": kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm,
-                                  ts, tm)})
+                                  ts, tm, later)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

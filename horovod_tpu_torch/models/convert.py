@@ -30,6 +30,9 @@ dp_rank=)`` also cuts each parameter with a d_model dimension
 ``shard_range(d_model, dp, dp_rank)`` of it, after the tp cut, and
 ``fsdp_join`` joins the dp ranks' shards back.
 
+``vit_flax_to_torch(params, cfg)`` and ``mnist_flax_to_torch(params, model)``
+do the same for the ViT and the MNIST nets.
+
 ``zero_state_from_jax(state, rank, world)`` takes the JAX traced plane's
 global ``ZeroState`` and returns one rank's shard of it in the form
 ``DistributedOptimizer.load_shard_state`` takes (``optim/zero.py``).
@@ -113,14 +116,33 @@ def _transformer_to_torch(params: Mapping, cfg: TransformerConfig, head: str,
     other = tuple(f"stack/layer_{i}/" for i in range(cfg.n_layers) if i not in layers)
     flat = {k: v for k, v in flat.items() if not k.startswith(other)}
     D = cfg.d_model
-    HHd = cfg.n_heads * cfg.head_dim
     plan = {   # flax path -> (torch key, transform)
         "embed/embedding": ("embed.embedding", None),
-        "embed/pos_embedding": ("embed.pos_embedding", None),
         "ln_f/scale": ("ln_f.weight", None),
         "ln_f/bias": ("ln_f.bias", None),
-        f"{head}/kernel": (f"{head}.weight", lambda a: _dense(a, D)),
+        **_stack_plan(cfg, layers, ep, ep_rank),
     }
+    if cfg.learned_pos:
+        plan["embed/pos_embedding"] = ("embed.pos_embedding", None)
+    if not (cfg.logits_via_embedding and head == "lm_head"):
+        plan[f"{head}/kernel"] = (f"{head}.weight", lambda a: _dense(a, D))
+    out = _apply_plan(flat, plan, "params", cfg.param_dtype)
+    units = shard_range(cfg.d_model, dp, dp_rank)
+    for key, t in out.items():
+        cut, dim = tp_cut(key, cfg, tp, tp_rank), fsdp_dim(key)
+        if cut is not None:
+            t = cut.take(t).contiguous()
+        if dim is not None and dp > 1:
+            t = t.narrow(dim, units.start, len(units)).contiguous()
+        out[key] = t
+    return out
+
+
+def _stack_plan(cfg: TransformerConfig, layers, ep: int = 1, ep_rank: int = 0) -> Dict:
+    """The plan of the blocks ``layers`` of ``stack/layer_{i}``."""
+    D = cfg.d_model
+    HHd = cfg.n_heads * cfg.head_dim
+    plan = {}
     for i in layers:
         src, dst = f"stack/layer_{i}", f"stack.layers.{i}"
         for ln in ("ln1", "ln2"):
@@ -144,17 +166,7 @@ def _transformer_to_torch(params: Mapping, cfg: TransformerConfig, head: str,
             plan[f"{src}/mlp/{name}/kernel"] = (
                 f"{dst}.mlp.{name}.weight", lambda a, n=fan_in: _dense(a, n))
             plan[f"{src}/mlp/{name}/bias"] = (f"{dst}.mlp.{name}.bias", None)
-
-    out = _apply_plan(flat, plan, "params", cfg.param_dtype)
-    units = shard_range(cfg.d_model, dp, dp_rank)
-    for key, t in out.items():
-        cut, dim = tp_cut(key, cfg, tp, tp_rank), fsdp_dim(key)
-        if cut is not None:
-            t = cut.take(t).contiguous()
-        if dim is not None and dp > 1:
-            t = t.narrow(dim, units.start, len(units)).contiguous()
-        out[key] = t
-    return out
+    return plan
 
 
 def flax_to_torch(params: Mapping, cfg: TransformerConfig, ep: int = 1,
@@ -176,6 +188,46 @@ def flax_to_torch(params: Mapping, cfg: TransformerConfig, ep: int = 1,
 def bert_flax_to_torch(params: Mapping, cfg: TransformerConfig, tp: int = 1,
                        tp_rank: int = 0) -> Dict[str, torch.Tensor]:
     return _transformer_to_torch(params, cfg, "mlm_head", tp=tp, tp_rank=tp_rank)
+
+
+def vit_flax_to_torch(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """The ``params`` tree of the JAX ``ViT(cfg)`` as the ``state_dict`` of
+    ``models.vit.ViT(cfg)``: the patch kernel from HWIO to OIHW, ``cls``,
+    ``pos_embedding``, ``ln_f`` and the head (its kernel transposed) across,
+    the stack through the transformer's block plan (unstacked first under
+    ``scan_layers``)."""
+    tcfg = cfg.transformer()
+    if tcfg.stacked:
+        params = unstack_layers(params, tcfg.n_layers)
+    plan = {"patch_embed/kernel": ("patch_embed.weight", _hwio_to_oihw),
+            "patch_embed/bias": ("patch_embed.bias", None),
+            "cls": ("cls", None),
+            "pos_embedding": ("pos_embedding", None),
+            "ln_f/scale": ("ln_f.weight", None),
+            "ln_f/bias": ("ln_f.bias", None),
+            "head/kernel": ("head.weight", lambda a: a.T),
+            "head/bias": ("head.bias", None),
+            **_stack_plan(tcfg, range(tcfg.n_layers))}
+    return _apply_plan(_flatten(params), plan, "params", cfg.param_dtype)
+
+
+def mnist_flax_to_torch(params: Mapping, model) -> Dict[str, torch.Tensor]:
+    """The ``params`` tree of the JAX ``MnistMLP`` or ``MnistCNN`` as the
+    ``state_dict`` of ``model``, the port's net of the same kind: flax's
+    ``Dense_i`` and ``Conv_i`` in order, kernels (in, out) transposed and
+    HWIO to OIHW. ``fc1`` keeps the JAX row order (the port flattens NHWC)."""
+    from .mnist import MnistMLP
+
+    if isinstance(model, MnistMLP):
+        names = {f"Dense_{i}": f"dense.{i}" for i in range(len(model.dense))}
+    else:
+        names = {"Conv_0": "conv1", "Conv_1": "conv2", "Dense_0": "fc1", "Dense_1": "fc2"}
+    plan = {}
+    for src, dst in names.items():
+        plan[f"{src}/kernel"] = (f"{dst}.weight",
+                                 _hwio_to_oihw if src.startswith("Conv") else (lambda a: a.T))
+        plan[f"{src}/bias"] = (f"{dst}.bias", None)
+    return _apply_plan(_flatten(params), plan, "params", torch.float32)
 
 
 def tp_join(shards: Sequence[Mapping[str, torch.Tensor]],

@@ -27,6 +27,7 @@ from torch import nn
 from ..parallel.mesh import Mesh
 from ..parallel.pipeline import gpipe, stage_layers
 from ..parallel.sharding import PIPELINE_RULES
+from . import dropout
 from .transformer import (Dense, Embedder, LayerNorm, TransformerBlock, TransformerConfig,
                           init_param_, run_blocks)
 
@@ -70,6 +71,9 @@ class PipelinedLM(nn.Module):
                                       "not ported (ROADMAP A3: tp under pp)")
         if cfg.attn_impl in ("ring", "ulysses"):
             raise NotImplementedError(f"attn_impl={cfg.attn_impl!r} under pp is not ported")
+        if cfg.logits_via_embedding:
+            raise NotImplementedError("logits_via_embedding under pp is not ported (ROADMAP "
+                                      "A3: the tied head on a cut embedding)")
         device = mesh.device if device is None else device
         self.cfg, self.mesh, self.axis = cfg, mesh, axis
         self.num_microbatches = num_microbatches
@@ -88,7 +92,8 @@ class PipelinedLM(nn.Module):
         weights of the one unpipelined model."""
         held = dict(self.named_parameters())
         template = TransformerBlock(self.cfg, device="meta")
-        names = ["embed.embedding", "embed.pos_embedding"]
+        names = ["embed.embedding"] + (["embed.pos_embedding"] if self.cfg.learned_pos
+                                       else [])
         names += [f"stack.layers.{i}.{n}" for i in range(self.cfg.n_layers)
                   for n, _ in template.named_parameters()]
         names += ["ln_f.weight", "ln_f.bias", "lm_head.weight"]
@@ -105,8 +110,10 @@ class PipelinedLM(nn.Module):
         return run_blocks(stage.layers.values(), act, None, stage.remat)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        x = self.embed(ids)
-        x = gpipe(self._stage_fn, self.stack, x, mesh=self.mesh, axis=self.axis,
-                  num_microbatches=self.num_microbatches)
-        x = self.ln_f(x)
-        return self.lm_head(x).to(self.cfg.logits_dtype)
+        # The JAX stages run their blocks deterministic: no dropout.
+        with dropout.deterministic():
+            x = self.embed(ids)
+            x = gpipe(self._stage_fn, self.stack, x, mesh=self.mesh, axis=self.axis,
+                      num_microbatches=self.num_microbatches)
+            x = self.ln_f(x)
+            return self.lm_head(x).to(self.cfg.logits_dtype)

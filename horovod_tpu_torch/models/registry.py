@@ -1,6 +1,8 @@
 """Model registry: name -> (model factory, synthetic-batch factory).
-Counterpart of ``horovod_tpu/models/registry.py``; the port has the GPT-2,
-BERT and ResNet entries so far.
+Counterpart of ``horovod_tpu/models/registry.py``, with every entry of it:
+``mnist-mlp`` and ``mnist-cnn`` (28x28x1 images), the ResNets (224x224x3),
+the GPT-2 and BERT sizes (token ids) and ``vit-tiny`` to ``vit-l16``
+(images of the configuration's size), each with the JAX registry's batch.
 
 ``make_model(device=None, ...)`` builds on ``hvd.device()`` once
 ``hvd.init()`` has run, else on the current CUDA card; without CUDA it
@@ -16,8 +18,10 @@ import torch
 
 from ..common import basics
 from ..parallel.sharding import DEFAULT_RULES
+from .mnist import MnistCNN, MnistMLP
 from .resnet import RESNET_CONFIGS
 from .transformer import BERT_CONFIGS, GPT2_CONFIGS, TransformerEncoder, TransformerLM
+from .vit import VIT_CONFIGS, ViT
 
 
 @dataclasses.dataclass
@@ -68,7 +72,15 @@ def _transformer_factory(cls, cfg):
     return make
 
 
-def _resnet_factory(ctor):
+def _vit_factory(cfg):
+    def make(device=None, generator=None, mesh=None, **overrides):
+        c = dataclasses.replace(cfg, **overrides) if overrides else cfg
+        return ViT(c, device=_resolve_device(device), generator=generator, mesh=mesh)
+
+    return make
+
+
+def _module_factory(ctor):
     def make(device=None, generator=None, **overrides):
         return ctor(device=_resolve_device(device), generator=generator, **overrides)
 
@@ -77,8 +89,12 @@ def _resnet_factory(ctor):
 
 def _registry() -> Dict[str, ModelSpec]:
     reg: Dict[str, ModelSpec] = {}
+    reg["mnist-mlp"] = ModelSpec("mnist-mlp", _module_factory(MnistMLP),
+                                 _image_batch(28, 1), "image")
+    reg["mnist-cnn"] = ModelSpec("mnist-cnn", _module_factory(MnistCNN),
+                                 _image_batch(28, 1), "image")
     for name, ctor in RESNET_CONFIGS.items():
-        reg[name] = ModelSpec(name, _resnet_factory(ctor), _image_batch(224), "image")
+        reg[name] = ModelSpec(name, _module_factory(ctor), _image_batch(224), "image")
     for name, cfg in GPT2_CONFIGS.items():
         reg[name] = ModelSpec(name, _transformer_factory(TransformerLM, cfg),
                               _token_batch(min(cfg.max_len, 512), cfg.vocab_size),
@@ -87,6 +103,8 @@ def _registry() -> Dict[str, ModelSpec]:
         reg[name] = ModelSpec(name, _transformer_factory(TransformerEncoder, cfg),
                               _token_batch(min(cfg.max_len, 128), cfg.vocab_size),
                               "encoder")
+    for name, cfg in VIT_CONFIGS.items():
+        reg[name] = ModelSpec(name, _vit_factory(cfg), _image_batch(cfg.image_size), "image")
     return reg
 
 

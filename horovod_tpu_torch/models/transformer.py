@@ -9,8 +9,14 @@ The numerics follow the flax model, so weights carried across with
 * LayerNorm reduces in f32 with epsilon 1e-6, E[x^2] - E[x]^2 variance,
   and casts its output to ``dtype``;
 * GELU is the tanh form (flax ``nn.gelu`` default);
-* the token embedding is a lookup in f32 then a cast; positions are added
-  in ``dtype``;
+* the token embedding is a lookup in f32 then a cast; positions, learned
+  or (``learned_pos=False``) the fixed sinusoidal table, are added in
+  ``dtype``;
+* with ``logits_via_embedding`` the LM's head is the token embedding
+  (``Embedder.attend``: no ``lm_head``);
+* ``dropout_rate`` drops the FFN's output, where the JAX ``MlpBlock``
+  does, in forwards run with ``deterministic=False`` under a dropout key
+  (``models/dropout.py``; ``make_train_step(dropout=True)``);
 * logits are cast to ``logits_dtype`` (f32 by default; the training path
   opts into bf16);
 * ``remat`` recomputes each block's forward in backward
@@ -89,12 +95,14 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
 from ..common import basics
+from . import dropout
 from ..ops.flash_attention import flash_attention
 from ..parallel.collectives import all_gather, psum, pvary
 from ..parallel.fsdp import check_fsdp_supported, gathered, mark_fsdp
@@ -116,6 +124,7 @@ class TransformerConfig:
     n_layers: int = 12
     d_ff: int = 3072
     max_len: int = 1024
+    dropout_rate: float = 0.0
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     causal: bool = True
@@ -135,6 +144,10 @@ class TransformerConfig:
     # axis on every leaf) for a dense-FFN stack: what ``models/convert.py``
     # reads and ``PipelinedLM`` needs. The modules stay one per layer.
     scan_layers: bool = False
+    # The LM's head is the token embedding (no lm_head).
+    logits_via_embedding: bool = False
+    # Learned positions, or the fixed sinusoidal table.
+    learned_pos: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -328,7 +341,9 @@ class MultiHeadAttention(nn.Module):
 
 
 class MlpBlock(nn.Module):
-    """d_model -> d_ff (column-parallel under tp) -> d_model (row-parallel)."""
+    """d_model -> d_ff (column-parallel under tp) -> d_model (row-parallel),
+    then dropout where ``dropout_rate`` > 0 (after the sum over tp: every
+    rank of a tp line drops the same elements)."""
 
     def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
@@ -336,9 +351,11 @@ class MlpBlock(nn.Module):
         d_ff = len(shard_range(cfg.d_ff, comm.size, comm.rank))
         self.wi = ColumnParallelDense(cfg.d_model, d_ff, cfg, device=device, comm=comm)
         self.wo = RowParallelDense(d_ff, cfg.d_model, cfg, device=device, comm=comm)
+        self.dropout = dropout.Dropout(cfg.dropout_rate) if cfg.dropout_rate > 0 else None
 
     def forward(self, x):
-        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+        h = self.wo(F.gelu(self.wi(x), approximate="tanh"))
+        return h if self.dropout is None else self.dropout(h)
 
 
 def _lines(mesh):
@@ -524,9 +541,22 @@ class TransformerBlock(nn.Module):
         return h + getattr(self, self.ffn_name)(self.ln2(h))
 
 
+def sinusoidal_positions(max_len: int, d_model: int) -> np.ndarray:
+    """The fixed position table (a copy of the JAX function,
+    ``horovod_tpu/models/transformer.py:417``)."""
+    pos = np.arange(max_len)[:, None]
+    div = np.exp(np.arange(0, d_model, 2) * (-np.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return pe
+
+
 class Embedder(nn.Module):
     """Token and position embeddings; under tp the token table holds this
-    rank's vocabulary rows (``vocab_parallel_embedding``)."""
+    rank's vocabulary rows (``vocab_parallel_embedding``). Without
+    ``learned_pos`` the positions are the sinusoidal table, a buffer that
+    is not part of the ``state_dict``."""
 
     def __init__(self, cfg: TransformerConfig, device=None, mesh=None):
         super().__init__()
@@ -535,16 +565,26 @@ class Embedder(nn.Module):
         self.rows = shard_range(cfg.vocab_size, self.comm.size, self.comm.rank)
         self.embedding = nn.Parameter(torch.empty(
             len(self.rows), cfg.d_model, dtype=cfg.param_dtype, device=device))
-        self.pos_embedding = nn.Parameter(torch.empty(
-            cfg.max_len, cfg.d_model, dtype=cfg.param_dtype, device=device))
+        if cfg.learned_pos:
+            self.pos_embedding = nn.Parameter(torch.empty(
+                cfg.max_len, cfg.d_model, dtype=cfg.param_dtype, device=device))
+        else:
+            self.register_buffer("pos_table", torch.from_numpy(
+                sinusoidal_positions(cfg.max_len, cfg.d_model)).to(device), persistent=False)
 
     def forward(self, ids, offset: int = 0):
         """``offset``: the global position of ``ids``' first column (a
         sequence-parallel rank's block starts at ``sp index · S_local``)."""
         x = vocab_parallel_embedding(ids, gathered(self.embedding), self.rows.start,
                                      self.comm).to(self.dtype)
-        pos = gathered(self.pos_embedding)[offset: offset + ids.shape[1]]
+        table = (gathered(self.pos_embedding) if hasattr(self, "pos_embedding")
+                 else self.pos_table)
+        pos = table[offset: offset + ids.shape[1]]
         return x + pos.to(self.dtype)[None]
+
+    def attend(self, x):
+        """Logits against the token table (the tied head), in ``x``'s dtype."""
+        return F.linear(x, self.embedding.to(x.dtype))
 
 
 # True while remat recomputes a block's forward in backward.
@@ -560,23 +600,36 @@ def _recomputing():
         _RECOMPUTING.reset(token)
 
 
-def _remat_contexts():
-    return contextlib.nullcontext(), _recomputing()
+@contextlib.contextmanager
+def _recompute_under(key):
+    with _recomputing():
+        if key is None:
+            with dropout.deterministic():
+                yield
+        else:
+            with dropout.dropout_key(*key):
+                yield
 
 
 def run_blocks(blocks, x, mask=None, remat: bool = False):
     """``x`` through ``blocks`` in order. With ``remat`` each block's forward
     runs again in backward (``torch.utils.checkpoint``, non-reentrant),
     which keeps only the blocks' inputs between forward and backward, as
-    ``nn.remat(TransformerBlock)`` does; no dropout is ported, so the
-    recomputation is the forward itself and the gradients are unchanged.
-    The recomputation leaves the state a block keeps of its forward
-    (``SwitchMoE``'s ``aux``, ``dropped`` and routes) as the forward set it."""
+    ``nn.remat(TransformerBlock)`` does. The recomputation runs under the
+    forward's dropout key, so it redraws the forward's masks and the
+    gradients are unchanged; it leaves the state a block keeps of its
+    forward (``SwitchMoE``'s ``aux``, ``dropped`` and routes) as the
+    forward set it."""
     from torch.utils.checkpoint import checkpoint
+
+    key = dropout.current_key()
+
+    def contexts():
+        return contextlib.nullcontext(), _recompute_under(key)
 
     for block in blocks:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(block, x, mask, use_reentrant=False, context_fn=_remat_contexts)
+            x = checkpoint(block, x, mask, use_reentrant=False, context_fn=contexts)
         else:
             x = block(x, mask)
     return x
@@ -629,8 +682,12 @@ def init_param_(name: str, p: torch.Tensor, generator: Optional[torch.Generator]
 
 class _Transformer(nn.Module):
     """Embedder, pre-LN stack, final LayerNorm and a bias-free vocabulary
-    head named ``HEAD``. ``forward(ids, mask=None)`` returns (B, S, vocab)
-    logits in ``cfg.logits_dtype``; with a mesh of sp > 1, ``ids`` and
+    head named ``HEAD`` (for the LM with ``logits_via_embedding``, the token
+    embedding, ``Embedder.attend``; under tp > 1 or FSDP that raises
+    ``NotImplementedError``, ROADMAP A3). ``forward(ids, mask=None,
+    deterministic=True)`` returns (B, S, vocab) logits in
+    ``cfg.logits_dtype``; ``deterministic=False`` runs dropout under the
+    caller's ``dropout_key``. With a mesh of sp > 1, ``ids`` and
     ``mask`` are this rank's sequence block and so are the logits; with
     tp > 1 the logits are this rank's vocabulary shard
     (``shard_range(vocab, tp, rank)``).
@@ -659,10 +716,18 @@ class _Transformer(nn.Module):
         self.stack = TransformerStack(cfg, device=device, mesh=mesh)
         self.ln_f = LayerNorm(cfg.d_model, cfg, device=device)
         tp = self.embed.comm
-        self.add_module(self.HEAD, ColumnParallelDense(
-            cfg.d_model, len(self.embed.rows), cfg, bias=False, device=device, comm=tp))
+        # The JAX encoder keeps its mlm_head whatever logits_via_embedding says.
+        self.tied = cfg.logits_via_embedding and self.HEAD == "lm_head"
+        if self.tied and (tp.size > 1 or dp.size > 1):
+            raise NotImplementedError(
+                "logits_via_embedding under tp > 1 or FSDP_RULES is not ported (ROADMAP A3: "
+                "the tied head on a cut embedding)")
+        if not self.tied:
+            self.add_module(self.HEAD, ColumnParallelDense(
+                cfg.d_model, len(self.embed.rows), cfg, bias=False, device=device, comm=tp))
         mark_tensor_parallel(self, cfg, tp)
         mark_fsdp(self, cfg, dp)
+        dropout.number_sites(self)
         self.init_weights(generator)
 
     @torch.no_grad()
@@ -687,11 +752,13 @@ class _Transformer(nn.Module):
     def moe_dropped(self):
         return [b.dropped for b in self.moe_blocks()]
 
-    def forward(self, ids, mask=None):
-        x = self.embed(ids, self.seq_offset(ids.shape[1]))
-        x = self.stack(x, mask)
-        x = self.ln_f(x)
-        return getattr(self, self.HEAD)(x).to(self.cfg.logits_dtype)
+    def forward(self, ids, mask=None, deterministic: bool = True):
+        with dropout.scope(self, deterministic):
+            x = self.embed(ids, self.seq_offset(ids.shape[1]))
+            x = self.stack(x, mask)
+            x = self.ln_f(x)
+            logits = self.embed.attend(x) if self.tied else getattr(self, self.HEAD)(x)
+        return logits.to(self.cfg.logits_dtype)
 
 
 class TransformerLM(_Transformer):

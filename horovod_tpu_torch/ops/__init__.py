@@ -9,8 +9,10 @@ scale through f32 so 1/size does not truncate to zero (ref: ScaleBuffer,
 collective_operations.h:89-125). An f32 SUM or AVERAGE all-reduce takes
 the stateless wire cast that ``HOROVOD_WIRE_COMPRESSION`` selects
 (``ops/wire.py``), per tensor, or on the packed buffer of a grouped call,
-where the JAX traced all-reduce takes it. ADASUM combines the ranks'
-tensors by ``ops/adasum.py``.
+where the JAX traced all-reduce takes it. PRODUCT multiplies the ranks'
+tensors (``dist.ReduceOp.PRODUCT``, which NCCL and gloo both take; the JAX
+traced op gathers and multiplies), between the same prescale and
+postscale. ADASUM combines the ranks' tensors by ``ops/adasum.py``.
 
 The entry points take the JAX package's keywords: ``op=`` or the legacy
 ``average=`` (both at once raise ``ValueError``), ``name=``, which names
@@ -65,6 +67,7 @@ _DIST_OPS = {
     ReduceOp.AVERAGE: dist.ReduceOp.SUM,
     ReduceOp.MIN: dist.ReduceOp.MIN,
     ReduceOp.MAX: dist.ReduceOp.MAX,
+    ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT,
 }
 # Codes for the dtypes and collectives in the header exchange.
 _DTYPES = [torch.float32, torch.float64, torch.float16, torch.bfloat16,
@@ -232,14 +235,15 @@ def _reduce_launch(x: torch.Tensor, op: ReduceOp, postscale_factor: float,
 
 def _allreduce_launch(tensor: torch.Tensor, op: ReduceOp, prescale_factor: float,
                       postscale_factor: float, async_op: bool, owned: bool = False,
-                      comm: Optional[Comm] = None):
+                      comm: Optional[Comm] = None, sizes: Optional[List[int]] = None):
     """The all-reduce without the header; ``owned`` says ``tensor`` may be
-    overwritten. Adasum runs its rounds at once (no ``async`` form)."""
+    overwritten. Adasum runs its rounds at once (no ``async`` form), over
+    each range of ``sizes`` apart where given."""
     x = _scale(tensor, prescale_factor)
     if op == ReduceOp.ADASUM:
         from .adasum import adasum_allreduce
 
-        out = _scale(adasum_allreduce(x, comm), postscale_factor)
+        out = _scale(adasum_allreduce(x, comm, sizes), postscale_factor)
         return None, lambda: out
     if x is tensor and not owned:
         x = x.clone()
@@ -290,15 +294,19 @@ def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
 def _grouped_allreduce(tensors: Sequence[torch.Tensor], op: ReduceOp,
                        prescale_factor: float = 1.0,
                        postscale_factor: float = 1.0,
-                       comm: Optional[Comm] = None) -> List[torch.Tensor]:
-    """The grouped all-reduce without the header."""
+                       comm: Optional[Comm] = None,
+                       per_tensor: bool = False) -> List[torch.Tensor]:
+    """The grouped all-reduce without the header. ``per_tensor``: Adasum
+    combines each tensor's range of the buffer on its own (the other ops
+    are elementwise, so it changes nothing for them)."""
     widest = tensors[0].dtype
     for t in tensors[1:]:
         widest = torch.promote_types(widest, t.dtype)
     with span("hvd.flatten"):
         flat = torch.cat([t.reshape(-1).to(widest) for t in tensors])
+    sizes = [t.numel() for t in tensors] if per_tensor else None
     red = _allreduce_launch(flat, op, prescale_factor, postscale_factor, False,
-                            owned=True, comm=comm)[1]()
+                            owned=True, comm=comm, sizes=sizes)[1]()
     out, off = [], 0
     with span("hvd.unflatten"):
         for t in tensors:
@@ -508,8 +516,11 @@ def reducescatter(tensor: torch.Tensor, op: Optional[ReduceOp] = None,
     rank's ``shape[0] // size`` rows of dim 0; rows past ``size * per`` are
     dropped, as the JAX eager path drops them. NCCL reduce-scatters those
     rows; gloo, which has no reduce-scatter, all-reduces and slices, the
-    JAX eager path's own way."""
+    JAX eager path's own way. PRODUCT is refused, as the JAX traced
+    reducescatter refuses every op but SUM and AVERAGE."""
     rop = _resolve_op(ReduceOp.SUM if op is None else op, None, adasum=False)
+    if rop == ReduceOp.PRODUCT:
+        raise ValueError("reducescatter takes SUM, AVERAGE, MIN or MAX, not PRODUCT")
     label = _label("reducescatter", name)
     _check_device(tensor, label)
     if tensor.dim() == 0:

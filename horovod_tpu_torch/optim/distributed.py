@@ -14,10 +14,11 @@ sums) and then decompressed. Three paths:
   parameters, in reverse registration order (about the order backward
   produces their gradients), are cut into buckets of one wire dtype up to
   ``HOROVOD_FUSION_THRESHOLD`` bytes (``fuse=False``: one gradient a
-  bucket). A hook holds its gradient; a bucket whose gradients have all
-  landed is packed into its buffer in one copy and all-reduced
-  asynchronously while backward goes on, buckets always launching in index
-  order, so every rank launches the same collectives in the same order.
+  bucket; ``fuse=None``, the default, is True for every op but Adasum).
+  A hook holds its gradient; a bucket whose gradients have all landed is
+  packed into its buffer in one copy and all-reduced asynchronously while
+  backward goes on, buckets always launching in index order, so every rank
+  launches the same collectives in the same order.
   ``step()`` gives the parameters that got no gradient zeros, launches what
   is left in that order, waits for every bucket, and writes the reduced
   gradients to ``.grad``. As in Horovod, the reduction overwrites ``.grad``:
@@ -26,8 +27,12 @@ sums) and then decompressed. Three paths:
   ``optim/zero.py``, over the same line as the all-reduce. ``zero=None``
   defers to ``HOROVOD_ZERO_SHARDING``;
 * **Adasum** (``op=Adasum``): after backward, the gradients combined by
-  ``ops/adasum.py``, the grouped buffer as one vector when ``fuse``, else
-  each gradient.
+  ``ops/adasum.py`` in one grouped buffer. At the default (``fuse=None``)
+  and with ``fuse=False`` each gradient is combined on its own, its own
+  dot and norms over its range of the buffer, as the JAX
+  ``DistributedOptimizer`` (``fuse=False`` by default) combines leaf by
+  leaf; ``fuse=True`` combines the buffer as one vector, as the JAX fused
+  path does (``grouped_allreduce``).
 
 On every path a parameter that requires grad but got none on this rank
 (a branch this rank's batch did not take, an MoE expert without tokens)
@@ -69,7 +74,7 @@ from ..parallel.mesh import Comm, current_mesh, resolve_comm
 from . import zero as zero_mod
 
 _GRAD_OPS = (ReduceOp.AVERAGE, ReduceOp.SUM, ReduceOp.MIN, ReduceOp.MAX,
-             ReduceOp.ADASUM)
+             ReduceOp.PRODUCT, ReduceOp.ADASUM)
 
 
 def _check_op(op: ReduceOp):
@@ -108,13 +113,16 @@ def _allreduce_grads(grads: List[torch.Tensor], op: ReduceOp,
                      ) -> List[torch.Tensor]:
     """Compress, all-reduce (one grouped collective when ``fuse``, else one
     per gradient) and decompress (ref: the JAX ``_allreduce_grads``), with
-    no header: the callers check their signature once."""
+    no header: the callers check their signature once. Adasum without
+    ``fuse`` runs in one grouped buffer too, each gradient combined on its
+    own (``ops/adasum.py``), not one exchange a gradient."""
     comp = compression or Compression.none
     packed = [comp.compress(g) for g in grads]
     wire = [c for c, _ in packed]
-    if fuse:
+    if fuse or op == ReduceOp.ADASUM:
         red = ops._grouped_allreduce(wire, op=op, prescale_factor=prescale_factor,
-                                     postscale_factor=postscale_factor, comm=comm)
+                                     postscale_factor=postscale_factor, comm=comm,
+                                     per_tensor=not fuse)
     else:
         red = [ops._allreduce(c, op=op, prescale_factor=prescale_factor,
                               postscale_factor=postscale_factor, comm=comm)
@@ -186,7 +194,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
                  postscale_factor: float = 1.0,
                  backward_passes_per_step: int = 1,
                  compression=None, zero=None, error_feedback=None,
-                 fuse: bool = True, axis_name=None, _schedule: str = "hooks"):
+                 fuse: Optional[bool] = None, axis_name=None, _schedule: str = "hooks"):
         _check_op(op)
         if _schedule not in _SCHEDULES:
             raise ValueError(f"_schedule must be one of {_SCHEDULES}, got {_schedule!r}")
@@ -208,7 +216,9 @@ class DistributedOptimizer(torch.optim.Optimizer):
         self.prescale_factor = prescale_factor
         self.postscale_factor = postscale_factor
         self.compression = compression
-        self.fuse = fuse
+        # Sum, mean, min, max and product keep their buckets; Adasum combines
+        # each gradient apart, as the JAX default does.
+        self.fuse = op != ReduceOp.ADASUM if fuse is None else bool(fuse)
         self.backward_passes_per_step = backward_passes_per_step
         self._passes = 0
         self._acc: Dict[torch.Tensor, torch.Tensor] = {}

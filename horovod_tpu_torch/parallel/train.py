@@ -46,11 +46,19 @@ moment's own tp spec; here each rank's flat buffer already holds only its
 tp shards, so ``DistributedOptimizer(opt, zero=1, axis_name=<the data
 line>)`` is the same layout. ``rules`` is the model's (``FSDP_RULES``: the
 parameters themselves cut over dp, ``parallel/fsdp.py``).
+
+``dropout=True`` runs a model whose ``forward`` takes ``deterministic``
+with ``deterministic=False`` under the dropout key (``dropout_seed``, the
+step count, this rank's dp and sp coordinates) (``models/dropout.py``), the
+JAX step's ``fold_in(PRNGKey(dropout_seed), step)`` rng; with it False
+(the default) such a model runs deterministic, as in JAX, whatever its
+``dropout_rate``.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -59,6 +67,7 @@ import torch.nn.functional as F
 from .. import ops
 from ..common import basics
 from ..common.types import ReduceOp
+from ..models.dropout import dropout_key
 from .mesh import Comm, Mesh
 from .sharding import DEFAULT_RULES, FSDP_RULES, replica_comm
 from .tensor import vocab_parallel_lm_loss, vocab_parallel_token_xent, vocab_parallel_xent
@@ -142,7 +151,8 @@ def _broadcast_(t: torch.Tensor, comm: Comm) -> None:
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable, *, mesh: Mesh, shard_seq: bool = False,
-                    moe_aux_weight: float = 0.0, zero: bool = False, rules=None
+                    moe_aux_weight: float = 0.0, zero: bool = False, rules=None,
+                    dropout: bool = False, dropout_seed: int = 0
                     ) -> Tuple[Callable[[], TrainState], Callable]:
     """Returns ``(init_fn, step_fn)``.
 
@@ -173,7 +183,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     loss of the pipeline's replicated output, and the optimizer still
     reduces over the ("dp", "sp") line only. With tp > 1 the model is built
     on ``mesh`` too and ``loss_fn`` is ``lm_loss`` or ``softmax_xent``,
-    taken over the vocabulary shards."""
+    taken over the vocabulary shards. ``dropout`` and ``dropout_seed``: see
+    the module docstring."""
     from ..optim.distributed import DistributedOptimizer
 
     sp = mesh.shape.get("sp", 1)
@@ -242,11 +253,22 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                             _broadcast_(state[pid][key], comm)
         return TrainState(step=0, model=model, optimizer=optimizer)
 
+    takes_deterministic = "deterministic" in inspect.signature(model.forward).parameters
+    coords = (mesh.coords.get("dp", 0), mesh.coords.get("sp", 0))
+
+    def forward(x, step: int):
+        if not takes_deterministic:
+            return model(x)
+        if not dropout:
+            return model(x, deterministic=True)
+        with dropout_key(dropout_seed, step, *coords):
+            return model(x, deterministic=False)
+
     def step_fn(state: TrainState, inputs: torch.Tensor, labels: torch.Tensor):
         x = _cut(inputs, mesh, shard_seq).to(mesh.device)
         model.train()   # batch statistics, as the JAX step's train=True
         optimizer.zero_grad(set_to_none=True)
-        logits = model(x)
+        logits = forward(x, state.step)
         if sharded_lm:
             loss = _lm_loss_sharded(logits, labels.to(mesh.device), mesh, data.size, vocab)
         else:

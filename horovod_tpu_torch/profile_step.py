@@ -1,7 +1,7 @@
 """Where the time of a training step goes on the card.
 
     python -m horovod_tpu_torch.profile_step
-        [--model gpt2-small|resnet50|bert-base] [--steps 3] [--out PATH]
+        [--model gpt2-small|resnet50|bert-base|vit-l16] [--steps 3] [--out PATH]
         [--zero 0|1|2] [--no-overlap]
         [--attn flash|dense|ring|ulysses] [--sp-use-flash] [--sp N]
         [--n-experts E] [--ep N] [--seq S] [--pp N] [--tp N] [--remat] [--fsdp]
@@ -13,7 +13,10 @@ S=2048, bf16 logits, ``DistributedOptimizer(AdamW)``), run with
 ``fuse_bn_conv_stages`` = (1,) and (); or BERT-base (B=256, S=128, bf16
 logits, the key padding mask of chip_smoke's BERT phase, gradients from
 ``distributed_value_and_grad(..., compression=Compression.fp16)``, a plain
-AdamW step), run with ``attn_impl`` = flash and dense. For each variant it
+AdamW step), run with ``attn_impl`` = flash and dense; or ViT-L/16 (B=32 a
+card over dp, 224x224, dense attention as the JAX ViT runs,
+``make_train_step`` with SGD(0.01, momentum=0.9), bench.py's seeded images
+and labels), run once ("dense"). For each variant it
 warms up, times
 ``--steps`` steps by host clock around ``torch.cuda.synchronize()``, and
 traces the same number of steps with ``torch.profiler`` to sum device time
@@ -94,9 +97,11 @@ import numpy as np
 B, S = 4, 2048
 B_1P3B = 8           # the global batch of the pipeline slice
 RESNET_B, RESNET_HW = 256, 224
+VIT_B = 32           # a card's batch (examples/jax_synthetic_benchmark.py's default)
 BERT_B, BERT_S, BERT_MIN_LEN = 256, 128, 64
 VARIANTS = {"gpt2-small": ("flash", "dense"), "gpt2-1p3b": ("flash",),
-            "resnet50": ("fused", "unfused"), "bert-base": ("flash", "dense")}
+            "resnet50": ("fused", "unfused"), "bert-base": ("flash", "dense"),
+            "vit-l16": ("dense",)}
 RANGES = ("hvd.flatten", "hvd.unflatten", "Optimizer.step", "hvd.moe.", "hvd.sp.",
           "hvd.ep.", "hvd.pp.", "hvd.tp.", "hvd.fsdp.")
 
@@ -167,16 +172,21 @@ def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
     mesh = create_mesh({"dp": hvd.size()})
     if model_name == "bert-base":
         return _build_bert(spec, variant, dev, gen)
-    model = spec.make_model(device=dev, generator=gen,
-                            fuse_bn_conv_stages=(1,) if variant == "fused" else ())
+    if model_name.startswith("vit"):
+        model = spec.make_model(device=dev, generator=gen, mesh=mesh)
+        batch = VIT_B * hvd.size()
+    else:
+        model = spec.make_model(device=dev, generator=gen,
+                                fuse_bn_conv_stages=(1,) if variant == "fused" else ())
+        batch = RESNET_B
     opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.01,
                                                    momentum=0.9))
     rng = np.random.RandomState(42)   # bench.py's synthetic batch
     images = torch.from_numpy(
-        rng.rand(RESNET_B, RESNET_HW, RESNET_HW, 3).astype(np.float32)).to(dev)
-    labels = torch.from_numpy(rng.randint(0, 1000, size=(RESNET_B,), dtype=np.int32)).to(dev)
+        rng.rand(batch, RESNET_HW, RESNET_HW, 3).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.randint(0, 1000, size=(batch,), dtype=np.int32)).to(dev)
     init_fn, step_fn = train.make_train_step(model, opt, train.softmax_xent, mesh=mesh)
-    return step_fn, init_fn(), images, labels, RESNET_B, "images"
+    return step_fn, init_fn(), images, labels, batch // hvd.size(), "images"
 
 
 def _build_bert(spec, variant: str, dev, gen):

@@ -1,8 +1,9 @@
 """Rank bodies for tests/test_torch_port_distributed.py,
 tests/test_torch_port_resnet.py, tests/test_torch_port_collectives.py,
 tests/test_torch_port_bert.py, tests/test_torch_port_{zero,adasum,
-sync_bn,overlap}.py, tests/test_torch_port_{sp,moe,mesh,pipeline,tp,tp_sp}.py
-and tests/test_torch_port_{zero_mesh,fsdp}.py, in a
+sync_bn,overlap}.py, tests/test_torch_port_{sp,moe,mesh,pipeline,tp,tp_sp}.py,
+tests/test_torch_port_{zero_mesh,fsdp}.py and tests/test_torch_port_{vit,
+mnist}.py, in a
 module of their own so spawned ranks import torch and horovod_tpu_torch
 only (no jax, no test module). Each rank returns a dict of numpy arrays
 through a queue; ``spawn_world`` runs a named body on a world of gloo
@@ -213,6 +214,8 @@ def _run_collectives(rank: int, size: int) -> dict:
         out[f"rs_{op}"] = hvd.reducescatter(inp["rs"], op=rop).numpy()
         out[f"even_rs_{op}"] = hvd.reducescatter(inp["even"], op=rop).numpy()
     out["rs_default"] = hvd.reducescatter(inp["rs"]).numpy()
+    out["rs_product"] = _error(lambda: hvd.reducescatter(inp["rs"], op=hvd.Product))
+    _run_product(hvd, torch, inp["even"], out)
     h = hvd.allreduce_async(inp["even"], average=False, name="grads")
     while not hvd.poll(h):
         pass
@@ -231,6 +234,29 @@ def _run_collectives(rank: int, size: int) -> dict:
     out["after_errors"] = hvd.allreduce(torch.ones(1), average=False).numpy()
     hvd.barrier()
     return out
+
+
+# PRODUCT's cases (key -> prescale, postscale), each held against the JAX
+# traced all-reduce.
+PRODUCT_SCALES = {"prod": (1.0, 1.0), "prod_scaled": (0.5, 3.0)}
+
+
+def _run_product(hvd, torch, x, out: dict) -> None:
+    """PRODUCT through the all-reduce, its async form, the grouped
+    all-reduce and ``DistributedOptimizer`` (SGD(1.0) from zeros: the step
+    is minus the reduced gradient)."""
+    for key, (pre, post) in PRODUCT_SCALES.items():
+        out[key] = hvd.allreduce(x, op=hvd.Product, prescale_factor=pre,
+                                 postscale_factor=post).numpy()
+    out["prod_async"] = hvd.synchronize(hvd.allreduce_async(
+        x, op=hvd.Product, prescale_factor=2.0)).numpy()
+    group = hvd.grouped_allreduce([x, 2 * x[:1]], op=hvd.Product)
+    out["prod_grouped_0"], out["prod_grouped_1"] = (t.numpy() for t in group)
+    w = torch.nn.Parameter(torch.zeros_like(x))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1.0), op=hvd.Product)
+    w.grad = x.clone()
+    opt.step()
+    out["prod_opt"] = (-w.detach()).numpy()
 
 
 def collectives_worker(rank: int, size: int, init_file: str, queue) -> None:
@@ -556,14 +582,15 @@ def _run_adasum(rank: int, size: int) -> dict:
     out = {"allreduce": hvd.allreduce(x, op=hvd.Adasum).numpy(),
            "adasum_allreduce": hvd.adasum_allreduce(x).numpy(),
            "input_kept": torch.equal(x, torch.from_numpy(vecs[rank]))}
-    for fuse in (True, False):
+    for fuse in (True, False, None):     # None: the default
         params = [torch.nn.Parameter(torch.zeros(s)) for s in ADASUM_SHAPES.values()]
-        opt = hvd.DistributedOptimizer(torch.optim.SGD(params, lr=1.0), op=hvd.Adasum,
-                                       fuse=fuse)
+        kw = {} if fuse is None else {"fuse": fuse}
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(params, lr=1.0), op=hvd.Adasum, **kw)
         for p, k in zip(params, ADASUM_SHAPES):
             p.grad = torch.from_numpy(grads[rank][k].copy())
         opt.step()
-        out[f"opt_fuse{int(fuse)}"] = [(-p.detach()).numpy() for p in params]
+        key = "opt_default" if fuse is None else f"opt_fuse{int(fuse)}"
+        out[key] = [(-p.detach()).numpy() for p in params]
     hvd.barrier()
     return out
 
@@ -2084,4 +2111,111 @@ def _run_fsdp_world(rank: int, size: int, params_f32, params_bf16) -> dict:
     out[f"fsdp_{name}_bf16"] = _zm_train(hvd, torch, shape, params_bf16, "bfloat16",
                                          fsdp=True)
     out["raises"] = _fsdp_raises(hvd, torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ViT over dp and dropout under tp (tests/test_torch_port_vit.py)
+VIT_B, VIT_STEPS, VIT_LR = 4, 3, 0.01
+DROP_RATE, DROP_SEED, DROP_STEPS = 0.25, 7, 2
+
+
+def vit_batch(seed: int = 3):
+    """vit-tiny's registry images (numpy seed ``seed``) and labels in [0, 10)."""
+    rng = np.random.RandomState(seed)
+    images = rng.rand(VIT_B, 32, 32, 3).astype(np.float32)
+    return images, rng.randint(0, 10, VIT_B).astype(np.int32)
+
+
+def vit_train(hvd, torch, state_dict, mesh, steps: int = VIT_STEPS) -> dict:
+    """vit-tiny in f32 from ``state_dict``, ``steps`` SGD(0.01, momentum
+    0.9) steps through make_train_step on ``mesh`` on the global batch."""
+    import dataclasses
+
+    from horovod_tpu_torch.models.vit import VIT_CONFIGS, ViT
+    from horovod_tpu_torch.parallel.train import make_train_step, softmax_xent
+
+    model = ViT(dataclasses.replace(VIT_CONFIGS["vit-tiny"], dtype=torch.float32),
+                device="cpu", mesh=mesh)
+    model.load_state_dict(state_dict)
+    opt = torch.optim.SGD(model.parameters(), lr=VIT_LR, momentum=0.9)
+    init_fn, step_fn = make_train_step(model, opt, softmax_xent, mesh=mesh)
+    state = init_fn()
+    images, labels = (torch.from_numpy(a) for a in vit_batch())
+    losses = []
+    for _ in range(steps):
+        state, loss = step_fn(state, images, labels)
+        losses.append(float(loss))
+    return {"losses": np.array(losses),
+            "params": {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}}
+
+
+def dropout_gpt(torch, mesh, rate: float = DROP_RATE):
+    """gpt2-tiny at vocab 128 in f32 with FFN dropout, torch seed 0, on
+    ``mesh`` (None: no mesh)."""
+    import dataclasses
+
+    from horovod_tpu_torch.models.transformer import GPT2_CONFIGS, TransformerLM
+
+    cfg = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], vocab_size=128, max_len=16,
+                              dtype=torch.float32, dropout_rate=rate)
+    return TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0),
+                         mesh=mesh)
+
+
+def dropout_train(hvd, torch, mesh, steps: int = DROP_STEPS) -> dict:
+    """``steps`` SGD(0.1) steps of ``dropout_gpt`` with make_train_step(dropout=
+    True, dropout_seed=DROP_SEED); the losses and the tp-joined parameters."""
+    from horovod_tpu_torch.models.convert import tp_join
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    model = dropout_gpt(torch, mesh)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh, dropout=True,
+                                       dropout_seed=DROP_SEED)
+    state = init_fn()
+    ids = torch.from_numpy(np.random.RandomState(9).randint(0, 128, (4, 16)).astype(np.int32))
+    losses = []
+    for _ in range(steps):
+        state, loss = step_fn(state, ids, ids)
+        losses.append(float(loss))
+    sd = {k: v.detach() for k, v in model.state_dict().items()}
+    out = {"losses": np.array(losses)}
+    tp = mesh.shape.get("tp", 1) if mesh is not None else 1
+    if tp > 1:
+        # The replicated tensors, bitwise on the tp line (the same masks).
+        out["replicas_bitwise"] = all(
+            torch.equal(p.detach(), hvd.broadcast(p.detach(), root_rank=0, axis_name="tp"))
+            for p in model.parameters() if not hasattr(p, "tensor_parallel"))
+        sd = tp_join([{k: hvd.broadcast(v, root_rank=r, axis_name="tp") for k, v in sd.items()}
+                      for r in range(tp)], model.cfg)
+    out["params"] = {k: v.numpy().copy() for k, v in sd.items()}
+    return out
+
+
+def _run_vit_world(rank: int, size: int, state_dict) -> dict:
+    """vit-tiny over dp=2; then gpt2-tiny with dropout over tp=2, whose
+    replicated parameters must stay bitwise on the tp line."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    out = {"vit": vit_train(hvd, torch, state_dict, hvd.create_mesh({"dp": size})),
+           "dropout_tp": dropout_train(hvd, torch, hvd.create_mesh({"tp": size}))}
+    hvd.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train_mnist on 2 ranks (tests/test_torch_port_mnist.py)
+MNIST_ARGS = ["--epochs", "1", "--steps", "3", "--batch-size", "16"]
+
+
+def _run_mnist_world(rank: int, size: int) -> dict:
+    from horovod_tpu_torch import train_mnist
+
+    # train_mnist shuts the world down when it returns.
+    out = train_mnist.main(MNIST_ARGS + ["--device", "cpu"])
+    for key in ("initial", "final"):
+        out[key] = {k: v.numpy() for k, v in out[key].items()}
     return out

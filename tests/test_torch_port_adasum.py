@@ -6,18 +6,23 @@ rank 0's so the projection terms matter. Checked: ``hvd.allreduce(op=
 Adasum)`` and ``hvd.adasum_allreduce``, every rank bitwise the same;
 ``DistributedOptimizer(op=Adasum)`` with SGD(1.0), whose step is minus
 the combined gradient: one vector of the grouped buffer when ``fuse``, each
-gradient apart otherwise. A world that is not a power of two raises.
+gradient apart otherwise and at the default, where it is also held
+against the JAX ``DistributedOptimizer(op=Adasum)`` at its default in
+``shard_map`` (ROADMAP C6: the port's default used to combine one vector,
+9.5% away at 4 ranks). A world that is not a power of two raises.
 
 Tolerances: tests/test_adasum.py's, rtol 1e-4 and atol 1e-5 against the f64
 oracle and against JAX.
 """
 import jax
 import numpy as np
+import optax
 import pytest
 import torch
 from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
+import horovod_tpu as hvd_jax
 from horovod_tpu.ops.adasum import adasum_allreduce as jax_adasum
 from horovod_tpu.ops.adasum import adasum_numpy as jax_adasum_numpy
 from horovod_tpu.utils.compat import shard_map
@@ -79,6 +84,43 @@ def test_distributed_optimizer_adasum(world, fuse):
     for r in range(n):
         for got, w in zip(port[r][f"opt_fuse{int(fuse)}"], want):
             np.testing.assert_allclose(got, w, rtol=RTOL, atol=ATOL)
+
+
+def _jax_optimizer_default(grads):
+    """The JAX ``DistributedOptimizer(sgd(1.0), op=Adasum)`` at its defaults
+    in ``shard_map``, one rank's gradients a device: minus its update."""
+    n = len(grads)
+    keys = list(workers.ADASUM_SHAPES)
+    hvd_jax.shutdown()
+    hvd_jax.init(devices=jax.devices()[:n])
+    try:
+        tx = hvd_jax.DistributedOptimizer(optax.sgd(1.0), op=hvd_jax.Adasum)
+
+        def step(g):
+            g = {k: v[0] for k, v in g.items()}
+            updates, _ = tx.update(g, tx.init(g), g)
+            return {k: -v[None] for k, v in updates.items()}
+
+        run = shard_map(step, mesh=hvd_jax.mesh(), in_specs=(P("hvd"),),
+                        out_specs=P("hvd"))
+        out = run({k: np.stack([g[k] for g in grads]) for k in keys})
+    finally:
+        hvd_jax.shutdown()
+    return [[np.asarray(out[k])[r] for k in keys] for r in range(n)]
+
+
+def test_distributed_optimizer_adasum_default_is_per_gradient_as_jax(world):
+    n, port = world
+    _, grads = workers.adasum_inputs(n)
+    keys = list(workers.ADASUM_SHAPES)
+    oracle = [adasum_numpy([g[k] for g in grads])[0] for k in keys]
+    jax_out = _jax_optimizer_default(grads)
+    for r in range(n):
+        for got, w, j in zip(port[r]["opt_default"], oracle, jax_out[r]):
+            np.testing.assert_allclose(got, w, rtol=RTOL, atol=ATOL)
+            np.testing.assert_allclose(got, j, rtol=RTOL, atol=ATOL)
+        for got, ref in zip(port[r]["opt_default"], port[0]["opt_default"]):
+            np.testing.assert_array_equal(got, ref)
 
 
 def test_three_ranks_raise(monkeypatch):

@@ -1,8 +1,17 @@
 """Single-process surface of the port on the CPU: init/shutdown, topology
-from the launcher environment, the dp-only mesh, and every other mesh axis
-at one rank."""
+from the launcher environment, the dp-only mesh, every other mesh axis at
+one rank, and PRODUCT at one rank against the JAX traced op in
+``shard_map`` on one CPU device (f32, rtol 1e-6)."""
+import jax
+import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh
+from jax.sharding import PartitionSpec as P
+
+from horovod_tpu.common.types import ReduceOp as JaxReduceOp
+from horovod_tpu.ops import traced
+from horovod_tpu.utils.compat import shard_map
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.parallel.mesh import create_mesh
@@ -70,17 +79,28 @@ def test_mesh_must_cover_the_world(cpu_world):
         create_mesh({"dp": 2})
 
 
+def _jax_product(x: np.ndarray, pre: float = 1.0, post: float = 1.0) -> np.ndarray:
+    """``traced.allreduce(op=PRODUCT)`` over a one-device mesh."""
+    mesh = Mesh(np.array(jax.devices()[:1]), ("hvd",))
+    f = shard_map(lambda v: traced.allreduce(v, "hvd", JaxReduceOp.PRODUCT, pre, post),
+                  mesh=mesh, in_specs=P(), out_specs=P())
+    return np.asarray(f(x))
+
+
 @pytest.mark.parametrize("kw", [{"zero": 1}, {"error_feedback": True},
                                 {"op": hvd.Product}, {"op": hvd.Adasum}])
 def test_distributed_optimizer_refuses_unported_modes(cpu_world, kw):
-    """PRODUCT is still not ported; ZeRO, error feedback and Adasum are
-    (optim/zero.py, ops/adasum.py) and build."""
-    opt = torch.optim.SGD([torch.nn.Parameter(torch.zeros(1))], lr=1.0)
+    """Every mode is ported now and builds: ZeRO, error feedback, Adasum
+    (optim/zero.py, ops/adasum.py) and PRODUCT, whose SGD(1.0) step from
+    zeros is minus the JAX traced product of the gradient."""
+    w = torch.nn.Parameter(torch.zeros(3))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1.0), **kw)
+    assert isinstance(opt, hvd.DistributedOptimizer)
     if kw.get("op") == hvd.Product:
-        with pytest.raises(NotImplementedError, match="PRODUCT"):
-            hvd.DistributedOptimizer(opt, **kw)
-    else:
-        assert isinstance(hvd.DistributedOptimizer(opt, **kw), hvd.DistributedOptimizer)
+        g = np.array([0.5, -2.0, 3.0], np.float32)
+        w.grad = torch.from_numpy(g.copy())
+        opt.step()
+        np.testing.assert_allclose(-w.detach().numpy(), _jax_product(g), rtol=1e-6)
 
 
 def test_distributed_optimizer_shares_inner_state(cpu_world):
@@ -97,5 +117,13 @@ def test_distributed_optimizer_shares_inner_state(cpu_world):
 
 
 def test_unported_reduce_ops_raise(cpu_world):
-    with pytest.raises(NotImplementedError):
-        hvd.allreduce(torch.ones(2), op=hvd.Product)
+    """PRODUCT, the last reduce op to port, now runs: the all-reduce, its
+    async form and the grouped all-reduce against the JAX traced op."""
+    x = np.array([[1.5, -2.0], [0.25, 4.0]], np.float32)
+    got = hvd.allreduce(torch.from_numpy(x), op=hvd.Product, prescale_factor=0.5,
+                        postscale_factor=3.0)
+    np.testing.assert_allclose(got.numpy(), _jax_product(x, 0.5, 3.0), rtol=1e-6)
+    h = hvd.allreduce_async(torch.from_numpy(x), op=hvd.Product)
+    np.testing.assert_allclose(hvd.synchronize(h).numpy(), _jax_product(x), rtol=1e-6)
+    (grouped,) = hvd.grouped_allreduce([torch.from_numpy(x)], op=hvd.Product)
+    np.testing.assert_allclose(grouped.numpy(), _jax_product(x), rtol=1e-6)

@@ -28,11 +28,14 @@ import optax
 import pytest
 import torch
 from flax import linen as nn
+from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
 import horovod_tpu as hvd_jax
 from horovod_tpu.models.transformer import BERT_CONFIGS as JAX_CONFIGS
+from horovod_tpu.common.types import ReduceOp
 from horovod_tpu.models.transformer import TransformerEncoder as JaxEncoder
+from horovod_tpu.ops import traced
 from horovod_tpu.ops.compression import Compression as JaxCompression
 from horovod_tpu.parallel.train import lm_loss as jax_lm_loss
 from horovod_tpu.utils.compat import shard_map
@@ -260,13 +263,20 @@ def test_compressed_distributed_optimizer_matches_jax(two_ranks):
         np.testing.assert_allclose(res["fp16_sgd"], w0 - got, rtol=1e-7, atol=1e-7)
 
 
-def test_axis_name_other_than_dp_raises():
+def test_axis_name_other_than_dp_raises(cpu_world):
+    """A tp or sp axis raises; PRODUCT, ported now, runs: its gradients
+    against the JAX traced product of the same gradients at one rank."""
     with pytest.raises(ValueError, match="axis_name"):
         hvd.distributed_value_and_grad(lambda p: p["w"].sum(), axis_name="tp")
     with pytest.raises(ValueError, match="axis_name"):
         hvd.DistributedGradientTape(lambda p: p["w"].sum(), axis_name="sp")
-    with pytest.raises(NotImplementedError, match="PRODUCT"):
-        hvd.distributed_value_and_grad(lambda p: p["w"].sum(), op=hvd.Product)
+    w = np.array([1.0, -2.0, 0.5], np.float32)
+    vag = hvd.distributed_value_and_grad(lambda p: (p["w"] ** 3).sum(), op=hvd.Product)
+    _, grads = vag({"w": torch.from_numpy(w)})
+    mesh = Mesh(np.array(jax.devices()[:1]), ("hvd",))
+    want = shard_map(lambda g: traced.allreduce(g, "hvd", ReduceOp.PRODUCT), mesh=mesh,
+                     in_specs=P(), out_specs=P())(3 * w ** 2)
+    np.testing.assert_allclose(grads["w"].numpy(), np.asarray(want), rtol=1e-6)
 
 
 def test_has_aux_and_unused_parameters(cpu_world):

@@ -15,7 +15,9 @@ results come from two references on the same numpy inputs:
 * ``horovod_tpu.ops.traced`` in ``shard_map`` on a CPU mesh of as many
   devices: even allgather, and reducescatter under SUM, AVERAGE (its
   psum_scatter) and MIN, MAX (its all-reduce, sliced by axis index, the
-  JAX eager path's way).
+  JAX eager path's way), and PRODUCT (its all-gather and product) through
+  the all-reduce with and without pre- and postscale, the async form, the
+  grouped all-reduce and ``DistributedOptimizer``.
 
 Tolerances: data movement exact; reductions 1e-6 (f32).
 """
@@ -41,6 +43,8 @@ import _torch_port_workers as workers
 
 SIZES = [2, 3]
 TOL = 1e-6
+PRODUCT_KEYS = (*workers.PRODUCT_SCALES, "prod_async", "prod_grouped_0",
+                "prod_grouped_1", "prod_opt")
 AG_KEYS = ["ag_f32", "ag_u8", "ag_bool"]
 
 
@@ -135,9 +139,16 @@ def _jax_traced(size: int) -> list:
             full = traced.allreduce(xs, "hvd", ReduceOp[op])
             outs[f"even_rs_{op}"] = jax.lax.dynamic_slice_in_dim(
                 full, axis_index("hvd") * per, per)
+        for key, (pre, post) in workers.PRODUCT_SCALES.items():
+            outs[key] = traced.allreduce(xs, "hvd", ReduceOp.PRODUCT, pre, post)
+        outs["prod_async"] = traced.allreduce(xs, "hvd", ReduceOp.PRODUCT, 2.0)
+        outs["prod_grouped_0"], outs["prod_grouped_1"] = traced.grouped_allreduce(
+            [xs, 2 * xs[:1]], "hvd", ReduceOp.PRODUCT)
+        outs["prod_opt"] = traced.grouped_allreduce([xs], "hvd", ReduceOp.PRODUCT)[0]
         return outs
 
-    keys = ["even"] + [f"even_rs_{op}" for op in workers.REDUCE_OPS]
+    keys = (["even"] + [f"even_rs_{op}" for op in workers.REDUCE_OPS]
+            + list(PRODUCT_KEYS))
     run = shard_map(body, mesh=mesh, in_specs=P("hvd"),
                     out_specs={k: P("hvd") for k in keys})
     got = {k: np.split(np.asarray(v), size) for k, v in run(x).items()}
@@ -228,6 +239,15 @@ def test_reducescatter_matches_traced(world, op):
     for r in range(size):
         np.testing.assert_allclose(port[r][f"even_rs_{op}"], tr[r][f"even_rs_{op}"],
                                    rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("key", PRODUCT_KEYS)
+def test_product_matches_traced(world, key):
+    size, port, _, tr = world
+    for r in range(size):
+        np.testing.assert_allclose(port[r][key], tr[r][key], rtol=TOL, atol=TOL)
+        np.testing.assert_array_equal(port[r][key], port[0][key])
+    assert port[0]["rs_product"].startswith("ValueError"), port[0]["rs_product"]
 
 
 @pytest.mark.parametrize("op", workers.REDUCE_OPS)

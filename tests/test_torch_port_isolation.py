@@ -40,7 +40,12 @@ MODULES = [
     "horovod_tpu_torch.parallel.tensor",
     "horovod_tpu_torch.parallel.fsdp",
     "horovod_tpu_torch.train_gpt2",
+    "horovod_tpu_torch.train_mnist",
+    "horovod_tpu_torch.train_synthetic",
     "horovod_tpu_torch.models.transformer",
+    "horovod_tpu_torch.models.dropout",
+    "horovod_tpu_torch.models.vit",
+    "horovod_tpu_torch.models.mnist",
     "horovod_tpu_torch.models.resnet",
     "horovod_tpu_torch.models.registry",
     "horovod_tpu_torch.models.convert",
@@ -136,13 +141,14 @@ def test_init_without_cuda_and_without_cpu_request_raises():
     assert proc.returncode == 0, proc.stderr + proc.stdout
 
 
-@pytest.mark.parametrize("name", ["resnet50", "gpt2-tiny", "bert-tiny"])
+@pytest.mark.parametrize("name", ["resnet50", "gpt2-tiny", "bert-tiny", "vit-tiny",
+                                  "mnist-cnn"])
 def test_make_model_without_cuda_and_without_cpu_request_raises(name):
     code = (
         "import torch, horovod_tpu_torch as hvd\n"
         "from horovod_tpu_torch.models.registry import get_model\n"
         "spec = get_model(%r)\n"
-        "kw = {'num_filters': 8, 'num_classes': 3} if spec.kind == 'image' else {}\n"
+        "kw = {'num_filters': 8, 'num_classes': 3} if spec.name == 'resnet50' else {}\n"
         "try:\n"
         "    spec.make_model(**kw)\n"
         "except RuntimeError as e:\n"
