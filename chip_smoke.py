@@ -174,19 +174,37 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    (``held_closed_form``); per rank the step ms, tokens/s and peak memory
    beside the replicated run's. With one card its line says "not
    measured";
-20. tp composed with sp (``tp_sp``): GPT-2 1.3B as in 14 with ``max_len``
+20. tp under pp (``pp_tp``): GPT-2 1.3B as in 14, ``PipelinedLM`` on a pp=1
+   x dp=1 x tp=1 mesh built through the tp-aware stage (the tp layers on a
+   line of one member, the column-parallel head), 5 steps whose step-1
+   loss and gradients must be bitwise 14's, 48 launches of K1 and 24 of
+   each K2 kernel a step; K1 and the K2 pair at the pp x tp path's
+   microbatch shape (1, 2048, 8, 128) against their plain versions, timed
+   beside SDPA and the aten flash backward;
+21. with four cards (``pp_tp_multi``), one NCCL rank per card on pp=2 x
+   tp=2 with 8 microbatches against 14's run: (pt1) bf16, flash, remat, 5
+   steps, (pt1f) the same in f32 with dense attention, one step, against
+   the f32 control of 17. Losses as in 15; the step-1 gradients, the
+   stages' tp shards joined to the full model, by 17's gates; per rank 192
+   launches of K1 and 96 of each K2 kernel a step (none in f32), the
+   parameters held at their closed form, every line of copies bitwise (the
+   tp-replicated tensors on their tp line, the pp-replicated ones on their
+   pp line); per rank the step ms, tokens/s and peak memory beside the
+   pp=2 and tp=2 steps PERF.md records (context, no gain claimed). With fewer
+   cards its line says "not measured";
+22. tp composed with sp (``tp_sp``): GPT-2 1.3B as in 14 with ``max_len``
    8192 at B=2, S=8192 (the same 16,384 tokens a step), on a dp=1 x sp=1 x
    tp=1 mesh through the tp x sp code, 5 steps each with flash and with
    the ring (dense attention on a line of one member), each bitwise the
    model built with no mesh (losses and step-1 gradients); 48 launches of
    K1 and 24 of each K2 kernel a step with flash; the world-1 controls of
-   21 (flash; the ring's arithmetic on one card over 2 blocks,
+   23 (flash; the ring's arithmetic on one card over 2 blocks,
    ``ring_on_one_card``, in bf16 and, one step, in f32); K1 and the K2
    pair at (2, 8192, H, 128) for H in 16, 8 and 4 against their plain
    versions (at B=1 where their f32 scores pass 4 GiB), timed beside SDPA
    and the aten flash backward;
-21. with four cards (``tp_sp_multi``), one NCCL rank per card on dp=1 x
-   sp=2 x tp=2 against 20's controls: (ts1) the ring, (ts2) Ulysses through
+23. with four cards (``tp_sp_multi``), one NCCL rank per card on dp=1 x
+   sp=2 x tp=2 against 22's controls: (ts1) the ring, (ts2) Ulysses through
    flash (K1/K2 at (2, 8192, 4, 128) a rank), (ts3) the gathered flash
    ((2, 8192, 8, 128) a rank), (ts1f) the ring in f32, one step. Losses as
    in 15; the step-1 gradients joined over tp by ``grad_gates``: the f32
@@ -197,16 +215,16 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    replicas bitwise on every tp and sp line; per rank the step ms,
    tokens/s and peak memory. With fewer cards its line says "not
    measured";
-22. MoE under tensor parallelism (``tp_moe``): GPT-2 1.3B with 8 Switch
+24. MoE under tensor parallelism (``tp_moe``): GPT-2 1.3B with 8 Switch
    experts in every other block (capacity 1.25, auxiliary loss 0.01;
    4,237,295,616 parameters, whose AdamW state does not fit one card) at
    full width and 16 layers, B=8, S=2048, bf16, flash, remat, AdamW, built
    on a dp=1 x ep=1 x sp=1 x tp=1 mesh through the MoE-under-tp code and
    with no mesh, 5 steps each: losses, step-1 gradients and dropped tokens
    bitwise equal, 32 launches of K1 and 16 of each K2 kernel a step; then
-   the full-depth world-1 controls of 23, one forward and backward each
+   the full-depth world-1 controls of 25, one forward and backward each
    with no optimizer: bf16 with flash, and f32 with dense attention;
-23. with four cards (``tp_moe_multi``), each variant on its own world of
+25. with four cards (``tp_moe_multi``), each variant on its own world of
    one NCCL rank per card, at full depth: (tm1) tp=2 x ep=2, (tm2) tp=4,
    (tm3) dp=2 x tp=2, (tm4) ep=4 (13's (e1) path at this size, the
    reference of the others' 5 losses), (tm1f) tp=2 x ep=2 in f32 with
@@ -219,7 +237,7 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    replicas bitwise on every line of copies; per rank the step ms,
    tokens/s and peak memory. With fewer cards its line says "not
    measured";
-24. ViT-L/16 (``vit``; BASELINE.json's "ViT-L/16 ImageNet DP": 24 x 1024,
+26. ViT-L/16 (``vit``; BASELINE.json's "ViT-L/16 ImageNet DP": 24 x 1024,
    16 heads, d_ff 4096, 224x224, patch 16, 197 tokens, 1000 classes,
    dense attention as the JAX ViT runs) on one card at 32 images
    (``examples/jax_synthetic_benchmark.py``'s per-chip default): its
@@ -227,17 +245,17 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    forward loss within 2e-2 of the same weights in f32, then 5 steps of
    ``make_train_step`` with SGD(0.01, momentum 0.9) on bench.py's seeded
    images and labels; no launch of K1-K4; step ms, images/s, peak memory;
-25. with four cards (``vit_multi``), one NCCL rank per card over dp=4 at 32
+27. with four cards (``vit_multi``), one NCCL rank per card over dp=4 at 32
    images a card against a world-1 control on the global 128, by 13's
    gates (step-1 loss, 5 losses, step-1 gradients, replicas bitwise);
-26. ``train_mnist`` (``mnist``; ``examples/jax_mnist.py``'s example) for one
+28. ``train_mnist`` (``mnist``; ``examples/jax_mnist.py``'s example) for one
    epoch of the synthetic set on one card: the loss falls, no launch;
-27. with two cards (``mnist_multi``), ``train_mnist`` on two NCCL ranks, one
+29. with two cards (``mnist_multi``), ``train_mnist`` on two NCCL ranks, one
    step and then one epoch: the step-1 parameters within 1e-5 of a
    world-1 control fed the mean of the two shards' gradients (cuDNN's
    deterministic algorithms on both sides), replicas bitwise, the loss
    falls;
-28. with four cards (``adasum_1p3b_multi``), GPT-2 1.3B as in 14 over dp=4
+30. with four cards (``adasum_1p3b_multi``), GPT-2 1.3B as in 14 over dp=4
    at B=8 a card under ``DistributedOptimizer(AdamW, op=Adasum)`` at its
    defaults (each gradient combined on its own), beside (a2) the mean
    after backward at the same shape: 48/24/24 launches a step, replicas
@@ -245,18 +263,19 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    0's qkv kernel and ``ln_f``'s scale against ``adasum_numpy`` (f64) of the
    four ranks' raw gradients, elementwise within 1e-4 relative plus 1e-5
    of the tensor's largest element; step ms, tokens/s, peak memory. With
-   fewer cards, 25, 27 and 28 say "not measured";
-29. Adasum's pair combination as the default runs it (each gradient's
+   fewer cards, 27, 29 and 30 say "not measured";
+31. Adasum's pair combination as the default runs it (each gradient's
    range apart, ``adasum_combine``) on one card at GPT-2 1.3B's 293
    gradients (5.67 GB of f32 a side), three ranges against the same
-   combination in f64 numpy by 28's rule; its ms beside the one-vector
+   combination in f64 numpy by 30's rule; its ms beside the one-vector
    combination's and the bytes bound;
-30. the ``{"kernels": [...]}`` line (with ``launches_sp``,
+32. the ``{"kernels": [...]}`` line (with ``launches_sp``,
    ``launches_moe``, ``launches_pp``, ``launches_tp``,
    ``launches_zero_mesh``, ``launches_tp_sp``, ``launches_tp_moe``,
    ``launches_vit``, ``launches_vit_multi``, ``launches_mnist``,
-   ``launches_mnist_multi``, ``launches_adasum_1p3b_multi`` and the D=128
-   records ``pp_d128``, ``tp_d128`` and ``tp_sp_d128``); then the card line
+   ``launches_mnist_multi``, ``launches_adasum_1p3b_multi``,
+   ``launches_pp_tp``, ``launches_pp_tp_multi`` and the D=128 records
+   ``pp_d128``, ``tp_d128``, ``tp_sp_d128`` and ``pp_tp_d128``); then the card line
    from nvidia-smi and the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is not available.
@@ -3161,6 +3180,174 @@ def phase_zero_mesh_multi(pp_rec, control, f32) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# tp under pp (phases ``pp_tp`` and, with four cards, ``pp_tp_multi``): GPT-2
+# 1.3B as phase pp runs it, ``examples/jax_gpt2_train.py --model gpt2-1p3b
+# --pp 2 --tp 2 --remat`` (its ``--dp 8 --tp 4`` line, :9-11, with --pp) cut
+# to one node: ``PipelinedLM``'s stages on the tp layers, the vocab-parallel
+# embedding, head and loss on each pp rank's tp line.
+PT_KERNEL_SHAPE = (1, PP_S, 8, 128)    # a microbatch of B=8 over 8, 16 heads over tp=2
+PT_CARDS = 4
+# The four-card variants on pp=2 x tp=2: model overrides (beside remat),
+# steps, the world-1 control (``multi_controls``: "pp" phase pp's run, "f32"
+# the f32 control).
+PT_MESH = {"pp": 2, "dp": 1, "tp": 2}
+PT_VARIANTS = {
+    "pt1_pp2_tp2": ({"num_microbatches": PP_M}, STEPS, "pp"),
+    "pt1f_pp2_tp2_f32": ({"num_microbatches": PP_M, **TP_F32}, 1, "f32"),
+}
+# Context, not gates: the four-card steps PERF.md records for pp=2 (8
+# microbatches, no remat) and tp=2 (NVIDIA H100 80GB HBM3, 700.00 W).
+PT_CONTEXT_MS = {"pp2": 477.0, "tp2": 459.3}
+
+
+def phase_pp_tp(fa, fb, gen, dev, pp_rec, control) -> dict:
+    """GPT-2 1.3B as phase pp runs it (B=8, S=2048, bf16, flash, remat,
+    AdamW): ``PipelinedLM`` on a pp=1 x dp=1 x tp=1 mesh, built through the
+    tp-aware stage (the tp layers on a line of one member, the
+    column-parallel head), takes 5 steps whose step-1 loss and gradients
+    must be bitwise phase pp's, with 48 launches of K1 and 24 of each K2
+    kernel a step. Then K1 and the K2 pair at the pp x tp path's microbatch
+    shape (1, 2048, 8, 128) against their plain versions, timed beside SDPA
+    and the aten flash backward."""
+    import horovod_tpu_torch as hvd
+
+    ctrl_flat, layout = control
+    mesh = hvd.create_mesh({"pp": 1, "dp": 1, "sp": 1, "tp": 1})
+    out = train_pp(hvd, fa, fb, mesh, True, {"remat": True}, keep_grads=True)
+    rec, model = out["rec"], out["model"]
+    check_launches("pp_tp", rec, flash_launches(model.cfg.n_layers, remat=True))
+    if rec["losses"][0] != pp_rec["losses"][0]:
+        raise AssertionError(f"pp_tp: step-1 loss {rec['losses'][0]} is not phase pp's "
+                             f"{pp_rec['losses'][0]}")
+    if [(n, g.numel()) for n, g in sorted(out["grads"].items())] != layout:
+        raise AssertionError("pp_tp: the parameters are not phase pp's")
+    flat = flat_by_name(out["grads"])
+    if not torch.equal(flat, ctrl_flat):
+        raise AssertionError(f"pp_tp: step-1 gradients not bitwise phase pp's "
+                             f"({rel_norm(flat, ctrl_flat)} in relative norm)")
+    rec.update(phase="pp_tp", model=PP_MODEL, mesh=dict(mesh.shape),
+               head=type(model.lm_head).__name__, step1_bitwise_pp=True,
+               losses_equal_pp=rec["losses"] == pp_rec["losses"])
+    del out, model, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    Bn, Sn, Hn, Dn = PT_KERNEL_SHAPE
+    rec["kernels_d128"] = {f"{Bn}x{Sn}x{Hn}": flash_at(fa, gen, dev, Bn, Sn, Hn, Dn)}
+    emit(rec)
+    return rec
+
+
+def pp_tp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
+    """One spawned NCCL rank of ``pp_tp_multi``: each variant's record (the
+    parameters held at their closed form, the exact launches, every line of
+    copies bitwise after its steps); every rank writes its step-1
+    gradients by name under ``tmp``."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            recs = {}
+            for name in variants:
+                overrides, steps, _ = PT_VARIANTS[name]
+                mesh = hvd.create_mesh({**PT_MESH, "sp": 1})
+                out = train_pp(hvd, fa, fb, mesh, True, {"remat": True, **overrides},
+                               keep_grads=True, steps=steps)
+                rec, model = out["rec"], out["model"]
+                blocks = model.cfg.n_layers // mesh.shape["pp"] * overrides["num_microbatches"]
+                flash = model.cfg.attn_impl == "flash"
+                check_launches(name, rec, flash_launches(blocks if flash else 0, remat=True))
+                rec["closed_form"] = check_bytes(name, rec, model.cfg, mesh, "replicated", True)
+                rec["replicas_bitwise"] = replicas_bitwise(hvd, model, mesh)
+                if not all(rec["replicas_bitwise"].values()):
+                    raise AssertionError(f"{name}: replicas differ: {rec['replicas_bitwise']}")
+                rec["coords"] = dict(mesh.coords)
+                rec["layers"] = [model.layer_range.start, model.layer_range.stop]
+                save_grads(tmp, name, mesh.coords, out["grads"])
+                recs[name] = rec
+                del out, model
+                gc.collect()
+                torch.cuda.empty_cache()
+            hvd.barrier()
+            queue.put((rank, recs))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_pp_tp_multi(pp_rec, control, f32) -> dict:
+    """On four cards: the PT_VARIANTS on one spawned NCCL rank per card
+    (pp=2 x tp=2, 8 microbatches), against phase pp's run (the f32 witness
+    against ``f32``). Gates: step-1 loss within 2e-3 relative and the
+    steps' within 1e-2; step-1 gradients, the stages' tp shards joined to
+    the full model, by ``grad_gates`` (the witness within 1e-4 of the f32
+    control over the whole model and in every tensor, the bf16 e_v at most
+    twice e_1); per rank 2·(24/2)·8 = 192 launches of K1 and 96 of each K2
+    kernel a step (none in f32), the parameters held at their closed form,
+    every line of copies bitwise (the tp-replicated tensors on their tp
+    line, the pp-replicated ones on their pp line). Per rank the step ms,
+    tokens/s and peak memory, beside the recorded pp=2 and tp=2 steps as
+    context (no gain is claimed). Returns the bf16 variant's launches
+    on rank 0 (or "not measured")."""
+    import functools
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    if cards < PT_CARDS:
+        rec = {"phase": "pp_tp_multi", "cards": cards,
+               "result": f"not measured: needs {PT_CARDS} cards"}
+        emit(rec)
+        return {"launches": rec["result"]}
+    controls = multi_controls(pp_rec, control, f32)
+    layout = control[1]
+    rec = {"phase": "pp_tp_multi", "cards": PT_CARDS, "mesh": PT_MESH, "variants": {},
+           "context_step_ms": PT_CONTEXT_MS, "controls": {
+               "pp": {k: pp_rec[k] for k in ("median_step_ms_2_to_5", "peak_mem_gb", "losses")},
+               "f32": {k: f32[0][k] for k in ("step_ms", "peak_mem_gb", "losses")},
+               "e_1": controls["e_1"]}}
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_cards(functools.partial(pp_tp_rank, variants=list(PT_VARIANTS),
+                                              tmp=tmp), PT_CARDS, timeout=900)
+        for name, (overrides, _, kind) in PT_VARIANTS.items():
+            got = ranks[0][name]
+            ctrl_rec = controls[kind][0]
+            S, M = PT_MESH["pp"], overrides["num_microbatches"]
+            v = {"rank0": got, "bubble": (S - 1) / (M + S - 1),
+                 "by_rank": {k: [r[name][k] for r in ranks] for k in (
+                     "median_step_ms_2_to_5", "tokens_per_s", "peak_mem_gb", "params_held",
+                     "launches_per_step")}}
+            v["tokens_per_s"] = PP_B * PP_S / (max(v["by_rank"]["median_step_ms_2_to_5"])
+                                               / 1e3)
+            v["loss1_rel_err"] = abs(got["losses"][0] - ctrl_rec["losses"][0]) / abs(
+                ctrl_rec["losses"][0])
+            v["loss_max_rel_err"] = max(abs(a - b) / abs(b)
+                                        for a, b in zip(got["losses"], ctrl_rec["losses"]))
+            if v["loss1_rel_err"] > SP_LOSS1_RTOL or v["loss_max_rel_err"] > SP_LOSS_RTOL:
+                failed.append(f"{name}: losses {got['losses']} vs {ctrl_rec['losses']}")
+            grads = joined_grads(tmp, name, PT_MESH, False, layout)
+            fields, bad = grad_gates(name, "f32" if kind == "f32" else "bf16", grads,
+                                     controls, layout)
+            v.update(fields)
+            failed += bad
+            del grads
+            rec["variants"][name] = v
+    emit(rec)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"launches": ranks[0]["pt1_pp2_tp2"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
 # tp composed with sp (phases ``tp_sp`` and, with four cards, ``tp_sp_multi``):
 # GPT-2 1.3B at S=8192 over tp=2 x sp=2, ``examples/jax_gpt2_train.py:9-11``
 # (``--dp 8 --tp 4 --sp 2 --attn ring --remat`` at gpt2-1p3b) cut to one
@@ -4205,13 +4392,13 @@ def phase_adasum_1p3b_multi() -> dict:
     return {"launches": ranks[0]["adasum"]["launches"]}
 
 
-def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm,
+def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm, pt,
                  later) -> list:
     """The ``kernels`` line from the phases' records: each kernel's
     launches on the GPT-2 slice (and per path), error, times and bound.
-    ``later``: the records of the vit, vit_multi, mnist, mnist_multi and
-    adasum_1p3b_multi phases by name (launches "not measured" where a
-    phase had too few cards)."""
+    ``later``: the records of the vit, vit_multi, mnist, mnist_multi,
+    adasum_1p3b_multi, pp_tp and pp_tp_multi phases by name (launches "not
+    measured" where a phase had too few cards)."""
     kernels = [
         {"name": "flash_fwd", "launches": sl["launches"]["flash_fwd"],
          "max_abs_err": k1["o_max_abs_err"], "ms": k1["kernel_ms"],
@@ -4261,6 +4448,7 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm,
         kern["pp_d128"] = d128(pp["kernels_d128"], part)
         kern["tp_d128"] = d128(tp["kernels_d128"], part)
         kern["tp_sp_d128"] = d128(ts["kernels_d128"], part)
+        kern["pp_tp_d128"] = d128(pt["kernels_d128"], part)
     for kern in kernels:
         kern["launches_sp"] = sp["launches"].get(kern["name"], 0)
         kern["launches_moe"] = moe["launches"].get(kern["name"], 0)
@@ -4341,6 +4529,10 @@ def main() -> int:
         else:
             emit({"phase": "zero_mesh_multi", "cards": torch.cuda.device_count(),
                   "result": "not measured: needs two cards or more"})
+        gc.collect()
+        torch.cuda.empty_cache()
+        pt = phase_pp_tp(fa, fb, gen, dev, pp, pp_grads)
+        pt_multi = phase_pp_tp_multi(pp, pp_grads, f32)
         del pp_grads, f32
         gc.collect()
         torch.cuda.empty_cache()
@@ -4356,13 +4548,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         later = {"vit": phase_vit(fa, fb), "vit_multi": phase_vit_multi(fa, fb),
                  "mnist": phase_mnist(fa, fb), "mnist_multi": phase_mnist_multi(),
-                 "adasum_1p3b_multi": phase_adasum_1p3b_multi()}
+                 "adasum_1p3b_multi": phase_adasum_1p3b_multi(), "pp_tp": pt,
+                 "pp_tp_multi": pt_multi}
         phase_adasum_combine(dev)
     finally:
         hvd.shutdown()
 
     emit({"kernels": kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm,
-                                  ts, tm, later)})
+                                  ts, tm, pt, later)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -175,7 +175,8 @@ def flax_to_torch(params: Mapping, cfg: TransformerConfig, ep: int = 1,
     """With ``stages`` > 1: the ``state_dict`` of ``PipelinedLM`` stage
     ``stage``, the layers ``[stage·L/stages, (stage+1)·L/stages)`` under
     their global indices, with the embeddings, ``ln_f`` and the head. With
-    ``tp`` > 1: that of ``TransformerLM`` on tp rank ``tp_rank``; with
+    ``tp`` > 1: that of ``TransformerLM`` on tp rank ``tp_rank`` (with
+    ``stages`` too, that stage's on that tp rank); with
     ``dp`` > 1, that of ``TransformerLM(rules=FSDP_RULES)`` on dp rank
     ``dp_rank`` (and tp rank ``tp_rank``)."""
     from ..parallel.pipeline import stage_layers

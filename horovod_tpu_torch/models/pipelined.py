@@ -12,10 +12,24 @@ this model's keys, or ``models/convert.flax_to_torch(..., stages=,
 stage=)`` from the JAX tree), and ``init_weights`` draws the same weights
 from one generator as ``TransformerLM`` does.
 
+Inside a stage the JAX model leaves dp and tp to GSPMD; here, with tp > 1,
+the stage's blocks are the tp layers of ``models/transformer.py`` on the
+rank's tp line (``parallel/tensor.py``: H/tp heads and d_ff/tp features a
+rank, the row-parallel sums over tp), the token embedding is the
+vocab-parallel lookup and the head is column-parallel, as in
+``TransformerLM`` under tp. A pp line fixes the dp and tp coordinates, so
+stage s of tp rank t sends to stage s + 1 of tp rank t, and the ranks of a
+tp line run the same microbatches in the same order, each issuing its tp
+sums for microbatch t before its pp send of it (and, in backward, its
+remat recomputation's and the column-parallel input gradients' sums after
+its pp receive).
+
 The forward is the JAX one: embed, ``parallel/pipeline.gpipe`` over the
 stage's blocks (with ``cfg.remat``, each block recomputed in backward),
-``ln_f``, the head, logits in ``cfg.logits_dtype``. pp combines with dp;
-sp, ep and tp under pp are not ported.
+``ln_f``, the head, logits in ``cfg.logits_dtype``: with tp > 1 this
+rank's vocabulary shard of them (``shard_range(vocab, tp, rank)``), the
+same on every rank of its pp line. pp combines with dp and tp; sp and ep
+under pp are not ported.
 """
 from __future__ import annotations
 
@@ -27,26 +41,29 @@ from torch import nn
 from ..parallel.mesh import Mesh
 from ..parallel.pipeline import gpipe, stage_layers
 from ..parallel.sharding import PIPELINE_RULES
+from ..parallel.tensor import check_tp_supported, mark_tensor_parallel
 from . import dropout
-from .transformer import (Dense, Embedder, LayerNorm, TransformerBlock, TransformerConfig,
-                          init_param_, run_blocks)
+from .transformer import (ColumnParallelDense, Embedder, LayerNorm, TransformerBlock,
+                          TransformerConfig, init_param_, run_blocks)
 
 
 class _Stage(nn.Module):
-    """This rank's blocks, named by their global layer index."""
+    """This rank's blocks, named by their global layer index, on the mesh's
+    tp line."""
 
-    def __init__(self, cfg: TransformerConfig, layers: range, device=None):
+    def __init__(self, cfg: TransformerConfig, layers: range, device=None, mesh=None):
         super().__init__()
         self.remat = cfg.remat
         self.layers = nn.ModuleDict(
-            {str(i): TransformerBlock(cfg, device=device) for i in layers})
+            {str(i): TransformerBlock(cfg, device=device, mesh=mesh) for i in layers})
 
 
 class PipelinedLM(nn.Module):
-    """``forward(ids)`` returns the (B, S, vocab) logits, the same on every
-    rank of a pp line; ``ids`` is the batch of this rank's dp coordinate.
-    The model is built on ``device``, by default the mesh's (this rank's
-    card, or the CPU of a gloo world)."""
+    """``forward(ids)`` returns the (B, S, vocab) logits (with tp > 1 this
+    rank's vocabulary shard of them), the same on every rank of a pp line;
+    ``ids`` is the batch of this rank's dp coordinate. The model is built
+    on ``device``, by default the mesh's (this rank's card, or the CPU of a
+    gloo world)."""
 
     rules = PIPELINE_RULES
 
@@ -65,31 +82,35 @@ class PipelinedLM(nn.Module):
         for other in ("sp", "ep"):
             if mesh.shape.get(other, 1) > 1:
                 raise NotImplementedError(f"PipelinedLM on a mesh with {other} > 1 is not "
-                                          "ported; pp combines with dp")
-        if mesh.shape.get("tp", 1) > 1:
-            raise NotImplementedError(f"PipelinedLM on a mesh with tp={mesh.shape['tp']} is "
-                                      "not ported (ROADMAP A3: tp under pp)")
+                                          "ported (ROADMAP A3: pp under sp or ep); pp "
+                                          "combines with dp and tp")
         if cfg.attn_impl in ("ring", "ulysses"):
-            raise NotImplementedError(f"attn_impl={cfg.attn_impl!r} under pp is not ported")
+            raise NotImplementedError(f"attn_impl={cfg.attn_impl!r} under pp is not ported "
+                                      "(ROADMAP A3: pp under sp or ep)")
         if cfg.logits_via_embedding:
             raise NotImplementedError("logits_via_embedding under pp is not ported (ROADMAP "
                                       "A3: the tied head on a cut embedding)")
+        check_tp_supported(cfg, mesh)
         device = mesh.device if device is None else device
         self.cfg, self.mesh, self.axis = cfg, mesh, axis
         self.num_microbatches = num_microbatches
         self.layer_range = stage_layers(cfg.n_layers, S, mesh.coords[axis])
-        self.embed = Embedder(cfg, device=device)
-        self.stack = _Stage(cfg, self.layer_range, device=device)
+        self.embed = Embedder(cfg, device=device, mesh=mesh)
+        self.stack = _Stage(cfg, self.layer_range, device=device, mesh=mesh)
         self.ln_f = LayerNorm(cfg.d_model, cfg, device=device)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg, bias=False, device=device)
+        tp = self.embed.comm
+        self.lm_head = ColumnParallelDense(cfg.d_model, len(self.embed.rows), cfg, bias=False,
+                                           device=device, comm=tp)
+        mark_tensor_parallel(self, cfg, tp)
         self.init_weights(generator)
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None):
         """``TransformerLM``'s draws, in its parameter order, from
-        ``generator``: the blocks of other stages are drawn into a scratch
-        tensor and dropped, so every pp layout of one seed holds the
-        weights of the one unpipelined model."""
+        ``generator``: the blocks of other stages are drawn at full shape
+        into a scratch tensor and dropped, and a held tp-cut tensor is drawn
+        whole and cut (``init_param_``), so every pp x tp layout of one seed
+        holds the weights of the one unpipelined model."""
         held = dict(self.named_parameters())
         template = TransformerBlock(self.cfg, device="meta")
         names = ["embed.embedding"] + (["embed.pos_embedding"] if self.cfg.learned_pos

@@ -75,8 +75,8 @@ there (``horovod_tpu/parallel/train.py`` cuts the batch over dp and, with
   ``pvary`` over ep and tp together, so that backward sums each rank's
   share of their cotangent. Routing is identical on every rank of a tp
   line: the router reads the same bits there, the row-parallel sums'
-  output. With pp it raises ``NotImplementedError``
-  (``check_tp_supported``). On a tp line of one member (or no mesh) the
+  output. Under pp the same tp layers make ``PipelinedLM``'s stages
+  (``models/pipelined.py``). On a tp line of one member (or no mesh) the
   tp layers are the plain ones, bit for bit;
 * under ``rules=FSDP_RULES`` with dp > 1 (``parallel/fsdp.py``) a rank
   holds its dp shard of every parameter with a d_model dimension, along

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (64, 128)
 
 
@@ -49,8 +50,9 @@ def _flash_fwd_plain(q, k, v, mask=None, causal: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention forward, materialising the scores: returns (o, lse) with o
     (B, S, H, D) in q.dtype and lse (B, H, S) f32. Same arithmetic as K1
-    (f32 scores scaled after the product, -1e30 masking with explicit
-    zeroing, p cast to v.dtype before P.V), without the streaming."""
+    (f32 scores scaled after the product, exponentials as exp2 of
+    log2(e)-scaled differences, -1e30 masking with explicit zeroing, p cast
+    to v.dtype before P.V), without the streaming."""
     B, S, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -58,7 +60,10 @@ def _flash_fwd_plain(q, k, v, mask=None, causal: bool = True
     if valid is not None:
         s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
+    # Not torch.exp: on the CPU that is MKL's VML, which in a fresh process
+    # has been seen to compute one OpenMP thread's share at ~1e-4 error
+    # (ROADMAP C2); exp2 is ATen's own vector code there.
+    p = torch.exp2((s - m) * LOG2E)
     if valid is not None:
         p = p.masked_fill(~valid, 0.0)
     l_safe = p.sum(dim=-1).clamp_min(1e-30)

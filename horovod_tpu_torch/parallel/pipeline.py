@@ -26,7 +26,11 @@ produced the input. Each rank keeps every microbatch's graph between
 forward and backward (GPipe's activation memory; ``remat`` cuts it to the
 blocks' inputs) and returns its stage parameters' gradients summed over
 the microbatches. The sends and receives of one rank run in one order on
-every rank of its pp line, so they pair up. The profiler ranges are
+every rank of its pp line, so they pair up; where ``stage_fn`` sums over
+another line (the tp sums of ``PipelinedLM``'s stages, and their remat
+recomputation in backward), every rank of that line runs the same
+microbatches in the same order, so those sums pair up too. The profiler
+ranges are
 ``hvd.pp.send``, ``hvd.pp.recv``, ``hvd.pp.replicate`` and ``hvd.pp.psum``.
 """
 from __future__ import annotations

@@ -14,7 +14,8 @@ which parameters a rank holds a part of and which are replicated:
   over tp (each of them holds its tp shard of the experts' d_ff);
 * ``PIPELINE_RULES``: "layers" over pp, as in JAX: a pp rank holds its
   stage's blocks (``models/pipelined.py``), and the embeddings, ``ln_f`` and
-  the head are replicated over pp;
+  the head are replicated over pp; the tp rows stay, so with tp a block's
+  tensor may be cut over both pp and tp;
 * ``FSDP_RULES``: ``DEFAULT_RULES`` with "embed" (d_model) over dp as well,
   the JAX ZeRO-3 analogue: a dp rank holds its dp shard of every parameter
   with a d_model dimension (``parallel/fsdp.py``), beside the tp cuts of

@@ -155,17 +155,14 @@ def tp_comm(mesh) -> Comm:
 
 
 def check_tp_supported(cfg, mesh) -> None:
-    """The combinations this port does not run under tp > 1 raise
-    ``NotImplementedError`` naming their ROADMAP item. tp combines with dp,
-    sp and ep, under every ``attn_impl`` and with Switch experts (each
-    expert's d_ff cut over tp); Ulysses then exchanges the H/tp local heads
-    over the sp line, so they must split over it."""
+    """The checks of a model under tp > 1: the heads split over tp. tp
+    combines with dp, sp, ep and pp (``PipelinedLM``'s stages), under every
+    ``attn_impl`` and with Switch experts (each expert's d_ff cut over tp);
+    Ulysses then exchanges the H/tp local heads over the sp line, so they
+    must split over it."""
     tp = tp_comm(mesh).size
     if tp == 1:
         return
-    if mesh.shape.get("pp", 1) > 1:
-        raise NotImplementedError(f"tp={tp} with pp={mesh.shape['pp']} is not ported "
-                                  "(ROADMAP A3: tp under pp)")
     if cfg.n_heads % tp:
         raise ValueError(f"n_heads={cfg.n_heads} must be divisible by tp={tp}")
     sp = mesh.shape.get(cfg.sp_axis, 1)

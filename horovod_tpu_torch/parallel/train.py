@@ -31,7 +31,11 @@ ones are the rank's shard. With Switch experts under tp (and ep) a
 rank's expert weights are its ep slice of the experts and its tp shard of
 their d_ff; their gradients, like every other, are reduced over the
 ("dp", "sp") line only, and ``moe_aux_weight`` adds the auxiliary loss,
-the same on every tp and ep rank, once. Under tp and sp together
+the same on every tp and ep rank, once. Under tp and pp together the
+model is a ``PipelinedLM`` whose stages hold their tp shards: every rank of
+a pp line takes the pipeline's replicated output, its vocabulary shard on
+this rank, and computes the vocab-parallel loss over its own tp line.
+Under tp and sp together
 ``lm_loss`` is both: the labels of this rank's sequence block are taken
 from the global ids across the sp boundary, and the cross-entropies over
 the tp line's vocabulary shards (``vocab_parallel_token_xent``).
@@ -162,7 +166,10 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``DEFAULT_RULES``): the replicated ones from rank 0, an expert within
     its ("dp", "sp") line, so that every ep rank keeps its own experts, and
     a ``PipelinedLM`` stage's blocks within the line of ranks that hold
-    that stage; it returns the initial ``TrainState``.
+    that stage (under tp a cut block tensor within its dp line, a
+    replicated one within its stage's (dp, tp) line, the embedding's and
+    the head's vocabulary shards within their (pp, dp) line); it returns
+    the initial ``TrainState``.
     ``step_fn(state, inputs, labels)`` takes the global batch, puts the
     model in train mode, runs this rank's cut of it forward and backward,
     adds ``moe_aux_weight`` times the model's MoE auxiliary loss, steps
@@ -180,11 +187,14 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``shard_seq`` cuts dim 1 over sp; a mesh with sp > 1 needs it, since
     the model then takes this rank's sequence block. With pp > 1 the model
     is a ``PipelinedLM`` on ``mesh``: every rank of a pp line computes the
-    loss of the pipeline's replicated output, and the optimizer still
-    reduces over the ("dp", "sp") line only. With tp > 1 the model is built
-    on ``mesh`` too and ``loss_fn`` is ``lm_loss`` or ``softmax_xent``,
-    taken over the vocabulary shards. ``dropout`` and ``dropout_seed``: see
-    the module docstring."""
+    loss of the pipeline's replicated output. With tp > 1 the model
+    (``TransformerLM`` or ``PipelinedLM``) is built on ``mesh`` too and
+    ``loss_fn`` is ``lm_loss`` or ``softmax_xent``, taken over the
+    vocabulary shards on this rank's tp line. Under every mesh the
+    optimizer reduces over the ("dp", "sp") line only: the gradients of
+    tp-cut tensors are this rank's shard, those of pp-cut blocks its
+    stage's, and the rest come out equal on every tp and pp rank.
+    ``dropout`` and ``dropout_seed``: see the module docstring."""
     from ..optim.distributed import DistributedOptimizer
 
     sp = mesh.shape.get("sp", 1)

@@ -4,7 +4,8 @@
         [--model gpt2-small|resnet50|bert-base|vit-l16] [--steps 3] [--out PATH]
         [--zero 0|1|2] [--no-overlap]
         [--attn flash|dense|ring|ulysses] [--sp-use-flash] [--sp N]
-        [--n-experts E] [--ep N] [--seq S] [--pp N] [--tp N] [--remat] [--fsdp]
+        [--n-experts E] [--ep N] [--seq S] [--pp N] [--microbatches M] [--tp N]
+        [--remat] [--fsdp]
 
 Builds a slice that ``chip_smoke.py`` drives on one card: GPT-2-small (B=4,
 S=2048, bf16 logits, ``DistributedOptimizer(AdamW)``), run with
@@ -81,7 +82,11 @@ Switch experts, with ``--tp`` too (``--model gpt2-1p3b --n-experts 8 --tp 2
 --ep 2 --remat``: each expert's d_ff cut over tp): ``hvd.tp.expert_psum``
 is the experts' partial outputs summed over tp, ``hvd.ep.psum`` the
 combine's sum over ep, ``hvd.ep.pvary.bwd`` the tokens' cotangent summed
-over ep and tp and the gate's over ep.
+over ep and tp and the gate's over ep. ``--pp`` combines with ``--tp``
+(``--model gpt2-1p3b --pp 2 --tp 2 --microbatches 8 --remat``: a pp x dp x
+tp mesh over the world, ``PipelinedLM`` whose stages, embedding and head
+are cut over tp, with ``--microbatches`` M, by default S), and the step
+splits by the ``hvd.pp.*`` and the ``hvd.tp.*`` ranges together.
 """
 from __future__ import annotations
 
@@ -89,6 +94,7 @@ import argparse
 import json
 import statistics
 import time
+from typing import Optional
 
 import torch
 
@@ -131,7 +137,8 @@ def _device_us(evt) -> float:
 
 def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
            n_experts: int = 0, seq: int = S, pp: int = 1, remat: bool = False,
-           tp: int = 1, fsdp: bool = False, sp_use_flash: bool = False, ep: int = 1):
+           tp: int = 1, fsdp: bool = False, sp_use_flash: bool = False, ep: int = 1,
+           microbatches: Optional[int] = None):
     """(step_fn, state, inputs, labels, items per step, item name)."""
     import dataclasses
 
@@ -154,7 +161,7 @@ def _build(model_name: str, variant: str, dev, opt_kw=None, sp: int = 1,
                          scan_layers=pp > 1)
         if pp > 1:
             model = PipelinedLM(dataclasses.replace(GPT2_CONFIGS[model_name], **overrides),
-                                mesh, device=dev, generator=gen)
+                                mesh, num_microbatches=microbatches, device=dev, generator=gen)
         else:
             model = spec.make_model(device=dev, generator=gen, mesh=mesh,
                                     rules=FSDP_RULES if fsdp else DEFAULT_RULES, **overrides)
@@ -319,6 +326,8 @@ def main() -> int:
                     help="gpt2-1p3b only: pipeline stages (PipelinedLM)")
     ap.add_argument("--tp", type=int, default=1,
                     help="gpt2-1p3b only: the tp axis's size")
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="with --pp: GPipe's microbatches (default: the stages)")
     ap.add_argument("--remat", action="store_true",
                     help="GPT-2 only: recompute each block in backward")
     ap.add_argument("--fsdp", action="store_true",
@@ -334,6 +343,8 @@ def main() -> int:
         ap.error("--zero profiles GPT-2")
     if (args.pp > 1 or args.tp > 1 or args.fsdp) and args.model != "gpt2-1p3b":
         ap.error("--pp, --tp and --fsdp profile gpt2-1p3b")
+    if args.microbatches is not None and args.pp == 1:
+        ap.error("--microbatches needs --pp")
     if args.fsdp and (args.pp > 1 or args.zero):
         ap.error("--fsdp does not combine with --pp or --zero")
     if args.remat and not args.model.startswith("gpt2"):
@@ -341,7 +352,8 @@ def main() -> int:
     variants, opt_kw = VARIANTS[args.model], None
     shape = ({"sp": args.sp, "n_experts": args.n_experts, "seq": args.seq,
               "pp": args.pp, "tp": args.tp, "remat": args.remat, "fsdp": args.fsdp,
-              "sp_use_flash": args.sp_use_flash, "ep": args.ep}
+              "sp_use_flash": args.sp_use_flash, "ep": args.ep,
+              "microbatches": args.microbatches}
              if args.model.startswith("gpt2") else {})
     if args.attn:
         variants = (args.attn,)

@@ -22,6 +22,9 @@ per-block recomputation (``--remat``).
     torchrun --nproc-per-node 4 -m horovod_tpu_torch.train_gpt2 \\
         --model gpt2-1p3b --seq-len 2048 --batch-size 8 --tp 2 --ep 2 \\
         --n-experts 8 --attn flash --remat
+    torchrun --nproc-per-node 4 -m horovod_tpu_torch.train_gpt2 \\
+        --model gpt2-1p3b --seq-len 2048 --batch-size 8 --pp 2 --tp 2 \\
+        --attn flash --remat
 
 One process per card; ``hvd.init()`` reads torchrun's ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR``. ``--batch-size`` is
@@ -33,8 +36,9 @@ script trains; with ``--pp`` above 1 the layers take the scan-stacked
 layout (``scan_layers``) and the model is ``PipelinedLM`` with S
 microbatches. tp combines with dp, sp and ep under every ``--attn`` and
 with ``--n-experts`` (each expert's d_ff cut over tp; Ulysses needs the
-heads a tp rank holds to split over sp); with pp it raises
-``NotImplementedError``. ``max_len`` is the larger of
+heads a tp rank holds to split over sp), and with pp (each stage's blocks,
+the embedding and the head cut over tp, ``PipelinedLM``). ``max_len`` is
+the larger of
 the model's and ``--seq-len``, as the JAX script sets it. Rank 0 prints
 each step's loss and tokens/s. ``--device cpu`` runs on gloo (the default
 is the rank's card).

@@ -2,8 +2,8 @@
 tests/test_torch_port_resnet.py, tests/test_torch_port_collectives.py,
 tests/test_torch_port_bert.py, tests/test_torch_port_{zero,adasum,
 sync_bn,overlap}.py, tests/test_torch_port_{sp,moe,mesh,pipeline,tp,tp_sp}.py,
-tests/test_torch_port_{zero_mesh,fsdp}.py and tests/test_torch_port_{vit,
-mnist}.py, in a
+tests/test_torch_port_{zero_mesh,fsdp}.py, tests/test_torch_port_{vit,
+mnist}.py and tests/test_torch_port_pp_tp.py, in a
 module of their own so spawned ranks import torch and horovod_tpu_torch
 only (no jax, no test module). Each rank returns a dict of numpy arrays
 through a queue; ``spawn_world`` runs a named body on a world of gloo
@@ -1249,18 +1249,18 @@ TP_CASES = {
     "bert_f32_dense": ("bert", "float32", "dense", True),
 }
 TP_WORLDS = {2: tuple(TP_CASES), 4: ("gpt2_f32_dense", "gpt2_bf16_dense")}
-TP_RAISES = {   # combination -> (mesh, config overrides, model)
-    "pp": ({"pp": 2, "tp": 2}, {"scan_layers": True}, "pipelined"),
-}
-# Combinations that ran into NotImplementedError before tp composed with sp
-# and with the Switch FFN -> (mesh, config overrides): ring and Ulysses with
-# no sp line fall back to dense; experts run with each one's d_ff cut over
-# tp, an ep axis beside tp holds its replicas of the dense model; sp trains.
+# Combinations that ran into NotImplementedError before tp composed with
+# sp, with the Switch FFN and with pp -> (mesh, config overrides): ring and
+# Ulysses with no sp line fall back to dense; experts run with each one's
+# d_ff cut over tp, an ep axis beside tp holds its replicas of the dense
+# model, a pp axis beside tp pipelines the tp stages of ``PipelinedLM``
+# (the scan-stacked layout); sp trains.
 TP_RUNS = {
     "ring": ({"tp": 2}, {"attn_impl": "ring"}),
     "ulysses": ({"tp": 2}, {"attn_impl": "ulysses"}),
     "moe": ({"tp": 2}, {"n_experts": 2}),
     "ep": ({"ep": 2, "tp": 2}, {}),
+    "pp": ({"pp": 2, "tp": 2}, {"scan_layers": True}),
     "sp": ({"sp": 2, "tp": 2}, {}),
 }
 TP_RUN_STEPS = 2
@@ -1327,39 +1327,16 @@ def _tp_init(hvd, torch, mesh) -> dict:
     return {k: v.numpy().copy() for k, v in model.state_dict().items()}
 
 
-def _tp_raises(hvd, torch, combos) -> dict:
-    """The message each combination in ``combos`` raises with (or
-    "no error")."""
-    import dataclasses
-
-    from horovod_tpu_torch.models.pipelined import PipelinedLM
-    from horovod_tpu_torch.models.transformer import TransformerLM
-
-    out = {}
-    for name in combos:
-        shape, overrides, kind = TP_RAISES[name]
-        mesh = hvd.create_mesh(shape)
-        cfg = dataclasses.replace(tp_config(torch, "gpt2_f32_dense"), **overrides)
-        try:
-            if kind == "pipelined":
-                PipelinedLM(cfg, mesh, device="cpu")
-            else:
-                TransformerLM(cfg, device="cpu", mesh=mesh)
-            out[name] = "no error"
-        except NotImplementedError as e:
-            out[name] = f"NotImplementedError: {e}"
-    return out
-
-
 def _tp_runs(hvd, torch, combos, params_by_combo) -> dict:
     """Each combination of ``combos`` (TP_RUNS) from its weights (those of
-    the gpt2_f32_dense case, with experts where it has them): with no sp
-    line, this rank's logits shard of the whole sequence and its mesh
-    coordinates; sp, TP_RUN_STEPS steps of make_train_step(shard_seq=True)
-    from those weights (the losses)."""
+    the gpt2_f32_dense case, with experts where it has them, scan-stacked
+    under pp): with no sp line, this rank's logits shard of the whole
+    sequence and its mesh coordinates; sp, TP_RUN_STEPS steps of
+    make_train_step(shard_seq=True) from those weights (the losses)."""
     import dataclasses
 
     from horovod_tpu_torch.models.convert import flax_to_torch
+    from horovod_tpu_torch.models.pipelined import PipelinedLM
     from horovod_tpu_torch.models.transformer import TransformerLM
     from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
 
@@ -1369,10 +1346,15 @@ def _tp_runs(hvd, torch, combos, params_by_combo) -> dict:
         shape, overrides = TP_RUNS[name]
         mesh = hvd.create_mesh(shape)
         cfg = dataclasses.replace(tp_config(torch, "gpt2_f32_dense"), **overrides)
-        model = TransformerLM(cfg, device="cpu", mesh=mesh)
+        pp = mesh.shape.get("pp", 1)
+        if pp > 1:
+            model = PipelinedLM(cfg, mesh, device="cpu")
+        else:
+            model = TransformerLM(cfg, device="cpu", mesh=mesh)
         model.load_state_dict(flax_to_torch(
             params_by_combo[name], cfg, ep=mesh.shape.get("ep", 1),
-            ep_rank=mesh.coords.get("ep", 0), tp=2, tp_rank=mesh.coords["tp"]))
+            ep_rank=mesh.coords.get("ep", 0), stages=pp, stage=mesh.coords.get("pp", 0),
+            tp=2, tp_rank=mesh.coords["tp"]))
         if "sp" not in shape:
             with torch.no_grad():
                 out[name] = {"logits": model(ids).numpy(), "coords": dict(mesh.coords)}
@@ -1390,8 +1372,8 @@ def _tp_runs(hvd, torch, combos, params_by_combo) -> dict:
 
 def _run_tp_world(rank: int, size: int, params_by_case, train_params, run_params) -> dict:
     """On tp=size: each TP_WORLDS[size] case (logits, gradients), the tp
-    initialisation, the combinations that raise on this world and those of
-    TP_RUNS that run on it (from ``run_params``, by combination); on four
+    initialisation and the combinations of TP_RUNS that run on this world
+    (from ``run_params``, by combination); on four
     ranks also 3 AdamW steps of gpt2-tiny (vocab TP_TRAIN_VOCAB, f32)
     through make_train_step on dp=2 x tp=2 from ``train_params`` (the
     losses, the parameters); on two ranks, last, ``train_gpt2 --tp 2``."""
@@ -1405,8 +1387,6 @@ def _run_tp_world(rank: int, size: int, params_by_case, train_params, run_params
     out = {name: _tp_model_case(hvd, torch, mesh, name, params_by_case[name])
            for name in TP_WORLDS[size]}
     out["init"] = _tp_init(hvd, torch, mesh)
-    out["raises"] = _tp_raises(hvd, torch, [n for n, (shape, _, _) in TP_RAISES.items()
-                                            if np.prod(list(shape.values())) == size])
     out["runs"] = _tp_runs(hvd, torch, [n for n, (shape, _) in TP_RUNS.items()
                                         if np.prod(list(shape.values())) == size],
                            run_params)
@@ -2219,3 +2199,148 @@ def _run_mnist_world(rank: int, size: int) -> dict:
     for key in ("initial", "final"):
         out[key] = {k: v.numpy() for k, v in out[key].items()}
     return out
+
+
+# ---------------------------------------------------------------------------
+# tp under pp (tests/test_torch_port_pp_tp.py): PipelinedLM at the
+# reference's configuration (PLM_*, tests/test_parallel.py:135-172) on pp=2
+# x tp=2 (rank 2·p + t holds stage p and tp index t) and on the reference's
+# pp=2 x dp=2 x tp=2 (rank 4·p + 2·d + t).
+PPTP_MESH = {"pp": 2, "tp": 2}
+PPDPTP_MESH = {"pp": 2, "dp": 2, "tp": 2}
+# The refusals that stay (ROADMAP A3) -> (mesh, config overrides).
+PPTP_RAISES = {
+    "sp": ({"pp": 2, "sp": 2}, {}),
+    "ep": ({"pp": 2, "ep": 2}, {}),
+    "ring": (PPTP_MESH, {"attn_impl": "ring"}),
+    "ulysses": (PPTP_MESH, {"attn_impl": "ulysses"}),
+    "tied_head": (PPTP_MESH, {"logits_via_embedding": True}),
+}
+PPTP_REMAT_DTYPES = ("float32", "bfloat16")
+
+
+def plm_config(torch, dtype: str = "float32", **overrides):
+    """The port's config of the reference's PipelinedLM (vocab 128, d_model
+    32, 4 heads, 4 layers, d_ff 64, scan-stacked)."""
+    from horovod_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(vocab_size=128, d_model=32, n_heads=4, n_layers=4, d_ff=64,
+                             max_len=64, scan_layers=True, dtype=getattr(torch, dtype),
+                             **overrides)
+
+
+def _pptp_model(torch, mesh, params, dtype: str = "float32", generator=None, **overrides):
+    """PipelinedLM (PLM_M microbatches) on ``mesh``, loaded with this
+    rank's stage and tp shard of the JAX tree ``params`` where given."""
+    from horovod_tpu_torch.models.convert import flax_to_torch
+    from horovod_tpu_torch.models.pipelined import PipelinedLM
+
+    cfg = plm_config(torch, dtype, **overrides)
+    model = PipelinedLM(cfg, mesh, num_microbatches=PLM_M, device="cpu", generator=generator)
+    if params is not None:
+        model.load_state_dict(flax_to_torch(
+            params, cfg, stages=mesh.shape["pp"], stage=mesh.coords["pp"],
+            tp=mesh.shape["tp"], tp_rank=mesh.coords["tp"]))
+    return model
+
+
+def _pptp_grads(torch, model, mesh):
+    """One forward and backward of the vocab-parallel lm_loss on the whole
+    batch: the loss and the gradients by name."""
+    from horovod_tpu_torch.parallel.tensor import vocab_parallel_lm_loss
+
+    ids = torch.from_numpy(plm_ids())
+    loss = vocab_parallel_lm_loss(model(ids), ids, mesh.comm("tp"), model.cfg.vocab_size)
+    loss.backward()
+    return loss.detach(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+
+def _pptp_train(hvd, torch, mesh, params) -> dict:
+    """PLM_STEPS Adam(PLM_LR) steps through make_train_step (the plain
+    optimizer, which the step wraps over the dp line) from the JAX tree
+    ``params``: the losses, the parameters and this rank's coordinates."""
+    from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
+
+    model = _pptp_model(torch, mesh, params)
+    opt = torch.optim.Adam(model.parameters(), lr=PLM_LR)
+    init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh, shard_seq=True)
+    state = init_fn()
+    ids = torch.from_numpy(plm_ids())
+    losses = []
+    for _ in range(PLM_STEPS):
+        state, loss = step_fn(state, ids, ids)
+        losses.append(float(loss))
+    return {"coords": dict(mesh.coords), "losses": np.array(losses),
+            "params": {k: v.numpy().copy() for k, v in model.state_dict().items()}}
+
+
+def _pptp_remat(torch, mesh, params) -> dict:
+    """By dtype: the loss and the gradients' names where remat differs from
+    no remat (one forward and backward each, from the same weights)."""
+    out = {}
+    for dtype in PPTP_REMAT_DTYPES:
+        (l0, g0), (l1, g1) = (_pptp_grads(torch, _pptp_model(torch, mesh, params, dtype,
+                                                             remat=remat), mesh)
+                              for remat in (False, True))
+        out[dtype] = {"losses": [float(l0), float(l1)], "loss_bitwise": bool(torch.equal(l0, l1)),
+                      "differ": sorted(k for k in g0 if not torch.equal(g0[k], g1[k]))}
+    return out
+
+
+def _pptp_raises(hvd, torch) -> dict:
+    """The message each PPTP_RAISES case raises with (or "no error")."""
+    from horovod_tpu_torch.models.pipelined import PipelinedLM
+
+    out = {}
+    for name, (shape, overrides) in PPTP_RAISES.items():
+        mesh = hvd.create_mesh(shape)
+        out[name] = _raises(lambda: PipelinedLM(plm_config(torch, **overrides), mesh,
+                                                device="cpu"), (NotImplementedError,))
+    return out
+
+
+def _run_pp_tp_world(rank: int, size: int, params_by_dtype, train_params) -> dict:
+    """On pp=2 x tp=2: PipelinedLM from the JAX TransformerLM's weights in
+    bf16 and f32, this rank's logits shard of the whole batch; in f32 its
+    gradients of the vocab-parallel lm_loss; the model from torch seed 0
+    (its state_dict); PLM_STEPS Adam steps from ``train_params``; remat
+    against no remat; the refusals that stay; last, ``train_gpt2 --pp 2
+    --tp 2``."""
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+
+    mesh = hvd.create_mesh(PPTP_MESH)
+    out = {"coords": dict(mesh.coords)}
+    for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
+        model = _pptp_model(torch, mesh, params_by_dtype[name], dtype)
+        with torch.no_grad():
+            out[f"logits_{name}"] = model(torch.from_numpy(plm_ids())).float().numpy()
+    loss, grads = _pptp_grads(torch, _pptp_model(torch, mesh, params_by_dtype["f32"]), mesh)
+    out["loss"] = float(loss)
+    out["grads"] = {k: g.numpy() for k, g in grads.items()}
+    init = _pptp_model(torch, mesh, None, generator=torch.Generator().manual_seed(0))
+    out["init"] = {k: v.numpy().copy() for k, v in init.state_dict().items()}
+    out["train"] = _pptp_train(hvd, torch, mesh, train_params)
+    out["remat"] = _pptp_remat(torch, mesh, params_by_dtype["f32"])
+    out["raises"] = _pptp_raises(hvd, torch)
+    from horovod_tpu_torch import train_gpt2
+
+    # Last: train_gpt2 shuts the world down when it returns.
+    out["train_gpt2"] = np.array(train_gpt2.main(
+        ["--model", "gpt2-tiny", "--batch-size", "4", "--seq-len", "32", "--steps", "2",
+         "--pp", "2", "--tp", "2", "--attn", "flash", "--remat", "--device", "cpu"]))
+    return out
+
+
+def _run_pp_dp_tp_world(rank: int, size: int, train_params) -> dict:
+    """On pp=2 x dp=2 x tp=2: PLM_STEPS Adam steps from ``train_params``."""
+    import torch
+
+    torch.set_num_threads(1)    # eight ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+
+    return _pptp_train(hvd, torch, hvd.create_mesh(PPDPTP_MESH), train_params)

@@ -63,6 +63,23 @@ def test_forward_and_lse_match_jax(S, causal, mask_kind):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=FWD_TOL, atol=FWD_TOL)
 
 
+@pytest.mark.parametrize("mask_kind", [None, "padded"])
+def test_plain_forward_takes_no_exponential_from_torch_exp(monkeypatch, mask_kind):
+    """The plain version's exponentials are exp2 of log2(e)-scaled
+    differences, as K1's: on the CPU torch.exp is MKL's VML, which in a
+    fresh process has been seen to compute one OpenMP thread's share at
+    ~1e-4 error, failing the parity above (ROADMAP C2). A torch.exp with
+    such an error must leave the plain forward's o and lse bitwise."""
+    q, k, v, _ = _inputs(96)
+    mask = _t(_mask(96, mask_kind))
+    want = fa._flash_fwd_plain(_t(q), _t(k), _t(v), mask, True)
+    exact = torch.exp
+    monkeypatch.setattr(torch, "exp", lambda x: exact(x) * (1.0 + 1e-4 * torch.sign(x)))
+    got = fa._flash_fwd_plain(_t(q), _t(k), _t(v), mask, True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_fully_masked_sequence_gives_zero_rows(causal):
     q, k, v, _ = _inputs(64)

@@ -25,12 +25,12 @@ on spawned gloo ranks.
   atol 1e-6 wherever the step-1 gradient exceeds 100 x AdamW's eps (the
   rule of tests/test_torch_port_sp.py for the rest); the tp-replicated
   parameters bitwise equal across the tp line.
-* The combination that is not ported (tp with pp) raises
-  ``NotImplementedError`` naming its ROADMAP item; ring and Ulysses on a tp
-  line with no sp line fall back to dense attention (bitwise the dense
-  case, and the JAX model's logits), Switch experts under tp and an ep axis
-  beside tp give the JAX model's logits (tests/test_torch_port_tp_moe.py
-  holds MoE under tp and ep against JAX in full), and tp with sp trains
+* Ring and Ulysses on a tp line with no sp line fall back to dense
+  attention (bitwise the dense case, and the JAX model's logits), Switch
+  experts under tp, an ep axis beside tp and ``PipelinedLM`` on pp=2 x
+  tp=2 give the JAX model's logits (tests/test_torch_port_tp_moe.py holds
+  MoE under tp and ep against JAX in full, tests/test_torch_port_pp_tp.py
+  tp under pp), and tp with sp trains
   (its step-1 loss the JAX model's ``lm_loss``;
   tests/test_torch_port_tp_sp.py holds the composition against JAX in
   full); ``train_gpt2 --tp 2`` trains on two ranks.
@@ -217,15 +217,6 @@ def test_tp_init_holds_the_world_one_weights(tp_worlds, size):
         assert torch.equal(got[k], v), k
 
 
-@pytest.mark.parametrize("combo", sorted(workers.TP_RAISES))
-def test_tp_combinations_not_ported_raise(tp_worlds, combo):
-    shape = workers.TP_RAISES[combo][0]
-    size = int(np.prod(list(shape.values())))
-    for res in tp_worlds["ranks"][size]:
-        msg = res["raises"][combo]
-        assert msg.startswith("NotImplementedError") and "ROADMAP A3" in msg, msg
-
-
 @pytest.mark.parametrize("combo", sorted(workers.TP_RUNS))
 def test_tp_combinations_now_run(tp_worlds, combo):
     shape, overrides = workers.TP_RUNS[combo]
@@ -234,13 +225,16 @@ def test_tp_combinations_now_run(tp_worlds, combo):
     params = tp_worlds["params"]["gpt2_f32_dense"]
     if "sp" not in shape:
         # No sp line: dense attention, as the JAX dispatch falls back; the
-        # tp shards of the first ep index put together, the others equal.
+        # tp shards of the first ep and pp index put together, the others
+        # equal (under pp the JAX model is the unpipelined one: the
+        # pipeline does not change the function).
         runs = [r["runs"][combo] for r in ranks]
         if "attn_impl" in overrides:
             for res in ranks:
                 np.testing.assert_array_equal(res["runs"][combo]["logits"],
                                               res["gpt2_f32_dense"]["logits"])
-        first = sorted((r for r in runs if r["coords"].get("ep", 0) == 0),
+        first = sorted((r for r in runs
+                        if r["coords"].get("ep", 0) == 0 and r["coords"].get("pp", 0) == 0),
                        key=lambda r: r["coords"]["tp"])
         assert len(first) == shape["tp"]
         for r in runs:
