@@ -269,12 +269,35 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    gradients (5.67 GB of f32 a side), three ranges against the same
    combination in f64 numpy by 30's rule; its ms beside the one-vector
    combination's and the bytes bound;
-32. the ``{"kernels": [...]}`` line (with ``launches_sp``,
+32. the eager engine (``engine``, run right after 8): 8's closed forms
+   again, each through the engine (its response count moves), ``join()``
+   0, a steady named tensor served by the response cache from its second
+   pass, the eager latency of a 4 KB and a 64 MiB bf16 all-reduce through
+   the engine against the direct path in turns; a spawned one-card world
+   with ``HOROVOD_TIMELINE`` whose file loads with the expected events;
+33. with four cards (``engine_multi``), GPT-2 1.3B as in 14 over dp=4 at
+   B=8 a card, every gradient reduced by name through the engine on NCCL
+   by ``horovod_tpu_torch.torch.DistributedOptimizer(AdamW,
+   named_parameters=...)``: (e1) step-1 reduced gradients within the
+   rounding bound of two orders of the top-level overlapped optimizer's on
+   the same batches, 5 losses within 1e-4 (1e-5 did not hold for two
+   summation orders at this size), and with fusion off on both sides the
+   step-1 gradients and 5 losses bitwise; replicas bitwise, 48/24/24
+   launches a step, no device-to-host copy past the loss in a profiled
+   step; (e2) rank-rotated submission by name within the same bound; (e3)
+   rank 3 joins after 2 steps, ranks 0-2's step-3 gradients are their sum
+   over 4, ``join()`` 3; (e4) a gradient held back 5 s on rank 1 draws the
+   stall warning naming it and rank 1, the step completes; (e5) rank 0's
+   timeline has every gradient's negotiation and op; step ms in turns
+   with the overlapped optimizer, the engine's cycles, fused responses,
+   bytes a response and cache hits a step, peak memory;
+34. the ``{"kernels": [...]}`` line (with ``launches_sp``,
    ``launches_moe``, ``launches_pp``, ``launches_tp``,
    ``launches_zero_mesh``, ``launches_tp_sp``, ``launches_tp_moe``,
    ``launches_vit``, ``launches_vit_multi``, ``launches_mnist``,
    ``launches_mnist_multi``, ``launches_adasum_1p3b_multi``,
-   ``launches_pp_tp``, ``launches_pp_tp_multi`` and the D=128 records
+   ``launches_pp_tp``, ``launches_pp_tp_multi``, ``launches_engine``,
+   ``launches_engine_multi`` and the D=128 records
    ``pp_d128``, ``tp_d128``, ``tp_sp_d128`` and ``pp_tp_d128``); then the card line
    from nvidia-smi and the last line ``{"ok": true, "device": {...}}``.
 
@@ -4392,13 +4415,539 @@ def phase_adasum_1p3b_multi() -> dict:
     return {"launches": ranks[0]["adasum"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# The eager engine: every world collective negotiated by name
+ENGINE_CARDS = 4
+ENGINE_LAT_BYTES = (4096, COLL_BYTES)       # the eager all-reduce's two sizes
+ENGINE_LAT_ITERS = 20
+ENGINE_STEADY = 5                           # passes of the steady-state tensor
+ENGINE_STALL_S = 5.0                        # (e4): rank 1 holds one gradient back
+ENGINE_STALL_CHECK_S = "2"
+ENGINE_JOINER = 3                           # (e3): the rank that joins after 2 steps
+ENGINE_DTOH_LIMIT = 1 << 16                 # bytes a step may copy to the host (the loss)
+# (e1)'s 5 losses against the overlapped optimizer at the default fusion:
+# the two sum the gradients in other orders (other fused buffers), and at
+# the 1.3B that order alone moved step 4's loss by 1.6e-5 relative on an
+# H100 (PERF.md §6, the engine); the exact check is the unfused pair, bitwise.
+ENGINE_LOSS_RTOL = 1e-4
+
+
+def engine_latency(hvd, dev) -> dict:
+    """CUDA-event ms of one eager SUM all-reduce of 4 KB and of COLL_BYTES
+    (bf16) through the engine (``hvd.allreduce``, a named tensor: the
+    response cache serves it after the first) and through the direct path
+    (``ops._allreduce`` on the default group), in turns engine, direct,
+    direct, engine."""
+    from horovod_tpu_torch import ops
+
+    out = {}
+    for nbytes in ENGINE_LAT_BYTES:
+        x = torch.ones(nbytes // 2, dtype=torch.bfloat16, device=dev)
+        calls = {"engine": lambda: hvd.allreduce(x, op=hvd.Sum, name=f"latency.{nbytes}"),
+                 "direct": lambda: ops._allreduce(x, hvd.ReduceOp.SUM)}
+        turns = {"engine": [], "direct": []}
+        for which in ("engine", "direct", "direct", "engine"):
+            turns[which].append(time_ms(calls[which], ENGINE_LAT_ITERS))
+        out[str(nbytes)] = {**{f"{k}_ms": statistics.mean(v) for k, v in turns.items()},
+                            **{f"{k}_ms_turns": v for k, v in turns.items()}}
+        del x
+    return out
+
+
+def timeline_lanes(path: str, tids: dict) -> dict:
+    """Each tensor's event names in a HOROVOD_TIMELINE file, by its name."""
+    from horovod_tpu_torch.utils import chrome_trace
+
+    by_tid = {}
+    for ev in chrome_trace.trace_events(chrome_trace.read_trace_file(path)):
+        if ev.get("ph") in ("B", "i") and "name" in ev:
+            by_tid.setdefault(ev.get("tid"), set()).add(ev["name"])
+    return {name: by_tid.get(tid, set()) for name, tid in tids.items()}
+
+
+def engine_one_rank(rank: int, size: int, init_file: str, queue, tmp) -> None:
+    """The spawned one-card world of phase ``engine``, with HOROVOD_TIMELINE:
+    a steady named all-reduce, a fused group, an allgather and a broadcast
+    through the engine, ``join``; the timeline's lanes after shutdown."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    os.environ["HOROVOD_TIMELINE"] = f"{tmp}/timeline.json"
+    try:
+        import horovod_tpu_torch as hvd
+
+        hvd.init(init_method=f"file://{init_file}")
+        dev = hvd.device()
+        x = torch.arange(1024, dtype=torch.float32, device=dev)
+        for _ in range(ENGINE_STEADY):
+            if not torch.equal(hvd.allreduce(x, name="steady", op=hvd.Sum), x):
+                raise AssertionError("engine: steady all-reduce")
+        group = hvd.grouped_allreduce([x, x[:7], x[:100]], name="group", op=hvd.Sum)
+        if not all(torch.equal(g, x[:g.numel()]) for g in group):
+            raise AssertionError("engine: grouped all-reduce")
+        hvd.allgather(x, name="gather")
+        hvd.broadcast(x, 0, name="bcast")
+        last = hvd.join()
+        eng = hvd.common.basics.engine()
+        counters, tids = eng.counters(), dict(eng.timeline._tids)
+        hvd.shutdown()
+        lanes = timeline_lanes(f"{tmp}/timeline.json", tids)
+        queue.put((rank, {"join": last, "counters": counters,
+                          "lanes": {k: sorted(v) for k, v in lanes.items()}}))
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_engine(dev) -> dict:
+    """On one card, through the eager engine (a world of one: the local ops,
+    no process group): every world collective against its closed form in
+    f32, bf16, uint8 and bool (the engine's response count must move by at
+    least one a check it routes: all but reducescatter); ``join()`` returns 0; a steady named tensor is
+    served by the response cache from its second pass; the eager latency of
+    a 4 KB and a COLL_BYTES all-reduce against the direct path, in turns.
+    A spawned one-card world with HOROVOD_TIMELINE: the file loads as JSON
+    with NEGOTIATE_ALLREDUCE, ALLREDUCE and LOCAL_ALLREDUCE on the steady
+    tensor's lane, MEMCPY_IN_FUSION_BUFFER and MEMCPY_OUT_FUSION_BUFFER on
+    the fused group's first tensor."""
+    import functools
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+
+    eng = hvd.common.basics.engine()
+    before = eng.counters()
+    checked = _closed_form_checks(hvd, dev)
+    moved = eng.counters()["responses"] - before["responses"]
+    # reducescatter runs directly; the object collectives send nothing at
+    # a world of one.
+    routed = [c for c in checked if not c.startswith("reducescatter")
+              and not (c.endswith("_object") and hvd.size() == 1)]
+    if moved < len(routed):
+        raise AssertionError(f"engine: {moved} responses for {len(routed)} checks")
+    if hvd.join() != hvd.size() - 1:
+        raise AssertionError("engine: join() is not the last rank")
+    x = torch.ones(16, device=dev)
+    before = eng.counters()
+    for _ in range(ENGINE_STEADY):
+        hvd.allreduce(x, name="engine.steady")
+    hits = eng.counters()["cache_hits"] - before["cache_hits"]
+    if hits < ENGINE_STEADY - 1:
+        raise AssertionError(f"engine: {hits} cache hits in {ENGINE_STEADY} steady passes")
+    latency = engine_latency(hvd, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        child = spawn_cards(functools.partial(engine_one_rank, tmp=tmp), 1)[0]
+    lanes = child["lanes"]
+    want = {"allreduce.steady": {"NEGOTIATE_ALLREDUCE", "ALLREDUCE", "LOCAL_ALLREDUCE"},
+            "allreduce.group.0": {"NEGOTIATE_ALLREDUCE", "ALLREDUCE",
+                                  "MEMCPY_IN_FUSION_BUFFER", "MEMCPY_OUT_FUSION_BUFFER"},
+            "allgather.gather": {"NEGOTIATE_ALLGATHER", "ALLGATHER", "LOCAL_ALLGATHER"},
+            "broadcast.bcast": {"NEGOTIATE_BROADCAST", "BROADCAST", "LOCAL_BROADCAST"}}
+    for name, names in want.items():
+        if not names <= set(lanes.get(name, ())):
+            raise AssertionError(f"engine: timeline lane {name} has {lanes.get(name)}")
+    if child["join"] != 0 or child["counters"]["cache_hits"] < ENGINE_STEADY - 1:
+        raise AssertionError(f"engine: one-card world {child}")
+    rec = {"phase": "engine", "world": hvd.size(), "checked": sorted(checked),
+           "responses_for_checks": moved, "steady_cache_hits": hits,
+           "latency_ms": latency, "timeline_world": child}
+    emit(rec)
+    return {"launches": {}}
+
+
+def engine_step(hvd, model, opt, x, takes_det: bool, before_sync=None):
+    """One step of the binding's optimizer: forward, ``lm_loss``, backward
+    (the hooks enqueue each gradient by name), ``before_sync(model)`` where
+    given, ``opt.step()``; the loss averaged through the engine."""
+    from horovod_tpu_torch.parallel.train import lm_loss
+
+    model.train()
+    opt.zero_grad()
+    logits = model(x, deterministic=True) if takes_det else model(x)
+    loss = lm_loss(logits, x)
+    loss.backward()
+    if before_sync is not None:
+        before_sync(model)
+    opt.step()
+    return hvd.allreduce(loss.detach(), name="loss")
+
+
+def engine_model(hvd, mesh):
+    """GPT-2 1.3B (flash, remat) under the binding's ``DistributedOptimizer``
+    (AdamW 1e-4, wd 1e-4, eps 1e-8, ``named_parameters``), its parameters
+    broadcast from rank 0 through the engine; this rank's batch."""
+    import inspect
+
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.parallel.train import _cut
+
+    model = gpt2_1p3b(mesh, False, seq=PP_S, remat=True)
+    inner = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
+    opt = hvd_torch.DistributedOptimizer(inner, named_parameters=model.named_parameters())
+    hvd_torch.broadcast_parameters(model.state_dict(), root_rank=0)
+    x = _cut(pp_ids(PP_B * hvd.size(), PP_S), mesh, False).to(mesh.device)
+    takes_det = "deterministic" in inspect.signature(model.forward).parameters
+    return model, opt, x, takes_det
+
+
+def train_engine(hvd, fa, mesh, steps: int = STEPS, keep_grads: bool = False,
+                 fusion_threshold=None) -> dict:
+    """``steps`` engine steps of ``engine_model``: losses, step ms, the
+    engine's counters over steps 2 on (cycles, negotiations, responses,
+    fused responses, tensors, bytes, cache hits), peak GB, flash launches;
+    with ``keep_grads`` the step-1 raw and reduced gradients and Σ_r|g_r|
+    (through the engine) by name in host memory. ``fusion_threshold``, where
+    given, is the coordinator's for the run (0: every response one tensor)."""
+    model, opt, x, takes_det = engine_model(hvd, mesh)
+    eng = hvd.common.basics.engine()
+    saved = eng.controller.fusion_threshold
+    if fusion_threshold is not None:
+        eng.controller.fusion_threshold = fusion_threshold
+    got = {}
+
+    def capture(m):
+        got["raw"] = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+        got["abs_sum"] = {n: hvd.allreduce(p.grad.detach().abs(), op=hvd.Sum,
+                                           name=f"abs.{n}").cpu()
+                          for n, p in m.named_parameters()}
+        opt.synchronize()
+        got["reduced"] = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, step_ms, counters = [], [], None
+    for i in range(steps):
+        if i == 1:
+            counters = eng.counters()
+        t0 = time.perf_counter()
+        if i == 0 and keep_grads:
+            loss = engine_step(hvd, model, opt, x, takes_det, capture)
+        else:
+            loss = engine_step(hvd, model, opt, x, takes_det)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    eng.controller.fusion_threshold = saved
+    after = eng.counters()
+    launches = fa.launches()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"engine: non-finite losses {losses}")
+    delta = {k: after[k] - counters[k] for k in after} if counters else after
+    rec = {"losses": losses, "step_ms": step_ms,
+           "median_step_ms_2_to_5": statistics.median(step_ms[1:]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "engine_steps_2_on": delta,
+           "per_step_2_on": {k: v / max(steps - 1, 1) for k, v in delta.items()},
+           "bytes_per_response": delta["bytes"] / max(delta["responses"], 1),
+           "gradients": sum(1 for _ in model.parameters())}
+    return {"rec": rec, "model": model, "opt": opt, "x": x, "takes_det": takes_det,
+            "grads": got}
+
+
+def grads_within(got: dict, want: dict, abs_sum: dict, world: int) -> dict:
+    """Every tensor of ``got`` within ``grad_order_bound`` of ``want``; the
+    largest error over its bound, and the largest absolute error."""
+    worst, worst_abs = 0.0, 0.0
+    for n, w in want.items():
+        g, a = got[n].float(), abs_sum[n].float()
+        err = (g - w.float()).abs()
+        bound = grad_order_bound(a, world, w.dtype)
+        over = err - bound
+        if float(over.max()) > 0:
+            raise AssertionError(f"engine: {n} off by {float(err.max())}, above the "
+                                 f"rounding bound of two orders")
+        nz = bound > 0
+        if bool(nz.any()):
+            worst = max(worst, float((err[nz] / bound[nz]).max()))
+        worst_abs = max(worst_abs, float(err.max()))
+    return {"max_err_over_bound": worst, "max_abs_err": worst_abs}
+
+
+def dtoh_bytes_of_step(hvd, run, tmp: str, rank: int) -> dict:
+    """One engine step under ``torch.profiler``: the device-to-host copies
+    it made (count, bytes) and its kernels, from the exported trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch.utils import chrome_trace
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine_step(hvd, run["model"], run["opt"], run["x"], run["takes_det"])
+        torch.cuda.synchronize()
+    path = f"{tmp}/engine_step_rank{rank}.json"
+    prof.export_chrome_trace(path)
+    events = chrome_trace.trace_events(chrome_trace.read_trace_file(path))
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+
+    def total(kind):
+        moved = [e for e in copies if kind in e.get("name", "")]
+        return len(moved), sum(int(e.get("args", {}).get("bytes", 0)) for e in moved)
+
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    nccl = [e for e in kernels if "nccl" in e.get("name", "").lower()]
+    (dtoh, dtoh_bytes), (dtod, dtod_bytes) = total("DtoH"), total("DtoD")
+    return {"dtoh_copies": dtoh, "dtoh_bytes": dtoh_bytes, "dtod_copies": dtod,
+            "dtod_bytes": dtod_bytes, "kernels": len(kernels), "nccl_kernels": len(nccl)}
+
+
+def engine_multi_rank(rank: int, size: int, init_file: str, queue, tmp) -> None:
+    """One spawned NCCL rank of ``engine_multi``. World A: (c) the top-level
+    overlapped ``DistributedOptimizer`` through ``train_pp`` and (e1) the
+    binding's through the engine, 5 steps each from seed 0 on the same
+    batches, then one profiled engine step, (e2) the step-1 raw gradients
+    all-reduced again by name in a rank-rotated order, the latency turns,
+    (c0)/(e1) unfused on both sides (bitwise), and (e1)/(c) again for the
+    step time in turns. World B (HOROVOD_TIMELINE
+    on rank 0, HOROVOD_STALL_CHECK_TIME_SECONDS=2): (e3) the joiner takes 2
+    steps and joins, the others 3; (e4) rank 1 holds one gradient back for
+    ENGINE_STALL_S; (e5) rank 0's timeline."""
+    import logging
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+        from horovod_tpu_torch.utils.logging import get_logger
+
+        full_precision_products()
+        out = {}
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            mesh = full_mesh({"dp": size})
+            dev = mesh.device
+            # (c), then (e1), at the default fusion.
+            ctrl = train_pp(hvd, fa, fb, mesh, False, {"remat": True}, keep_grads=True,
+                            batch=(PP_B * size, PP_S))
+            out["c_overlapped"] = ctrl["rec"]
+            want = ctrl["grads"]
+            del ctrl
+            gc.collect()
+            torch.cuda.empty_cache()
+            run = train_engine(hvd, fa, mesh, keep_grads=True)
+            rec = run["rec"]
+            check_launches("engine e1", rec, flash_launches(24, remat=True))
+            got = run["grads"]
+            rec["step1_vs_overlapped"] = grads_within(got["reduced"], want, got["abs_sum"],
+                                                      size)
+            rec["max_loss_rel_err_vs_overlapped"] = max(
+                abs(a - b) / abs(b) for a, b in zip(rec["losses"], out["c_overlapped"]["losses"]))
+            if rec["max_loss_rel_err_vs_overlapped"] > ENGINE_LOSS_RTOL:
+                raise AssertionError(f"engine e1: losses {rec['losses']} vs "
+                                     f"{out['c_overlapped']['losses']}")
+            rec["replicas_bitwise"] = replicas_bitwise(hvd, run["model"], mesh)
+            if not all(rec["replicas_bitwise"].values()):
+                raise AssertionError(f"engine e1: replicas differ {rec['replicas_bitwise']}")
+            rec["profiled_step"] = dtoh_bytes_of_step(hvd, run, tmp, rank)
+            if rec["profiled_step"]["nccl_kernels"] == 0:
+                raise AssertionError(f"engine e1: the profiler saw no NCCL kernel "
+                                     f"{rec['profiled_step']}")
+            if rec["profiled_step"]["dtoh_bytes"] > ENGINE_DTOH_LIMIT:
+                raise AssertionError(f"engine e1: device-to-host copies in a step "
+                                     f"{rec['profiled_step']}")
+            out["e1_engine"] = rec
+            # (e2): the raw step-1 gradients again, each rank in its own order.
+            import horovod_tpu_torch.torch as hvd_torch
+
+            names = [n for n, _ in run["model"].named_parameters()]
+            k = rank * len(names) // size
+            order = names[k:] + names[:k]
+            handles = {n: hvd_torch.allreduce_async(got["raw"][n].to(dev), name=f"grad.{n}")
+                       for n in order}
+            perm = {n: hvd_torch.synchronize(handles[n]).cpu() for n in names}
+            out["e2_permuted"] = {"first": order[0],
+                                  **grads_within(perm, got["reduced"], got["abs_sum"], size)}
+            del perm, handles, got, want
+            out["latency_ms"] = engine_latency(hvd, dev)
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+            # (e1) unfused on both sides: one gradient a bucket and a
+            # response, so both sum each gradient in NCCL's one order.
+            ctrl = train_pp(hvd, fa, fb, mesh, False, {"remat": True}, keep_grads=True,
+                            batch=(PP_B * size, PP_S), opt_kw={"fuse": False})
+            out["c0_overlapped_unfused"] = ctrl["rec"]
+            want = ctrl["grads"]
+            del ctrl
+            gc.collect()
+            torch.cuda.empty_cache()
+            run = train_engine(hvd, fa, mesh, keep_grads=True, fusion_threshold=0)
+            rec = run["rec"]
+            got = run["grads"]["reduced"]
+            rec["step1_bitwise"] = all(torch.equal(got[n], want[n]) for n in want)
+            rec["losses_bitwise"] = rec["losses"] == out["c0_overlapped_unfused"]["losses"]
+            if not (rec["step1_bitwise"] and rec["losses_bitwise"]):
+                raise AssertionError(
+                    f"engine e1 unfused: step-1 gradients bitwise {rec['step1_bitwise']}, "
+                    f"losses {rec['losses']} vs {out['c0_overlapped_unfused']['losses']}")
+            out["e1_engine_unfused"] = rec
+            del run, got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+            # The step time in turns: (c), (e1) above; (e1), (c) again.
+            again = train_engine(hvd, fa, mesh)
+            out["e1_engine_again"] = again["rec"]
+            del again
+            gc.collect()
+            torch.cuda.empty_cache()
+            ctrl = train_pp(hvd, fa, fb, mesh, False, {"remat": True}, keep_grads=False,
+                            batch=(PP_B * size, PP_S))
+            out["c_overlapped_again"] = ctrl["rec"]
+            del ctrl
+            gc.collect()
+            torch.cuda.empty_cache()
+            hvd.barrier()
+        finally:
+            hvd.shutdown()
+
+        # World B.
+        os.environ["HOROVOD_STALL_CHECK_TIME_SECONDS"] = ENGINE_STALL_CHECK_S
+        if rank == 0:
+            os.environ["HOROVOD_TIMELINE"] = f"{tmp}/timeline.json"
+        hvd.init(init_method=f"file://{init_file}.b")
+        try:
+            import torch.distributed as dist
+
+            mesh = full_mesh({"dp": size})
+            others = dist.new_group([r for r in range(size) if r != ENGINE_JOINER])
+            model, opt, x, takes_det = engine_model(hvd, mesh)
+            rec = {}
+
+            def check_join_step(m):
+                raw = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+                opt.synchronize()
+                worst = 0.0
+                for n, p in m.named_parameters():
+                    want = raw[n].clone()
+                    dist.all_reduce(want, group=others)
+                    abs_sum = raw[n].abs()
+                    dist.all_reduce(abs_sum, group=others)
+                    err = (p.grad - want * 0.25).abs()
+                    bound = grad_order_bound(abs_sum, size, want.dtype)
+                    if float((err - bound).max()) > 0:
+                        raise AssertionError(f"engine e3: {n} is not the three ranks' sum / 4")
+                    worst = max(worst, float(err.max()))
+                rec["step3_max_abs_err_vs_sum_of_three_over_4"] = worst
+
+            steps = 2 if rank == ENGINE_JOINER else 3
+            for i in range(steps):
+                if i == 2:
+                    engine_step(hvd, model, opt, x, takes_det, check_join_step)
+                else:
+                    engine_step(hvd, model, opt, x, takes_det)
+            rec["join"] = hvd.join()
+            if rec["join"] != ENGINE_JOINER:
+                raise AssertionError(f"engine e3: join() returned {rec['join']}")
+            out["e3_join"] = rec
+            # (e4): rank 1 holds one gradient back.
+            held = "ln_f.weight" if "ln_f.weight" in dict(model.named_parameters()) \
+                else next(n for n, _ in model.named_parameters())
+            warnings = []
+
+            class Keep(logging.Handler):
+                def emit(self, record):
+                    warnings.append(record.getMessage())
+
+            keep = Keep(level=logging.WARNING)
+            get_logger().addHandler(keep)
+            if rank == 1:
+                launch = opt._allreduce_grad_async
+
+                def late(p):
+                    if opt._names[p] == held:
+                        time.sleep(ENGINE_STALL_S)
+                    return launch(p)
+
+                opt._allreduce_grad_async = late
+            t0 = time.perf_counter()
+            loss = float(engine_step(hvd, model, opt, x, takes_det))
+            torch.cuda.synchronize()
+            get_logger().removeHandler(keep)
+            stalled = [w for w in warnings if f"allreduce.grad.{held}" in w]
+            out["e4_stall"] = {"held": f"allreduce.grad.{held}", "step_s": time.perf_counter() - t0,
+                               "loss": loss, "warnings": stalled[:2]}
+            if rank == 0 and not any("[missing ranks: [1]]" in w for w in stalled):
+                raise AssertionError(f"engine e4: no stall warning for {held}: {warnings}")
+            if not math.isfinite(loss):
+                raise AssertionError("engine e4: the step did not complete")
+            eng = hvd.common.basics.engine()
+            tids = dict(eng.timeline._tids)
+            fused = eng.counters()["fused_responses"]
+            grads = [f"allreduce.grad.{n}" for n, _ in model.named_parameters()]
+            hvd.barrier()
+        finally:
+            hvd.shutdown()
+        if rank == 0:
+            lanes = timeline_lanes(f"{tmp}/timeline.json", tids)
+            missing = [g for g in grads
+                       if not {"NEGOTIATE_ALLREDUCE", "ALLREDUCE"} <= lanes.get(g, set())]
+            memcpy = sorted(g for g in grads if "MEMCPY_IN_FUSION_BUFFER" in lanes.get(g, ()))
+            out["e5_timeline"] = {"gradients": len(grads), "missing": missing,
+                                  "memcpy_in_lanes": len(memcpy), "fused_responses": fused,
+                                  "nccl_lanes": sum("NCCL_ALLREDUCE" in lanes.get(g, ())
+                                                    for g in grads)}
+            if missing or (fused and not memcpy):
+                raise AssertionError(f"engine e5: timeline {out['e5_timeline']}")
+        queue.put((rank, out))
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_engine_multi() -> dict:
+    """With four cards: GPT-2 1.3B (flash, remat, bf16 logits) at B=8 a card
+    over dp=4, every gradient reduced by name through the eager engine on
+    NCCL by the binding's hook ``DistributedOptimizer`` (``engine_multi_rank``).
+    Gates: (e1) the step-1 reduced gradients within ``grad_order_bound`` of
+    the top-level overlapped optimizer's on the same batches, the 5 losses
+    within ENGINE_LOSS_RTOL, and, with fusion off on both sides (one
+    gradient a bucket and a response: one summation order), the step-1
+    gradients and the 5 losses bitwise; the replicas bitwise after step 5,
+    48/24/24 flash launches a step, no device-to-host copy past the loss in
+    a profiled step; (e2) rank-rotated submission within the same bound; (e3)
+    the step-3 gradients of ranks 0-2 their sum over 4 after rank 3 joined,
+    ``join()`` 3 everywhere; (e4) the stall warning names the held tensor and
+    rank 1, and the step completes; (e5) every gradient's lane in rank 0's
+    timeline has NEGOTIATE_ALLREDUCE and ALLREDUCE, and MEMCPY_IN_FUSION_BUFFER
+    where responses fused (on a fused response's first tensor, the JAX
+    package's layout)."""
+    import functools
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    if cards < ENGINE_CARDS:
+        emit({"phase": "engine_multi", "cards": cards,
+              "result": f"not measured: needs {ENGINE_CARDS} cards"})
+        return {"launches": "not measured"}
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_cards(functools.partial(engine_multi_rank, tmp=tmp), ENGINE_CARDS,
+                            timeout=1500)
+    rec = {"phase": "engine_multi", "cards": cards, "batch_per_card": PP_B, "seq": PP_S,
+           "rank0": ranks[0],
+           "by_rank": {k: [r[k].get("median_step_ms_2_to_5") for r in ranks]
+                       for k in ("c_overlapped", "e1_engine", "e1_engine_again",
+                                 "c_overlapped_again", "c0_overlapped_unfused",
+                                 "e1_engine_unfused")},
+           "peak_mem_gb_by_rank": [r["e1_engine"]["peak_mem_gb"] for r in ranks],
+           "e2_by_rank": [r["e2_permuted"] for r in ranks],
+           "e3_by_rank": [r["e3_join"] for r in ranks],
+           "e4_by_rank": [r["e4_stall"] for r in ranks]}
+    emit(rec)
+    return {"launches": ranks[0]["e1_engine"]["launches"]}
+
+
 def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm, pt,
                  later) -> list:
     """The ``kernels`` line from the phases' records: each kernel's
     launches on the GPT-2 slice (and per path), error, times and bound.
     ``later``: the records of the vit, vit_multi, mnist, mnist_multi,
-    adasum_1p3b_multi, pp_tp and pp_tp_multi phases by name (launches "not
-    measured" where a phase had too few cards)."""
+    adasum_1p3b_multi, pp_tp, pp_tp_multi, engine and engine_multi phases by
+    name (launches "not measured" where a phase had too few cards)."""
     kernels = [
         {"name": "flash_fwd", "launches": sl["launches"]["flash_fwd"],
          "max_abs_err": k1["o_max_abs_err"], "ms": k1["kernel_ms"],
@@ -4492,6 +5041,7 @@ def main() -> int:
         if hvd.device().type != "cuda":
             raise AssertionError(f"hvd.init() chose {hvd.device()}")
         phase_collectives(dev)
+        en = phase_engine(dev)
         sl = phase_slice(fa, fb)
         torch.cuda.empty_cache()
         rn = phase_resnet(fa, fb)
@@ -4549,7 +5099,8 @@ def main() -> int:
         later = {"vit": phase_vit(fa, fb), "vit_multi": phase_vit_multi(fa, fb),
                  "mnist": phase_mnist(fa, fb), "mnist_multi": phase_mnist_multi(),
                  "adasum_1p3b_multi": phase_adasum_1p3b_multi(), "pp_tp": pt,
-                 "pp_tp_multi": pt_multi}
+                 "pp_tp_multi": pt_multi, "engine": en,
+                 "engine_multi": phase_engine_multi()}
         phase_adasum_combine(dev)
     finally:
         hvd.shutdown()

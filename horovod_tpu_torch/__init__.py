@@ -3,8 +3,10 @@
 ``import horovod_tpu_torch as hvd`` gives the Horovod surface under the
 JAX package's names: process-group init and topology, the ``*_built``
 flags, the collectives (allreduce, grouped_allreduce, allgather,
-broadcast, alltoall, reducescatter, barrier) with their ``*_async`` forms,
-``poll`` and ``synchronize``, the object collectives, ``Compression``,
+broadcast, alltoall, reducescatter, barrier, join) with their ``*_async``
+forms, ``poll`` and ``synchronize`` (over the world through the eager
+engine, ``horovod_tpu_torch.engine``), the object collectives,
+``Compression``,
 ``DistributedOptimizer`` (with ZeRO, error feedback, Adasum and the
 all-reduce overlapped with backward), ``DistributedGradientTape``,
 ``distributed_value_and_grad``, parameter/optimizer-state broadcast,
@@ -14,7 +16,9 @@ all-reduce overlapped with backward), ``DistributedGradientTape``,
 ``axis_name=`` on every collective and optimizer), ``wrap_step``, and the
 sequence-parallel attention ``ring_attention``, ``ulysses_attention`` and
 ``dense_attention``.
-Models live in ``horovod_tpu_torch.models``, the training step in
+The ``horovod.torch`` binding surface (in-place collectives, the
+differentiable all-reduce, the hook ``DistributedOptimizer``) is
+``horovod_tpu_torch.torch``. Models live in ``horovod_tpu_torch.models``, the training step in
 ``horovod_tpu_torch.parallel``, the kernels in ``horovod_tpu_torch.ops``.
 The package imports torch and never jax, nor anything of ``horovod_tpu``.
 """
@@ -59,6 +63,7 @@ from .ops import (
     broadcast,
     broadcast_async,
     grouped_allreduce,
+    join,
     poll,
     reducescatter,
     synchronize,

@@ -11,6 +11,16 @@ Rendezvous: ``init_method`` if given, else ``HOROVOD_INIT_METHOD``, else
 ``env://`` when ``MASTER_ADDR`` is set; a world of one needs none and uses
 a FileStore in a fresh temporary directory (no port to collide on when
 many test workers run at once).
+
+``init`` also starts the eager engine (``engine/engine.py``), as the JAX
+package's process mode does (``horovod_tpu/common/basics.py:82-131``):
+past a world of one it first makes the engine's groups, on every rank in
+one order: a gloo group for its control plane, then one data group a
+channel (NCCL on CUDA, gloo on the CPU), each NCCL one warmed by a one-
+element all-reduce so that its communicator exists before the engine's
+threads use it. ``shutdown`` stops the engine collectively, then the
+process group. Set knobs of unported modules raise first
+(``env.check_unported_knobs``).
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from . import env
 from .exceptions import NotInitializedError
 
 
@@ -39,6 +50,7 @@ class _State:
     device: Optional[torch.device] = None
     owns_group: bool = False
     store_dir: Optional[str] = None
+    engine: Optional[object] = None
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
@@ -67,6 +79,7 @@ def init(device=None, init_method: Optional[str] = None) -> None:
         cross_rank = _env_int(("HOROVOD_CROSS_RANK",), rank // local_size)
         if not 0 <= rank < size:
             raise ValueError(f"rank {rank} outside a world of {size}")
+        env.check_unported_knobs()
 
         if device is None:
             if not torch.cuda.is_available():
@@ -111,7 +124,26 @@ def init(device=None, init_method: Optional[str] = None) -> None:
         _state.device = device
         _state.owns_group = owns
         _state.store_dir = store_dir
+        _state.engine = _start_engine(rank, size, device, backend)
         _state.initialized = True
+
+
+def _start_engine(rank: int, size: int, device: torch.device, backend: str):
+    from ..engine.engine import Engine
+    from ..engine.transport import GlooTransport
+
+    channels = env.num_channels()
+    transport, groups = None, [None] * channels
+    if size > 1:
+        transport = GlooTransport(dist.new_group(backend="gloo"), rank, size)
+        groups = [dist.new_group(backend=backend) for _ in range(channels)]
+        if backend == "nccl":
+            for g in groups:
+                dist.all_reduce(torch.zeros(1, device=device), group=g)
+            torch.cuda.synchronize(device)
+    engine = Engine(rank, size, device, transport, groups)
+    engine.start()
+    return engine
 
 
 def shutdown() -> None:
@@ -119,6 +151,9 @@ def shutdown() -> None:
     with _state.lock:
         if not _state.initialized:
             return
+        if _state.engine is not None:
+            _state.engine.shutdown()
+            _state.engine = None
         if _state.owns_group and dist.is_initialized():
             dist.destroy_process_group()
         if _state.store_dir is not None:
@@ -134,6 +169,12 @@ def shutdown() -> None:
 
 def is_initialized() -> bool:
     return _state.initialized
+
+
+def engine():
+    """The eager engine the world collectives go through."""
+    _require_init()
+    return _state.engine
 
 
 def _require_init():

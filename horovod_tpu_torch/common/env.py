@@ -1,5 +1,6 @@
-"""The environment knobs of the scaled data-parallel path (counterpart of
-``horovod_tpu/utils/env.py:458, 493-495, 697-735``; the port's own copy).
+"""The environment knobs of the scaled data-parallel path and of the eager
+engine (counterpart of ``horovod_tpu/utils/env.py:29-35, 196-217, 458-506,
+665-735``; the port's own copy, with the JAX package's defaults).
 
 Each function reads the environment when it is called, so a knob set
 between two calls takes effect on the second, as the JAX package's eager
@@ -17,8 +18,39 @@ WIRE_COMPRESSION = "HOROVOD_WIRE_COMPRESSION"
 WIRE_COMPRESSION_MIN_BYTES = "HOROVOD_WIRE_COMPRESSION_MIN_BYTES"
 WIRE_COMPRESSION_INT8 = "HOROVOD_WIRE_COMPRESSION_INT8"
 
+CYCLE_TIME = "HOROVOD_CYCLE_TIME"
+CACHE_CAPACITY = "HOROVOD_CACHE_CAPACITY"
+NUM_CHANNELS = "HOROVOD_NUM_CHANNELS"
+CHANNEL_POLICY = "HOROVOD_CHANNEL_POLICY"
+LATENCY_CHANNEL_BYTES = "HOROVOD_LATENCY_CHANNEL_BYTES"
+MAX_INFLIGHT = "HOROVOD_MAX_INFLIGHT_RESPONSES"
+CYCLE_EVENT = "HOROVOD_CYCLE_EVENT_DRIVEN"
+STALL_CHECK_DISABLE = "HOROVOD_STALL_CHECK_DISABLE"
+STALL_CHECK_TIME = "HOROVOD_STALL_CHECK_TIME_SECONDS"
+STALL_SHUTDOWN_TIME = "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"
+TIMELINE = "HOROVOD_TIMELINE"
+TIMELINE_MARK_CYCLES = "HOROVOD_TIMELINE_MARK_CYCLES"
+
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024  # ref: operations.cc:432
 DEFAULT_WIRE_COMPRESSION_MIN_BYTES = 65536
+DEFAULT_CYCLE_TIME_MS = 5.0          # ref: operations.cc:442
+DEFAULT_CACHE_CAPACITY = 1024        # ref: global_state.h:88
+DEFAULT_NUM_CHANNELS = 2
+MAX_CHANNELS = 16
+DEFAULT_LATENCY_CHANNEL_BYTES = 65536
+DEFAULT_STALL_WARNING_SECONDS = 60.0  # ref: stall_inspector.h
+
+# Knobs of modules the port has not taken yet: set, they raise instead of
+# being ignored (name -> (ROADMAP item, what it would have turned on)).
+UNPORTED = {
+    "HOROVOD_AUTOTUNE": ("A6", "the autotuner (engine/parameter_manager.py)"),
+    "HOROVOD_HIERARCHICAL_ALLREDUCE": ("A6", "the hierarchical allreduce"),
+    "HOROVOD_HIERARCHICAL_ALLGATHER": ("A6", "the hierarchical allgather"),
+    "HOROVOD_METRICS_PORT": ("A8", "the metrics HTTP exporter"),
+    "HOROVOD_METRICS_FILE": ("A8", "the metrics file exporter"),
+    "HOROVOD_TRACE_FILE": ("A8", "the tracing plane's merged trace"),
+    "HOROVOD_TRACE_DIR": ("A8", "the tracing plane's flight recorder"),
+}
 
 
 def _int(name: str, default: int) -> int:
@@ -29,6 +61,97 @@ def _int(name: str, default: int) -> int:
         return int(val)
     except ValueError:
         return default
+
+
+def _float(name: str, default: float) -> float:
+    val = os.environ.get(name)
+    if val in (None, ""):
+        return default
+    try:
+        return float(val)
+    except ValueError:
+        return default
+
+
+def _bool(name: str, default: bool) -> bool:
+    val = os.environ.get(name)
+    if val in (None, ""):
+        return default
+    return val.lower() not in ("0", "false", "no", "off")
+
+
+def check_unported_knobs() -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for each knob
+    of a module the port has not taken that is set (to anything but off)."""
+    for name, (item, what) in UNPORTED.items():
+        if _bool(name, False):
+            raise NotImplementedError(
+                f"{name} is set, but {what} is not ported yet (ROADMAP {item}); "
+                f"unset it to run")
+
+
+def cycle_time_ms() -> float:
+    """The background loop's longest coalescing wait (ref: operations.cc:442)."""
+    return _float(CYCLE_TIME, DEFAULT_CYCLE_TIME_MS)
+
+
+def cache_capacity() -> int:
+    return _int(CACHE_CAPACITY, DEFAULT_CACHE_CAPACITY)
+
+
+def cache_enabled() -> bool:
+    """HOROVOD_CACHE_CAPACITY=0 disables the response cache
+    (ref: operations.cc:455-462)."""
+    return cache_capacity() != 0
+
+
+def num_channels() -> int:
+    """Executor channels, clamped to [1, MAX_CHANNELS]. Read once, when the
+    engine starts: each channel holds a process group, made collectively."""
+    return max(1, min(_int(NUM_CHANNELS, DEFAULT_NUM_CHANNELS), MAX_CHANNELS))
+
+
+def max_inflight_responses() -> int:
+    """Dispatched-but-unfinished response bound (backpressure window);
+    defaults to 2 per channel; at least 1."""
+    return max(_int(MAX_INFLIGHT, 2 * num_channels()), 1)
+
+
+def channel_policy() -> str:
+    """"size" (default: the highest channel is a latency lane for responses
+    of at most HOROVOD_LATENCY_CHANNEL_BYTES) or "rr" (round-robin)."""
+    val = os.environ.get(CHANNEL_POLICY, "size").lower()
+    return val if val in ("size", "rr") else "size"
+
+
+def latency_channel_bytes() -> int:
+    return _int(LATENCY_CHANNEL_BYTES, DEFAULT_LATENCY_CHANNEL_BYTES)
+
+
+def cycle_event_driven() -> bool:
+    """1 (default): an enqueue wakes the background loop at once, so the
+    cycle time is a longest coalescing delay; 0: a fixed sleep a cycle."""
+    return _bool(CYCLE_EVENT, True)
+
+
+def stall_check_disabled() -> bool:
+    return _bool(STALL_CHECK_DISABLE, False)
+
+
+def stall_check_seconds() -> float:
+    return _float(STALL_CHECK_TIME, DEFAULT_STALL_WARNING_SECONDS)
+
+
+def stall_shutdown_seconds() -> float:
+    return _float(STALL_SHUTDOWN_TIME, 0.0)
+
+
+def timeline_file() -> str:
+    return os.environ.get(TIMELINE, "")
+
+
+def timeline_mark_cycles() -> bool:
+    return _bool(TIMELINE_MARK_CYCLES, False)
 
 
 def fusion_threshold_bytes() -> int:

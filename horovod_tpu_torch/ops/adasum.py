@@ -79,13 +79,14 @@ def adasum_allreduce(tensor: torch.Tensor, comm=None,
         if sum(sizes) != tensor.numel():
             raise ValueError(f"sizes {sizes} do not sum to the tensor's {tensor.numel()} "
                              "elements")
+    group = None if comm is None else comm.group
     x = tensor.contiguous()
     for k in range(int(math.log2(n))):
         stride = 1 << k
         peer = r ^ stride if ranks is None else ranks[r ^ stride]
         recv = torch.empty_like(x)
-        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer),
-                                           dist.P2POp(dist.irecv, recv, peer)]):
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer, group),
+                                           dist.P2POp(dist.irecv, recv, peer, group)]):
             req.wait()
         x = _combine(x, recv, sizes) if r & stride == 0 else _combine(recv, x, sizes)
     return x.clone() if x is tensor else x

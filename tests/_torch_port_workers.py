@@ -3,7 +3,8 @@ tests/test_torch_port_resnet.py, tests/test_torch_port_collectives.py,
 tests/test_torch_port_bert.py, tests/test_torch_port_{zero,adasum,
 sync_bn,overlap}.py, tests/test_torch_port_{sp,moe,mesh,pipeline,tp,tp_sp}.py,
 tests/test_torch_port_{zero_mesh,fsdp}.py, tests/test_torch_port_{vit,
-mnist}.py and tests/test_torch_port_pp_tp.py, in a
+mnist}.py, tests/test_torch_port_pp_tp.py and
+tests/test_torch_port_{engine,binding}.py, in a
 module of their own so spawned ranks import torch and horovod_tpu_torch
 only (no jax, no test module). Each rank returns a dict of numpy arrays
 through a queue; ``spawn_world`` runs a named body on a world of gloo
@@ -791,7 +792,10 @@ def _run_overlap(rank: int, size: int) -> dict:
         x, s = torch.from_numpy(big[rank]), torch.from_numpy(small[rank])
         out[f"wire_{lane}_sum"] = hvd.allreduce(x, op=hvd.Sum).numpy()
         out[f"wire_{lane}_avg"] = hvd.allreduce(x).numpy()
-        out[f"wire_{lane}_grouped"] = [t.numpy() for t in hvd.grouped_allreduce([x, s])]
+        # Named by lane: a cached response replays the codec it was
+        # negotiated with (the engine's response cache).
+        out[f"wire_{lane}_grouped"] = [t.numpy() for t in hvd.grouped_allreduce(
+            [x, s], name=f"wire_{lane}")]
     set_lane("none")
     out.update(_mismatches(hvd, rank))
     hvd.barrier()
@@ -2344,3 +2348,276 @@ def _run_pp_dp_tp_world(rank: int, size: int, train_params) -> dict:
     import horovod_tpu_torch as hvd
 
     return _pptp_train(hvd, torch, hvd.create_mesh(PPDPTP_MESH), train_params)
+
+
+# ---------------------------------------------------------------------------
+# The eager engine and the binding (tests/test_torch_port_{engine,binding}.py)
+ENGINE_ROUNDS = 3          # all-reduces of the uneven-join case (the last rank: 1)
+ENGINE_MANY = 6            # tensors of the fused grouped all-reduce
+ENGINE_STEADY = 12         # passes of the steady-state tensor
+STALL_DELAY = 2.5          # seconds rank 1 holds back the stalled tensor
+TIMELINE_TENSORS = ("allreduce.tl0", "allreduce.tl1", "allgather.tlg", "broadcast.tlb")
+
+
+def engine_inputs(rank: int, size: int) -> dict:
+    """Each rank's numpy inputs to the engine's collectives (seeded), which
+    the tests feed to the JAX engine too."""
+    rng = np.random.RandomState(200 + rank)
+    return {
+        "f32": rng.randn(5, 3).astype(np.float32),
+        "many": [rng.randn(2 + i).astype(np.float32) for i in range(ENGINE_MANY)],
+        "int": np.array([2, 4, 6], np.int64) * (rank + 1),
+        "ag": np.arange((rank + 1) * 2, dtype=np.float32).reshape(rank + 1, 2) + 10 * rank,
+        "a2a": (np.arange(size * (rank + 1) * 2, dtype=np.float32)
+                .reshape(size * (rank + 1), 2) + 100 * rank),
+        "bcast": np.full(3, rank * 10, np.float32),
+        "join": np.full(2, float(rank + 1), np.float32),
+        "perm": [rng.randn(4).astype(np.float32) for _ in range(4)],
+    }
+
+
+def _stall_messages(hvd, rank: int) -> list:
+    """Rank 1 holds back tensor ``late`` for STALL_DELAY seconds; rank 0's
+    coordinator warns (HOROVOD_STALL_CHECK_TIME_SECONDS=1). The warnings the
+    engine's logger emitted on this rank."""
+    import logging
+    import time
+
+    import torch
+
+    from horovod_tpu_torch.utils.logging import get_logger
+
+    got = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            got.append(record.getMessage())
+
+    handler = Keep(level=logging.WARNING)
+    get_logger().addHandler(handler)
+    try:
+        if rank == 1:
+            time.sleep(STALL_DELAY)
+        hvd.allreduce(torch.ones(2), name="late", op=hvd.Sum)
+    finally:
+        get_logger().removeHandler(handler)
+    return got
+
+
+def _run_engine_world(rank: int, size: int, timeline: str) -> dict:
+    """The world collectives through the engine on ``engine_inputs``: SUM,
+    AVERAGE, MIN, MAX, PRODUCT, a fused group, integer AVERAGE, ragged
+    allgather, uneven alltoall, broadcast from each root, permuted
+    asynchronous submission, an uneven join, a stall and the timeline
+    (rank 0 writes it at shutdown, which this body calls itself)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.utils import chrome_trace
+
+    inp = engine_inputs(rank, size)
+    t = {k: torch.from_numpy(v) for k, v in inp.items() if isinstance(v, np.ndarray)}
+    out = {"sum": hvd.allreduce(t["f32"], name="f32", op=hvd.Sum).numpy(),
+           "avg": hvd.allreduce(t["f32"], name="f32avg").numpy()}
+    for op in ("MIN", "MAX", "PRODUCT"):
+        out[op] = hvd.allreduce(t["f32"], name=op, op=getattr(hvd.ReduceOp, op)).numpy()
+    out["many"] = [g.numpy() for g in hvd.grouped_allreduce(
+        [torch.from_numpy(m) for m in inp["many"]], name="many", op=hvd.Sum)]
+    out["iavg"] = hvd.allreduce(t["int"], name="iavg").numpy()
+    out["ag"] = hvd.allgather(t["ag"], name="ag").numpy()
+    got, recv = hvd.alltoall(t["a2a"], splits=[rank + 1] * size, name="a2a")
+    out["a2a"], out["a2a_splits"] = got.numpy(), recv
+    for root in range(size):
+        out[f"bcast_{root}"] = hvd.broadcast(t["bcast"], root, name=f"b{root}").numpy()
+    order = [(i + rank) % 4 for i in range(4)]   # each rank submits in its own order
+    handles = {i: hvd.allreduce_async(torch.from_numpy(inp["perm"][i]), name=f"perm{i}",
+                                      op=hvd.Sum) for i in order}
+    out["perm"] = [hvd.synchronize(handles[i]).numpy() for i in range(4)]
+    steady = [hvd.allreduce(torch.ones(3) * (rank + 1), name="steady", op=hvd.Sum).numpy()
+              for _ in range(ENGINE_STEADY)]
+    out["steady"] = steady
+    out["counters"] = hvd.common.basics.engine().counters()
+    joins = []
+    for i in range(ENGINE_ROUNDS if rank != size - 1 else 1):
+        joins.append(hvd.allreduce(t["join"], name=f"j{i}").numpy())
+    out["join"] = joins
+    out["last_joined"] = hvd.join()
+    out["stall"] = _stall_messages(hvd, rank)
+    for name in ("tl0", "tl1"):
+        hvd.allreduce(torch.ones(4) * rank, name=name)
+    hvd.allgather(t["ag"], name="tlg")
+    hvd.broadcast(t["bcast"], 0, name="tlb")
+    hvd.barrier()
+    eng = hvd.common.basics.engine()
+    tids = dict(eng.timeline._tids)
+    hvd.shutdown()
+    if rank == 0:
+        out["timeline"] = chrome_trace.trace_events(chrome_trace.read_trace_file(timeline))
+        out["tids"] = tids
+    return out
+
+
+def _run_transport_world(rank: int, size: int) -> dict:
+    """The engine's control plane alone, on a gloo group of its own: bytes
+    gathered and broadcast, 64-bit words and-ed and or-ed, a barrier."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.engine.transport import GlooTransport
+
+    tr = GlooTransport(dist.new_group(backend="gloo"), rank, size)
+    words = [(1 << 63) | (1 << rank), 0xFFFF_FFFF_FFFF_FFFF ^ (1 << rank)]
+    tr.barrier()
+    return {"gathered": tr.gather_bytes(bytes([rank]) * (rank + 1)),
+            "bcast": tr.bcast_bytes(b"coordinator" if rank == 0 else None),
+            "empty": tr.bcast_bytes(b"" if rank == 0 else None),
+            "and": tr.allreduce_words(words, "and"),
+            "or": tr.allreduce_words(words, "or")}
+
+
+# The binding's optimizer cases: name -> (inner, DistributedOptimizer kwargs).
+BINDING_CASES = {
+    "sgd": ("sgd", {}),
+    "adamw": ("adamw", {}),
+    "bpps2": ("sgd", {"backward_passes_per_step": 2}),
+    "predivide": ("sgd", {"gradient_predivide_factor": 4.0}),
+    "sum": ("adamw", {"op": "Sum"}),
+}
+BINDING_STEPS = 3
+
+
+def seeded_params_(module, seed: int):
+    """Every parameter of ``module`` drawn from numpy ``seed`` (the torch
+    generator is process-wide, and the JAX binding's ranks are threads)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(torch.from_numpy((0.4 * rng.randn(*p.shape)).astype(np.float32)))
+    return module
+
+
+def binding_net(torch):
+    return seeded_params_(torch.nn.Sequential(torch.nn.Linear(6, 8), torch.nn.Tanh(),
+                                              torch.nn.Linear(8, 3)), 0)
+
+
+def binding_batch(rank: int, step: int):
+    rng = np.random.RandomState(300 + 10 * rank + step)
+    return rng.randn(5, 6).astype(np.float32), rng.randn(5, 3).astype(np.float32)
+
+
+def binding_train(hvd_torch, torch, case: str, rank: int) -> dict:
+    """BINDING_STEPS steps (twice as many backward passes under
+    ``backward_passes_per_step=2``) of the binding's ``DistributedOptimizer``
+    on ``binding_net`` and ``binding_batch``; the parameters after."""
+    inner, kw = BINDING_CASES[case]
+    kw = dict(kw)
+    if "op" in kw:
+        kw["op"] = getattr(hvd_torch, kw["op"])
+    net = binding_net(torch)
+    base = (torch.optim.SGD(net.parameters(), lr=0.1) if inner == "sgd"
+            else torch.optim.AdamW(net.parameters(), lr=1e-2))
+    opt = hvd_torch.DistributedOptimizer(base, named_parameters=net.named_parameters(), **kw)
+    passes = kw.get("backward_passes_per_step", 1)
+    for step in range(BINDING_STEPS * passes):
+        x, y = (torch.from_numpy(a) for a in binding_batch(rank, step))
+        if step % passes == 0:
+            opt.zero_grad()
+        torch.nn.functional.mse_loss(net(x), y).backward()
+        opt.step()
+    return {n: p.detach().numpy().copy() for n, p in net.named_parameters()}
+
+
+def binding_extras(hvd_torch, torch, rank: int) -> dict:
+    """The guards, ``skip_synchronize`` with clipping between the
+    reduction and the step, and the Adasum delta optimizer's first step
+    with its oracle inputs (the start weights and the local Adam step's)."""
+    import copy
+
+    out = {}
+    net = binding_net(torch)
+
+    def error(fn):
+        try:
+            fn()
+        except Exception as e:   # the tests read which error it was
+            return f"{type(e).__name__}: {e}"
+        return "no error"
+
+    out["predivide_sum"] = error(lambda: hvd_torch.DistributedOptimizer(
+        torch.optim.SGD(net.parameters(), lr=0.1), op=hvd_torch.Sum,
+        gradient_predivide_factor=2.0))
+    dup = [("w", p) for p in net.parameters()]
+    out["duplicate"] = error(lambda: hvd_torch.DistributedOptimizer(
+        torch.optim.SGD(net.parameters(), lr=0.1), named_parameters=dup))
+    opt = hvd_torch.DistributedOptimizer(torch.optim.SGD(net.parameters(), lr=0.1),
+                                         named_parameters=net.named_parameters())
+    x, y = (torch.from_numpy(a) for a in binding_batch(rank, 0))
+    opt.zero_grad()
+    torch.nn.functional.mse_loss(net(x), y).backward()
+    opt.synchronize()
+    out["clip_norm"] = float(torch.nn.utils.clip_grad_norm_(net.parameters(), 0.05))
+    with opt.skip_synchronize():
+        opt.step()
+    out["skip_sync"] = {n: p.detach().numpy().copy() for n, p in net.named_parameters()}
+
+    model = seeded_params_(torch.nn.Linear(4, 2), 1)
+    start = copy.deepcopy(model)
+    ref = copy.deepcopy(model)
+    ada = hvd_torch.DistributedOptimizer(torch.optim.Adam(model.parameters(), lr=0.05),
+                                         named_parameters=model.named_parameters(),
+                                         op=hvd_torch.Adasum)
+    ada.synchronize()
+    out["adasum_skip"] = error(lambda: ada.skip_synchronize().__enter__())
+    rng = np.random.RandomState(rank + 1)
+    X = torch.from_numpy(rng.randn(8, 4).astype(np.float32))
+    Y = torch.from_numpy(rng.randn(8, 2).astype(np.float32))
+    ada.zero_grad()
+    torch.nn.functional.mse_loss(model(X), Y).backward()
+    ada.step()
+    ref_opt = torch.optim.Adam(ref.parameters(), lr=0.05)
+    torch.nn.functional.mse_loss(ref(X), Y).backward()
+    ref_opt.step()
+    out["adasum"] = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+    out["adasum_start"] = {n: p.detach().numpy().copy() for n, p in start.named_parameters()}
+    out["adasum_local"] = {n: p.detach().numpy().copy() for n, p in ref.named_parameters()}
+    return out
+
+
+def _run_binding_world(rank: int, size: int) -> dict:
+    import torch
+
+    import horovod_tpu_torch.torch as hvd_torch
+
+    out = {case: binding_train(hvd_torch, torch, case, rank) for case in BINDING_CASES}
+    out.update(binding_extras(hvd_torch, torch, rank))
+    t = torch.ones(3) * (rank + 1)
+    out["inplace"] = hvd_torch.allreduce_(t).numpy().copy()
+    w = torch.full((2,), float(rank + 1), requires_grad=True)
+    hvd_torch.allreduce(w, name="w", op=hvd_torch.Sum).sum().backward()
+    out["allreduce_grad"] = w.grad.numpy().copy()
+    b = torch.full((2,), float(rank))
+    hvd_torch.broadcast_(b, 1)
+    out["broadcast_"] = b.numpy().copy()
+    out["dropped_optimizer_freed"] = _dropped_optimizer_freed(hvd_torch, torch)
+    return out
+
+
+def _dropped_optimizer_freed(hvd_torch, torch) -> bool:
+    """A model and its hook optimizer, trained a step and dropped, are
+    collected (the hooks must not hold the optimizer)."""
+    import gc
+    import weakref
+
+    net = binding_net(torch)
+    opt = hvd_torch.DistributedOptimizer(torch.optim.SGD(net.parameters(), lr=0.1),
+                                         named_parameters=net.named_parameters(),
+                                         backward_passes_per_step=1)
+    x, y = (torch.from_numpy(a) for a in binding_batch(0, 0))
+    torch.nn.functional.mse_loss(net(x), y).backward()
+    opt.step()
+    refs = [weakref.ref(opt), weakref.ref(next(net.parameters()))]
+    del net, opt
+    gc.collect()
+    return all(r() is None for r in refs)

@@ -51,6 +51,22 @@ MODULES = [
     "horovod_tpu_torch.models.convert",
     "horovod_tpu_torch.models.pipelined",
     "horovod_tpu_torch.profile_step",
+    "horovod_tpu_torch.common.message",
+    "horovod_tpu_torch.common.types",
+    "horovod_tpu_torch.engine",
+    "horovod_tpu_torch.engine.tensor_queue",
+    "horovod_tpu_torch.engine.response_cache",
+    "horovod_tpu_torch.engine.stall",
+    "horovod_tpu_torch.engine.timeline",
+    "horovod_tpu_torch.engine.controller",
+    "horovod_tpu_torch.engine.transport",
+    "horovod_tpu_torch.engine.operation_manager",
+    "horovod_tpu_torch.engine.engine",
+    "horovod_tpu_torch.utils.clock",
+    "horovod_tpu_torch.utils.chrome_trace",
+    "horovod_tpu_torch.utils.logging",
+    "horovod_tpu_torch.torch",
+    "horovod_tpu_torch.torch.optimizer",
 ]
 # The JAX package's names that the port exports under the same names.
 EXPORTS = [
@@ -58,7 +74,7 @@ EXPORTS = [
     "ddl_built", "cuda_built", "rocm_built", "xla_built", "tcp_built",
     "allreduce", "allreduce_async", "grouped_allreduce", "allgather",
     "allgather_async", "broadcast", "broadcast_async", "alltoall",
-    "alltoall_async", "reducescatter", "barrier", "poll", "synchronize",
+    "alltoall_async", "reducescatter", "barrier", "join", "poll", "synchronize",
     "broadcast_object", "allgather_object", "broadcast_parameters",
     "broadcast_optimizer_state", "Compression", "DistributedOptimizer",
     "DistributedGradientTape", "distributed_value_and_grad",

@@ -16,13 +16,15 @@ casts and the header checks, on 2 gloo ranks.
   the gradients' signature changes.
 * Wire casts: ``hvd.allreduce`` (SUM, AVERAGE) and ``grouped_allreduce``
   of seeded f32 tensors on each lane (none, bf16, fp16, int8) against the
-  JAX traced ``allreduce``/``grouped_allreduce`` in ``shard_map`` on 2 CPU
-  devices under the same knobs: equal to 1e-6 (two ranks: one addition,
-  the same rounding in both).
-* Header checks: shape, dtype, op, prescale, postscale, root, tensor sizes
+  JAX traced ``allreduce`` in ``shard_map`` on 2 CPU devices under the
+  same knobs: equal to 1e-6 (two ranks: one addition, the same rounding in
+  both).
+* Mismatches: shape, dtype, op, prescale, postscale, root, tensor sizes
   and the collective itself differing between the ranks raise
-  ``HorovodInternalError`` on every rank, naming both values; so does a
-  ``DistributedOptimizer`` whose gradients differ; the group works after.
+  ``HorovodInternalError`` on every rank, naming the tensor and both
+  values (the engine coordinator's ERROR for world calls); so does a
+  ``DistributedOptimizer`` whose gradients differ (its header check); the
+  group works after.
 """
 import jax
 import numpy as np
@@ -103,25 +105,29 @@ def _jax_allreduce(lane, big, small):
 
         def body(x, s):
             x, s = x[0], s[0]
-            g = traced.grouped_allreduce([x, s], "x", ReduceOp.AVERAGE)
             return (traced.allreduce(x, "x", ReduceOp.SUM)[None],
-                    traced.allreduce(x, "x", ReduceOp.AVERAGE)[None], g[0][None], g[1][None])
+                    traced.allreduce(x, "x", ReduceOp.AVERAGE)[None],
+                    traced.allreduce(s, "x", ReduceOp.AVERAGE)[None])
 
-        f = shard_map(body, mesh=mesh, in_specs=(P("x"), P("x")), out_specs=(P("x"),) * 4)
+        f = shard_map(body, mesh=mesh, in_specs=(P("x"), P("x")), out_specs=(P("x"),) * 3)
         return [np.asarray(a) for a in jax.jit(f)(big, small)]
 
 
 @pytest.mark.parametrize("lane", list(workers.LANES))
 def test_wire_cast_matches_the_jax_traced_allreduce(world, lane):
+    """The world's grouped all-reduce goes through the engine, which fuses
+    a group up to HOROVOD_FUSION_THRESHOLD (1024 bytes in this world): the
+    1200-byte x and the 164-byte s are two responses, each cast on its own,
+    as the JAX traced all-reduce casts each tensor."""
     big, small = workers.wire_inputs(SIZE)
-    want_sum, want_avg, want_g0, want_g1 = _jax_allreduce(lane, big, small)
+    want_sum, want_avg, want_small = _jax_allreduce(lane, big, small)
     exact = big.sum(0)
     for r, res in enumerate(world):
         np.testing.assert_allclose(res[f"wire_{lane}_sum"], want_sum[r], rtol=TOL, atol=TOL)
         np.testing.assert_allclose(res[f"wire_{lane}_avg"], want_avg[r], rtol=TOL, atol=TOL)
         g0, g1 = res[f"wire_{lane}_grouped"]
-        np.testing.assert_allclose(g0, want_g0[r], rtol=TOL, atol=TOL)
-        np.testing.assert_allclose(g1, want_g1[r], rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(g0, want_avg[r], rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(g1, want_small[r], rtol=TOL, atol=TOL)
         # The cast really happened where the lane asks for one.
         if lane == "none":
             np.testing.assert_allclose(res[f"wire_{lane}_sum"], exact, rtol=TOL, atol=TOL)
@@ -129,19 +135,24 @@ def test_wire_cast_matches_the_jax_traced_allreduce(world, lane):
             assert not np.array_equal(res[f"wire_{lane}_sum"], exact)
 
 
-MISMATCH = {   # case -> (op named in the message, the two values)
-    "shape": ("allreduce 'grads'", "(2,)", "(3,)"),
-    "shape_async": ("allreduce_async", "(2,)", "(3,)"),
-    "dtype": ("allreduce", "torch.float32", "torch.float64"),
-    "op": ("allreduce", "SUM", "MAX"),
-    "prescale": ("allreduce", "1.0", "2.0"),
-    "postscale": ("allreduce", "0.5", "1.0"),
-    "grouped": ("grouped_allreduce", "[2, 3]", "[3, 2]"),
-    "grouped_shape": ("grouped_allreduce", "[2, 3]", "[2, 4]"),
-    "root": ("broadcast", "rank 0 has 0", "rank 1 has 1"),
-    "root_async": ("broadcast", "rank 0 has 0", "rank 1 has 1"),
-    "broadcast_shape": ("broadcast_", "(2,)", "(3,)"),
-    "collective": ("", "allreduce", "broadcast"),
+# case -> (what the message names, the two values). World calls are the
+# engine's: the tensor's name and the coordinator's text (the JAX
+# package's), AVERAGE lowered to SUM with postscale 1/size, reduce ops by
+# their number (SUM 1, MAX 4), dtypes by the wire enum; the optimizer's
+# signature check is still the header exchange's.
+MISMATCH = {
+    "shape": ("[allreduce.grads]", "[2]", "[3]"),
+    "shape_async": ("Mismatched allreduce tensor shapes", "[2]", "[3]"),
+    "dtype": ("Mismatched data types", "FLOAT32", "FLOAT64"),
+    "op": ("Mismatched reduce ops", "op 1", "another 4"),
+    "prescale": ("Mismatched prescale/postscale", "prescale 1.0", "prescale 2.0"),
+    "postscale": ("Mismatched prescale/postscale", "postscale 0.25", "postscale 0.5"),
+    "grouped": ("[allreduce.grouped.0]", "[2]", "[3]"),
+    "grouped_shape": ("[allreduce.grouped.1]", "[3]", "[4]"),
+    "root": ("Mismatched broadcast root ranks", "root 0", "another 1"),
+    "root_async": ("Mismatched broadcast root ranks", "root 0", "another 1"),
+    "broadcast_shape": ("Mismatched broadcast tensor shapes", "[2]", "[3]"),
+    "collective": ("Mismatched collective operations", "ALLREDUCE", "BROADCAST"),
     "optimizer": ("DistributedOptimizer", "[3]", "[4]"),
 }
 
