@@ -291,13 +291,46 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    timeline has every gradient's negotiation and op; step ms in turns
    with the overlapped optimizer, the engine's cycles, fused responses,
    bytes a response and cache hits a step, peak memory;
-34. the ``{"kernels": [...]}`` line (with ``launches_sp``,
+34. the launcher and elastic training (``elastic``, one card, run after 10):
+   GPT-2-small as in 6 under ``@hvd.elastic.run`` with ``TorchState(model,
+   optimizer, batch=0)``, AdamW under the binding's hook optimizer, a commit
+   after every step, each step's ids drawn from a generator seeded by (step,
+   rank), each started by ``python -m horovod_tpu_torch.runner.launch``: (a)
+   ``-np 1`` static, 5 steps, losses bitwise the same steps run in this
+   process on 6's model and seed; (b) elastic (``--min-np 1 --max-np 1``, a
+   discovery script of one host), HorovodInternalError raised in step 5
+   after the commit of step 4, the state after the restore bitwise that
+   commit, reset, synced, 8 steps; (c) the same without the error: (b)'s
+   final parameters and AdamW state bitwise (c)'s; 12 launches of each flash
+   kernel a step; the commit's ms, the device bytes ``TorchState`` holds,
+   the reset's seconds by part;
+35. with two cards or more (``elastic_multi``; four in PERF.md's runs),
+   fake hosts ``card0``..``card<n-1>`` (HVDRUN_FORCE_LOCAL=1, each worker
+   bound to its card before torch loads), a discovery script that prints a
+   file: steps 1-4 at np=n; ``kill:step=5:rank=<n-1>`` ends that worker
+   (its host leaves the file with it); the survivors raise
+   HorovodInternalError, restore the commit of step 4 bitwise, reset to
+   n-1 and train on; after step 8 rank 0 lists the host again, the next
+   commit raises HostsUpdatedInterrupt, the world resets to n and a fresh
+   worker on that card is synced from rank 0; the job ends at step 12 with
+   the launcher's exit 0 and no worker left, every sync's replicas bitwise
+   (a checksum broadcast from rank 0), all under ``timeout 300``; the
+   seconds from the kill to the first step at n-1 by part (detection,
+   restore, shutdown, the driver's epoch, re-init, sync), from the host's
+   return to the first step at n, step ms at n and n-1, peak GB a card;
+   then, on one spawned NCCL rank per card, the last rank dies while the
+   others wait on a direct NCCL reduce-scatter (no engine) that needs it:
+   each survivor's wait ends, its next collective raises
+   HorovodInternalError, its shutdown() takes under 10 s, and the
+   survivors form a world of n-1 in the same processes on the same cards;
+36. the ``{"kernels": [...]}`` line (with ``launches_sp``,
    ``launches_moe``, ``launches_pp``, ``launches_tp``,
    ``launches_zero_mesh``, ``launches_tp_sp``, ``launches_tp_moe``,
    ``launches_vit``, ``launches_vit_multi``, ``launches_mnist``,
    ``launches_mnist_multi``, ``launches_adasum_1p3b_multi``,
    ``launches_pp_tp``, ``launches_pp_tp_multi``, ``launches_engine``,
-   ``launches_engine_multi`` and the D=128 records
+   ``launches_engine_multi``, ``launches_elastic``, ``launches_elastic_multi``
+   and the D=128 records
    ``pp_d128``, ``tp_d128``, ``tp_sp_d128`` and ``pp_tp_d128``); then the card line
    from nvidia-smi and the last line ``{"ok": true, "device": {...}}``.
 
@@ -4941,13 +4974,545 @@ def phase_engine_multi() -> dict:
     return {"launches": ranks[0]["e1_engine"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# The launcher and elastic training: GPT-2-small on the flash kernels
+# under ``@hvd.elastic.run`` with ``TorchState``, started by the port's own
+# launcher (``python -m horovod_tpu_torch.runner.launch``), never by
+# spawn_cards. The workers are this module's ``elastic_worker``, run from a
+# three-line script that first binds a fake host ``card<i>`` to card i.
+EL_MODEL = "gpt2-small"
+EL_STEPS = 8              # (b) and (c)
+EL_RAISE_AT = 5           # (b): HorovodInternalError in step 5, after the commit of step 4
+EL_MULTI_STEPS = 12
+EL_KILL_STEP = 5          # elastic_multi: kill:step=5 on the last rank
+EL_RETURN_AFTER = 8       # elastic_multi: the host is listed again after step 8
+EL_TIMEOUT = 300          # seconds, around each launch
+EL_WORKER_SCRIPT = (
+    "import os, sys\n"
+    "host = os.environ.get('HOROVOD_HOSTNAME', '')\n"
+    "if host.startswith('card'):\n"
+    "    cards = os.environ.get('CUDA_VISIBLE_DEVICES')\n"
+    "    cards = cards.split(',') if cards else None\n"
+    "    i = int(host[4:])\n"
+    "    os.environ['CUDA_VISIBLE_DEVICES'] = cards[i] if cards else str(i)\n"
+    "sys.path.insert(0, {repo!r})\n"
+    "import chip_smoke\n"
+    "chip_smoke.elastic_worker()\n")
+
+
+def el_batch(batch: int, rank: int, dev, vocab: int):
+    """The ids of step ``batch + 1`` on ``rank``, from a generator seeded by
+    (batch, rank): a replayed step sees the same data."""
+    rng = np.random.RandomState(1000 * batch + rank)
+    return torch.from_numpy(rng.randint(0, vocab, size=(B, S)).astype(np.int64)).to(dev)
+
+
+def el_model(dev):
+    """phase ``slice``'s model and seed, and AdamW under the binding's hook
+    optimizer (through the engine)."""
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.models.registry import get_model
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = get_model(EL_MODEL).make_model(device=dev, generator=gen, attn_impl="flash",
+                                           logits_dtype=torch.bfloat16, max_len=S)
+    opt = hvd_torch.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8),
+        named_parameters=model.named_parameters())
+    return model, opt
+
+
+def el_step(model, opt, ids) -> float:
+    from horovod_tpu_torch.parallel.train import lm_loss
+
+    opt.zero_grad(set_to_none=True)
+    loss = lm_loss(model(ids), ids)
+    loss.backward()
+    opt.step()
+    return float(loss.detach())
+
+
+def state_checksum(model, opt) -> torch.Tensor:
+    """Two int64 words a tensor (the sum of its bit patterns and of their
+    squares, wrapping) over the parameters and the optimizer state, in one
+    order on every rank, on the card: equal vectors for bitwise-equal
+    states."""
+    tensors = [t for _, t in sorted(model.state_dict().items())]
+    state = opt.state_dict()["state"]
+    tensors += [state[pid][key] for pid in sorted(state) for key in sorted(state[pid])
+                if isinstance(state[pid][key], torch.Tensor)]
+    dev = next(model.parameters()).device
+    words = []
+    for t in tensors:
+        t = t.detach().to(dev).reshape(-1)
+        bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            t.element_size()]
+        x = t.contiguous().view(bits).to(torch.int64)
+        words += [x.sum(), (x * x).sum()]
+    return torch.stack(words)
+
+
+def elastic_worker() -> None:
+    """One worker of phases ``elastic`` and ``elastic_multi``: GPT-2-small
+    under ``@hvd.elastic.run`` with ``TorchState(model, optimizer, batch=0)``,
+    a commit after every step. The environment says what to do (EL_*); the
+    record goes to EL_OUT/<host>.<pid>.json."""
+    import faulthandler
+    import os
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.backend.elastic_env import spawn_identity
+    from horovod_tpu_torch.common import fault_injection
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    # A worker still running near the launch's time limit shows where.
+    faulthandler.dump_traceback_later(EL_TIMEOUT - 60)
+    out_dir = os.environ["EL_OUT"]
+    total = int(os.environ["EL_TOTAL"])
+    raise_at = int(os.environ.get("EL_RAISE_AT", "0"))
+    hosts_file = os.environ.get("EL_HOSTS_FILE")
+    return_after = int(os.environ.get("EL_RETURN_AFTER", "0"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full_precision_products()
+    rec = {"identity": spawn_identity(), "pid": os.getpid(), "steps": [], "syncs": [],
+           "restores": [], "reinit": []}
+    path = os.path.join(out_dir, f"{rec['identity'].replace(':', '_')}.{os.getpid()}.json")
+
+    def dump():
+        with open(path + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(path + ".tmp", path)
+
+    dump()
+    hvd.init()
+    dev = hvd.device()
+    rec["device"] = str(dev)
+    model, opt = el_model(dev)
+    vocab = model.cfg.vocab_size
+    state = hvd.elastic.TorchState(model, opt, batch=0)
+    kill = [r for r in fault_injection.parse_spec(os.environ.get("HOROVOD_FAULT_INJECT", ""))
+            if r.action == "kill"]
+
+    def on_reset():
+        # After the restore (or the interrupt) and the next world's init,
+        # before the sync: the state as restored.
+        rec["restores"].append({"batch": state.batch, "rank": hvd.rank(),
+                                "size": hvd.size(), "t": time.time(),
+                                "checksum": state_checksum(model, opt).tolist()})
+
+    state.register_reset_callbacks([on_reset])
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    attempts = [0]
+
+    @hvd.elastic.run
+    def train(state):
+        # Every entry follows a sync: rank 0's checksum against ours.
+        mine = state_checksum(model, opt)
+        root = hvd.broadcast(mine.clone(), root_rank=0, name="el.checksum")
+        rec["syncs"].append({"batch": state.batch, "rank": hvd.rank(), "size": hvd.size(),
+                             "t": time.time(), "equal": bool(torch.equal(mine, root))})
+        while state.batch < total:
+            step = state.batch + 1
+            if kill and kill[0].rank in (None, hvd.rank()) and \
+                    fault_injection.get_injector().step + 1 >= kill[0].step:
+                # This worker's host goes away with it: discovery stops
+                # listing it, and the kill rule ends the process.
+                if hosts_file:
+                    with open(hosts_file) as f:
+                        lines = [ln for ln in f.read().split() if
+                                 ln.split(":")[0] != rec["identity"].split(":")[0]]
+                    with open(hosts_file, "w") as f:
+                        f.write("\n".join(lines) + "\n")
+                rec["killed_at"] = time.time()
+                dump()
+            fault_injection.advance_step()
+            if step == raise_at and not os.path.exists(os.path.join(out_dir, "raised")):
+                open(os.path.join(out_dir, "raised"), "w").close()
+                rec["raised_at"] = time.time()
+                raise hvd.HorovodInternalError("injected by the elastic phase")
+            attempts[0] += 1
+            t0 = time.perf_counter()
+            loss = el_step(model, opt, el_batch(state.batch, hvd.rank(), dev, vocab))
+            t1 = time.perf_counter()
+            state.batch = step
+            state.commit()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rec["steps"].append({"step": step, "rank": hvd.rank(), "size": hvd.size(),
+                                 "loss": loss, "ms": (t1 - t0) * 1e3,
+                                 "commit_ms": (t2 - t1) * 1e3, "t": time.time()})
+            if step == EL_RAISE_AT - 1 or step == EL_KILL_STEP - 1:
+                rec[f"commit{step}"] = state_checksum(model, opt).tolist()
+            if step == return_after and hosts_file and "returned_at" not in rec \
+                    and hvd.size() < int(os.environ["EL_CARDS"]):
+                if hvd.rank() == 0:
+                    # The host comes back; wait for the driver's notification,
+                    # so the next commit resets every rank to the new world.
+                    with open(hosts_file, "w") as f:
+                        f.write("".join(f"card{i}:1\n"
+                                        for i in range(int(os.environ["EL_CARDS"]))))
+                    rec["returned_at"] = time.time()
+                    t0 = time.time()
+                    while not state._host_messages and time.time() - t0 < 120:
+                        time.sleep(0.05)
+                rec["returned_at"] = rec.get("returned_at", time.time())
+                state.commit()
+            dump()
+        return state.batch
+
+    train(state)
+    torch.cuda.synchronize()
+    rec["final"] = state_checksum(model, opt).tolist()
+    rec["final_rank"], rec["final_size"] = hvd.rank(), hvd.size()
+    rec["attempts"] = attempts[0]
+    rec["launches"] = fa.launches()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["saved_gb"] = state.saved_bytes("cuda") / 1e9
+    rec["reset_log"] = list(hvd.elastic.reset_log)
+    rec["done"] = True
+    dump()
+    hvd.shutdown()
+
+
+def run_launcher(tmp: str, name: str, args: list, env: dict) -> tuple:
+    """``python -m horovod_tpu_torch.runner.launch <args> python worker.py``
+    under ``timeout``; (exit code, seconds, {file: record}, log tail). A
+    worker process left behind fails the phase."""
+    import os
+
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    worker = os.path.join(tmp, "el_worker.py")
+    with open(worker, "w") as f:
+        f.write(EL_WORKER_SCRIPT.format(repo=repo))
+    full = dict(os.environ)
+    full.update(PYTHONPATH=repo, EL_OUT=out, **env)
+    log = os.path.join(tmp, f"{name}.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        rc = subprocess.run(["timeout", "-k", "10", str(EL_TIMEOUT), sys.executable, "-m",
+                             "horovod_tpu_torch.runner.launch", *args, sys.executable,
+                             worker], cwd=repo, env=full, stdout=f,
+                            stderr=subprocess.STDOUT).returncode
+    seconds = time.perf_counter() - t0
+    with open(log) as f:
+        tail = f.read()[-12000:]
+    recs = {}
+    for fn in sorted(os.listdir(out)):
+        if fn.endswith(".json"):
+            with open(os.path.join(out, fn)) as f:
+                recs[fn] = json.load(f)
+    left = []
+    for r in recs.values():
+        try:
+            os.kill(r["pid"], 0)
+            left.append(r["pid"])
+            os.kill(r["pid"], 9)
+        except ProcessLookupError:
+            pass
+    if (left or rc != 0) and os.environ.get("EL_KEEP_LOGS"):
+        # The whole log and the workers' records, for a look afterwards.
+        import shutil
+
+        keep = os.path.join(os.environ["EL_KEEP_LOGS"], f"el_{name}")
+        shutil.rmtree(keep, ignore_errors=True)
+        shutil.copytree(out, keep)
+        shutil.copy(log, keep)
+    if left:
+        raise AssertionError(f"{name}: worker processes {left} outlived the launcher "
+                             f"(exit {rc} after {seconds:.1f} s):\n{tail}")
+    if rc != 0:
+        raise AssertionError(f"{name}: the launcher exited {rc} after {seconds:.1f} s:\n{tail}")
+    return rc, seconds, recs, tail
+
+
+def el_launches(recs: dict, name: str, want: int) -> dict:
+    """Each finished worker's launches per attempted step (a forward run):
+    ``want`` of K1 a step; of each K2 kernel ``want`` a step that finished,
+    and at most ``want`` in a step a failure cut short."""
+    per = {}
+    for r in recs.values():
+        if not r.get("done"):
+            continue
+        got, tried, done = r["launches"], r["attempts"], len(r["steps"])
+        ok = got["flash_fwd"] == want * tried and all(
+            want * done <= got[k] <= want * tried for k in ("flash_bwd_dkdv", "flash_bwd_dq"))
+        if not ok:
+            raise AssertionError(f"{name} {r['identity']}: launches {got} over {tried} "
+                                 f"steps ({done} finished), expected {want} a step")
+        per = {k: v / tried for k, v in got.items()}
+    return per
+
+
+def el_one(recs: dict, name: str) -> dict:
+    done = [r for r in recs.values() if r.get("done")]
+    if len(done) != 1:
+        raise AssertionError(f"{name}: {len(done)} finished workers: {list(recs)}")
+    return done[0]
+
+
+def phase_elastic(fa) -> dict:
+    """One card. (a) ``-np 1`` static, 5 steps, its losses bitwise the same
+    steps run here in process on phase ``slice``'s model and seed; (b)
+    elastic (``--min-np 1 --max-np 1``, a discovery script of one host):
+    HorovodInternalError in step 5 after the commit of step 4, restored
+    bitwise to that commit, reset, synced, 8 steps; (c) the same without the
+    error. (b)'s final state is bitwise (c)'s."""
+    import os
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+
+    dev = hvd.device()
+    model, opt = el_model(dev)
+    fa.reset_launches()
+    control = [el_step(model, opt, el_batch(b, 0, dev, model.cfg.vocab_size))
+               for b in range(STEPS)]
+    control_launches = fa.launches()
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        disc = os.path.join(tmp, "discover.sh")
+        with open(disc, "w") as f:
+            f.write("#!/bin/sh\necho localhost:1\n")
+        os.chmod(disc, 0o755)
+        elastic = ["--min-np", "1", "--max-np", "1", "--host-discovery-script", disc]
+        _, sec_a, recs_a, _ = run_launcher(tmp, "a_static", ["-np", "1"],
+                                           {"EL_TOTAL": str(STEPS)})
+        _, sec_b, recs_b, _ = run_launcher(tmp, "b_raised", elastic,
+                                           {"EL_TOTAL": str(EL_STEPS),
+                                            "EL_RAISE_AT": str(EL_RAISE_AT)})
+        _, sec_c, recs_c, _ = run_launcher(tmp, "c_plain", elastic,
+                                           {"EL_TOTAL": str(EL_STEPS)})
+    a, b, c = el_one(recs_a, "(a)"), el_one(recs_b, "(b)"), el_one(recs_c, "(c)")
+    want = flash_launches(12)["flash_fwd"]
+    launches = {n: el_launches(r, n, want) for n, r in
+                (("a", recs_a), ("b", recs_b), ("c", recs_c))}
+    losses = {n: [s["loss"] for s in r["steps"]] for n, r in (("a", a), ("b", b), ("c", c))}
+    if losses["a"] != control:
+        raise AssertionError(f"(a): static launch losses {losses['a']} are not the "
+                             f"in-process run's {control}")
+    if losses["b"] != losses["c"] or losses["c"][:STEPS] != control:
+        raise AssertionError(f"(b)/(c) losses {losses['b']} / {losses['c']}")
+    if [s["step"] for s in b["steps"]] != list(range(1, EL_STEPS + 1)):
+        raise AssertionError(f"(b): steps {[s['step'] for s in b['steps']]}")
+    if len(b["restores"]) != 1 or b["restores"][0]["batch"] != EL_RAISE_AT - 1 or \
+            b["restores"][0]["checksum"] != b[f"commit{EL_RAISE_AT - 1}"]:
+        raise AssertionError(f"(b): the restored state is not the commit of step "
+                             f"{EL_RAISE_AT - 1}: {b['restores']}")
+    if b["final"] != c["final"]:
+        raise AssertionError("(b)'s final parameters and AdamW state are not (c)'s")
+    if not all(s["equal"] for r in (a, b, c) for s in r["syncs"]):
+        raise AssertionError("a sync left unequal replicas")
+    reset = b["reset_log"][0]
+    commit_ms = [s["commit_ms"] for s in c["steps"]]
+    rec = {"phase": "elastic", "model": EL_MODEL, "batch": B, "seq": S, "world": 1,
+           "control_launches": control_launches,
+           "launches": launches["c"], "launches_a_b": [launches["a"], launches["b"]],
+           "losses": losses["c"], "static_bitwise_in_process": True,
+           "restore_bitwise_commit": True, "interrupted_bitwise_uninterrupted": True,
+           "launcher_s": {"a": sec_a, "b": sec_b, "c": sec_c},
+           "step_ms_median": statistics.median(s["ms"] for s in c["steps"][1:]),
+           "commit_ms": commit_ms, "commit_ms_median": statistics.median(commit_ms[1:]),
+           "torchstate_saved_gb": c["saved_gb"], "peak_gb": c["peak_gb"],
+           "reset_s": {k: v for k, v in reset.items() if k.endswith("_s")},
+           "raise_to_next_step_s": b["steps"][EL_RAISE_AT - 1]["t"] - b["raised_at"]}
+    emit(rec)
+    return rec
+
+
+def nccl_dead_peer_rank(rank: int, size: int, init_file: str, queue) -> None:
+    """One spawned rank of the dead-peer check on NCCL: the last rank dies
+    while the others wait on a direct NCCL reduce-scatter (no engine) that
+    needs it; each survivor's wait must end (the engine's control round
+    sees the death and aborts the world's groups), its next collective
+    raise HorovodInternalError, its shutdown() stay local, and a world of
+    the survivors form in the same process on the same card."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+
+        hvd.init(init_method=f"file://{init_file}")
+        dev = hvd.device()
+        x = torch.ones(size * (1 << 24), device=dev)       # 64 MiB a rank after the cut
+        hvd.reducescatter(x)
+        torch.cuda.synchronize()
+        hvd.barrier()
+        if rank == size - 1:
+            queue.put((rank, {"died": True}))
+            queue.close()
+            queue.join_thread()
+            time.sleep(0.5)
+            os._exit(1)
+        rec = {"rank": rank, "device": str(dev)}
+        t0 = time.perf_counter()
+        try:
+            # On NCCL the call returns and its kernel waits on the card for
+            # the dead rank (gloo raises in the call itself).
+            hvd.reducescatter(x)
+            torch.cuda.synchronize()
+            rec["wait_ended_s"] = time.perf_counter() - t0
+            hvd.allreduce(torch.ones(4, device=dev), name="after_death")
+            rec["raised"] = "nothing"
+        except hvd.HorovodInternalError:
+            rec["raised"] = "HorovodInternalError"
+        rec["raised_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        hvd.shutdown()
+        rec["shutdown_s"] = time.perf_counter() - t1
+        os.environ["HOROVOD_SIZE"] = str(size - 1)
+        t1 = time.perf_counter()
+        hvd.init(init_method=f"file://{init_file}.survivors")
+        rec["reinit_s"] = time.perf_counter() - t1
+        rec["same_card"] = str(hvd.device()) == rec["device"]
+        got = hvd.allreduce(torch.full((4,), float(rank + 1), device=hvd.device()),
+                            op=hvd.Sum, name="survivors")
+        rec["sum_ok"] = got.tolist() == [float(sum(range(1, size)))] * 4
+        rec["direct_ok"] = hvd.reducescatter(
+            torch.ones(size - 1, device=hvd.device()), op=hvd.Sum).tolist() == [size - 1.0]
+        hvd.shutdown()
+        queue.put((rank, rec))
+    except Exception:
+        queue.put((rank, traceback.format_exc()))
+
+
+def nccl_dead_peer(n: int) -> dict:
+    """``nccl_dead_peer_rank`` on n cards; the survivors' records."""
+    ranks = spawn_cards(nccl_dead_peer_rank, n, timeout=240)
+    survivors = [r for r in ranks if not r.get("died")]
+    bad = [r for r in survivors if r["raised"] != "HorovodInternalError" or
+           r["shutdown_s"] > 10 or not (r["same_card"] and r["sum_ok"] and r["direct_ok"])]
+    if len(survivors) != n - 1 or bad:
+        raise AssertionError(f"nccl_dead_peer: {ranks}")
+    return {k: max(r.get(k, -1.0) for r in survivors)
+            for k in ("wait_ended_s", "raised_s", "shutdown_s", "reinit_s")}
+
+
+def el_sizes_ok(sizes: list, n: int) -> bool:
+    """n at steps 1-4, then at least 3 steps at n - 1, then n to the end."""
+    if sizes[:EL_KILL_STEP - 1] != [n] * (EL_KILL_STEP - 1) or sizes[-1] != n:
+        return False
+    rest = sizes[EL_KILL_STEP - 1:]
+    shrunk = next((i for i, size in enumerate(rest) if size != n - 1), len(rest))
+    return shrunk >= 3 and all(size == n for size in rest[shrunk:])
+
+
+def phase_elastic_multi() -> dict:
+    """n cards (four in PERF.md's runs), fake hosts card0..card<n-1>
+    with one slot each, a discovery script that prints a file. The fault
+    rule kill:step=5 on rank n-1 ends its worker (its host leaves the file
+    with it); the survivors raise HorovodInternalError, restore the commit
+    of step 4, reset to n-1 and train on; after step 8 rank 0 lists the
+    host again, the next commit raises HostsUpdatedInterrupt, the world
+    resets to n and the new worker is synced from rank 0; the job ends at
+    step 12."""
+    import os
+    import tempfile
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        rec = {"phase": "elastic_multi", "cards": n, "launches": "not measured: needs two "
+               "cards or more", "result": "not measured: needs two cards or more"}
+        emit(rec)
+        return rec
+    with tempfile.TemporaryDirectory() as tmp:
+        hosts_file = os.path.join(tmp, "hosts")
+        with open(hosts_file, "w") as f:
+            f.write("".join(f"card{i}:1\n" for i in range(n)))
+        disc = os.path.join(tmp, "discover.sh")
+        with open(disc, "w") as f:
+            f.write(f"#!/bin/sh\ncat {hosts_file}\n")
+        os.chmod(disc, 0o755)
+        _, seconds, recs, tail = run_launcher(
+            tmp, "multi", ["--min-np", str(n - 1), "--max-np", str(n),
+                           "--host-discovery-script", disc],
+            {"EL_TOTAL": str(EL_MULTI_STEPS), "EL_HOSTS_FILE": hosts_file,
+             "EL_RETURN_AFTER": str(EL_RETURN_AFTER), "EL_CARDS": str(n),
+             "HVDRUN_FORCE_LOCAL": "1", "HOROVOD_FAULT_INJECT":
+             f"kill:step={EL_KILL_STEP}:rank={n - 1}",
+             "HOROVOD_BLACKLIST_COOLDOWN_SECONDS": "1",
+             "HOROVOD_ELASTIC_DISCOVERY_INTERVAL": "0.5"})
+    victim = [r for r in recs.values() if "killed_at" in r]
+    if len(victim) != 1 or victim[0].get("done"):
+        raise AssertionError(f"elastic_multi: the killed worker: {victim}")
+    killed_at = victim[0]["killed_at"]
+    survivors = [r for r in recs.values() if r.get("done") and r["pid"] != victim[0]["pid"]
+                 and r["identity"] != victim[0]["identity"]]
+    joiner = [r for r in recs.values() if r.get("done") and r["identity"] ==
+              victim[0]["identity"]]
+    if len(survivors) != n - 1 or len(joiner) != 1:
+        raise AssertionError(f"elastic_multi: {len(survivors)} survivors, {len(joiner)} "
+                             f"joiners: {sorted(recs)}\n{tail}")
+    for r in survivors:
+        sizes = [s["size"] for s in r["steps"]]
+        ranks = {s["size"]: s["rank"] for s in r["steps"]}
+        if [s["step"] for s in r["steps"]] != list(range(1, EL_MULTI_STEPS + 1)) or \
+                not el_sizes_ok(sizes, n) or len(set(ranks.values())) != 1:
+            raise AssertionError(f"elastic_multi {r['identity']}: history "
+                                 f"{[(s['rank'], s['size']) for s in r['steps']]}")
+        restored = [x for x in r["restores"] if x["size"] == n - 1]
+        if not restored or restored[0]["batch"] != EL_KILL_STEP - 1 or \
+                restored[0]["checksum"] != r[f"commit{EL_KILL_STEP - 1}"]:
+            raise AssertionError(f"elastic_multi {r['identity']}: the restore is not the "
+                                 f"commit of step {EL_KILL_STEP - 1}")
+    j = joiner[0]
+    if [(s["rank"], s["size"]) for s in j["steps"]] != \
+            [(n - 1, n)] * (EL_MULTI_STEPS - EL_RETURN_AFTER):
+        raise AssertionError(f"elastic_multi: the new worker's steps {j['steps']}")
+    syncs = [s for r in survivors + [j] for s in r["syncs"]]
+    if not all(s["equal"] for s in syncs):
+        raise AssertionError(f"elastic_multi: replicas differ after a sync: {syncs}")
+    finals = {json.dumps(r["final"]) for r in survivors + [j]}
+    if len(finals) != 1:
+        raise AssertionError("elastic_multi: the final replicas differ")
+    want = flash_launches(12)["flash_fwd"]
+    launches = el_launches({k: r for k, r in recs.items() if r.get("done")},
+                           "elastic_multi", want)
+    r0 = min(survivors, key=lambda r: r["final_rank"])
+    first = {size: next(s for s in r0["steps"] if s["size"] == size and s["t"] >
+                        (killed_at if size == n - 1 else r0["returned_at"]))
+             for size in (n - 1, n)}
+    fail = next(x for x in r0["reset_log"] if x["cause"] == "collective failure")
+    back = [x for x in r0["reset_log"] if x["cause"] == "hosts updated"][-1]
+    rec = {"phase": "elastic_multi", "cards": n, "model": EL_MODEL, "batch": B, "seq": S,
+           "launcher_s": seconds, "launches": launches,
+           "histories": {r["identity"]: [(s["rank"], s["size"]) for s in r["steps"]]
+                         for r in survivors + [j]},
+           "syncs_bitwise": len(syncs), "restores_bitwise_commit": len(survivors),
+           "kill_to_first_step_s": first[n - 1]["t"] - killed_at,
+           "kill_split_s": {"detection": fail["t_caught"] - killed_at,
+                            "restore": fail["restore_s"], "shutdown": fail["shutdown_s"],
+                            "driver_epoch": fail["rendezvous_s"], "reinit": fail["init_s"],
+                            "sync": fail.get("sync_s")},
+           "return_to_first_step_s": first[n]["t"] - r0["returned_at"],
+           "return_split_s": {k: v for k, v in back.items() if k.endswith("_s")},
+           "step_ms_median": {str(size): statistics.median(
+               s["ms"] for s in r0["steps"] if s["size"] == size and s is not first[size]
+               and s["step"] > 1) for size in (n, n - 1)},
+           "commit_ms_median": statistics.median(s["commit_ms"] for s in r0["steps"][1:]),
+           "peak_gb": {r["identity"]: r["peak_gb"] for r in survivors + [j]},
+           "torchstate_saved_gb": r0["saved_gb"],
+           "nccl_dead_peer_max_s": nccl_dead_peer(n)}
+    emit(rec)
+    return rec
+
+
 def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm, pt,
                  later) -> list:
     """The ``kernels`` line from the phases' records: each kernel's
     launches on the GPT-2 slice (and per path), error, times and bound.
     ``later``: the records of the vit, vit_multi, mnist, mnist_multi,
-    adasum_1p3b_multi, pp_tp, pp_tp_multi, engine and engine_multi phases by
-    name (launches "not measured" where a phase had too few cards)."""
+    adasum_1p3b_multi, pp_tp, pp_tp_multi, engine, engine_multi, elastic and
+    elastic_multi phases by name (launches "not measured" where a phase had
+    too few cards; the elastic phases' are a worker's per step)."""
     kernels = [
         {"name": "flash_fwd", "launches": sl["launches"]["flash_fwd"],
          "max_abs_err": k1["o_max_abs_err"], "ms": k1["kernel_ms"],
@@ -5048,6 +5613,10 @@ def main() -> int:
         bert = phase_bert(fa, fb, gen)
         zero = phase_zero(fa)
         full_precision_products()
+        el = phase_elastic(fa)
+        el_multi = phase_elastic_multi()
+        gc.collect()
+        torch.cuda.empty_cache()
         sp = phase_sp(fa, gen, dev)
         moe, moe_grads = phase_moe(fa, fb)
         if torch.cuda.device_count() >= 2:
@@ -5100,7 +5669,8 @@ def main() -> int:
                  "mnist": phase_mnist(fa, fb), "mnist_multi": phase_mnist_multi(),
                  "adasum_1p3b_multi": phase_adasum_1p3b_multi(), "pp_tp": pt,
                  "pp_tp_multi": pt_multi, "engine": en,
-                 "engine_multi": phase_engine_multi()}
+                 "engine_multi": phase_engine_multi(), "elastic": el,
+                 "elastic_multi": el_multi}
         phase_adasum_combine(dev)
     finally:
         hvd.shutdown()

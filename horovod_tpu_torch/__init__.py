@@ -18,7 +18,9 @@ sequence-parallel attention ``ring_attention``, ``ulysses_attention`` and
 ``dense_attention``.
 The ``horovod.torch`` binding surface (in-place collectives, the
 differentiable all-reduce, the hook ``DistributedOptimizer``) is
-``horovod_tpu_torch.torch``. Models live in ``horovod_tpu_torch.models``, the training step in
+``horovod_tpu_torch.torch``. Elastic training is ``hvd.elastic``
+(``State``, ``ObjectState``, ``TorchState``, ``@hvd.elastic.run``), launched by
+``python -m horovod_tpu_torch.runner.launch``. Models live in ``horovod_tpu_torch.models``, the training step in
 ``horovod_tpu_torch.parallel``, the kernels in ``horovod_tpu_torch.ops``.
 The package imports torch and never jax, nor anything of ``horovod_tpu``.
 """
@@ -44,7 +46,7 @@ from .common.basics import (
     tcp_built,
     xla_built,
 )
-from .common.exceptions import HorovodInternalError, NotInitializedError
+from .common.exceptions import HorovodInternalError, HostsUpdatedInterrupt, NotInitializedError
 from .common.functions import (
     allgather_object,
     broadcast_object,
@@ -81,5 +83,7 @@ from .parallel.mesh import AXIS_ORDER, create_hybrid_mesh, create_mesh
 from .parallel.ring import dense_attention, ring_attention
 from .parallel.step import wrap_step
 from .parallel.ulysses import ulysses_attention
+
+from . import elastic  # noqa: E402  (last: it imports the binding)
 
 __version__ = "0.1.0"

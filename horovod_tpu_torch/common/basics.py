@@ -20,16 +20,38 @@ channel (NCCL on CUDA, gloo on the CPU), each NCCL one warmed by a one-
 element all-reduce so that its communicator exists before the engine's
 threads use it. ``shutdown`` stops the engine collectively, then the
 process group. Set knobs of unported modules raise first
-(``env.check_unported_knobs``).
+(``env.check_unported_knobs``), as do fault-injection rules the port does
+not run (``common/fault_injection.py``).
+
+Under the launcher (``runner/launch.py``), HOROVOD_STORE_PORT names the
+``TCPStore`` the launcher hosts at the rendezvous address; the process
+groups form on it under the prefix HOROVOD_MESH_SCOPE (the elastic
+driver's epoch) and this process's count of inits at that scope, so no
+key of an earlier world is read again and the store lives in no worker.
+The card is the one of the local slot the process was spawned into
+(HOROVOD_SPAWN_LOCAL_RANK, else the local rank), and an ``init()`` without
+a device takes the device of the process's first one, so a live process
+keeps its card (or the CPU) when an elastic reset reassigns local ranks.
+
+A failed collective (the engine's fatal error, or a direct collective's,
+``note_failure``) aborts every process group of this world at once: a
+NCCL kernel waiting on a dead peer ends, and so does a gloo operation,
+whose peers then fail too. NCCL's watchdog is set to abort on its own
+errors and timeouts without ending the process
+(TORCH_NCCL_ASYNC_ERROR_HANDLING=2 unless it is set). ``shutdown()``
+after a failure is local: nothing waits for the other ranks, and the card
+stays usable for the next ``init()``.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import os
 import shutil
 import tempfile
 import threading
-from typing import Optional
+from datetime import timedelta
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -51,6 +73,11 @@ class _State:
     owns_group: bool = False
     store_dir: Optional[str] = None
     engine: Optional[object] = None
+    failed: bool = False
+    # The device of this process's first init: a later init() without one
+    # (the elastic loop's, after a reset) takes it again.
+    home_device: Optional[torch.device] = None
+    scope_inits: Dict[str, int] = dataclasses.field(default_factory=dict)
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
@@ -80,19 +107,26 @@ def init(device=None, init_method: Optional[str] = None) -> None:
         if not 0 <= rank < size:
             raise ValueError(f"rank {rank} outside a world of {size}")
         env.check_unported_knobs()
+        from . import fault_injection
 
+        fault_injection.get_injector()      # an unported rule raises here
+
+        card = _env_int((env.SPAWN_LOCAL_RANK,), local_rank)
+        if device is None and _state.home_device is not None:
+            device = _state.home_device
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "horovod_tpu_torch.init(): CUDA is not available; pass "
                     "device='cpu' to run on the CPU with gloo")
-            device = torch.device("cuda", local_rank)
+            device = torch.device("cuda", card)
         device = torch.device(device)
         if device.type == "cuda":
             if device.index is None:
-                device = torch.device("cuda", local_rank)
+                device = torch.device("cuda", card)
             torch.cuda.set_device(device)
             backend = "nccl"
+            os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")
         elif device.type == "cpu":
             backend = "gloo"
         else:
@@ -102,17 +136,22 @@ def init(device=None, init_method: Optional[str] = None) -> None:
         owns = not dist.is_initialized()
         if owns:
             method = init_method or os.environ.get("HOROVOD_INIT_METHOD")
-            if method is None and os.environ.get("MASTER_ADDR"):
-                method = "env://"
-            if method is None:
-                if size != 1:
-                    raise ValueError(
-                        f"a world of {size} needs a rendezvous: pass "
-                        "init_method or set HOROVOD_INIT_METHOD / MASTER_ADDR")
-                store_dir = tempfile.mkdtemp(prefix="hvd_torch_store_")
-                method = f"file://{os.path.join(store_dir, 'store')}"
-            dist.init_process_group(backend, init_method=method, rank=rank,
-                                    world_size=size)
+            if method is None and os.environ.get(env.STORE_PORT):
+                dist.init_process_group(backend, store=_launcher_store(), rank=rank,
+                                        world_size=size)
+            else:
+                if method is None and os.environ.get("MASTER_ADDR"):
+                    method = "env://"
+                if method is None:
+                    if size != 1:
+                        raise ValueError(
+                            f"a world of {size} needs a rendezvous: pass init_method, "
+                            "set HOROVOD_INIT_METHOD / MASTER_ADDR, or start it "
+                            "with the launcher (horovod_tpu_torch.runner.launch)")
+                    store_dir = tempfile.mkdtemp(prefix="hvd_torch_store_")
+                    method = f"file://{os.path.join(store_dir, 'store')}"
+                dist.init_process_group(backend, init_method=method, rank=rank,
+                                        world_size=size)
         elif (dist.get_rank(), dist.get_world_size()) != (rank, size):
             raise ValueError(
                 f"an existing process group is rank {dist.get_rank()} of "
@@ -124,8 +163,52 @@ def init(device=None, init_method: Optional[str] = None) -> None:
         _state.device = device
         _state.owns_group = owns
         _state.store_dir = store_dir
+        _state.failed = False
         _state.engine = _start_engine(rank, size, device, backend)
+        _state.home_device = _state.home_device or device
         _state.initialized = True
+
+
+def _launcher_store():
+    """The launcher's store, under this world's prefix."""
+    scope = os.environ.get(env.MESH_SCOPE) or "hvd_mesh"
+    n = _state.scope_inits.get(scope, 0)
+    _state.scope_inits[scope] = n + 1
+    store = dist.TCPStore(os.environ.get(env.RENDEZVOUS_ADDR) or "127.0.0.1",
+                          int(os.environ[env.STORE_PORT]), None, False,
+                          timeout=timedelta(seconds=env.elastic_reset_timeout()))
+    return dist.PrefixStore(f"{scope}/{n}", store)
+
+
+_abort_lock = threading.Lock()
+
+
+def _abort_groups() -> None:
+    """Abort every process group of this world (the default one, the
+    engine's, the mesh's), once. Runs on any thread and takes no lock of
+    ``_state``: the engine calls it from its own threads while
+    ``shutdown`` may hold that lock and wait for them."""
+    from torch.distributed import distributed_c10d as c10d
+
+    with _abort_lock:
+        if _state.failed:
+            return
+        _state.failed = True
+        for pg in list(getattr(c10d._world, "pg_map", {})):
+            try:
+                if hasattr(pg, "abort"):
+                    pg.abort()
+                else:  # pragma: no cover - an older torch
+                    c10d._abort_process_group(pg)
+            except Exception:  # pragma: no cover - best effort, group may be gone
+                pass
+
+
+def note_failure() -> None:
+    """A direct collective failed: abort the world's groups now, so the
+    engine and every peer see the failure too."""
+    if _state.initialized:
+        _abort_groups()
 
 
 def _start_engine(rank: int, size: int, device: torch.device, backend: str):
@@ -141,7 +224,8 @@ def _start_engine(rank: int, size: int, device: torch.device, backend: str):
             for g in groups:
                 dist.all_reduce(torch.zeros(1, device=device), group=g)
             torch.cuda.synchronize(device)
-    engine = Engine(rank, size, device, transport, groups)
+    engine = Engine(rank, size, device, transport, groups,
+                    on_fatal=_abort_groups if size > 1 else None)
     engine.start()
     return engine
 
@@ -156,6 +240,14 @@ def shutdown() -> None:
             _state.engine = None
         if _state.owns_group and dist.is_initialized():
             dist.destroy_process_group()
+        if _state.failed:
+            # Free the failed world's groups now (exceptions and frames hold
+            # them in cycles): their sockets close, and peers blocked on
+            # this rank fail too.
+            import gc
+
+            gc.collect()
+        _state.failed = False
         if _state.store_dir is not None:
             shutil.rmtree(_state.store_dir, ignore_errors=True)
         _state.initialized = False
@@ -165,6 +257,14 @@ def shutdown() -> None:
         mesh._current = None
         _state.store_dir = None
         _state.device = None
+    from ..backend.elastic_env import notification_manager
+
+    notification_manager.shutdown()
+
+
+# As the JAX package does: a script that never calls shutdown() still stops
+# its engine and process groups before the interpreter tears threads down.
+atexit.register(shutdown)
 
 
 def is_initialized() -> bool:

@@ -1,6 +1,7 @@
-"""The environment knobs of the scaled data-parallel path and of the eager
-engine (counterpart of ``horovod_tpu/utils/env.py:29-35, 196-217, 458-506,
-665-735``; the port's own copy, with the JAX package's defaults).
+"""The environment knobs of the scaled data-parallel path, of the eager
+engine, and of the launcher and elastic plane (counterpart of
+``horovod_tpu/utils/env.py:29-62, 136-186, 196-217, 458-506, 576-660,
+665-735, 975-981``; the port's own copy, with the JAX package's defaults).
 
 Each function reads the environment when it is called, so a knob set
 between two calls takes effect on the second, as the JAX package's eager
@@ -31,6 +32,47 @@ STALL_SHUTDOWN_TIME = "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"
 TIMELINE = "HOROVOD_TIMELINE"
 TIMELINE_MARK_CYCLES = "HOROVOD_TIMELINE_MARK_CYCLES"
 
+# Rank topology and rendezvous, set by the launcher (ref: gloo_run.py:65-198).
+RANK = "HOROVOD_RANK"
+SIZE = "HOROVOD_SIZE"
+LOCAL_RANK = "HOROVOD_LOCAL_RANK"
+LOCAL_SIZE = "HOROVOD_LOCAL_SIZE"
+CROSS_RANK = "HOROVOD_CROSS_RANK"
+CROSS_SIZE = "HOROVOD_CROSS_SIZE"
+RENDEZVOUS_ADDR = "HOROVOD_GLOO_RENDEZVOUS_ADDR"
+RENDEZVOUS_PORT = "HOROVOD_GLOO_RENDEZVOUS_PORT"
+HOSTNAME = "HOROVOD_HOSTNAME"
+SECRET_KEY = "HOROVOD_SECRET_KEY"
+ELASTIC = "HOROVOD_ELASTIC"
+# The port's own: the launcher hosts a torch TCPStore beside the rendezvous
+# server (at the rendezvous address, this port); ``init()`` forms its
+# process groups on it under the prefix HOROVOD_MESH_SCOPE, which the
+# elastic driver bumps every topology epoch.
+STORE_PORT = "HOROVOD_STORE_PORT"
+MESH_SCOPE = "HOROVOD_MESH_SCOPE"
+# The local slot a worker was spawned into; its card, across resets.
+SPAWN_LOCAL_RANK = "HOROVOD_SPAWN_LOCAL_RANK"
+REPLAY_WINDOW = "HOROVOD_REPLAY_WINDOW"
+CONNECT_ATTEMPTS = "HOROVOD_CONNECT_ATTEMPTS"
+CONNECT_BACKOFF = "HOROVOD_CONNECT_BACKOFF_SECONDS"
+CONNECT_BACKOFF_CAP = "HOROVOD_CONNECT_BACKOFF_CAP_SECONDS"
+ELASTIC_READY_TIMEOUT = "HOROVOD_ELASTIC_READY_TIMEOUT"
+ELASTIC_RESET_TIMEOUT = "HOROVOD_ELASTIC_RESET_TIMEOUT"
+ELASTIC_DISCOVERY_INTERVAL = "HOROVOD_ELASTIC_DISCOVERY_INTERVAL"
+ELASTIC_EPOCH_POLL = "HOROVOD_ELASTIC_EPOCH_POLL"
+BLACKLIST_COOLDOWN = "HOROVOD_BLACKLIST_COOLDOWN_SECONDS"
+LOG_LEVEL = "HOROVOD_LOG_LEVEL"
+
+DEFAULT_REPLAY_WINDOW_S = 300.0
+DEFAULT_CONNECT_ATTEMPTS = 5
+DEFAULT_CONNECT_BACKOFF_SECONDS = 0.1
+DEFAULT_CONNECT_BACKOFF_CAP_SECONDS = 2.0
+DEFAULT_ELASTIC_READY_TIMEOUT = 180.0
+DEFAULT_ELASTIC_RESET_TIMEOUT = 600.0
+DEFAULT_ELASTIC_DISCOVERY_INTERVAL = 1.0
+DEFAULT_ELASTIC_EPOCH_POLL = 0.5
+DEFAULT_BLACKLIST_COOLDOWN_SECONDS = 600.0
+
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024  # ref: operations.cc:432
 DEFAULT_WIRE_COMPRESSION_MIN_BYTES = 65536
 DEFAULT_CYCLE_TIME_MS = 5.0          # ref: operations.cc:442
@@ -50,6 +92,14 @@ UNPORTED = {
     "HOROVOD_METRICS_FILE": ("A8", "the metrics file exporter"),
     "HOROVOD_TRACE_FILE": ("A8", "the tracing plane's merged trace"),
     "HOROVOD_TRACE_DIR": ("A8", "the tracing plane's flight recorder"),
+    "HOROVOD_CHECKPOINT_DIR": ("A7", "the durable checkpoints (common/checkpoint.py)"),
+    "HOROVOD_DRAIN_GRACE_SECONDS": ("A7", "the drain plane (common/drain.py)"),
+    "HOROVOD_PREEMPT_SIGNAL": ("A7", "the drain plane's preemption notice (common/drain.py)"),
+    "HVDRUN_USE_TASK_SERVICE": ("A7", "the task-service launch (runner/service.py)"),
+    "HOROVOD_CONTROLLER_INTERVAL_SECONDS": (
+        "A7", "the elasticity controller (runner/elastic/controller.py)"),
+    "HOROVOD_JOB_NAME": ("A9", "jobs sharing one rendezvous server (the serving plane)"),
+    "HOROVOD_FLEET_SLOTS": ("A9", "the shared rendezvous server's capacity arbitration"),
 }
 
 
@@ -184,3 +234,50 @@ def wire_compression_int8() -> bool:
     if val in (None, ""):
         return False
     return val.lower() not in ("0", "false", "no", "off")
+
+
+def get_str(name: str, default: str = "") -> str:
+    val = os.environ.get(name)
+    return val if val is not None else default
+
+
+get_int, get_float, get_bool = _int, _float, _bool
+
+
+def connect_retry_policy() -> "tuple[int, float, float]":
+    """(attempts, base backoff seconds, backoff cap seconds) of the
+    rendezvous client's retries."""
+    return (max(_int(CONNECT_ATTEMPTS, DEFAULT_CONNECT_ATTEMPTS), 1),
+            _float(CONNECT_BACKOFF, DEFAULT_CONNECT_BACKOFF_SECONDS),
+            _float(CONNECT_BACKOFF_CAP, DEFAULT_CONNECT_BACKOFF_CAP_SECONDS))
+
+
+def replay_window() -> float:
+    """Seconds a signed rendezvous request stays valid; 0 turns the
+    timestamp check off (replays are still refused within a run)."""
+    return _float(REPLAY_WINDOW, DEFAULT_REPLAY_WINDOW_S)
+
+
+def elastic_ready_timeout() -> float:
+    """Reset-barrier verdict deadline; 0 disables eviction."""
+    return _float(ELASTIC_READY_TIMEOUT, DEFAULT_ELASTIC_READY_TIMEOUT)
+
+
+def elastic_reset_timeout() -> float:
+    """A resetting worker's longest wait for the next topology epoch, and
+    its store's wait for the other ranks of that epoch."""
+    return _float(ELASTIC_RESET_TIMEOUT, DEFAULT_ELASTIC_RESET_TIMEOUT)
+
+
+def elastic_discovery_interval() -> float:
+    return _float(ELASTIC_DISCOVERY_INTERVAL, DEFAULT_ELASTIC_DISCOVERY_INTERVAL)
+
+
+def elastic_epoch_poll() -> float:
+    return _float(ELASTIC_EPOCH_POLL, DEFAULT_ELASTIC_EPOCH_POLL)
+
+
+def blacklist_cooldown_seconds() -> float:
+    """First-failure blacklist duration; 0 = permanent at once."""
+    return _float(BLACKLIST_COOLDOWN, DEFAULT_BLACKLIST_COOLDOWN_SECONDS)
+

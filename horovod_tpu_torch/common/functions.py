@@ -46,14 +46,47 @@ def broadcast_parameters(params: Params, root_rank: int = 0) -> None:
                            root_rank)
 
 
+def _plain_step(optimizer: torch.optim.Optimizer) -> None:
+    """The wrapped optimizer's own step, which reduces nothing: the
+    binding's hook wrapper keeps its class in ``_hvd_opt_cls``, the
+    top-level ``DistributedOptimizer`` its optimizer in ``_inner``."""
+    cls = getattr(optimizer, "_hvd_opt_cls", None)
+    if cls is not None:
+        cls.step(optimizer)
+    else:
+        getattr(optimizer, "_inner", optimizer).step()
+
+
+def _init_state(optimizer: torch.optim.Optimizer) -> None:
+    """Give an optimizer its state by one step on zero gradients, leaving
+    the parameters and gradients as they were (ref: horovod/torch/
+    functions.py:97-115, which keeps the parameters the step moved)."""
+    params = [p for g in optimizer.param_groups for p in g["params"] if p.requires_grad]
+    kept = [(p, p.detach().clone(), p.grad) for p in params]
+    for p in params:
+        p.grad = torch.zeros_like(p)
+    _plain_step(optimizer)
+    with torch.no_grad():
+        for p, data, grad in kept:
+            p.copy_(data)
+            p.grad = grad
+
+
 def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
                               root_rank: int = 0) -> None:
     """Broadcast every tensor of the optimizer's state from root, in place.
-    State that is still empty (before the first step) is the same on every
-    rank and needs nothing. A ZeRO-sharded ``DistributedOptimizer`` holds a
-    different shard on every rank, so there is nothing to broadcast."""
+    A rank whose state is still empty while root's is not (a worker that
+    joined an elastic job) first makes its state by one step on zero
+    gradients, its parameters kept. A ZeRO-sharded ``DistributedOptimizer``
+    holds a different shard on every rank, so there is nothing to
+    broadcast."""
     if getattr(optimizer, "_zero", None) is not None:
         return
+    if basics.size() > 1:
+        root_held = broadcast_object(bool(optimizer.state), root_rank,
+                                     name="optimizer_state.held")
+        if root_held and not optimizer.state:
+            _init_state(optimizer)
     state = optimizer.state_dict()["state"]
     for pid in sorted(state):
         for key in sorted(state[pid]):

@@ -37,7 +37,7 @@ from __future__ import annotations
 import queue as queue_mod
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -206,16 +206,21 @@ class _ChannelExecutor:
 class Engine:
     def __init__(self, rank: int = 0, size: int = 1,
                  device: Optional[torch.device] = None, transport=None,
-                 channel_groups=None):
+                 channel_groups=None, on_fatal: Optional[Callable[[], None]] = None):
         """``transport``: the control plane (``engine/transport.py``);
         ``channel_groups``: one data-plane process group per channel (None
-        entries at a world of one)."""
+        entries at a world of one); ``on_fatal``: called once, on the thread
+        that latched it, when the first fatal error latches (``hvd.init()``
+        aborts the world's process groups there, so a collective in flight
+        with a dead peer ends on every channel and on the caller's own
+        NCCL path instead of spinning)."""
         from .transport import LocalTransport
 
         self.rank = rank
         self.size = size
         self.device = device if device is not None else torch.device("cpu")
         self.transport = transport if transport is not None else LocalTransport()
+        self._on_fatal = on_fatal
         groups = list(channel_groups) if channel_groups is not None \
             else [None] * env_cfg.num_channels()
         self.channels = [Channel(i, g, rank, size, self.device)
@@ -300,10 +305,22 @@ class Engine:
     # pipelined-execution plumbing
     def _latch_fatal(self, exc: HorovodInternalError):
         with self._inflight_cond:
-            if self._fatal_error is None:
+            first = self._fatal_error is None
+            if first:
                 self._fatal_error = exc
             self._inflight_cond.notify_all()
         self._wake.set()
+        if first and self._on_fatal is not None:
+            try:
+                self._on_fatal()
+            except Exception as e:  # pragma: no cover - best effort
+                logger.warning("aborting the process groups failed: %s", e)
+
+    @property
+    def failed(self) -> bool:
+        """Whether a fatal error has latched: every pending and later
+        collective of this engine fails."""
+        return self._fatal_error is not None
 
     def _check_fatal(self):
         if self._fatal_error is not None:
@@ -704,10 +721,25 @@ class Engine:
 
     def shutdown(self):
         """Stop collectively: this rank's next cycle carries the shutdown
-        flag, every rank's loop ends in that cycle (ref: engine.py:1660)."""
+        flag, every rank's loop ends in that cycle (ref: engine.py:1660).
+        After a fatal error the loop has ended, or ends at its next cycle,
+        on this rank alone: nothing is waited for from the others."""
         if self._thread is None:
             return
         self._shutdown_requested.set()
         self._wake.set()
-        self._thread.join(timeout=60)
+        self._thread.join(timeout=15 if self.failed else 60)
         self._thread = None
+        # Let go of the process groups: a gloo group's sockets close only
+        # when it is freed (its abort() closes nothing), and that is how
+        # peers still blocked on this rank in a failed world learn of the
+        # failure. Handles keep this engine alive, and the first error's
+        # traceback keeps the frames that used the groups.
+        if getattr(self.transport, "group", None) is not None:
+            self.transport.group = None
+        self.transport = self.controller = None
+        for ch in self.channels:
+            ch.group = ch.comm = None
+        err = self._fatal_error
+        while err is not None:
+            err.__traceback__, err = None, err.__cause__ or err.__context__

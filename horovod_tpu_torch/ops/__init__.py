@@ -70,7 +70,7 @@ import torch.distributed as dist
 
 from ..common import basics
 from ..common.async_handles import HandleTable
-from ..common.exceptions import HorovodInternalError
+from ..common.exceptions import HorovodInternalError, comm_failures_raise_internal
 from ..common.types import ReduceOp
 from ..parallel import mesh as _mesh
 from ..parallel.mesh import Comm, resolve_comm, world_comm
@@ -308,6 +308,7 @@ def _check_allreduce(label: str, tensor: torch.Tensor, op: ReduceOp,
         postscale_factor, comm=comm))
 
 
+@comm_failures_raise_internal
 def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
               name: Optional[str] = None, op: Optional[ReduceOp] = None,
               prescale_factor: float = 1.0,
@@ -326,6 +327,7 @@ def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
     return _allreduce(tensor, rop, prescale_factor, postscale_factor, comm)
 
 
+@comm_failures_raise_internal
 def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
                     name: Optional[str] = None, op: Optional[ReduceOp] = None,
                     prescale_factor: float = 1.0,
@@ -370,6 +372,7 @@ def _grouped_allreduce(tensors: Sequence[torch.Tensor], op: ReduceOp,
     return out
 
 
+@comm_failures_raise_internal
 def grouped_allreduce(tensors: Sequence[torch.Tensor],
                       average: Optional[bool] = None, name: Optional[str] = None,
                       op: Optional[ReduceOp] = None,
@@ -456,6 +459,7 @@ def _enqueue_allgather(eng, tensor: torch.Tensor, name: Optional[str]) -> int:
     return eng.enqueue_allgather(x.reshape(1) if x.dim() == 0 else x, name=name)
 
 
+@comm_failures_raise_internal
 def allgather(tensor: torch.Tensor, name: Optional[str] = None,
               axis_name=None) -> torch.Tensor:
     """Concatenate the ranks' tensors along dim 0, in rank order; the first
@@ -467,6 +471,7 @@ def allgather(tensor: torch.Tensor, name: Optional[str] = None,
     return _allgather_launch(tensor, name, False, axis_name)[1]()
 
 
+@comm_failures_raise_internal
 def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
                     axis_name=None) -> int:
     eng = _engine(axis_name)
@@ -507,6 +512,7 @@ def _enqueue_broadcast(eng, tensor: torch.Tensor, root_rank: int,
     return eng.enqueue_broadcast(tensor.detach(), root_rank, name=name)
 
 
+@comm_failures_raise_internal
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,
               name: Optional[str] = None, axis_name=None) -> torch.Tensor:
     """A copy of root's tensor on every rank (``root_rank`` an index along
@@ -518,6 +524,7 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0,
     return _broadcast_launch(tensor, root_rank, name, False, axis_name)[1]()
 
 
+@comm_failures_raise_internal
 def broadcast_async(tensor: torch.Tensor, root_rank: int = 0,
                     name: Optional[str] = None, axis_name=None) -> int:
     eng = _engine(axis_name)
@@ -527,6 +534,7 @@ def broadcast_async(tensor: torch.Tensor, root_rank: int = 0,
     return _handles.put(*_broadcast_launch(tensor, root_rank, name, True, axis_name))
 
 
+@comm_failures_raise_internal
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
                name: Optional[str] = None, axis_name=None) -> torch.Tensor:
     """In-place broadcast from root."""
@@ -587,6 +595,7 @@ def _alltoall_launch(tensor: torch.Tensor, splits: Optional[Sequence[int]],
     return work, finish
 
 
+@comm_failures_raise_internal
 def alltoall(tensor: torch.Tensor, splits: Optional[Sequence[int]] = None,
              name: Optional[str] = None, axis_name=None) -> Tuple[torch.Tensor, List[int]]:
     """Send ``splits[p]`` rows of dim 0 to rank p (in order), receive the
@@ -599,6 +608,7 @@ def alltoall(tensor: torch.Tensor, splits: Optional[Sequence[int]] = None,
     return finish()
 
 
+@comm_failures_raise_internal
 def alltoall_async(tensor: torch.Tensor, splits: Optional[Sequence[int]] = None,
                    name: Optional[str] = None, axis_name=None) -> int:
     return _handles.put(*_alltoall_launch(tensor, splits, name, True, axis_name))
@@ -629,6 +639,7 @@ def _reducescatter(tensor: torch.Tensor, op: ReduceOp,
     return out.to(tensor.dtype)
 
 
+@comm_failures_raise_internal
 def reducescatter(tensor: torch.Tensor, op: Optional[ReduceOp] = None,
                   name: Optional[str] = None, axis_name=None) -> torch.Tensor:
     """Reduce across ranks (SUM unless ``op`` says otherwise) and keep this
@@ -649,12 +660,14 @@ def reducescatter(tensor: torch.Tensor, op: Optional[ReduceOp] = None,
 
 # ---------------------------------------------------------------------------
 # handles and barrier
+@comm_failures_raise_internal
 def poll(handle: int) -> bool:
     """True once the collective behind ``handle`` has finished
     (ref: horovod/torch/mpi_ops.py:poll)."""
     return _handles.poll(handle)
 
 
+@comm_failures_raise_internal
 def synchronize(handle: int):
     """Wait for the collective behind ``handle`` and return its result
     (ref: horovod/torch/mpi_ops.py:synchronize)."""

@@ -67,7 +67,7 @@ import torch
 
 from .. import ops
 from ..common import env
-from ..common.exceptions import HorovodInternalError
+from ..common.exceptions import HorovodInternalError, comm_failures_raise_internal
 from ..common.types import ReduceOp
 from ..ops.compression import Compression
 from ..parallel.mesh import Comm, current_mesh, resolve_comm
@@ -516,6 +516,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
                 else:
                     p.grad.copy_(r)
 
+    @comm_failures_raise_internal
     def synchronize(self) -> None:
         """Reduce the gradients now; the next ``step()`` only steps the
         inner optimizer (ref: horovod/torch/optimizer.py synchronize)."""
@@ -529,6 +530,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
                 self._reduce()
         self._synchronized = done or None
 
+    @comm_failures_raise_internal
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:

@@ -17,8 +17,8 @@ tensor), the differentiable ``allreduce`` (its backward all-reduces the
 cotangent with the same op), and the hook ``DistributedOptimizer``
 (``torch/optimizer.py``). The top-level
 ``horovod_tpu_torch.DistributedOptimizer`` is another class: the port's
-bucketed, overlapped data-parallel optimizer. ``TorchState`` waits for
-ROADMAP A7.
+bucketed, overlapped data-parallel optimizer. ``TorchState``
+(``torch/elastic.py``) is the elastic state of a model and its optimizer.
 """
 from __future__ import annotations
 
@@ -65,6 +65,7 @@ from ..ops import (  # noqa: F401
     poll,
 )
 from ..ops.compression import Compression  # noqa: F401
+from .elastic import TorchState  # noqa: F401
 from .optimizer import DistributedOptimizer  # noqa: F401
 
 # handle -> (kind, tensor) of the in-place forms, whose synchronize writes

@@ -15,6 +15,14 @@ locally and reduces on the boundary pass, without rescaling by 1/k (the
 reference's semantics; the top-level ``horovod_tpu_torch.
 DistributedOptimizer`` divides by k). ``op=Adasum`` past one rank is the
 delta optimizer (``_AdasumDeltaMixin``).
+
+The wrapper follows the world it runs in, not the one it was built in, so
+it outlives an elastic reset: the hooks are registered whatever the size
+and reduce only while the world has more than one rank, every enqueue goes
+to the engine of the moment (whose AVERAGE divides by its size), and
+``op=Adasum`` always builds the delta class, which steps like the plain
+wrapper while the world is one rank (the JAX binding decides both from
+``size()`` once, at construction).
 """
 from __future__ import annotations
 
@@ -58,8 +66,7 @@ class _DistributedMixin:
         if len(set(names)) != len(names):
             raise ValueError("parameter names must be unique")
         self._names = {p: n for n, p in named}
-        if _basics.size() > 1:
-            self._register_hooks(p for _, p in named)
+        self._register_hooks(p for _, p in named)
 
     # ------------------------------------------------------------------
     def _register_hooks(self, params):
@@ -87,6 +94,8 @@ class _DistributedMixin:
     def _passes_check_and_reduce(self, p):
         # Local accumulation: only communicate on the boundary pass
         # (ref: optimizer.py backward_passes_per_step).
+        if _basics.size() == 1:
+            return
         if (self._passes + 1) % self.backward_passes_per_step != 0:
             return
         if p in self._handles or p.grad is None:
@@ -112,22 +121,26 @@ class _DistributedMixin:
         (ref: optimizer.py:151-200)."""
         from .. import torch as hvd_torch
 
-        if _basics.size() > 1:
-            missing = [
-                p for p in self._names
-                if p.requires_grad and p.grad is not None
-                and p not in self._handles
-            ]
-            for p in missing:
-                self._handles[p] = self._allreduce_grad_async(p)
-            for p, (handle, ctx) in list(self._handles.items()):
-                out = hvd_torch.synchronize(handle)
-                p.grad.copy_(
-                    self._compression.decompress(out, ctx).reshape(
-                        p.grad.shape
+        # The handles go whatever happens: after a failed collective they
+        # belong to an engine that is gone (an elastic reset starts another).
+        try:
+            if _basics.size() > 1:
+                missing = [
+                    p for p in self._names
+                    if p.requires_grad and p.grad is not None
+                    and p not in self._handles
+                ]
+                for p in missing:
+                    self._handles[p] = self._allreduce_grad_async(p)
+                for p, (handle, ctx) in list(self._handles.items()):
+                    out = hvd_torch.synchronize(handle)
+                    p.grad.copy_(
+                        self._compression.decompress(out, ctx).reshape(
+                            p.grad.shape
+                        )
                     )
-                )
-        self._handles.clear()
+        finally:
+            self._handles.clear()
         self._synchronized = True
 
     @contextmanager
@@ -205,6 +218,9 @@ class _AdasumDeltaMixin(_DistributedMixin):
         (ref: optimizer.py:278-321 _allreduce_grad_async)."""
         from .. import torch as hvd_torch
 
+        if self._prescale != 1.0 or self._postscale != 1.0:
+            raise ValueError("prescale_factor/postscale_factor are not supported "
+                             "with op=Adasum")
         start = self._starting[p]
         stashed = []
         for group in self.param_groups:
@@ -243,6 +259,8 @@ class _AdasumDeltaMixin(_DistributedMixin):
     def step(self, closure=None):
         from .. import torch as hvd_torch
 
+        if _basics.size() == 1:
+            return _DistributedMixin.step(self, closure)
         loss = closure() if closure is not None else None
         self._passes += 1
         if self._passes % self.backward_passes_per_step != 0:
@@ -252,17 +270,19 @@ class _AdasumDeltaMixin(_DistributedMixin):
             if p.requires_grad and p.grad is not None
             and p not in self._handles
         ]
-        for p in missing:
-            self._handles[p] = self._allreduce_grad_async(p)
-        for p, (handle, ctx) in list(self._handles.items()):
-            out = hvd_torch.synchronize(handle)
-            delta = self._compression.decompress(out, ctx).reshape(p.shape)
-            start = self._starting[p]
-            # start += combined delta; current = start
-            # (ref: optimizer.py:364-368).
-            start.data.add_(delta)
-            p.data.copy_(start.data)
-        self._handles.clear()
+        try:
+            for p in missing:
+                self._handles[p] = self._allreduce_grad_async(p)
+            for p, (handle, ctx) in list(self._handles.items()):
+                out = hvd_torch.synchronize(handle)
+                delta = self._compression.decompress(out, ctx).reshape(p.shape)
+                start = self._starting[p]
+                # start += combined delta; current = start
+                # (ref: optimizer.py:364-368).
+                start.data.add_(delta)
+                p.data.copy_(start.data)
+        finally:
+            self._handles.clear()
         return loss
 
 
@@ -295,8 +315,8 @@ def DistributedOptimizer(optimizer, named_parameters=None,
         postscale_factor = postscale_factor * gradient_predivide_factor
     base_cls = type(optimizer)
     mixin = _DistributedMixin
-    if op == ReduceOp.ADASUM and _basics.size() > 1:
-        if prescale_factor != 1.0 or postscale_factor != 1.0:
+    if op == ReduceOp.ADASUM:
+        if _basics.size() > 1 and (prescale_factor != 1.0 or postscale_factor != 1.0):
             # The delta path launches the combine without scale factors;
             # silently dropping them would change the effective update
             # (ref: optimizer.py:431-435 predivide is Average-only).

@@ -67,6 +67,27 @@ MODULES = [
     "horovod_tpu_torch.utils.logging",
     "horovod_tpu_torch.torch",
     "horovod_tpu_torch.torch.optimizer",
+    "horovod_tpu_torch.torch.elastic",
+    "horovod_tpu_torch.common.fault_injection",
+    "horovod_tpu_torch.utils.retry",
+    "horovod_tpu_torch.backend",
+    "horovod_tpu_torch.backend.rendezvous",
+    "horovod_tpu_torch.backend.elastic_env",
+    "horovod_tpu_torch.elastic",
+    "horovod_tpu_torch.elastic.state",
+    "horovod_tpu_torch.elastic.run",
+    "horovod_tpu_torch.runner",
+    "horovod_tpu_torch.runner.util.secret",
+    "horovod_tpu_torch.runner.hosts",
+    "horovod_tpu_torch.runner.config_parser",
+    "horovod_tpu_torch.runner.rendezvous_server",
+    "horovod_tpu_torch.runner.launch",
+    "horovod_tpu_torch.runner.run_func",
+    "horovod_tpu_torch.runner.elastic",
+    "horovod_tpu_torch.runner.elastic.discovery",
+    "horovod_tpu_torch.runner.elastic.registration",
+    "horovod_tpu_torch.runner.elastic.driver",
+    "horovod_tpu_torch.runner.elastic.launcher",
 ]
 # The JAX package's names that the port exports under the same names.
 EXPORTS = [
@@ -80,7 +101,8 @@ EXPORTS = [
     "DistributedGradientTape", "distributed_value_and_grad",
     "SyncBatchNorm", "sync_batch_stats", "adasum_allreduce", "zero",
     "create_mesh", "create_hybrid_mesh", "wrap_step", "ring_attention",
-    "ulysses_attention", "dense_attention", "AXIS_ORDER",
+    "ulysses_attention", "dense_attention", "AXIS_ORDER", "elastic",
+    "HostsUpdatedInterrupt",
 ]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 FORBIDDEN_IMPORT = re.compile(
