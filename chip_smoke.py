@@ -323,14 +323,44 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    each survivor's wait ends, its next collective raises
    HorovodInternalError, its shutdown() takes under 10 s, and the
    survivors form a world of n-1 in the same processes on the same cards;
-36. the ``{"kernels": [...]}`` line (with ``launches_sp``,
+36. the durability plane, one card (``durable_plan``, run before 34,
+   which then runs (c) for EL_STEPS steps and (b) for 8; ``durable``,
+   after 34): in process, GPT-2-small as in 34 under ``TorchState`` with a
+   ``CheckpointManager``: a blocking checkpoint of the whole state (with
+   fsync and without), then step ms with checkpoints off and on (one a
+   commit, a write always in flight) in turns, the extra device bytes
+   while a write is in flight, and the interval I (a write ends within
+   it) and the kill step 3I+1 that the runs take; then, each started by
+   the launcher with HOROVOD_CHECKPOINT_DIR: (d) ``kill:step=3I+1`` ends
+   the job, with two complete manifests left; (e) a fresh launch restores
+   the newest, bitwise its shards, and ends bitwise 34's (c); (f)
+   ``preempt:step=2`` drains: the drain commit is a complete manifest,
+   the worker exits cleanly within the grace, and (f2) a relaunch resumes
+   at exactly that step; no tmp debris, no orphan shard directory; the
+   seconds from the kill to the first step of the relaunch by part
+   (launch, init, model, restore, sync, first step), the writes' seconds
+   and skips, the drain's seconds;
+37. with two cards or more (``durable_multi``, four in PERF.md's runs,
+   after 35): first ``c7_multi``, GPT-2-small's state (~450 tensors)
+   broadcast batched 20 times beside the hook optimizer's step on one
+   NCCL rank per card, the engine's launch order the same on every rank;
+   then under the launcher, fusion off: (m0) an uninterrupted np=n run;
+   (m1) every rank killed at step 3I+1; (m2) a restart at np=n, bitwise
+   the manifest and at its end bitwise (m0); (m3) a restart at np=2 from
+   a copy, bitwise the manifest, replicas bitwise after 4 steps; (m4)
+   ``preempt:step=5:rank=n-1``: the drain commit a complete manifest of n
+   shards, the drained worker's clean exit, the survivors at n-1 from
+   that commit with no restore from disk; the drain barrier's ms a commit
+   and the drain's seconds from the notice to the exit to the first step
+   at n-1;
+38. the ``{"kernels": [...]}`` line (with ``launches_sp``,
    ``launches_moe``, ``launches_pp``, ``launches_tp``,
    ``launches_zero_mesh``, ``launches_tp_sp``, ``launches_tp_moe``,
    ``launches_vit``, ``launches_vit_multi``, ``launches_mnist``,
    ``launches_mnist_multi``, ``launches_adasum_1p3b_multi``,
    ``launches_pp_tp``, ``launches_pp_tp_multi``, ``launches_engine``,
-   ``launches_engine_multi``, ``launches_elastic``, ``launches_elastic_multi``
-   and the D=128 records
+   ``launches_engine_multi``, ``launches_elastic``, ``launches_elastic_multi``,
+   ``launches_durable``, ``launches_durable_multi`` and the D=128 records
    ``pp_d128``, ``tp_d128``, ``tp_sp_d128`` and ``pp_tp_d128``); then the card line
    from nvidia-smi and the last line ``{"ok": true, "device": {...}}``.
 
@@ -4981,7 +5011,8 @@ def phase_engine_multi() -> dict:
 # spawn_cards. The workers are this module's ``elastic_worker``, run from a
 # three-line script that first binds a fake host ``card<i>`` to card i.
 EL_MODEL = "gpt2-small"
-EL_STEPS = 8              # (b) and (c)
+EL_B_STEPS = 8            # (b); (c) runs EL_STEPS, set by durable_plan (8 without it)
+EL_STEPS = 8
 EL_RAISE_AT = 5           # (b): HorovodInternalError in step 5, after the commit of step 4
 EL_MULTI_STEPS = 12
 EL_KILL_STEP = 5          # elastic_multi: kill:step=5 on the last rank
@@ -5060,9 +5091,11 @@ def elastic_worker() -> None:
     import faulthandler
     import os
 
+    t_proc = time.time()
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.backend.elastic_env import spawn_identity
-    from horovod_tpu_torch.common import fault_injection
+    from horovod_tpu_torch.common import checkpoint, drain, fault_injection
+    from horovod_tpu_torch.common.exceptions import WorkerPreempted
     from horovod_tpu_torch.ops import flash_attention as fa
 
     # A worker still running near the launch's time limit shows where.
@@ -5076,7 +5109,7 @@ def elastic_worker() -> None:
     torch.backends.cudnn.allow_tf32 = False
     full_precision_products()
     rec = {"identity": spawn_identity(), "pid": os.getpid(), "steps": [], "syncs": [],
-           "restores": [], "reinit": []}
+           "restores": [], "reinit": [], "t_proc": t_proc, "ckpt": [], "barrier_ms": []}
     path = os.path.join(out_dir, f"{rec['identity'].replace(':', '_')}.{os.getpid()}.json")
 
     def dump():
@@ -5084,15 +5117,39 @@ def elastic_worker() -> None:
             json.dump(rec, f)
         os.replace(path + ".tmp", path)
 
+    def on_exit():
+        # A clean interpreter exit (a SystemExit, WorkerPreempted's code 0
+        # among them); os._exit (the kill rule) skips it.
+        rec["exit_at"] = time.time()
+        dump()
+
+    import atexit
+
+    atexit.register(on_exit)
     dump()
+    t0 = time.time()
     hvd.init()
+    rec["init_s"] = time.time() - t0
     dev = hvd.device()
     rec["device"] = str(dev)
     model, opt = el_model(dev)
     vocab = model.cfg.vocab_size
     state = hvd.elastic.TorchState(model, opt, batch=0)
-    kill = [r for r in fault_injection.parse_spec(os.environ.get("HOROVOD_FAULT_INJECT", ""))
-            if r.action == "kill"]
+    rec["built_s"] = time.time() - t0
+    rules = fault_injection.parse_spec(os.environ.get("HOROVOD_FAULT_INJECT", ""))
+    kill = [r for r in rules if r.action == "kill"]
+    preempt = [r for r in rules if r.action == "preempt"]
+    barrier = drain.commit_barrier
+
+    def timed_barrier(st):
+        # The drain barrier's time a commit (its all-reduce past one rank).
+        t = time.perf_counter()
+        try:
+            barrier(st)
+        finally:
+            rec["barrier_ms"].append((time.perf_counter() - t) * 1e3)
+
+    drain.commit_barrier = timed_barrier
 
     def on_reset():
         # After the restore (or the interrupt) and the next world's init,
@@ -5108,6 +5165,11 @@ def elastic_worker() -> None:
 
     @hvd.elastic.run
     def train(state):
+        if hvd.elastic.resume_log and "resume" not in rec:
+            # The state as restored from the checkpoint, in the checkpoint's
+            # leaf order, against the manifest's shards in the harness.
+            rec["resume"] = dict(hvd.elastic.resume_log[-1], batch=state.batch,
+                                 digest=leaves_digest(state.checkpoint_trees()))
         # Every entry follows a sync: rank 0's checksum against ours.
         mine = state_checksum(model, opt)
         root = hvd.broadcast(mine.clone(), root_rank=0, name="el.checksum")
@@ -5115,6 +5177,9 @@ def elastic_worker() -> None:
                              "t": time.time(), "equal": bool(torch.equal(mine, root))})
         while state.batch < total:
             step = state.batch + 1
+            if preempt and preempt[0].rank in (None, hvd.rank()) and "notice_at" not in rec \
+                    and fault_injection.get_injector().step + 1 >= preempt[0].step:
+                rec["notice_at"] = time.time()
             if kill and kill[0].rank in (None, hvd.rank()) and \
                     fault_injection.get_injector().step + 1 >= kill[0].step:
                 # This worker's host goes away with it: discovery stops
@@ -5137,14 +5202,32 @@ def elastic_worker() -> None:
             loss = el_step(model, opt, el_batch(state.batch, hvd.rank(), dev, vocab))
             t1 = time.perf_counter()
             state.batch = step
-            state.commit()
+            try:
+                state.commit()
+            except WorkerPreempted:
+                rec["drained_at"] = time.time()
+                rec["drained_step"] = step
+                rec["drain_s"] = drain.coordinator.seconds_since_notice()
+                dump()
+                raise
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             rec["steps"].append({"step": step, "rank": hvd.rank(), "size": hvd.size(),
                                  "loss": loss, "ms": (t1 - t0) * 1e3,
                                  "commit_ms": (t2 - t1) * 1e3, "t": time.time()})
+            mgr = checkpoint.current()
+            if mgr is not None:
+                st = mgr.status()
+                rec["ckpt"].append({"step": step, "pending": st["pending_step"],
+                                    "write_s": st["last_write_s"],
+                                    "commit_s": st["last_commit_s"],
+                                    "writes": st["writes"], "skipped": st["skipped"],
+                                    "bytes": st["bytes"], "commits": st["commits"],
+                                    "allocated": torch.cuda.memory_allocated()})
             if step == EL_RAISE_AT - 1 or step == EL_KILL_STEP - 1:
                 rec[f"commit{step}"] = state_checksum(model, opt).tolist()
+            if step == int(os.environ.get("EL_MARK", "0")):
+                rec["mark"] = state_checksum(model, opt).tolist()
             if step == return_after and hosts_file and "returned_at" not in rec \
                     and hvd.size() < int(os.environ["EL_CARDS"]):
                 if hvd.rank() == 0:
@@ -5165,6 +5248,7 @@ def elastic_worker() -> None:
     train(state)
     torch.cuda.synchronize()
     rec["final"] = state_checksum(model, opt).tolist()
+    rec["final_batch"] = state.batch
     rec["final_rank"], rec["final_size"] = hvd.rank(), hvd.size()
     rec["attempts"] = attempts[0]
     rec["launches"] = fa.launches()
@@ -5176,11 +5260,38 @@ def elastic_worker() -> None:
     hvd.shutdown()
 
 
-def run_launcher(tmp: str, name: str, args: list, env: dict) -> tuple:
-    """``python -m horovod_tpu_torch.runner.launch <args> python worker.py``
-    under ``timeout``; (exit code, seconds, {file: record}, log tail). A
-    worker process left behind fails the phase."""
+def read_records(out: str) -> dict:
     import os
+
+    recs = {}
+    for fn in sorted(os.listdir(out)):
+        if fn.endswith(".json"):
+            with open(os.path.join(out, fn)) as f:
+                recs[fn] = json.load(f)
+    return recs
+
+
+def pid_alive(pid: int) -> bool:
+    import os
+
+    try:
+        os.kill(pid, 0)
+        return True
+    except ProcessLookupError:
+        return False
+
+
+def run_launcher(tmp: str, name: str, args: list, env: dict,
+                 killed_job: bool = False) -> tuple:
+    """``python -m horovod_tpu_torch.runner.launch <args> python worker.py``
+    under ``timeout``; (exit code, seconds, {file: record}, log tail,
+    wall-clock start). A worker process left behind fails the phase, and
+    so does an exit code other than 0, unless ``killed_job``: then every
+    worker that recorded ``killed_at`` dies, the launcher (and its
+    rendezvous server and store) is ended as soon as they are gone if it
+    has not ended itself, and its exit code must not be 0."""
+    import os
+    import signal
 
     out = os.path.join(tmp, name)
     os.makedirs(out)
@@ -5191,20 +5302,30 @@ def run_launcher(tmp: str, name: str, args: list, env: dict) -> tuple:
     full = dict(os.environ)
     full.update(PYTHONPATH=repo, EL_OUT=out, **env)
     log = os.path.join(tmp, f"{name}.log")
+    wall0 = time.time()
     t0 = time.perf_counter()
     with open(log, "w") as f:
-        rc = subprocess.run(["timeout", "-k", "10", str(EL_TIMEOUT), sys.executable, "-m",
-                             "horovod_tpu_torch.runner.launch", *args, sys.executable,
-                             worker], cwd=repo, env=full, stdout=f,
-                            stderr=subprocess.STDOUT).returncode
+        proc = subprocess.Popen(["timeout", "-k", "10", str(EL_TIMEOUT), sys.executable,
+                                 "-m", "horovod_tpu_torch.runner.launch", *args,
+                                 sys.executable, worker], cwd=repo, env=full, stdout=f,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+        while proc.poll() is None:
+            time.sleep(0.2)
+            if not killed_job:
+                continue
+            victims = [r for r in read_records(out).values() if "killed_at" in r]
+            if victims and not any(pid_alive(r["pid"]) for r in victims):
+                # The driver ends a job whose every worker failed; past 10 s
+                # the launcher goes the way its workers went.
+                try:
+                    proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGKILL)
+        rc = proc.wait()
     seconds = time.perf_counter() - t0
     with open(log) as f:
         tail = f.read()[-12000:]
-    recs = {}
-    for fn in sorted(os.listdir(out)):
-        if fn.endswith(".json"):
-            with open(os.path.join(out, fn)) as f:
-                recs[fn] = json.load(f)
+    recs = read_records(out)
     left = []
     for r in recs.values():
         try:
@@ -5213,7 +5334,7 @@ def run_launcher(tmp: str, name: str, args: list, env: dict) -> tuple:
             os.kill(r["pid"], 9)
         except ProcessLookupError:
             pass
-    if (left or rc != 0) and os.environ.get("EL_KEEP_LOGS"):
+    if (left or (rc != 0) != killed_job) and os.environ.get("EL_KEEP_LOGS"):
         # The whole log and the workers' records, for a look afterwards.
         import shutil
 
@@ -5224,9 +5345,9 @@ def run_launcher(tmp: str, name: str, args: list, env: dict) -> tuple:
     if left:
         raise AssertionError(f"{name}: worker processes {left} outlived the launcher "
                              f"(exit {rc} after {seconds:.1f} s):\n{tail}")
-    if rc != 0:
+    if (rc != 0) != killed_job:
         raise AssertionError(f"{name}: the launcher exited {rc} after {seconds:.1f} s:\n{tail}")
-    return rc, seconds, recs, tail
+    return rc, seconds, recs, tail, wall0
 
 
 def el_launches(recs: dict, name: str, want: int) -> dict:
@@ -5281,13 +5402,14 @@ def phase_elastic(fa) -> dict:
             f.write("#!/bin/sh\necho localhost:1\n")
         os.chmod(disc, 0o755)
         elastic = ["--min-np", "1", "--max-np", "1", "--host-discovery-script", disc]
-        _, sec_a, recs_a, _ = run_launcher(tmp, "a_static", ["-np", "1"],
-                                           {"EL_TOTAL": str(STEPS)})
-        _, sec_b, recs_b, _ = run_launcher(tmp, "b_raised", elastic,
-                                           {"EL_TOTAL": str(EL_STEPS),
-                                            "EL_RAISE_AT": str(EL_RAISE_AT)})
-        _, sec_c, recs_c, _ = run_launcher(tmp, "c_plain", elastic,
-                                           {"EL_TOTAL": str(EL_STEPS)})
+        _, sec_a, recs_a, _, _ = run_launcher(tmp, "a_static", ["-np", "1"],
+                                              {"EL_TOTAL": str(STEPS)})
+        _, sec_b, recs_b, _, _ = run_launcher(tmp, "b_raised", elastic,
+                                              {"EL_TOTAL": str(EL_B_STEPS),
+                                               "EL_RAISE_AT": str(EL_RAISE_AT)})
+        _, sec_c, recs_c, _, _ = run_launcher(tmp, "c_plain", elastic,
+                                              {"EL_TOTAL": str(EL_STEPS),
+                                               "EL_MARK": str(EL_B_STEPS)})
     a, b, c = el_one(recs_a, "(a)"), el_one(recs_b, "(b)"), el_one(recs_c, "(c)")
     want = flash_launches(12)["flash_fwd"]
     launches = {n: el_launches(r, n, want) for n, r in
@@ -5296,16 +5418,17 @@ def phase_elastic(fa) -> dict:
     if losses["a"] != control:
         raise AssertionError(f"(a): static launch losses {losses['a']} are not the "
                              f"in-process run's {control}")
-    if losses["b"] != losses["c"] or losses["c"][:STEPS] != control:
+    if losses["b"] != losses["c"][:EL_B_STEPS] or losses["c"][:STEPS] != control:
         raise AssertionError(f"(b)/(c) losses {losses['b']} / {losses['c']}")
-    if [s["step"] for s in b["steps"]] != list(range(1, EL_STEPS + 1)):
+    if [s["step"] for s in b["steps"]] != list(range(1, EL_B_STEPS + 1)):
         raise AssertionError(f"(b): steps {[s['step'] for s in b['steps']]}")
     if len(b["restores"]) != 1 or b["restores"][0]["batch"] != EL_RAISE_AT - 1 or \
             b["restores"][0]["checksum"] != b[f"commit{EL_RAISE_AT - 1}"]:
         raise AssertionError(f"(b): the restored state is not the commit of step "
                              f"{EL_RAISE_AT - 1}: {b['restores']}")
-    if b["final"] != c["final"]:
-        raise AssertionError("(b)'s final parameters and AdamW state are not (c)'s")
+    if b["final"] != c["mark"]:
+        raise AssertionError(f"(b)'s final parameters and AdamW state are not (c)'s at "
+                             f"step {EL_B_STEPS}")
     if not all(s["equal"] for r in (a, b, c) for s in r["syncs"]):
         raise AssertionError("a sync left unequal replicas")
     reset = b["reset_log"][0]
@@ -5322,7 +5445,7 @@ def phase_elastic(fa) -> dict:
            "reset_s": {k: v for k, v in reset.items() if k.endswith("_s")},
            "raise_to_next_step_s": b["steps"][EL_RAISE_AT - 1]["t"] - b["raised_at"]}
     emit(rec)
-    return rec
+    return rec, c["final"]
 
 
 def nccl_dead_peer_rank(rank: int, size: int, init_file: str, queue) -> None:
@@ -5431,7 +5554,7 @@ def phase_elastic_multi() -> dict:
         with open(disc, "w") as f:
             f.write(f"#!/bin/sh\ncat {hosts_file}\n")
         os.chmod(disc, 0o755)
-        _, seconds, recs, tail = run_launcher(
+        _, seconds, recs, tail, _ = run_launcher(
             tmp, "multi", ["--min-np", str(n - 1), "--max-np", str(n),
                            "--host-discovery-script", disc],
             {"EL_TOTAL": str(EL_MULTI_STEPS), "EL_HOSTS_FILE": hosts_file,
@@ -5505,14 +5628,526 @@ def phase_elastic_multi() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The durability plane: GPT-2-small of phase ``elastic`` with durable
+# checkpoints (HOROVOD_CHECKPOINT_DIR) through the death of the whole job
+# and through an announced preemption, and the C7 check of the engine.
+DU_TURN_MIN_STEPS = 20    # steps a turn, checkpoints off and on in turns
+DU_MULTI_EXTRA = 4        # (m3): steps past the restore at np=2
+DU_PREEMPT_STEP = 2       # (f): preempt:step=2
+DU_PREEMPT_RANK_STEP = 5  # (m4): preempt:step=5:rank=3
+C7_RUNS = 20              # batched broadcasts of GPT-2-small's state beside the step
+
+
+def leaves_digest(trees: dict) -> str:
+    """sha256 over a state's checkpoint leaves in the checkpoint's order
+    (attrs sorted), each as a shard holds it (dtype, shape, bytes): equal
+    for bitwise-equal states."""
+    import hashlib
+
+    from horovod_tpu_torch.common.checkpoint import host_leaf
+
+    h = hashlib.sha256()
+    for attr in sorted(trees):
+        for leaf in trees[attr]:
+            a = np.asarray(host_leaf(leaf))
+            h.update(f"{a.dtype}{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def manifest_digest(root: str, manifest: dict) -> str:
+    from horovod_tpu_torch.common.checkpoint import load_checkpoint_arrays
+
+    return leaves_digest(load_checkpoint_arrays(root, manifest)[1])
+
+
+def checkpoint_dir_clean(root: str) -> dict:
+    """No ``*.tmp.*`` debris anywhere under ``root``, and every shard
+    directory has its manifest."""
+    import os
+
+    from horovod_tpu_torch.common import checkpoint as ck
+
+    debris = [os.path.join(d, n) for d, _, names in os.walk(root) for n in names
+              if ck.atomic_file.is_tmp_debris(n)]
+    manifested = {s for s, _ in ck.list_manifests(root)}
+    orphans = [n for n in os.listdir(root) if n.startswith(ck.STEP_DIR_PREFIX) and
+               int(n[len(ck.STEP_DIR_PREFIX):]) not in manifested]
+    if debris or orphans:
+        raise AssertionError(f"{root}: tmp debris {debris}, orphan shard dirs {orphans}")
+    return {"manifests": sorted(manifested)}
+
+
+def ckpt_writes(rec: dict) -> dict:
+    """A worker's checkpoint writes from its per-step manager status: the
+    write and commit seconds each new write took, skips, shard bytes."""
+    writes, commits = {}, {}
+    for c in rec["ckpt"]:
+        if c["writes"]:
+            writes.setdefault(c["writes"], c["write_s"])
+        if c["commits"]:
+            commits.setdefault(c["commits"], c["commit_s"])
+    last = rec["ckpt"][-1] if rec["ckpt"] else {}
+    return {"write_s": list(writes.values()), "commit_s": list(commits.values()),
+            "skipped": last.get("skipped", 0),
+            "shard_bytes": last.get("bytes", 0) / max(last.get("writes", 0), 1)}
+
+
+def fs_type(path: str) -> str:
+    """The type of the filesystem ``path`` is on, from /proc/mounts."""
+    import os
+
+    best, kind = "", "unknown"
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) > 2 and os.path.realpath(path).startswith(parts[1]) and \
+                        len(parts[1]) > len(best):
+                    best, kind = parts[1], parts[2]
+    except OSError:
+        pass
+    return kind
+
+
+def durable_plan(dev) -> dict:
+    """In this process, on phase ``elastic``'s model under ``TorchState``
+    with a ``CheckpointManager`` in a temporary directory: one blocking
+    checkpoint of the whole state (its seconds and bytes, and without
+    fsync for the record), then steps with
+    checkpoints off and on (one a commit: a write always in flight, the
+    rest skipped) in turns, off, on, on, off, each at least a write long
+    (1.2 W): step ms, the writes' seconds under training, the extra device
+    bytes while a write is in flight. From them the plan of the durable
+    phases: an interval I in which a write ends (I = ceil(1.5 W / T) + 1
+    for the longest write W at T ms a step), the kill at 3I + 1 (two
+    manifests committed, the third write cut off), and EL_STEPS (phase
+    ``elastic``'s (b) and (c) and the durable runs) at 3I + 4."""
+    import os
+    import tempfile
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common.checkpoint import CheckpointManager
+
+    global EL_STEPS
+    model, opt = el_model(dev)
+    vocab = model.cfg.vocab_size
+    state = hvd.elastic.TorchState(model, opt, batch=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"), interval_steps=1)
+
+        def run(n: int, on: bool) -> list:
+            state.set_checkpoint_manager(mgr if on else None)
+            out = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                el_step(model, opt, el_batch(state.batch, 0, dev, vocab))
+                state.batch += 1
+                state.commit()
+                torch.cuda.synchronize()
+                st = mgr.status()
+                out.append({"ms": (time.perf_counter() - t0) * 1e3,
+                            "allocated": torch.cuda.memory_allocated(),
+                            "pending": st["pending_step"] if on else None,
+                            "write_s": st["last_write_s"], "writes": st["writes"]})
+            state.set_checkpoint_manager(None)
+            return out
+
+        run(3, False)
+        t0 = time.perf_counter()
+        mgr.save(state, step=0, blocking=True)
+        blocking_s = time.perf_counter() - t0
+        shard_bytes = mgr.counts["bytes"]
+        unsynced = CheckpointManager(os.path.join(tmp, "nofsync"), interval_steps=0,
+                                     fsync=False)
+        t0 = time.perf_counter()
+        unsynced.save(state, step=0, blocking=True)
+        no_fsync_s = time.perf_counter() - t0
+        unsynced.stop()
+        step_ms = statistics.median(r["ms"] for r in run(5, False)[1:])
+        turn = max(DU_TURN_MIN_STEPS, math.ceil(1.2 * blocking_s * 1e3 / step_ms))
+        turns = []
+        for on in (False, True, True, False):
+            turns.append((on, run(turn, on)))
+            mgr.flush()
+        mgr.stop()
+        status = mgr.status()
+    off = [r for on, rs in turns if not on for r in rs[1:]]
+    on = [r for on_, rs in turns if on_ for r in rs[1:]]
+    write_s = sorted({(r["writes"], r["write_s"]) for r in on if r["write_s"]})
+    longest = max([blocking_s] + [w for _, w in write_s])
+    t_off = statistics.median(r["ms"] for r in off)
+    interval = math.ceil(1.5 * longest * 1e3 / t_off) + 1
+    kill = 3 * interval + 1
+    EL_STEPS = kill + 3
+    baseline = statistics.median(r["allocated"] for r in off)
+    in_flight = [r["allocated"] for r in on if r["pending"] is not None]
+    del model, opt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"phase": "durable_plan", "model": EL_MODEL, "batch": B, "seq": S,
+           "shard_bytes": shard_bytes, "blocking_write_s": blocking_s,
+           "blocking_write_no_fsync_s": no_fsync_s, "checkpoint_fs": fs_type(tempfile.gettempdir()),
+           "writes_under_training_s": [w for _, w in write_s],
+           "skipped": status["skipped"], "turn_steps": turn,
+           "step_ms_turns": [{"checkpoints": "on" if o else "off",
+                              "median": statistics.median(r["ms"] for r in rs[1:])}
+                             for o, rs in turns],
+           "step_ms_off": t_off, "step_ms_on": statistics.median(r["ms"] for r in on),
+           "extra_device_bytes_in_flight": (max(in_flight) - baseline) if in_flight else 0,
+           "interval": interval, "kill_step": kill, "el_steps": EL_STEPS}
+    emit(rec)
+    return rec
+
+
+def phase_durable(plan: dict, control_final: list) -> dict:
+    """One card. (d) an elastic launch of one slot with checkpoints every
+    I commits; kill:step=K ends the worker; the launcher and its
+    rendezvous server end (the driver stops a job whose every worker
+    failed; the harness ends it otherwise): only the files remain, with
+    at least two complete manifests. (e) a fresh launch on the directory
+    restores the newest complete step S <= K, bitwise the manifest's
+    shards, and trains to EL_STEPS: its final parameters and AdamW state
+    bitwise phase ``elastic``'s (c). (f) preempt:step=2 in a fresh
+    directory: the drain commit of that step is durable, the worker exits
+    cleanly (SystemExit(0)) within the grace, and (f2) a relaunch resumes
+    at exactly that step and takes two steps. Both directories end with no
+    tmp debris and no orphan shard directory."""
+    import os
+    import tempfile
+
+    from horovod_tpu_torch.common import checkpoint as ck, env as env_cfg
+
+    interval, kill = plan["interval"], plan["kill_step"]
+    preempt = DU_PREEMPT_STEP
+    with tempfile.TemporaryDirectory() as tmp:
+        disc = os.path.join(tmp, "discover.sh")
+        with open(disc, "w") as f:
+            f.write("#!/bin/sh\necho localhost:1\n")
+        os.chmod(disc, 0o755)
+        elastic = ["--min-np", "1", "--max-np", "1", "--host-discovery-script", disc]
+        dirs = {k: os.path.join(tmp, f"ckpt_{k}") for k in "df"}
+
+        def env(k, **more):
+            return {"EL_TOTAL": str(EL_STEPS), "HOROVOD_CHECKPOINT_DIR": dirs[k],
+                    "HOROVOD_CHECKPOINT_INTERVAL_STEPS": str(interval), **more}
+
+        _, sec_d, recs_d, _, _ = run_launcher(
+            tmp, "d_killed", elastic, env("d", HOROVOD_FAULT_INJECT=f"kill:step={kill}"),
+            killed_job=True)
+        d = [r for r in recs_d.values() if "killed_at" in r]
+        if len(d) != 1 or [s["step"] for s in d[0]["steps"]] != list(range(1, kill)):
+            raise AssertionError(f"(d): the killed worker {sorted(recs_d)}")
+        d = d[0]
+        complete = [s for s, p in ck.list_manifests(dirs["d"])
+                    if ck.is_complete(dirs["d"], ck.load_manifest(p))]
+        found = ck.find_latest_manifest(dirs["d"])
+        if len(complete) < 2 or found is None or found[0] > kill:
+            raise AssertionError(f"(d): complete manifests {complete} before the kill at "
+                                 f"step {kill}")
+        step_s, man, _ = found
+        digest = manifest_digest(dirs["d"], man)
+        _, sec_e, recs_e, _, wall_e = run_launcher(tmp, "e_resumed", elastic, env("d"))
+        e = el_one(recs_e, "(e)")
+        if e["resume"]["step"] != step_s or e["resume"]["batch"] != step_s or \
+                e["resume"]["digest"] != digest:
+            raise AssertionError(f"(e): restored {e['resume']} from step {step_s} "
+                                 f"(manifest digest {digest})")
+        if [s["step"] for s in e["steps"]] != list(range(step_s + 1, EL_STEPS + 1)):
+            raise AssertionError(f"(e): steps {[s['step'] for s in e['steps']]}")
+        if e["final"] != control_final:
+            raise AssertionError("(e)'s final parameters and AdamW state are not (c)'s")
+        _, sec_f, recs_f, _, _ = run_launcher(
+            tmp, "f_preempted", elastic,
+            env("f", HOROVOD_FAULT_INJECT=f"preempt:step={preempt}"))
+        f = [r for r in recs_f.values() if "drained_at" in r]
+        grace = env_cfg.drain_grace_seconds()
+        if len(f) != 1 or f[0]["drained_step"] != preempt or "exit_at" not in f[0] or \
+                f[0]["exit_at"] - f[0]["notice_at"] > grace:
+            raise AssertionError(f"(f): the drained worker {list(recs_f.values())}")
+        f = f[0]
+        found_f = ck.find_latest_manifest(dirs["f"])
+        if found_f is None or found_f[0] != preempt:
+            raise AssertionError(f"(f): the newest complete manifest is {found_f} after a "
+                                 f"drain at step {preempt}")
+        digest_f = manifest_digest(dirs["f"], found_f[1])
+        _, sec_f2, recs_f2, _, _ = run_launcher(tmp, "f2_resumed", elastic,
+                                                env("f", EL_TOTAL=str(preempt + 2)))
+        f2 = el_one(recs_f2, "(f2)")
+        if f2["resume"]["step"] != preempt or f2["resume"]["digest"] != digest_f or \
+                [s["step"] for s in f2["steps"]] != [preempt + 1, preempt + 2]:
+            raise AssertionError(f"(f2): restored {f2['resume']} after the drain at step "
+                                 f"{preempt}, steps {[s['step'] for s in f2['steps']]}")
+        clean = {k: checkpoint_dir_clean(v) for k, v in dirs.items()}
+    want = flash_launches(12)["flash_fwd"]
+    launches = {n: el_launches(r, n, want) for n, r in
+                (("e", recs_e), ("f2", recs_f2))}
+    first = e["steps"][0]["t"]
+    res = e["resume"]
+    rec = {"phase": "durable", "model": EL_MODEL, "batch": B, "seq": S, "world": 1,
+           "interval": interval, "kill_step": kill, "el_steps": EL_STEPS,
+           "complete_manifests_at_kill": complete, "restored_step": step_s,
+           "restore_bitwise_manifest": True, "resumed_bitwise_uninterrupted": True,
+           "launches": launches["e"], "launches_f2": launches["f2"],
+           "writes_d": ckpt_writes(d), "writes_e": ckpt_writes(e),
+           "launcher_s": {"d": sec_d, "e": sec_e, "f": sec_f, "f2": sec_f2},
+           "kill_to_first_step_s": first - d["killed_at"],
+           "kill_split_s": {"harness": wall_e - d["killed_at"],
+                            "launch": e["t_proc"] - wall_e, "init": e["init_s"],
+                            "model": e["built_s"] - e["init_s"],
+                            "restore": res["restore_s"], "sync": res["sync_s"],
+                            "other": (res["t"] - e["t_proc"] - e["built_s"] -
+                                      res["restore_s"] - res["sync_s"]),
+                            "first_step": first - res["t"]},
+           "drain_step": preempt, "drain_notice_to_exit_s": f["exit_at"] - f["notice_at"],
+           "drain_commit_s": f["drain_s"], "drain_grace_s": grace,
+           "step_ms_median_e": statistics.median(s["ms"] for s in e["steps"][1:]),
+           "commit_ms_median_e": statistics.median(s["commit_ms"] for s in e["steps"][1:]),
+           "dirs": clean}
+    emit(rec)
+    return rec
+
+
+def c7_rank(rank: int, size: int, init_file: str, queue) -> None:
+    """One spawned NCCL rank of the C7 check: GPT-2-small under the
+    binding's hook optimizer; C7_RUNS times a step, then
+    ``broadcast_parameters`` of the model and ``broadcast_optimizer_state``
+    of AdamW (every tensor enqueued before any is waited on), under the
+    caller's time limit. The engine's launch order must be the same on
+    every rank, and the state bitwise on every rank after each run."""
+    import hashlib
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.common import basics
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        dev = hvd.device()
+        model, opt = el_model(dev)
+        vocab = model.cfg.vocab_size
+        n_tensors = len(model.state_dict())
+        bcast_ms, step_ms = [], []
+        for i in range(C7_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            el_step(model, opt, el_batch(i, rank, dev, vocab))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+            hvd.broadcast_optimizer_state(opt, root_rank=0)
+            torch.cuda.synchronize()
+            step_ms.append((t1 - t0) * 1e3)
+            bcast_ms.append((time.perf_counter() - t1) * 1e3)
+        n_tensors += sum(isinstance(v, torch.Tensor) for st in opt.state_dict()["state"].values()
+                         for v in st.values())
+        mine = state_checksum(model, opt)
+        same = bool(torch.equal(mine, hvd.broadcast(mine.clone(), 0, name="c7.sum")))
+        log = basics.engine().launch_log()
+        order = hashlib.sha256(json.dumps(log).encode()).hexdigest()
+        orders = hvd.allgather_object(order, name="c7.order")
+        hvd.shutdown()
+        queue.put((rank, {"rank": rank, "tensors": n_tensors, "launches": len(log),
+                          "channels": sorted({c for _, c, _ in log}),
+                          "order_equal": len(set(orders)) == 1, "replicas_bitwise": same,
+                          "bcast_ms": bcast_ms, "step_ms": step_ms}))
+    except Exception:
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_c7_multi(n: int) -> dict:
+    """C7: the batched broadcast of GPT-2-small's state (~450 tensors)
+    C7_RUNS times beside the hook optimizer's step on n NCCL ranks, under
+    a time limit; the launch order across channels the same on every rank."""
+    ranks = spawn_cards(c7_rank, n, timeout=240)
+    bad = [r for r in ranks if not (r["order_equal"] and r["replicas_bitwise"])]
+    if bad:
+        raise AssertionError(f"c7: {ranks}")
+    rec = {"phase": "c7_multi", "cards": n, "runs": C7_RUNS, "tensors": ranks[0]["tensors"],
+           "launches_logged": ranks[0]["launches"], "channels": ranks[0]["channels"],
+           "order_equal": True, "replicas_bitwise": True,
+           "bcast_ms_median": max(statistics.median(r["bcast_ms"]) for r in ranks),
+           "step_ms_median": max(statistics.median(r["step_ms"][1:]) for r in ranks)}
+    emit(rec)
+    return rec
+
+
+def phase_durable_multi(plan: dict) -> dict:
+    """n cards (four). First the C7 check (``phase_c7_multi``); then fake
+    hosts card0..card<n-1>, the engine's fusion off (every run reduces each
+    gradient in one order), checkpoints every I commits, I from the
+    one-card plan's longest write and the C7 check's step: (m0) the
+    uninterrupted np=n run, checkpoints off; (m1) np=n,
+    kill:step=3I+1 on every rank,
+    the job ends: at least two complete manifests of n shards; (m2) a
+    restart at np=n restores the newest, bitwise its shards, and ends
+    bitwise (m0); (m3) a restart at np=2 from a copy of (m1)'s directory
+    restores bitwise the same manifest and its replicas are bitwise after
+    DU_MULTI_EXTRA steps; (m4) preempt:step=5:rank=n-1 at np=n: the drain
+    commit of step 5 is a complete manifest of n shards, the drained
+    worker exits cleanly, the driver re-meshes at its exit (no ready
+    deadline) and the survivors go on at np=n-1 from the commit of step
+    5, with no restore from the checkpoint. Records the
+    drain barrier's ms a commit, the writes, and the drain's seconds from
+    the notice to the exit to the first step at n-1."""
+    import os
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch.common import checkpoint as ck
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        rec = {"phase": "durable_multi", "cards": n, "launches": "not measured: needs two "
+               "cards or more", "result": "not measured: needs two cards or more"}
+        emit(rec)
+        return rec
+    with tempfile.TemporaryDirectory() as tmp:
+        hosts_file = os.path.join(tmp, "hosts")
+        with open(hosts_file, "w") as f:
+            f.write("".join(f"card{i}:1\n" for i in range(n)))
+        disc = os.path.join(tmp, "discover.sh")
+        with open(disc, "w") as f:
+            f.write(f"#!/bin/sh\ncat {hosts_file}\n")
+        os.chmod(disc, 0o755)
+        # Fusion off: each gradient is reduced alone, so its summation order
+        # is the same in every run and (m2) can end bitwise (m0); fused
+        # buffers hold what each cycle found ready.
+        base = {"EL_CARDS": str(n), "HVDRUN_FORCE_LOCAL": "1",
+                "HOROVOD_ELASTIC_DISCOVERY_INTERVAL": "0.5",
+                "HOROVOD_FUSION_THRESHOLD": "0"}
+
+        def launch(name, np_, total, killed_job=False, min_np=None, **env):
+            return run_launcher(tmp, name, ["--min-np", str(min_np or np_), "--max-np", str(np_),
+                                            "--host-discovery-script", disc],
+                                {**base, "EL_TOTAL": str(total), **env},
+                                killed_job=killed_job)
+
+        # C7 first; its step (the hook optimizer's, no commit) is a floor
+        # of the launched workers' step T4, which sets the interval
+        # I = ceil(1.5 W / T4) + 1 for the one-card plan's longest write W
+        # (the n shards carry the whole state through one disk, as one
+        # card's write does).
+        c7 = phase_c7_multi(n)
+        longest = max([plan["blocking_write_s"]] + plan["writes_under_training_s"])
+        interval = math.ceil(1.5 * longest * 1e3 / c7["step_ms_median"]) + 1
+        kill = 3 * interval + 1
+        total = kill + 3
+        _, sec_m0, m0, _, _ = launch("m0", n, total)
+        dirs = {k: os.path.join(tmp, f"ckpt_{k}") for k in ("m", "m3", "m4")}
+        ck_env = {"HOROVOD_CHECKPOINT_DIR": dirs["m"],
+                  "HOROVOD_CHECKPOINT_INTERVAL_STEPS": str(interval)}
+        _, sec_m1, m1, _, _ = launch("m1", n, total, killed_job=True,
+                                     HOROVOD_FAULT_INJECT=f"kill:step={kill}", **ck_env)
+        killed = [r for r in m1.values() if "killed_at" in r]
+        complete = [s for s, p in ck.list_manifests(dirs["m"])
+                    if ck.is_complete(dirs["m"], ck.load_manifest(p))]
+        found = ck.find_latest_manifest(dirs["m"])
+        if len(killed) != n or len(complete) < 2 or found is None or \
+                len(found[1]["shards"]) != n:
+            raise AssertionError(f"(m1): {len(killed)} killed, complete manifests {complete}")
+        step_s, man, _ = found
+        digest = manifest_digest(dirs["m"], man)
+        shutil.copytree(dirs["m"], dirs["m3"])
+        _, sec_m2, m2, _, wall_m2 = launch("m2", n, total, **ck_env)
+        _, sec_m3, m3, _, _ = launch("m3", 2, step_s + DU_MULTI_EXTRA,
+                                     HOROVOD_CHECKPOINT_DIR=dirs["m3"],
+                                     HOROVOD_CHECKPOINT_INTERVAL_STEPS=str(interval))
+        # (m4) keeps every manifest, so the drain commit's is still there.
+        _, sec_m4, m4, _, _ = launch(
+            "m4", n, EL_MULTI_STEPS, min_np=n - 1, HOROVOD_CHECKPOINT_DIR=dirs["m4"],
+            HOROVOD_CHECKPOINT_INTERVAL_STEPS=str(interval),
+            HOROVOD_CHECKPOINT_KEEP=str(EL_MULTI_STEPS),
+            HOROVOD_FAULT_INJECT=f"preempt:step={DU_PREEMPT_RANK_STEP}:rank={n - 1}")
+        drain_man = ck.load_manifest(ck.manifest_path(dirs["m4"], DU_PREEMPT_RANK_STEP))
+        if drain_man is None or len(drain_man["shards"]) != n or \
+                not ck.is_complete(dirs["m4"], drain_man):
+            raise AssertionError(f"(m4): the drain commit's manifest {drain_man}")
+        clean = {k: checkpoint_dir_clean(v) for k, v in dirs.items()}
+    finals0 = {json.dumps(r["final"]) for r in m0.values() if r.get("done")}
+    done2 = [r for r in m2.values() if r.get("done")]
+    if len(finals0) != 1 or len(done2) != n:
+        raise AssertionError(f"(m0)/(m2): {len(finals0)} distinct finals, {len(done2)} done")
+    for r in done2:
+        if r["resume"]["step"] != step_s or r["resume"]["digest"] != digest or \
+                json.dumps(r["final"]) not in finals0:
+            raise AssertionError(f"(m2) {r['identity']}: restored {r['resume']} from step "
+                                 f"{step_s}, or its end is not (m0)'s")
+    done3 = [r for r in m3.values() if r.get("done")]
+    if len(done3) != 2 or any(r["resume"]["step"] != step_s or r["resume"]["digest"] != digest
+                              for r in done3) or len({json.dumps(r["final"])
+                                                      for r in done3}) != 1:
+        raise AssertionError(f"(m3): {[(r['identity'], r.get('resume')) for r in done3]}")
+    drained = [r for r in m4.values() if "drained_at" in r]
+    survivors = [r for r in m4.values() if r.get("done")]
+    if len(drained) != 1 or drained[0]["drained_step"] != DU_PREEMPT_RANK_STEP or \
+            "exit_at" not in drained[0] or len(survivors) != n - 1:
+        raise AssertionError(f"(m4): drained {drained}, {len(survivors)} survivors")
+    for r in survivors:
+        hist = [(s["step"], s["size"]) for s in r["steps"]]
+        # Step 5's commit is the drain's: the drained rank leaves before its
+        # host-update broadcast, which then fails on the survivors; they
+        # restore that same commit and go on at n-1.
+        want = [(i, n) for i in range(1, DU_PREEMPT_RANK_STEP)] + \
+            [(i, n - 1) for i in range(DU_PREEMPT_RANK_STEP + 1, EL_MULTI_STEPS + 1)]
+        if hist != want or "resume" in r or \
+                any(x["batch"] != DU_PREEMPT_RANK_STEP for x in r["restores"]):
+            raise AssertionError(f"(m4) {r['identity']}: history {hist}, restores "
+                                 f"{r['restores']}, resume {r.get('resume')}")
+    if len({json.dumps(r["final"]) for r in survivors}) != 1:
+        raise AssertionError("(m4): the survivors' final replicas differ")
+    dr = drained[0]
+    r0 = min(survivors, key=lambda r: r["final_rank"])
+    first3 = next(s for s in r0["steps"] if s["size"] == n - 1)
+    want = flash_launches(12)["flash_fwd"]
+    launches = el_launches({k: r for k, r in m2.items() if r.get("done")}, "durable_multi",
+                           want)
+    r2 = min(done2, key=lambda r: r["final_rank"])
+    first2 = r2["steps"][0]["t"]
+    kill_at = max(r["killed_at"] for r in killed)
+    rec = {"phase": "durable_multi", "cards": n, "model": EL_MODEL, "batch": B, "seq": S,
+           "interval": interval, "kill_step": kill, "steps": total,
+           "complete_manifests_at_kill": complete, "restored_step": step_s,
+           "m2_bitwise_m0": True, "m3_np2_bitwise_manifest": True, "launches": launches,
+           "launcher_s": {"m0": sec_m0, "m1": sec_m1, "m2": sec_m2, "m3": sec_m3,
+                          "m4": sec_m4},
+           "writes_m1_rank0": ckpt_writes(min(killed, key=lambda r: r["steps"][0]["rank"])),
+           "step_ms_median": {
+               "m0_off": statistics.median(s["ms"] for r in m0.values() for s in r["steps"][1:]),
+               "m2_on": statistics.median(s["ms"] for r in done2 for s in r["steps"][1:])},
+           "barrier_ms_median": statistics.median(x for r in done2 for x in r["barrier_ms"]),
+           "commit_ms_median": {"m0": statistics.median(
+               s["commit_ms"] for r in m0.values() for s in r["steps"][1:]),
+               "m2": statistics.median(s["commit_ms"] for r in done2 for s in r["steps"][1:])},
+           "kill_to_first_step_s": first2 - kill_at,
+           "kill_split_s": {"harness": wall_m2 - kill_at, "launch": r2["t_proc"] - wall_m2,
+                            "init": r2["init_s"], "model": r2["built_s"] - r2["init_s"],
+                            "restore": r2["resume"]["restore_s"],
+                            "sync": r2["resume"]["sync_s"],
+                            "first_step": first2 - r2["resume"]["t"]},
+           "drain_manifest_shards": len(drain_man["shards"]),
+           "drain_notice_to_exit_s": dr["exit_at"] - dr["notice_at"],
+           "drain_exit_to_first_step_np3_s": first3["t"] - dr["exit_at"],
+           "drain_commit_s": dr["drain_s"], "dirs": clean, "c7": c7}
+    emit(rec)
+    return rec
+
+
 def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm, pt,
                  later) -> list:
     """The ``kernels`` line from the phases' records: each kernel's
     launches on the GPT-2 slice (and per path), error, times and bound.
     ``later``: the records of the vit, vit_multi, mnist, mnist_multi,
-    adasum_1p3b_multi, pp_tp, pp_tp_multi, engine, engine_multi, elastic and
-    elastic_multi phases by name (launches "not measured" where a phase had
-    too few cards; the elastic phases' are a worker's per step)."""
+    adasum_1p3b_multi, pp_tp, pp_tp_multi, engine, engine_multi, elastic,
+    elastic_multi, durable and durable_multi phases by name (launches "not
+    measured" where a phase had too few cards; the elastic and durable
+    phases' are a worker's per attempted step)."""
     kernels = [
         {"name": "flash_fwd", "launches": sl["launches"]["flash_fwd"],
          "max_abs_err": k1["o_max_abs_err"], "ms": k1["kernel_ms"],
@@ -5613,8 +6248,11 @@ def main() -> int:
         bert = phase_bert(fa, fb, gen)
         zero = phase_zero(fa)
         full_precision_products()
-        el = phase_elastic(fa)
+        plan = durable_plan(dev)
+        el, el_final = phase_elastic(fa)
+        du = phase_durable(plan, el_final)
         el_multi = phase_elastic_multi()
+        du_multi = phase_durable_multi(plan)
         gc.collect()
         torch.cuda.empty_cache()
         sp = phase_sp(fa, gen, dev)
@@ -5670,7 +6308,7 @@ def main() -> int:
                  "adasum_1p3b_multi": phase_adasum_1p3b_multi(), "pp_tp": pt,
                  "pp_tp_multi": pt_multi, "engine": en,
                  "engine_multi": phase_engine_multi(), "elastic": el,
-                 "elastic_multi": el_multi}
+                 "elastic_multi": el_multi, "durable": du, "durable_multi": du_multi}
         phase_adasum_combine(dev)
     finally:
         hvd.shutdown()

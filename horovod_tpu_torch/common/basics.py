@@ -41,6 +41,10 @@ errors and timeouts without ending the process
 (TORCH_NCCL_ASYNC_ERROR_HANDLING=2 unless it is set). ``shutdown()``
 after a failure is local: nothing waits for the other ranks, and the card
 stays usable for the next ``init()``.
+
+In a launched worker (HOROVOD_RANK or HOROVOD_ELASTIC set) ``init``
+installs the drain plane's handler of HOROVOD_PREEMPT_SIGNAL
+(``common/drain.py``).
 """
 from __future__ import annotations
 
@@ -167,6 +171,14 @@ def init(device=None, init_method: Optional[str] = None) -> None:
         _state.engine = _start_engine(rank, size, device, backend)
         _state.home_device = _state.home_device or device
         _state.initialized = True
+    # A launched worker takes the preemption signal as a notice (as the
+    # JAX package's init does): an intentional stop (the launcher's
+    # teardown, a platform's notice) exits 0 instead of dying on the
+    # signal; the elastic run loop turns it into a drain at a commit.
+    if os.environ.get(env.RANK) is not None or os.environ.get(env.ELASTIC) is not None:
+        from . import drain
+
+        drain.coordinator.install()
 
 
 def _launcher_store():

@@ -1,7 +1,8 @@
 """The environment knobs of the scaled data-parallel path, of the eager
-engine, and of the launcher and elastic plane (counterpart of
-``horovod_tpu/utils/env.py:29-62, 136-186, 196-217, 458-506, 576-660,
-665-735, 975-981``; the port's own copy, with the JAX package's defaults).
+engine, of the launcher and elastic plane, and of the durability and
+drain planes (counterpart of ``horovod_tpu/utils/env.py:29-62, 136-186,
+196-217, 288-306, 458-506, 576-660, 665-735, 776-795, 975-981``; the
+port's own copy, with the JAX package's defaults).
 
 Each function reads the environment when it is called, so a knob set
 between two calls takes effect on the second, as the JAX package's eager
@@ -63,6 +64,27 @@ ELASTIC_EPOCH_POLL = "HOROVOD_ELASTIC_EPOCH_POLL"
 BLACKLIST_COOLDOWN = "HOROVOD_BLACKLIST_COOLDOWN_SECONDS"
 LOG_LEVEL = "HOROVOD_LOG_LEVEL"
 
+# The durability plane (``common/checkpoint.py``): a shared directory
+# (unset: off), a checkpoint every N commits (0: none), the complete
+# checkpoints kept, the coordinator's bound on collecting the ranks' acks,
+# and whether shards and manifests are fsynced.
+CHECKPOINT_DIR = "HOROVOD_CHECKPOINT_DIR"
+CHECKPOINT_INTERVAL = "HOROVOD_CHECKPOINT_INTERVAL_STEPS"
+CHECKPOINT_KEEP = "HOROVOD_CHECKPOINT_KEEP"
+CHECKPOINT_COMMIT_TIMEOUT = "HOROVOD_CHECKPOINT_COMMIT_TIMEOUT_SECONDS"
+CHECKPOINT_FSYNC = "HOROVOD_CHECKPOINT_FSYNC"
+# The drain plane (``common/drain.py``): the window between a preemption
+# notice and the forced exit, and the signal that is the notice (a name,
+# with or without SIG, or a number).
+DRAIN_GRACE_SECONDS = "HOROVOD_DRAIN_GRACE_SECONDS"
+PREEMPT_SIGNAL = "HOROVOD_PREEMPT_SIGNAL"
+
+DEFAULT_CHECKPOINT_INTERVAL_STEPS = 10
+DEFAULT_CHECKPOINT_KEEP = 3
+DEFAULT_CHECKPOINT_COMMIT_TIMEOUT = 120.0
+DEFAULT_DRAIN_GRACE_SECONDS = 30.0
+DEFAULT_PREEMPT_SIGNAL = "SIGTERM"
+
 DEFAULT_REPLAY_WINDOW_S = 300.0
 DEFAULT_CONNECT_ATTEMPTS = 5
 DEFAULT_CONNECT_BACKOFF_SECONDS = 0.1
@@ -92,9 +114,6 @@ UNPORTED = {
     "HOROVOD_METRICS_FILE": ("A8", "the metrics file exporter"),
     "HOROVOD_TRACE_FILE": ("A8", "the tracing plane's merged trace"),
     "HOROVOD_TRACE_DIR": ("A8", "the tracing plane's flight recorder"),
-    "HOROVOD_CHECKPOINT_DIR": ("A7", "the durable checkpoints (common/checkpoint.py)"),
-    "HOROVOD_DRAIN_GRACE_SECONDS": ("A7", "the drain plane (common/drain.py)"),
-    "HOROVOD_PREEMPT_SIGNAL": ("A7", "the drain plane's preemption notice (common/drain.py)"),
     "HVDRUN_USE_TASK_SERVICE": ("A7", "the task-service launch (runner/service.py)"),
     "HOROVOD_CONTROLLER_INTERVAL_SECONDS": (
         "A7", "the elasticity controller (runner/elastic/controller.py)"),
@@ -281,3 +300,51 @@ def blacklist_cooldown_seconds() -> float:
     """First-failure blacklist duration; 0 = permanent at once."""
     return _float(BLACKLIST_COOLDOWN, DEFAULT_BLACKLIST_COOLDOWN_SECONDS)
 
+
+def checkpoint_dir() -> str:
+    """The shared checkpoint directory; empty: the durability plane is off."""
+    return get_str(CHECKPOINT_DIR, "")
+
+
+def checkpoint_interval_steps() -> int:
+    """Commits between checkpoints; 0: no periodic checkpoint."""
+    return max(_int(CHECKPOINT_INTERVAL, DEFAULT_CHECKPOINT_INTERVAL_STEPS), 0)
+
+
+def checkpoint_keep() -> int:
+    """Complete checkpoints the coordinator keeps (at least 1)."""
+    return max(_int(CHECKPOINT_KEEP, DEFAULT_CHECKPOINT_KEEP), 1)
+
+
+def checkpoint_commit_timeout() -> float:
+    """The coordinator's bound on collecting every rank's ack."""
+    return _float(CHECKPOINT_COMMIT_TIMEOUT, DEFAULT_CHECKPOINT_COMMIT_TIMEOUT)
+
+
+def checkpoint_fsync() -> bool:
+    return _bool(CHECKPOINT_FSYNC, True)
+
+
+def drain_grace_seconds() -> float:
+    """The grace window of a preemption notice (at least 0)."""
+    return max(_float(DRAIN_GRACE_SECONDS, DEFAULT_DRAIN_GRACE_SECONDS), 0.0)
+
+
+def preempt_signal() -> int:
+    """HOROVOD_PREEMPT_SIGNAL as a signal number: a name with or without
+    the SIG prefix, or a number; anything else is SIGTERM, since the
+    handler and the sender must agree."""
+    import signal as _signal
+
+    v = get_str(PREEMPT_SIGNAL, DEFAULT_PREEMPT_SIGNAL).strip()
+    if not v:
+        return _signal.SIGTERM
+    try:
+        return int(v)
+    except ValueError:
+        pass
+    name = v.upper()
+    if not name.startswith("SIG"):
+        name = "SIG" + name
+    sig = getattr(_signal, name, None)
+    return int(sig) if isinstance(sig, _signal.Signals) else int(_signal.SIGTERM)

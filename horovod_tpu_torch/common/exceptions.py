@@ -25,6 +25,18 @@ class HostsUpdatedInterrupt(RuntimeError):
         self.skip_sync = skip_sync
 
 
+class WorkerPreempted(SystemExit):
+    """Raised on a draining worker once its drain is done (the final
+    checkpoint durable, the notice published): the announced-preemption
+    exit (``common/drain.py``). A ``SystemExit`` with code 0, so the
+    elastic loop's ``finally`` still runs, no ``except Exception`` swallows
+    it, and the launcher records an intentional stop."""
+
+    def __init__(self, reason: str = "preempted"):
+        super().__init__(0)
+        self.reason = reason
+
+
 # Messages of the failures gloo raises as a plain RuntimeError (a closed
 # or reset socket, a timeout); NCCL's come as torch.distributed.DistError.
 _COMM_FAILURE = re.compile(r"gloo|NCCL|Connection (reset|closed|refused)|timed out|"

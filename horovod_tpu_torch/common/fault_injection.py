@@ -3,24 +3,33 @@
 
 ``HOROVOD_FAULT_INJECT`` is a ';'-separated rule list in the JAX package's
 grammar, e.g. ``kill:step=5:rank=3``. A training loop calls
-``advance_step()`` once per batch; a ``kill`` rule ends the process with
-``os._exit(1)`` (no atexit, no finally: the closest analogue of a
-SIGKILLed worker that still lets the OS close its sockets) when the
-counter reaches ``step=N`` on the rank it names (``rank=R``, read from
-HOROVOD_RANK at that step; any rank without it).
+``advance_step()`` once per batch. On the rank it names (``rank=R``, read
+from HOROVOD_RANK; any rank without it):
+
+- ``kill:step=N`` ends the process with ``os._exit(1)`` when the counter
+  reaches N (no atexit, no finally: the closest analogue of a SIGKILLed
+  worker that still lets the OS close its sockets);
+- ``preempt:step=N`` or ``preempt:secs=T`` delivers the preemption notice
+  once, at step N or T seconds after the rules load, through the real
+  signal path (``os.kill`` of this process with HOROVOD_PREEMPT_SIGNAL),
+  so the drain plane's handler (``common/drain.py``) does the work;
+- ``diskfail[:after=K][:op=read|write][:path=S]`` raises
+  ``InjectedDiskFault`` (an ``OSError``) on each matching disk I/O after
+  the first K, and ``diskslow:secs=S`` sleeps S seconds before it: every
+  write and checked read of ``utils/atomic_file.py`` asks ``check_disk``.
 
 Every rule of the JAX grammar parses to the same ``Rule``. The port has
 no transport of its own to hook, so the actions on network I/O (``sever``,
-``drop``, ``delay``, ``hang``) and on disk I/O (``diskfail``,
-``diskslow``) wait for ROADMAP A7, as does ``preempt`` (the drain plane);
-``wedge`` waits for the liveness plane (A8) and ``killdoor`` for the
-serving plane (A9). Armed, each of them raises ``NotImplementedError``
-naming its item, at ``hvd.init()`` for the environment's rules.
+``drop``, ``delay``, ``hang``) wait for ROADMAP A7; ``wedge`` waits for
+the liveness plane (A8) and ``killdoor`` for the serving plane (A9).
+Armed, each of them raises ``NotImplementedError`` naming its item, at
+``hvd.init()`` for the environment's rules.
 """
 from __future__ import annotations
 
 import os
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -36,9 +45,14 @@ _DISK_ACTIONS = ("diskfail", "diskslow")
 _SERVING_ACTIONS = ("killdoor",)
 # action -> the ROADMAP item that ports it
 UNPORTED_ACTIONS = {
-    "sever": "A7", "drop": "A7", "delay": "A7", "hang": "A7", "preempt": "A7",
-    "diskfail": "A7", "diskslow": "A7", "wedge": "A8", "killdoor": "A9",
+    "sever": "A7", "drop": "A7", "delay": "A7", "hang": "A7",
+    "wedge": "A8", "killdoor": "A9",
 }
+
+
+class InjectedDiskFault(OSError):
+    """Raised by a diskfail rule: an OSError, so disk writers run their
+    real error paths."""
 
 
 @dataclass
@@ -117,7 +131,7 @@ def check_supported(rules: List[Rule]) -> None:
         if item is not None:
             raise NotImplementedError(
                 f"{ENV_VAR} rule {r.action!r} is not ported yet (ROADMAP {item}); "
-                "the port runs the kill rule only")
+                "the port runs the kill, preempt, diskfail and diskslow rules")
 
 
 class FaultInjector:
@@ -128,6 +142,7 @@ class FaultInjector:
         self._rules: List[Rule] = []
         self._step = 0
         self._env_loaded = False
+        self._timers: List[threading.Timer] = []
         self.active = False
 
     def _load_env(self):
@@ -141,17 +156,51 @@ class FaultInjector:
             self._rules.extend(rules)
             self.active = True
             logger.warning("fault injection armed: %s", spec)
+            self._arm_preempt_timers()
 
     def install(self, rules: List[Rule]):
         check_supported(rules)
         with self._lock:
+            self._cancel_timers()
             self._env_loaded = True  # an explicit install overrides the env
             self._rules = list(rules)
             self._step = 0
             self.active = bool(self._rules)
+            self._arm_preempt_timers()
 
+    # -- preempt triggers ----------------------------------------------
+    def _arm_preempt_timers(self):
+        """Arm the ``preempt:secs=T`` rules of this rank (lock held);
+        ``hits`` marks a rule armed or fired."""
+        own_rank = env_cfg.get_int(env_cfg.RANK, -1)
+        for r in self._rules:
+            if r.action != "preempt" or r.step is not None or r.hits:
+                continue
+            if r.rank is not None and r.rank != own_rank:
+                continue
+            r.hits = 1
+            t = threading.Timer(r.secs, self._fire_preempt,
+                                args=(f"after {r.secs:.1f}s",))
+            t.daemon = True
+            t.name = "hvd-fault-preempt"
+            self._timers.append(t)
+            t.start()
+
+    def _cancel_timers(self):
+        for t in self._timers:
+            t.cancel()
+        self._timers = []
+
+    @staticmethod
+    def _fire_preempt(what: str):
+        """The notice through the real signal path, as a platform sends it."""
+        logger.error("fault injection: preemption notice (%s)", what)
+        os.kill(os.getpid(), env_cfg.preempt_signal())
+
+    # -- triggers --------------------------------------------------------
     def advance_step(self) -> int:
-        """Advance the step counter; fires an armed kill rule."""
+        """Advance the step counter; fires an armed kill or preempt rule."""
+        preempt = False
         with self._lock:
             self._load_env()
             if not self.active:
@@ -160,12 +209,50 @@ class FaultInjector:
             step = self._step
             own_rank = env_cfg.get_int(env_cfg.RANK, -1)
             for r in self._rules:
-                if r.action != "kill" or (r.rank is not None and r.rank != own_rank):
+                if r.step is None or (r.rank is not None and r.rank != own_rank):
                     continue
-                if step >= r.step:
+                if r.action == "kill" and step >= r.step:
                     logger.error("fault injection: killing worker at step %d", step)
                     os._exit(1)
+                if r.action == "preempt" and step >= r.step and not r.hits:
+                    r.hits = 1
+                    preempt = True
+        if preempt:
+            # Outside the lock: the handler runs on this (main) thread at
+            # the next bytecode and must not find the lock held.
+            self._fire_preempt(f"at step {step}")
         return step
+
+    def check_disk(self, op: str, path: str):
+        """The hook of a disk write or read (``op`` 'write' or 'read') of
+        ``path``: diskslow sleeps, diskfail raises InjectedDiskFault."""
+        if not self.active:
+            return
+        own_rank = env_cfg.get_int(env_cfg.RANK, -1)
+        sleep_s = 0.0
+        with self._lock:
+            self._load_env()
+            for r in self._rules:
+                if r.action not in _DISK_ACTIONS:
+                    continue
+                if r.rank is not None and r.rank != own_rank:
+                    continue
+                if r.op is not None and r.op != op:
+                    continue
+                if r.path is not None and r.path not in path:
+                    continue
+                r.hits += 1
+                if r.hits <= r.after:
+                    continue
+                if r.action == "diskslow":
+                    sleep_s += r.secs
+                else:
+                    raise InjectedDiskFault(
+                        f"fault injection failed disk {op} of {path!r}")
+        # Outside the lock: the writer thread's sleep must not hold up
+        # the training thread's step counter.
+        if sleep_s > 0:
+            time.sleep(sleep_s)
 
     @property
     def step(self) -> int:

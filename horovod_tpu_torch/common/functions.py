@@ -21,15 +21,23 @@ Params = Union[Mapping[str, torch.Tensor], Iterable[Tuple[str, torch.Tensor]],
                torch.nn.Module]
 
 
-def _broadcast_tensor_(t: torch.Tensor, root_rank: int) -> None:
+def _broadcast_tensors_(named, root_rank: int) -> None:
+    """Broadcast ``(name, tensor)`` pairs from root in place, batched as
+    the JAX binding batches (``horovod_tpu/torch/__init__.py:346-361``):
+    every tensor is enqueued first, then every handle waited on. A tensor
+    held elsewhere than the rank's device (AdamW keeps ``step`` on the CPU)
+    rides the device and is copied back."""
     dev = basics.device()
+    pending = []
     with torch.no_grad():
-        if t.device.type == dev.type:
-            ops.broadcast_(t, root_rank)
-        else:
-            # A tensor held elsewhere (AdamW keeps `step` on the CPU) rides
-            # the rank's device for the collective and is copied back.
-            t.copy_(ops.broadcast_(t.to(dev), root_rank))
+        for name, t in named:
+            t = t.data if isinstance(t, torch.nn.Parameter) else t
+            held = t.device.type == dev.type
+            src = t if held else t.to(dev)
+            pending.append((t, held, ops.broadcast_async(src, root_rank, name=name)))
+        for t, held, handle in pending:
+            out = ops.synchronize(handle)
+            t.copy_(out if held else out.to(t.device))
 
 
 def broadcast_parameters(params: Params, root_rank: int = 0) -> None:
@@ -41,9 +49,8 @@ def broadcast_parameters(params: Params, root_rank: int = 0) -> None:
         items = params.items()
     else:
         items = params
-    for _, t in sorted(items, key=lambda kv: kv[0]):
-        _broadcast_tensor_(t.data if isinstance(t, torch.nn.Parameter) else t,
-                           root_rank)
+    _broadcast_tensors_(((f"bp.{k}", t) for k, t in sorted(items, key=lambda kv: kv[0])),
+                        root_rank)
 
 
 def _plain_step(optimizer: torch.optim.Optimizer) -> None:
@@ -88,11 +95,9 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
         if root_held and not optimizer.state:
             _init_state(optimizer)
     state = optimizer.state_dict()["state"]
-    for pid in sorted(state):
-        for key in sorted(state[pid]):
-            val = state[pid][key]
-            if isinstance(val, torch.Tensor):
-                _broadcast_tensor_(val, root_rank)
+    _broadcast_tensors_(((f"bos.{pid}.{key}", state[pid][key]) for pid in sorted(state)
+                         for key in sorted(state[pid])
+                         if isinstance(state[pid][key], torch.Tensor)), root_rank)
 
 
 def _to_bytes(obj: Any) -> torch.Tensor:

@@ -14,7 +14,8 @@ elastic.py:1-168; horovod/torch/elastic.py:51-84 TorchState, here
     train(hvd.elastic.TorchState(model, optimizer, batch=0))
 """
 from ..torch.elastic import TorchState
-from .run import reset_log, run, run_fn
+from .run import reset_log, resume_log, run, run_fn
 from .state import ObjectState, State
 
-__all__ = ["State", "ObjectState", "TorchState", "run", "run_fn", "reset_log"]
+__all__ = ["State", "ObjectState", "TorchState", "run", "run_fn", "reset_log",
+           "resume_log"]

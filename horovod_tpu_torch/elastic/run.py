@@ -11,9 +11,19 @@ ref: horovod/common/elastic.py:115-168 run_fn).
 the spawn slot's), forms its process groups under the new epoch's store
 prefix, and starts a new engine. Each reset appends what it took to
 ``reset_log`` (seconds of restore, shutdown, the wait for the driver's
-epoch, init and sync). Durable checkpoints and the drain plane wait for
-ROADMAP A7 (their knobs raise at ``init()``), the metrics and events of a
-reset for A8.
+epoch, init and sync).
+
+With HOROVOD_CHECKPOINT_DIR set the durability plane wraps the loop
+(``common/checkpoint.py``): the newest complete checkpoint is restored
+into the state before the first sync, so a job whose every worker died
+resumes at its last committed checkpoint (``resume_log`` records the step
+and the seconds of the restore and of the sync after it); every commit
+feeds the manager; after every reset the manager re-anchors its commit
+counter on the newest manifest; on the way out its writer finishes. The
+drain plane runs managed (``common/drain.py``): a preemption notice is
+handed over at a commit, and the draining worker leaves through
+``WorkerPreempted``, a ``SystemExit(0)``: a clean exit. The metrics and
+events of a reset and the goodput accounting wait for ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -21,7 +31,7 @@ import functools
 import time
 from typing import Callable, List
 
-from ..common import basics
+from ..common import basics, checkpoint, drain
 from ..common.exceptions import HorovodInternalError, HostsUpdatedInterrupt
 from ..utils.logging import get_logger
 from .state import State
@@ -31,6 +41,9 @@ logger = get_logger()
 # One dict a reset, in order: {"cause", "t_caught" (time.time()),
 # "restore_s", "shutdown_s", "rendezvous_s", "init_s", "sync_s"}.
 reset_log: List[dict] = []
+# One dict a durable restore, in order: {"step", "restore_s", "sync_s",
+# "t" (time.time() after the sync)}.
+resume_log: List[dict] = []
 
 
 def _reset(rec: dict):
@@ -61,13 +74,30 @@ def run(func: Callable) -> Callable:
 
 
 def run_fn(func: Callable, state: State, *args, **kwargs):
-    """(ref: common/elastic.py:133-168)"""
+    """(ref: common/elastic.py:133-168; the durability and drain planes
+    as in ``horovod_tpu/elastic/run.py:63-162``)"""
     from ..backend.elastic_env import notification_manager
 
     notification_manager.init()
     notification_manager.register_listener(state)
-    skip_sync = False
+    drain.coordinator.install(managed=True)
+    ckpt_mgr = checkpoint.manager_from_env()
+    if ckpt_mgr is not None and not state.supports_durability():
+        logger.warning("HOROVOD_CHECKPOINT_DIR is set but %s has no durability hooks "
+                       "(checkpoint_objects/checkpoint_trees/load_checkpoint); durable "
+                       "checkpointing is off", type(state).__name__)
+        ckpt_mgr = None
     rec = None
+    if ckpt_mgr is not None:
+        checkpoint.set_current(ckpt_mgr)
+        state.set_checkpoint_manager(ckpt_mgr)
+        t = time.perf_counter()
+        restored = ckpt_mgr.restore_latest(state)
+        if restored is not None:
+            logger.info("resuming from durable checkpoint at step %d", restored)
+            rec = {"step": restored, "restore_s": time.perf_counter() - t}
+            resume_log.append(rec)
+    skip_sync = False
     try:
         while True:
             if not skip_sync:
@@ -75,12 +105,16 @@ def run_fn(func: Callable, state: State, *args, **kwargs):
                 state.sync()
                 if rec is not None:
                     rec["sync_s"] = time.perf_counter() - t
+                    rec["t"] = time.time()
             rec = None
             try:
                 return func(state, *args, **kwargs)
             except HorovodInternalError as e:
                 rec = {"cause": "collective failure", "t_caught": time.time()}
-                logger.warning("collective failure (%s); restoring last commit", e)
+                # A peer that announced a drain leaves on purpose: its exit
+                # fails this collective at once.
+                logger.warning("collective failure (%s)%s; restoring last commit", e,
+                               " (peer draining)" if drain.fleet_draining() else "")
                 t = time.perf_counter()
                 state.restore()
                 rec["restore_s"] = time.perf_counter() - t
@@ -93,5 +127,19 @@ def run_fn(func: Callable, state: State, *args, **kwargs):
             reset_log.append(rec)
             _reset(rec)
             state.on_reset()
+            if ckpt_mgr is not None:
+                # Counters are each rank's own: a worker that joined
+                # counted from its restore. Every rank re-anchors on the
+                # newest manifest, so the intervals stay in step.
+                ckpt_mgr.resync_after_reset()
     finally:
+        if ckpt_mgr is not None:
+            state.set_checkpoint_manager(None)
+            # The last checkpoint of a clean exit is the one a later job
+            # restores: let the writer finish it.
+            ckpt_mgr.stop()
+            if checkpoint.current() is ckpt_mgr:
+                checkpoint.set_current(None)
         notification_manager.remove_listener(state)
+        # A notice during teardown (the launcher's stop) exits at once.
+        drain.coordinator.set_managed(False)

@@ -2,12 +2,16 @@
 ``horovod_tpu/elastic/state.py``; ref: horovod/common/elastic.py:95-145
 State/ObjectState).
 
-``commit()`` saves, then checks for host updates; ``restore()`` rolls back
-to the last commit; ``sync()`` broadcasts rank 0's state, so a worker that
-joined starts from the same one. ``TorchState`` (``horovod_tpu_torch/
-torch/elastic.py``) holds a model and its optimizer. The durability hooks
-(checkpoints of the commit, the drain barrier) wait for ROADMAP A7, the
-goodput accounting for A8.
+``commit()`` saves, offers the commit to the durability plane's manager
+(``set_checkpoint_manager``; ``common/checkpoint.py``), runs the drain
+barrier (``common/drain.py``) and then checks for host updates;
+``restore()`` rolls back to the last commit; ``sync()`` broadcasts rank
+0's state, so a worker that joined starts from the same one. The
+durability hooks (``supports_durability``, ``checkpoint_objects``,
+``checkpoint_trees``, ``load_checkpoint``) hand the manager the last
+commit, never the live attributes. ``TorchState`` (``horovod_tpu_torch/
+torch/elastic.py``) holds a model and its optimizer. The goodput
+accounting of a commit waits for ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -38,9 +42,18 @@ class State:
         self._host_messages.append((timestamp, update_res))
 
     def commit(self):
-        """Save, then check for pending host updates (ref:
-        common/elastic.py:60-71)."""
+        """Save, feed the checkpoint manager, run the drain barrier, then
+        check for pending host updates (ref: common/elastic.py:60-71). The
+        manager and the drain come before the host-update check, which may
+        raise HostsUpdatedInterrupt: neither the snapshot nor the handoff
+        may be lost to the reset."""
         self.save()
+        mgr = getattr(self, "_checkpoint_manager", None)
+        if mgr is not None:
+            mgr.maybe_save(self)
+        from ..common import drain
+
+        drain.commit_barrier(self)
         self.check_host_updates()
 
     def check_host_updates(self):
@@ -70,6 +83,12 @@ class State:
             # needs the state.
             raise HostsUpdatedInterrupt(skip_sync=(res == HostUpdateResult.REMOVED))
 
+    def set_checkpoint_manager(self, manager):
+        """Attach the durability plane: every ``commit()`` then also feeds
+        the manager, which checkpoints the commit every N commits. The
+        elastic run loop attaches it from HOROVOD_CHECKPOINT_DIR."""
+        self._checkpoint_manager = manager
+
     # subclass interface
     def save(self):
         raise NotImplementedError
@@ -82,6 +101,22 @@ class State:
 
     def reset(self):
         pass
+
+    # -- durability hooks ------------------------------------------------
+    def supports_durability(self) -> bool:
+        """Whether this state has the checkpoint hooks: the run loop attaches
+        no manager to one that would commit checkpoints it cannot load."""
+        return False
+
+    def checkpoint_objects(self) -> dict:
+        return {}
+
+    def checkpoint_trees(self) -> dict:
+        """{attr: flat leaf list} of the last commit."""
+        return {}
+
+    def load_checkpoint(self, objects: dict, trees: dict):
+        raise NotImplementedError("this State subclass does not support durable checkpoints")
 
 
 class ObjectState(State):
@@ -108,4 +143,23 @@ class ObjectState(State):
                                   root_rank=0, name="object_state")
         for k, v in synced.items():
             setattr(self, k, v)
+        self.save()
+
+    # -- durability hooks ------------------------------------------------
+    def supports_durability(self) -> bool:
+        return True
+
+    def checkpoint_objects(self) -> dict:
+        # save() deep-copies into a new dict and rebinds ``_saved``, so the
+        # writer may pickle this one while training commits on.
+        return self._saved
+
+    def load_checkpoint(self, objects: dict, trees: dict):
+        if trees:
+            raise ValueError("checkpoint holds tensor leaves but this state is a plain "
+                             "ObjectState; restore into a TorchState")
+        for k, v in objects.items():
+            setattr(self, k, copy.deepcopy(v))
+            if k not in self._attrs:
+                self._attrs.append(k)
         self.save()

@@ -17,6 +17,19 @@ thread. Cycles are event-driven: an enqueue wakes the loop at once, so
 HOROVOD_CYCLE_TIME is a longest coalescing delay. A world of one runs the
 same loop over a local transport and local ops, with no process group.
 
+Every rank dispatches the same responses in the coordinator's order, and
+each takes a sequence number there. A channel executor launches its
+response only in its turn, once the response before it, on any channel,
+has been launched: every rank issues its collectives in one order across
+communicators, as NCCL requires of several communicators in use at once.
+Without it each rank's executor threads chose the order, and on four
+cards the ranks' orders parted within a step (ROADMAP C7: four ranks hung
+under a batched ``broadcast_parameters``); NCCL documents that as a
+deadlock once a launch waits on the device, for a collective a peer will
+launch only after its own wait. The kernels of the two channels still run
+at once on the device. ``launch_log()`` keeps the order of the last
+launches (sequence, channel, first tensor name).
+
 On CUDA an enqueue records a ready event on the caller's current stream;
 the channel stream waits on it before it reads the tensor, marks the
 tensor as used on that stream (``record_stream``, so the caching
@@ -34,6 +47,7 @@ hits) are plain integers.
 """
 from __future__ import annotations
 
+import collections
 import queue as queue_mod
 import threading
 import time
@@ -188,18 +202,20 @@ class _ChannelExecutor:
         eng = self.engine
         eng._bind_device()
         while True:
-            resp = self.queue.get()
-            if resp is _EXEC_STOP:
+            item = self.queue.get()
+            if item is _EXEC_STOP:
                 break
+            seq, resp = item
             try:
                 # After a fatal error, drain without executing.
-                if eng._fatal_error is None:
+                if eng._await_turn(seq):
                     eng._perform_operation(resp, self.channel)
             except HorovodInternalError as exc:
                 eng._latch_fatal(exc)
             except BaseException as exc:  # pragma: no cover - defensive
                 eng._latch_fatal(HorovodInternalError(str(exc)))
             finally:
+                eng._end_turn(seq, self.channel, resp)
                 eng._response_done()
 
 
@@ -238,6 +254,12 @@ class Engine:
         self._executors: Dict[int, _ChannelExecutor] = {}
         self._inflight = 0
         self._inflight_cond = threading.Condition()
+        # Launch turns across channels (module docstring): the next
+        # sequence number to launch and the order of the last launches.
+        self._dispatch_seq = 0
+        self._turn = 0
+        self._turn_cond = threading.Condition()
+        self._launch_log: "collections.deque" = collections.deque(maxlen=1 << 14)
         self._max_inflight = env_cfg.max_inflight_responses()
         self._fatal_error: Optional[HorovodInternalError] = None
         self._wake = threading.Event()
@@ -332,15 +354,38 @@ class Engine:
             self._inflight_cond.notify_all()
 
     def _dispatch(self, resp: Response):
-        """Hand a response to its channel executor, blocking while the
-        in-flight window is full (backpressure)."""
+        """Hand a response to its channel executor with the next sequence
+        number, blocking while the in-flight window is full
+        (backpressure)."""
         ex = self._executors[resp.channel]
         with self._inflight_cond:
             while (self._inflight >= self._max_inflight
                    and self._fatal_error is None):
                 self._inflight_cond.wait(0.1)
             self._inflight += 1
-        ex.queue.put(resp)
+        seq, self._dispatch_seq = self._dispatch_seq, self._dispatch_seq + 1
+        ex.queue.put((seq, resp))
+
+    def _await_turn(self, seq: int) -> bool:
+        """Wait until response ``seq`` is the next to launch on this rank.
+        False after a fatal error: the response is drained, not run."""
+        with self._turn_cond:
+            while self._turn != seq and self._fatal_error is None:
+                self._turn_cond.wait(0.1)
+        return self._fatal_error is None
+
+    def _end_turn(self, seq: int, chan: Channel, resp: Response):
+        """Pass the turn on to the next response, on whichever channel."""
+        self._launch_log.append((seq, chan.index, resp.tensor_names[0]
+                                 if resp.tensor_names else ""))
+        with self._turn_cond:
+            self._turn = seq + 1
+            self._turn_cond.notify_all()
+
+    def launch_log(self) -> List[Tuple[int, int, str]]:
+        """(sequence, channel, first tensor name) of the last launches, in
+        the order they were launched: the same on every rank."""
+        return list(self._launch_log)
 
     def _drain_channels(self):
         """Fence: wait until every dispatched response has finished."""
@@ -404,8 +449,9 @@ class Engine:
     # ------------------------------------------------------------------
     def _perform_operation(self, resp: Response, chan: Channel):
         """(ref: PerformOperation, operations.cc:253-330). On a channel
-        executor for data responses, inline on the background thread for
-        fences; on CUDA the channel's stream is current throughout."""
+        executor for data responses, in its turn; inline on the background
+        thread for fences; on CUDA the channel's stream is current
+        throughout."""
         if chan.stream is None or resp.response_type in _FENCE_TYPES:
             return self._execute_response(resp, chan)
         with torch.cuda.stream(chan.stream):

@@ -6,8 +6,9 @@ order and a blacklist).
 
 The blacklist is cooldown-with-escalation: a host's first failure parks it
 for HOROVOD_BLACKLIST_COOLDOWN_SECONDS, a repeat failure for good (0: for
-good at once). The drain quarantine of announced preemptions waits for
-ROADMAP A7; the events and metrics of a blacklisting for A8.
+good at once). A host whose worker announced a drain is quarantined
+instead: excluded for a while, with no strike, never for good. The events
+and metrics of a blacklisting wait for ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -84,6 +85,7 @@ class HostManager:
         self._order: List[str] = []          # first-seen order
         self._current: Dict[str, int] = {}
         self._blacklist: Dict[str, float] = {}   # host -> expiry (monotonic; inf)
+        self._quarantine: Dict[str, float] = {}  # host -> expiry (monotonic)
         self._strikes: Dict[str, int] = {}
         self._cooldown = env_cfg.blacklist_cooldown_seconds() if cooldown is None \
             else cooldown
@@ -103,8 +105,8 @@ class HostManager:
         with self._lock:
             # The previous view is filtered with the blacklist as it was:
             # a host whose cooldown just lapsed is then ADDED.
-            prev_excluded = set(self._blacklist)
-            excluded = self._active_blacklist()
+            prev_excluded = set(self._blacklist) | set(self._quarantine)
+            excluded = self._active_blacklist() | self._active_quarantine()
             prev_active = {h: s for h, s in self._current.items()
                            if h not in prev_excluded}
             res = HostUpdateResult.NO_UPDATE
@@ -126,10 +128,30 @@ class HostManager:
     def current_hosts(self) -> List[Tuple[str, int]]:
         """Active (hostname, slots), oldest first."""
         with self._lock:
-            blacklist = self._active_blacklist()
+            excluded = self._active_blacklist() | self._active_quarantine()
             return [(h, self._current[h]) for h in self._order
-                    if h in self._current and h not in blacklist
+                    if h in self._current and h not in excluded
                     and self._current[h] > 0]
+
+    def _active_quarantine(self) -> set:
+        """Prune expired quarantines; call with the lock held."""
+        now = time.monotonic()
+        for h in [h for h, exp in self._quarantine.items() if exp <= now]:
+            del self._quarantine[h]
+            logger.info("drain quarantine expired for host %s; it is eligible again", h)
+        return set(self._quarantine)
+
+    def quarantine(self, host: str, seconds: float):
+        """Exclude a draining host for ``seconds``: a drain is intended, so
+        it costs no strike and never becomes permanent."""
+        with self._lock:
+            expiry = time.monotonic() + max(seconds, 0.0)
+            self._quarantine[host] = max(expiry, self._quarantine.get(host, 0.0))
+        logger.warning("quarantining draining host %s for %.0fs", host, max(seconds, 0.0))
+
+    def is_quarantined(self, host: str) -> bool:
+        with self._lock:
+            return host in self._active_quarantine()
 
     def blacklist(self, host: str):
         with self._lock:

@@ -18,8 +18,13 @@ epoch is ever read again. Every reset barrier gets a deadline
 (HOROVOD_ELASTIC_READY_TIMEOUT): a slot with no verdict by then is killed
 and recorded failed, so survivors never park behind a wedged worker.
 
-The liveness verdicts and recovery metrics wait for ROADMAP A8, the drain
-notices and the resume point of durable checkpoints for A7.
+At start, with HOROVOD_CHECKPOINT_DIR set, the driver publishes the
+newest complete checkpoint as ``ckpt/resume`` (the workers restore it
+themselves, in ``hvd.elastic.run``). A worker's drain notice
+(``drain_e<E>/<host:slot>``, ``common/drain.py``) quarantines its host
+without a strike; the driver re-meshes as soon as that worker exits,
+with no ready deadline waited out, and its exit is planned, whatever its
+code. The liveness verdicts and recovery metrics wait for ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 from ...common import env as env_cfg
+from ...common.drain import DRAIN_PREFIX
 from ...utils.logging import get_logger
 from ..hosts import HostInfo, SlotInfo, get_host_assignments
 from ..rendezvous_server import RendezvousServer
@@ -72,6 +78,9 @@ class ElasticDriver:
         self._watchdog_lock = threading.Lock()
         self._watchdog: Optional[threading.Timer] = None
         self._watchdog_token: Optional[int] = None
+        # Slots whose worker announced a drain (-> the notice's monotonic
+        # time): their exits are planned, never failures or strikes.
+        self._draining: Dict[Tuple[str, int], float] = {}
         rendezvous.put_hook = self._observe_put
 
     def _put(self, key: str, value: bytes):
@@ -97,11 +106,33 @@ class ElasticDriver:
     def start(self, create_worker: Callable):
         """create_worker(slot: SlotInfo, extra_env: dict) -> Popen."""
         self._create_worker = create_worker
+        self._announce_resume_point()
         self.wait_for_available_slots(self.min_np)
         self._activate()
         self._discovery_thread = threading.Thread(
             target=self._discover_loop, name="elastic-discovery", daemon=True)
         self._discovery_thread.start()
+
+    def _announce_resume_point(self):
+        """Publish the newest complete checkpoint under
+        HOROVOD_CHECKPOINT_DIR as ``ckpt/resume``, for operators and as a
+        cross-check: the workers load the shards themselves."""
+        root = env_cfg.checkpoint_dir()
+        if not root:
+            return
+        import json
+
+        from ...common import checkpoint as ckpt
+
+        found = ckpt.find_latest_manifest(root)
+        if found is None:
+            logger.info("no complete checkpoint under %s; starting fresh", root)
+            return
+        step, manifest, _ = found
+        logger.info("job will resume from checkpoint step %d (%d shards, written at "
+                    "world size %d)", step, len(manifest["shards"]), manifest["world_size"])
+        self._put(f"{ckpt.LATEST_SCOPE}/{ckpt.RESUME_KEY}",
+                  json.dumps({"step": step, "world_size": manifest["world_size"]}).encode())
 
     def wait_for_available_slots(self, min_np: int, timeout: float = 600.0):
         """(ref: driver.py:145 wait_for_available_slots)"""
@@ -158,6 +189,9 @@ class ElasticDriver:
                     self._put(f"{scope}/{key[0]}:{key[1]}", INVALID_ROW.encode())
             self._put("meta/epoch", str(self.epoch).encode())
             self._assignments = new_assignments
+            # A drained slot that lost its assignment is gone for good.
+            for key in [k for k in self._draining if k not in new_assignments]:
+                del self._draining[key]
             self._prune_dead_workers()
             for key, slot in new_assignments.items():
                 if key not in self._workers:
@@ -207,8 +241,9 @@ class ElasticDriver:
             if self._finished.is_set() or reg_epoch != self.registry.epoch:
                 return
             verdicts = self.registry.verdicts()
+            # A draining slot's silence is planned: the drain evicts it.
             stragglers = [(k, self._workers.get(k)) for k in self._assignments
-                          if f"{k[0]}:{k[1]}" not in verdicts]
+                          if f"{k[0]}:{k[1]}" not in verdicts and k not in self._draining]
         for (host, idx), rec in stragglers:
             logger.error("evicting worker %s:%d: no verdict %.0fs after the reset "
                          "barrier opened (HOROVOD_ELASTIC_READY_TIMEOUT)",
@@ -251,7 +286,10 @@ class ElasticDriver:
             # current epoch's barrier.
             stale = cur is not rec
             assigned = rec.key in self._assignments
-        if rc == 0:
+            draining = rec.key in self._draining
+        if rc == 0 or draining:
+            # A draining worker's exit is the plan even when it is not 0
+            # (killed past its grace): a success, no strike.
             if assigned and not stale:
                 self.registry.record_success(host, idx)
         else:
@@ -261,7 +299,17 @@ class ElasticDriver:
 
     def _observe_put(self, key: str, value: bytes):
         """Rendezvous put hook: READY announcements of resetting workers
-        feed the registry's barrier."""
+        feed the registry's barrier; drain notices start the planned
+        eviction."""
+        if key.startswith(DRAIN_PREFIX):
+            epoch_part, _, ident = key[len(DRAIN_PREFIX):].partition("/")
+            try:
+                epoch = int(epoch_part)
+            except ValueError:
+                return
+            if ident and ident != "any":
+                self._on_drain_notice(epoch, ident)
+            return
         if not key.startswith(READY_PREFIX):
             return
         epoch_part, _, ident = key[len(READY_PREFIX):].partition("/")
@@ -280,6 +328,54 @@ class ElasticDriver:
                 self.registry.record(f"{host}:{int(idx)}", READY, epoch=reg_epoch)
             except ValueError:
                 pass
+
+    def _on_drain_notice(self, epoch: int, ident: str):
+        """A worker of this epoch announced a drain: quarantine its host
+        (no strike), then evict on its own exit."""
+        host, _, idx_s = ident.rpartition(":")
+        try:
+            idx = int(idx_s)
+        except ValueError:
+            return
+        grace = env_cfg.drain_grace_seconds()
+        key = (host, idx)
+        with self._lock:
+            if self._finished.is_set() or epoch != self.epoch:
+                return  # a notice of an earlier world
+            if key not in self._assignments or key in self._draining:
+                return  # "requested", then "drained": one eviction
+            self._draining[key] = time.monotonic()
+            rec = self._workers.get(key)
+        logger.warning("drain notice from %s:%d: quarantining the host, re-meshing on its "
+                       "exit (announced preemption, no liveness timeout)", host, idx)
+        # Grace and the re-mesh; a host the platform did not take away
+        # is eligible again afterwards.
+        self.host_manager.quarantine(host, max(grace * 2.0, 60.0))
+        threading.Thread(target=self._drain_evict, args=(key, rec), daemon=True,
+                         name=f"drain-{host}:{idx}").start()
+
+    def _drain_evict(self, key: Tuple[str, int], rec):
+        """Wait for the drained worker's exit (at most its grace and 10 s,
+        then kill it, as the platform would), then re-mesh the survivors."""
+        grace = env_cfg.drain_grace_seconds()
+        if rec is not None:
+            try:
+                rec.proc.wait(timeout=grace + 10.0)
+            except Exception:
+                logger.error("drained worker %s:%d outlived its grace window; killing it",
+                             key[0], key[1])
+                try:
+                    rec.proc.kill()
+                except OSError:  # pragma: no cover - already gone
+                    pass
+        with self._lock:
+            if self._finished.is_set() or key not in self._assignments:
+                return  # an activation already re-meshed without it
+        if self.host_manager.available_slots() < self.min_np:
+            logger.warning("drain of %s:%d leaves fewer than min_np=%d slots; waiting for "
+                           "discovery", key[0], key[1], self.min_np)
+            return
+        self._activate(notify_update=HostUpdateResult.REMOVED)
 
     def _notify_workers(self, update_res: int):
         """Ping every live worker's notification endpoint (ref:
@@ -314,11 +410,11 @@ class ElasticDriver:
                     w.proc.terminate()
                 except OSError:
                     pass
-        from ..launch import TERMINATE_GRACE_S
+        from ..launch import terminate_grace
 
         for w in workers:
             try:
-                w.proc.wait(timeout=TERMINATE_GRACE_S)
+                w.proc.wait(timeout=terminate_grace())
             except Exception:
                 try:
                     w.proc.kill()

@@ -21,6 +21,10 @@ worker that can die. The JAX package's TCP-backend knobs
 (HOROVOD_CONTROLLER, HOROVOD_CPU_OPERATIONS) are not set: the port has
 no TCP backend (ROADMAP A6). Remote hosts launch over ssh. The
 task-service launch (HVDRUN_USE_TASK_SERVICE) waits for ROADMAP A7.
+
+Teardown sends each worker HOROVOD_PREEMPT_SIGNAL, the drain plane's
+notice (``common/drain.py``), and waits out the drain grace before
+SIGKILL: a worker drains, or exits 0.
 """
 from __future__ import annotations
 
@@ -42,9 +46,13 @@ from .hosts import SlotInfo, default_hosts, get_host_assignments, parse_hostfile
 from .rendezvous_server import RendezvousServer
 
 _LOCAL_NAMES = {"localhost", "127.0.0.1", "::1"}
-# Seconds a worker has to exit after SIGTERM before SIGKILL (the JAX
-# package waits out the drain grace, ROADMAP A7).
-TERMINATE_GRACE_S = 10.0
+
+
+def terminate_grace() -> float:
+    """Seconds a worker has to exit after the preemption signal before
+    SIGKILL: the drain grace (it may be writing its final checkpoint), at
+    least 10."""
+    return max(10.0, env_cfg.drain_grace_seconds())
 
 
 def is_local_host(hostname: str) -> bool:
@@ -139,7 +147,9 @@ class WorkerHandle:
             pass
 
     def terminate(self):
-        self._signal(signal.SIGTERM)
+        # The teardown is a preemption notice (HOROVOD_PREEMPT_SIGNAL): a
+        # worker drains or exits 0, as it would for the platform's.
+        self._signal(env_cfg.preempt_signal())
 
     def kill(self):
         self._signal(signal.SIGKILL)
@@ -196,7 +206,7 @@ def terminate_workers(handles: List[WorkerHandle]):
             h.terminate()
     for h in handles:
         try:
-            h.wait(timeout=TERMINATE_GRACE_S)
+            h.wait(timeout=terminate_grace())
         except subprocess.TimeoutExpired:
             h.kill()
 

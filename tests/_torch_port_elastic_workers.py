@@ -278,3 +278,145 @@ hist = train(state)
 with open(os.path.join(os.environ["TEST_OUT"], spawn_identity()), "wb") as f:
     pickle.dump((hvd.rank(), hist, w.flat_state(model, opt)), f)
 '''
+
+
+def leaves_digest(trees: dict) -> str:
+    """sha256 over checkpoint leaves in the checkpoint's order (attrs
+    sorted), each as a shard holds it: equal for bitwise-equal states."""
+    import hashlib
+
+    from horovod_tpu_torch.common.checkpoint import host_leaf
+
+    h = hashlib.sha256()
+    for attr in sorted(trees):
+        for leaf in trees[attr]:
+            a = np.asarray(host_leaf(leaf))
+            h.update(f"{a.dtype}{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _run_batched_broadcast(rank: int, size: int, tmp: str, runs: int) -> dict:
+    """The binding's hook optimizer on a toy GPT-2, ``runs`` times a step
+    and then the batched broadcast of the model's and AdamW's state (every
+    tensor enqueued before any is waited on); the engine's launch order,
+    the channels it used, and the state."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.common import basics
+
+    _init(rank, size, os.path.join(tmp, "store"))
+    model = toy_model(seed=rank)
+    opt = hvd_torch.DistributedOptimizer(torch.optim.AdamW(model.parameters(), lr=1e-3),
+                                         named_parameters=model.named_parameters())
+    for i in range(runs):
+        toy_step(model, opt, i, rank)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        hvd.broadcast_optimizer_state(opt, root_rank=0)
+    out = {"log": basics.engine().launch_log(), "state": flat_state(model, opt),
+           "tensors": len(model.state_dict())}
+    hvd.shutdown()
+    return out
+
+
+# The worker of the durability cases: WORKER's toy GPT-2 under TorchState
+# with the durability plane (HOROVOD_CHECKPOINT_DIR) and the drain plane;
+# it records what it restored, each commit's drain evidence, and its end.
+DURABLE_WORKER = '''
+import atexit, json, os, pickle, sys, time
+import torch
+torch.set_num_threads(1)
+sys.path.insert(0, os.environ["TEST_WORKERS_DIR"])
+import _torch_port_elastic_workers as w
+import horovod_tpu_torch as hvd
+import horovod_tpu_torch.torch as hvd_torch
+from horovod_tpu_torch.backend.elastic_env import spawn_identity
+from horovod_tpu_torch.common import drain, fault_injection
+from horovod_tpu_torch.common.exceptions import WorkerPreempted
+
+TOTAL = int(os.environ["TEST_TOTAL_BATCHES"])
+rec = {"pid": os.getpid(), "steps": [], "resume": None}
+path = os.path.join(os.environ["TEST_OUT"], f"{spawn_identity()}.{os.getpid()}")
+
+def dump():
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(rec, f)
+    os.replace(path + ".tmp", path)
+
+def on_exit():
+    rec["clean_exit"] = True
+    dump()
+
+atexit.register(on_exit)
+hvd.init(device="cpu")
+model = w.toy_model()
+opt = hvd_torch.DistributedOptimizer(torch.optim.AdamW(model.parameters(), lr=1e-3),
+                                     named_parameters=model.named_parameters())
+state = hvd.elastic.TorchState(model, opt, batch=0)
+
+@hvd.elastic.run
+def train(state):
+    if hvd.elastic.resume_log and rec["resume"] is None:
+        rec["resume"] = {"step": hvd.elastic.resume_log[-1]["step"], "batch": state.batch,
+                         "size": hvd.size(),
+                         "digest": w.leaves_digest(state.checkpoint_trees())}
+    while state.batch < TOTAL:
+        fault_injection.advance_step()
+        w.toy_step(model, opt, state.batch, hvd.rank())
+        state.batch += 1
+        try:
+            state.commit()
+        except WorkerPreempted:
+            rec["drained_at_commit"] = state.batch
+            dump()
+            raise
+        except hvd.HorovodInternalError:
+            if drain.coordinator.fleet_draining() and "drain_seen_at_commit" not in rec:
+                rec["drain_seen_at_commit"] = state.batch
+            raise
+        rec["steps"].append((state.batch, hvd.rank(), hvd.size()))
+        dump()
+    return state.batch
+
+train(state)
+rec["final"] = w.flat_state(model, opt)
+rec["done"] = True
+dump()
+'''
+
+
+def launch_durable(tmp_path, name: str, min_np: int, max_np: int, env: dict,
+                   hosts: int = 3, timeout: float = 150):
+    """The port's launcher, elastic, ``min_np``..``max_np`` slots over
+    ``hosts`` hosts h0.. of one slot each (HVDRUN_FORCE_LOCAL), DURABLE_WORKER on gloo
+    with the engine's fusion off (each gradient reduced alone: one
+    summation order in every run); (the finished process, {file: record})."""
+    import subprocess
+    import sys
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    repo = os.path.dirname(tests)
+    script = tmp_path / "discover.sh"
+    if not script.exists():
+        script.write_text("#!/bin/sh\n" + "".join(f"echo h{i}:1\n" for i in range(hosts)))
+        script.chmod(0o755)
+        (tmp_path / "worker.py").write_text(DURABLE_WORKER)
+    out = tmp_path / name
+    out.mkdir()
+    full = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    full.update(PYTHONPATH=repo, HVDRUN_FORCE_LOCAL="1", HOROVOD_CYCLE_TIME="1",
+                HOROVOD_FUSION_THRESHOLD="0", HOROVOD_ELASTIC_DISCOVERY_INTERVAL="0.25",
+                TEST_WORKERS_DIR=tests, TEST_OUT=str(out), **env)
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "--min-np", str(min_np),
+         "--max-np", str(max_np), "--host-discovery-script", str(script),
+         sys.executable, str(tmp_path / "worker.py")],
+        cwd=repo, env=full, capture_output=True, text=True, timeout=timeout)
+    recs = {}
+    for n in os.listdir(out):
+        if not n.endswith(".tmp"):
+            with open(out / n, "rb") as f:
+                recs[n] = pickle.load(f)
+    return proc, recs

@@ -88,6 +88,9 @@ MODULES = [
     "horovod_tpu_torch.runner.elastic.registration",
     "horovod_tpu_torch.runner.elastic.driver",
     "horovod_tpu_torch.runner.elastic.launcher",
+    "horovod_tpu_torch.utils.atomic_file",
+    "horovod_tpu_torch.common.checkpoint",
+    "horovod_tpu_torch.common.drain",
 ]
 # The JAX package's names that the port exports under the same names.
 EXPORTS = [

@@ -393,8 +393,7 @@ def test_bad_fault_rules_raise_as_in_the_jax_package(spec):
 
 @pytest.mark.parametrize("spec,item", [
     ("sever:peer=0", "A7"), ("drop:peer=1", "A7"), ("delay:peer=1:secs=1", "A7"),
-    ("hang:peer=0", "A7"), ("preempt:step=2", "A7"), ("diskfail:after=0", "A7"),
-    ("diskslow:secs=1", "A7"), ("wedge:step=3", "A8"), ("killdoor:after=1", "A9"),
+    ("hang:peer=0", "A7"), ("wedge:step=3", "A8"), ("killdoor:after=1", "A9"),
 ])
 def test_unported_fault_rules_raise_naming_their_item(monkeypatch, spec, item):
     import horovod_tpu_torch as hvd
@@ -420,16 +419,86 @@ def test_kill_rule_counts_steps_on_its_rank(monkeypatch):
     assert exits == [1]
 
 
+@pytest.mark.parametrize("spec,op,fires", [
+    ("preempt:step=2", "step", [0, 1, 1]),
+    ("diskfail:after=0", "disk", "InjectedDiskFault"),
+    ("diskslow:secs=1", "disk", 1.0),
+])
+def test_durability_rules_arm_at_init_and_fire(monkeypatch, spec, op, fires):
+    """The rules of the durability plane, once raise cases: armed at
+    ``hvd.init()`` from the environment, they fire. preempt:step=2 sends
+    HOROVOD_PREEMPT_SIGNAL to this process once, at step 2; diskfail raises
+    an OSError on the first disk I/O; diskslow sleeps before it."""
+    import signal
+
+    import horovod_tpu_torch as hvd
+
+    monkeypatch.setenv("HOROVOD_FAULT_INJECT", spec)
+    monkeypatch.setattr(fi, "injector", fi.FaultInjector())
+    kills, sleeps = [], []
+    monkeypatch.setattr(fi.os, "kill", lambda pid, sig: kills.append((pid, sig)))
+    monkeypatch.setattr(fi.time, "sleep", sleeps.append)
+    hvd.init(device="cpu")
+    try:
+        inj = fi.get_injector()
+        assert inj.active
+        if op == "step":
+            seen = []
+            for _ in range(3):
+                inj.advance_step()
+                seen.append(len(kills))
+            assert seen == fires
+            assert kills == [(os.getpid(), int(signal.SIGTERM))]
+        elif fires == "InjectedDiskFault":
+            with pytest.raises(fi.InjectedDiskFault):
+                inj.check_disk("write", "/x/shard-00000.pkl")
+            assert issubclass(fi.InjectedDiskFault, OSError)
+        else:
+            inj.check_disk("read", "/x/manifest.json")
+            assert sleeps == [fires]
+    finally:
+        hvd.shutdown()
+
+
 @pytest.mark.parametrize("knob,value", [
-    ("HOROVOD_CHECKPOINT_DIR", "/tmp/ckpt"),
+    ("HOROVOD_CHECKPOINT_DIR", "ckpt"),
     ("HOROVOD_DRAIN_GRACE_SECONDS", "30"),
-    ("HOROVOD_PREEMPT_SIGNAL", "SIGTERM"),
+    ("HOROVOD_PREEMPT_SIGNAL", "SIGUSR1"),
+])
+def test_durability_knobs_are_read_as_in_the_jax_package(monkeypatch, tmp_path, knob, value):
+    """The knobs of the durability and drain planes, once raise cases:
+    ``hvd.init()`` takes them, and the port reads each as the JAX package
+    does (the checkpoint manager of the directory, the grace, the signal)."""
+    from horovod_tpu.utils import env as jax_env
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import checkpoint, env as port_env
+
+    if knob == "HOROVOD_CHECKPOINT_DIR":
+        value = str(tmp_path / value)
+    monkeypatch.setenv(knob, value)
+    hvd.init(device="cpu")
+    try:
+        assert hvd.is_initialized()
+        assert port_env.checkpoint_dir() == jax_env.checkpoint_dir()
+        assert port_env.drain_grace_seconds() == jax_env.drain_grace_seconds()
+        assert port_env.preempt_signal() == jax_env.preempt_signal()
+        mgr = checkpoint.manager_from_env()
+        if knob == "HOROVOD_CHECKPOINT_DIR":
+            assert mgr.directory == value and os.path.isdir(value)
+        else:
+            assert mgr is None
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.parametrize("knob,value", [
     ("HVDRUN_USE_TASK_SERVICE", "1"),
     ("HOROVOD_CONTROLLER_INTERVAL_SECONDS", "30"),
 ])
 def test_durability_knobs_raise_naming_a7(monkeypatch, knob, value):
-    """The knobs of A7's second half (the durable checkpoints, the drain
-    plane, the elasticity controller, the task-service launch)."""
+    """The knobs of the rest of A7 (the elasticity controller, the
+    task-service launch)."""
     import horovod_tpu_torch as hvd
 
     monkeypatch.setenv(knob, value)
