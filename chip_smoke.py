@@ -353,14 +353,33 @@ Phases, one JSON line each, any failed check raises (non-zero exit):
    that commit with no restore from disk; the drain barrier's ms a commit
    and the drain's seconds from the notice to the exit to the first step
    at n-1;
-38. the ``{"kernels": [...]}`` line (with ``launches_sp``,
+38. the metrics plane, one card (``metrics``, on 34's launch (a), which
+   runs with HOROVOD_METRICS_PORT on a free port, HOROVOD_METRICS_FILE and
+   HOROVOD_METRICS_SYNC_SECONDS=1, and averages each step's loss over the
+   world through the engine): /metrics scraped after steps 2 and 5 and
+   parsed with the port's ``parse_prometheus``; the responses, tensors and
+   bytes equal the engine's ``counters()`` at that point; one op-latency
+   observation (CUDA events on the channel's stream) an executed
+   response; the all-reduce bytes of steps 3-5 the closed form (the loss;
+   past one rank every gradient and the drain flag too), the latencies'
+   sum above 0 and within those steps' wall time; after the run rank 0's
+   /metrics.json fleet view holds each rank's own values, the JSON file
+   is written; the losses bitwise (c)'s, run with the exporters off; step
+   ms with the exporters on and off in turns in the worker (no gate);
+39. with two cards or more (``metrics_multi``, four in PERF.md's runs):
+   38's launch at ``-np n`` with HOROVOD_FUSION_THRESHOLD=0, each gradient
+   all-reduced alone through the engine on NCCL: 38's gates on every rank,
+   the fleet view holding all n ranks with equal all-reduce bytes, and
+   the launch logs equal on every rank with the telemetry rounds on;
+40. the ``{"kernels": [...]}`` line (with ``launches_sp``,
    ``launches_moe``, ``launches_pp``, ``launches_tp``,
    ``launches_zero_mesh``, ``launches_tp_sp``, ``launches_tp_moe``,
    ``launches_vit``, ``launches_vit_multi``, ``launches_mnist``,
    ``launches_mnist_multi``, ``launches_adasum_1p3b_multi``,
    ``launches_pp_tp``, ``launches_pp_tp_multi``, ``launches_engine``,
    ``launches_engine_multi``, ``launches_elastic``, ``launches_elastic_multi``,
-   ``launches_durable``, ``launches_durable_multi`` and the D=128 records
+   ``launches_durable``, ``launches_durable_multi``, ``launches_metrics``,
+   ``launches_metrics_multi`` and the D=128 records
    ``pp_d128``, ``tp_d128``, ``tp_sp_d128`` and ``pp_tp_d128``); then the card line
    from nvidia-smi and the last line ``{"ok": true, "device": {...}}``.
 
@@ -5018,6 +5037,14 @@ EL_MULTI_STEPS = 12
 EL_KILL_STEP = 5          # elastic_multi: kill:step=5 on the last rank
 EL_RETURN_AFTER = 8       # elastic_multi: the host is listed again after step 8
 EL_TIMEOUT = 300          # seconds, around each launch
+# The metrics plane (phases ``metrics`` and ``metrics_multi``): /metrics
+# scraped after these steps; each rank's push every EL_METRICS_SYNC
+# seconds; step times with the exporters on and off in EL_TURNS turns of
+# EL_TURN_STEPS steps each.
+EL_SCRAPE_STEPS = (2, STEPS)
+EL_METRICS_SYNC = 1.0
+EL_TURNS = 3
+EL_TURN_STEPS = 4
 EL_WORKER_SCRIPT = (
     "import os, sys\n"
     "host = os.environ.get('HOROVOD_HOSTNAME', '')\n"
@@ -5083,6 +5110,127 @@ def state_checksum(model, opt) -> torch.Tensor:
     return torch.stack(words)
 
 
+def metrics_samples(reg) -> dict:
+    """A registry's series as a scrape of it reads them (no buckets)."""
+    from horovod_tpu_torch.common import metrics_export
+
+    samples = metrics_export.parse_prometheus(metrics_export.to_prometheus(reg))[0]
+    return {k: v for k, v in samples.items() if "_bucket{" not in k}
+
+
+def http_get(port: int, path: str) -> str:
+    """A GET of the rank-0 endpoint; an exporter that did not bind fails
+    the phase here."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.read().decode()
+
+
+def data_series(samples: dict) -> dict:
+    """The engine's data-plane series (responses, tensors and bytes of
+    each type and a response, the op latencies), keyed as a scrape or as a
+    fleet push keys them."""
+    import re
+
+    def family(key):
+        return re.sub(r"\{.*\}", "", key)
+
+    return {k: v for k, v in samples.items() if family(k) == "horovod_responses_total"
+            or family(k).endswith(("_tensors_total", "_bytes_total")) or family(k).startswith((
+                "horovod_op_latency_seconds_", "horovod_response_tensors_",
+                "horovod_response_bytes_"))}
+
+
+def latency_due(samples: dict) -> tuple:
+    """(observations of horovod_op_latency_seconds, what the executed
+    responses owe it): one an all-reduce response and one an all-gather,
+    broadcast or all-to-all tensor, none a barrier (the worker joins
+    nothing)."""
+    got = sum(v for k, v in samples.items()
+              if k.startswith("horovod_op_latency_seconds_count"))
+    want = samples.get("horovod_responses_total", 0) - samples.get(
+        "horovod_barrier_tensors_total", 0)
+    return got, want
+
+
+def settle_latency(eng, timeout: float = 10.0) -> bool:
+    """Wait (host sleeps, no device wait) until the background loop has
+    read the timing events of every executed response; the caller has
+    already waited for the card."""
+    t0 = time.time()
+    while time.time() - t0 < timeout:
+        got, want = latency_due(metrics_samples(eng.registry))
+        if got == want:
+            return True
+        time.sleep(0.01)
+    return False
+
+
+def metrics_point(hvd, step: int, port: int) -> dict:
+    """At a synchronised point (the step's commit done, the card idle):
+    the engine's ``counters()`` and, read just after, rank 0's scraped
+    /metrics (every other rank's own registry)."""
+    from horovod_tpu_torch.common import metrics_export
+
+    eng = hvd.common.basics.engine()
+    settled = settle_latency(eng)
+    counters = eng.counters()
+    if hvd.rank() == 0:
+        samples = metrics_export.parse_prometheus(http_get(port, "/metrics"))[0]
+    else:
+        samples = metrics_samples(eng.registry)
+    return {"step": step, "t": time.time(), "settled": settled, "counters": counters,
+            "samples": data_series(samples)}
+
+
+def metrics_quiet(hvd, dev, port: int) -> dict:
+    """Every rank past one last all-reduce, each reads its own
+    ``hvd.metrics()`` and launch log; after three push intervals of idle
+    cycles rank 0 reads its /metrics.json (the fleet view); a broadcast
+    then holds every rank until it has."""
+    eng = hvd.common.basics.engine()
+    hvd.allreduce(torch.zeros(1, device=dev), name="metrics.quiet")
+    torch.cuda.synchronize()
+    settled = settle_latency(eng)
+    own = hvd.metrics()
+    out = {"settled": settled, "own": own["metrics"], "mode": own["mode"],
+           "launch_log": eng.launch_log(), "t": time.time()}
+    time.sleep(3 * EL_METRICS_SYNC)
+    if hvd.rank() == 0:
+        out["metrics_json"] = json.loads(http_get(port, "/metrics.json"))
+        out["status"] = json.loads(http_get(port, "/status"))
+    hvd.broadcast(torch.zeros(1, device=dev), 0, name="metrics.read")
+    return out
+
+
+def metrics_turns(hvd, model, opt, vocab: int, dev) -> dict:
+    """Step ms with the exporters on (the HTTP and file exporters running,
+    each rank pushing every EL_METRICS_SYNC s) and off (stopped, no push),
+    in turns in this process: the registry's own counting stays on."""
+    eng = hvd.common.basics.engine()
+    ctrl = eng.controller
+    times = {"on": [], "off": []}
+    batch = 1000
+    for _ in range(EL_TURNS):
+        for label in ("on", "off"):
+            if label == "on":
+                if not eng._exporters:
+                    eng.start_exporters()
+                ctrl._metrics_sync_s = EL_METRICS_SYNC
+            else:
+                eng.stop_exporters()
+                ctrl._metrics_sync_s = 0.0
+            for _ in range(EL_TURN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                el_step(model, opt, el_batch(batch, hvd.rank(), dev, vocab))
+                torch.cuda.synchronize()
+                times[label].append((time.perf_counter() - t0) * 1e3)
+                batch += 1
+    return times
+
+
 def elastic_worker() -> None:
     """One worker of phases ``elastic`` and ``elastic_multi``: GPT-2-small
     under ``@hvd.elastic.run`` with ``TorchState(model, optimizer, batch=0)``,
@@ -5109,7 +5257,12 @@ def elastic_worker() -> None:
     torch.backends.cudnn.allow_tf32 = False
     full_precision_products()
     rec = {"identity": spawn_identity(), "pid": os.getpid(), "steps": [], "syncs": [],
-           "restores": [], "reinit": [], "t_proc": t_proc, "ckpt": [], "barrier_ms": []}
+           "restores": [], "reinit": [], "t_proc": t_proc, "ckpt": [], "barrier_ms": [],
+           "scrapes": []}
+    # Phases metrics and metrics_multi: the exporters are on, and every
+    # step also averages its loss over the world through the engine, as a
+    # training script logs it.
+    metrics_port = int(os.environ.get("HOROVOD_METRICS_PORT", "0"))
     path = os.path.join(out_dir, f"{rec['identity'].replace(':', '_')}.{os.getpid()}.json")
 
     def dump():
@@ -5136,6 +5289,9 @@ def elastic_worker() -> None:
     vocab = model.cfg.vocab_size
     state = hvd.elastic.TorchState(model, opt, batch=0)
     rec["built_s"] = time.time() - t0
+    rec["grads"] = sum(p.requires_grad for p in model.parameters())
+    rec["grad_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters()
+                            if p.requires_grad)
     rules = fault_injection.parse_spec(os.environ.get("HOROVOD_FAULT_INJECT", ""))
     kill = [r for r in rules if r.action == "kill"]
     preempt = [r for r in rules if r.action == "preempt"]
@@ -5215,6 +5371,12 @@ def elastic_worker() -> None:
             rec["steps"].append({"step": step, "rank": hvd.rank(), "size": hvd.size(),
                                  "loss": loss, "ms": (t1 - t0) * 1e3,
                                  "commit_ms": (t2 - t1) * 1e3, "t": time.time()})
+            if metrics_port:
+                rec["steps"][-1]["mean_loss"] = float(hvd.allreduce(
+                    torch.tensor([loss], device=dev), name="loss", op=hvd.Average))
+                if step in EL_SCRAPE_STEPS:
+                    torch.cuda.synchronize()
+                    rec["scrapes"].append(metrics_point(hvd, step, metrics_port))
             mgr = checkpoint.current()
             if mgr is not None:
                 st = mgr.status()
@@ -5255,6 +5417,9 @@ def elastic_worker() -> None:
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rec["saved_gb"] = state.saved_bytes("cuda") / 1e9
     rec["reset_log"] = list(hvd.elastic.reset_log)
+    if metrics_port:
+        rec["quiet"] = metrics_quiet(hvd, dev, metrics_port)
+        rec["turns_ms"] = metrics_turns(hvd, model, opt, vocab, dev)
     rec["done"] = True
     dump()
     hvd.shutdown()
@@ -5375,9 +5540,39 @@ def el_one(recs: dict, name: str) -> dict:
     return done[0]
 
 
-def phase_elastic(fa) -> dict:
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def metrics_env(tmp: str) -> dict:
+    """The knobs that turn the metrics plane on for a launch: rank 0's
+    endpoint on a free port, every rank's JSON file, the push interval."""
+    import os
+
+    return {"HOROVOD_METRICS_PORT": str(free_port()),
+            "HOROVOD_METRICS_FILE": os.path.join(tmp, "metrics.{rank}.json"),
+            "HOROVOD_METRICS_FILE_INTERVAL": "1",
+            "HOROVOD_METRICS_SYNC_SECONDS": str(EL_METRICS_SYNC)}
+
+
+def metrics_files(tmp: str, recs: dict) -> None:
+    """Each finished worker's last JSON dump, into its record."""
+    import os
+
+    for r in recs.values():
+        if r.get("done"):
+            with open(os.path.join(tmp, f"metrics.{r['final_rank']}.json")) as f:
+                r["metrics_file"] = json.load(f)
+
+
+def phase_elastic(fa) -> tuple:
     """One card. (a) ``-np 1`` static, 5 steps, its losses bitwise the same
-    steps run here in process on phase ``slice``'s model and seed; (b)
+    steps run here in process on phase ``slice``'s model and seed, with the
+    metrics plane on (phase ``metrics`` reads its record); (b)
     elastic (``--min-np 1 --max-np 1``, a discovery script of one host):
     HorovodInternalError in step 5 after the commit of step 4, restored
     bitwise to that commit, reset, synced, 8 steps; (c) the same without the
@@ -5403,7 +5598,8 @@ def phase_elastic(fa) -> dict:
         os.chmod(disc, 0o755)
         elastic = ["--min-np", "1", "--max-np", "1", "--host-discovery-script", disc]
         _, sec_a, recs_a, _, _ = run_launcher(tmp, "a_static", ["-np", "1"],
-                                              {"EL_TOTAL": str(STEPS)})
+                                              {"EL_TOTAL": str(STEPS), **metrics_env(tmp)})
+        metrics_files(tmp, recs_a)
         _, sec_b, recs_b, _, _ = run_launcher(tmp, "b_raised", elastic,
                                               {"EL_TOTAL": str(EL_B_STEPS),
                                                "EL_RAISE_AT": str(EL_RAISE_AT)})
@@ -5445,7 +5641,168 @@ def phase_elastic(fa) -> dict:
            "reset_s": {k: v for k, v in reset.items() if k.endswith("_s")},
            "raise_to_next_step_s": b["steps"][EL_RAISE_AT - 1]["t"] - b["raised_at"]}
     emit(rec)
-    return rec, c["final"]
+    return rec, c["final"], a
+
+
+def as_scalars(snapshot: dict) -> dict:
+    """``hvd.metrics()["metrics"]`` keyed as a fleet push keys it."""
+    out = {}
+    for k, v in snapshot.items():
+        if isinstance(v, dict):
+            out[f"{k}_count"], out[f"{k}_sum"] = v["count"], v["sum"]
+        else:
+            out[k] = v
+    return out
+
+
+def metrics_gates(name: str, recs: dict, n: int) -> dict:
+    """The metrics plane's gates on a launch of ``n`` workers with the
+    exporters on (EL_SCRAPE_STEPS, ``metrics_quiet``). Each rank, at both
+    scrapes: the scraped (rank 0) or own (the others) responses, tensors
+    and bytes equal the engine's ``counters()`` read at that point, and
+    the op latency holds one observation an executed response; between
+    the scrapes the all-reduce tensors and bytes are the closed form of a
+    step (every gradient and the drain flag past one rank, the averaged
+    loss always) times the steps, and the latencies sum to at most the
+    wall time (a local all-reduce runs no kernel: at one rank the sum of
+    those steps may be 0). Quiet: the total all-reduce bytes are that
+    closed form of the whole run and the last all-reduce, the whole run's
+    latencies sum to more than 0 and at most its wall time; rank 0's
+    /metrics.json fleet view holds every rank with each rank's own
+    values, and its min and max of the all-reduce bytes are equal; the
+    launch logs are equal on every rank; each rank's JSON file is its."""
+    done = {r["final_rank"]: r for r in recs.values() if r.get("done")}
+    if sorted(done) != list(range(n)):
+        raise AssertionError(f"{name}: finished ranks {sorted(done)}")
+    ar_b, ar_t = "horovod_allreduce_bytes_total", "horovod_allreduce_tensors_total"
+    lat_sum = "horovod_op_latency_seconds_sum"
+    out = {"ranks": {}}
+    for rank, r in done.items():
+        pts = {p["step"]: p for p in r["scrapes"]}
+        if sorted(pts) != list(EL_SCRAPE_STEPS):
+            raise AssertionError(f"{name} rank {rank}: scrapes at {sorted(pts)}")
+        for step, p in pts.items():
+            smp, cnt = p["samples"], p["counters"]
+            got = {"responses": smp.get("horovod_responses_total", 0),
+                   "tensors": sum(v for k, v in smp.items() if k.endswith("_tensors_total")),
+                   "bytes": sum(v for k, v in smp.items() if k.endswith("_bytes_total"))}
+            want = {k: cnt[k] for k in got}
+            lat, due = latency_due(smp)
+            if got != want or not p["settled"] or lat != due:
+                raise AssertionError(f"{name} rank {rank} step {step}: scraped {got}, "
+                                     f"counters() {want}, latency {lat} of {due}")
+        first, last = pts[EL_SCRAPE_STEPS[0]], pts[EL_SCRAPE_STEPS[-1]]
+        k = EL_SCRAPE_STEPS[-1] - EL_SCRAPE_STEPS[0]
+        step_bytes = (r["grad_bytes"] + 4) * (n > 1) + 4
+        step_tensors = (r["grads"] + 1) * (n > 1) + 1
+
+        def delta(key):
+            return last["samples"].get(key, 0) - first["samples"].get(key, 0)
+
+        lat_s = sum(v for key, v in last["samples"].items() if key.startswith(lat_sum)) - \
+            sum(v for key, v in first["samples"].items() if key.startswith(lat_sum))
+        wall = last["t"] - first["t"]
+        if (delta(ar_b), delta(ar_t)) != (k * step_bytes, k * step_tensors) or \
+                not 0 <= lat_s <= wall:
+            raise AssertionError(
+                f"{name} rank {rank}: steps {EL_SCRAPE_STEPS[0] + 1}-{EL_SCRAPE_STEPS[-1]} "
+                f"all-reduced {delta(ar_t)} tensors, {delta(ar_b)} bytes (closed form "
+                f"{k * step_tensors}, {k * step_bytes}); latency {lat_s} s in {wall} s")
+        q = r["quiet"]
+        own = as_scalars(q["own"])
+        lat_run = sum(v for key, v in own.items()
+                      if key.startswith("horovod_op_latency_seconds{") and key.endswith("_sum"))
+        run_wall = q["t"] - r["t_proc"]
+        if not q["settled"] or own.get(ar_b, 0) != STEPS * step_bytes + 4 or \
+                q["mode"] != "process" or not 0 < lat_run <= run_wall:
+            raise AssertionError(f"{name} rank {rank}: quiet all-reduce bytes "
+                                 f"{own.get(ar_b)} against {STEPS * step_bytes + 4}; "
+                                 f"latency {lat_run} s in {run_wall} s")
+        mf = r["metrics_file"]
+        if mf["rank"] != rank or mf["metrics"].get("horovod_responses_total", 0) < \
+                last["samples"]["horovod_responses_total"]:
+            raise AssertionError(f"{name} rank {rank}: its metrics file {mf.get('rank')}")
+        out["ranks"][rank] = {"allreduce_bytes": own[ar_b], "step_bytes": step_bytes,
+                              "step_tensors": step_tensors, "latency_s_steps": lat_s,
+                              "wall_s_steps": wall, "latency_s_run": lat_run,
+                              "wall_s_run": run_wall,
+                              "responses": own.get("horovod_responses_total")}
+    q0 = done[0]["quiet"]
+    fleet = q0["metrics_json"]["fleet"]
+    if sorted(fleet["ranks"]) != [str(i) for i in range(n)] or fleet["size"] != n:
+        raise AssertionError(f"{name}: the fleet view holds ranks {sorted(fleet['ranks'])}")
+    for rank, r in done.items():
+        own = data_series(as_scalars(r["quiet"]["own"]))
+        theirs = fleet["ranks"][str(rank)]["metrics"]
+        wrong = {k: (v, theirs.get(k)) for k, v in own.items() if theirs.get(k) != v}
+        if wrong:
+            raise AssertionError(f"{name}: rank {rank}'s fleet values differ from its own: "
+                                 f"{wrong}")
+    agg = fleet["aggregate"][ar_b]
+    if agg["min"] != agg["max"] or agg["count"] != n:
+        raise AssertionError(f"{name}: the fleet's all-reduce bytes {agg}")
+    logs = [done[i]["quiet"]["launch_log"] for i in range(n)]
+    if any(log != logs[0] for log in logs) or [x[0] for x in logs[0]] != list(
+            range(len(logs[0]))):
+        raise AssertionError(f"{name}: the ranks' launch logs differ")
+    r0 = done[0]
+    out.update(fleet_ranks=len(fleet["ranks"]), launches_logged=len(logs[0]),
+               status_keys=sorted(q0["status"]),
+               step_ms_on_median=statistics.median(r0["turns_ms"]["on"]),
+               step_ms_off_median=statistics.median(r0["turns_ms"]["off"]),
+               turns_ms=r0["turns_ms"])
+    return out
+
+
+def phase_metrics(a: dict, el: dict) -> dict:
+    """One card, on phase ``elastic``'s launch (a) (``-np 1``, the hook
+    optimizer over the engine, GPT-2-small at B=4, S=2048 on the flash
+    kernels) with HOROVOD_METRICS_PORT on a free port, HOROVOD_METRICS_FILE
+    and HOROVOD_METRICS_SYNC_SECONDS=1: ``metrics_gates``; its 5 losses
+    bitwise those of (c), launched with the exporters off; step ms with
+    them on and off in turns in that worker (no gate)."""
+    want = flash_launches(12)["flash_fwd"]
+    launches = el_launches({"a": a}, "metrics", want)
+    losses = [s["loss"] for s in a["steps"]]
+    if losses != el["losses"][:STEPS]:
+        raise AssertionError(f"metrics: the losses with the exporters on {losses} are not "
+                             f"those with them off {el['losses'][:STEPS]}")
+    rec = {"phase": "metrics", "model": EL_MODEL, "batch": B, "seq": S, "world": 1,
+           "launches": launches, "losses_bitwise_exporters_off": True,
+           **metrics_gates("metrics", {"a": a}, 1)}
+    emit(rec)
+    return rec
+
+
+def phase_metrics_multi() -> dict:
+    """n cards (four in PERF.md's runs): the launch of phase ``metrics`` at
+    ``-np n`` with HOROVOD_FUSION_THRESHOLD=0, each gradient all-reduced
+    alone through the engine on NCCL: ``metrics_gates``, with the fleet
+    view of every rank and the launch logs equal on every rank with the
+    telemetry rounds in the mix."""
+    import tempfile
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        rec = {"phase": "metrics_multi", "cards": n, "launches": "not measured: needs two "
+               "cards or more", "result": "not measured: needs two cards or more"}
+        emit(rec)
+        return rec
+    with tempfile.TemporaryDirectory() as tmp:
+        _, seconds, recs, _, _ = run_launcher(
+            tmp, "metrics_multi", ["-np", str(n)],
+            {"EL_TOTAL": str(STEPS), "HOROVOD_FUSION_THRESHOLD": "0", **metrics_env(tmp)})
+        metrics_files(tmp, recs)
+    want = flash_launches(12)["flash_fwd"]
+    launches = el_launches({k: r for k, r in recs.items() if r.get("done")},
+                           "metrics_multi", want)
+    r0 = next(r for r in recs.values() if r.get("final_rank") == 0)
+    rec = {"phase": "metrics_multi", "cards": n, "model": EL_MODEL, "batch": B, "seq": S,
+           "launcher_s": seconds, "launches": launches,
+           "step_ms_median": statistics.median(s["ms"] for s in r0["steps"][1:]),
+           **metrics_gates("metrics_multi", recs, n)}
+    emit(rec)
+    return rec
 
 
 def nccl_dead_peer_rank(rank: int, size: int, init_file: str, queue) -> None:
@@ -6145,9 +6502,10 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm, p
     launches on the GPT-2 slice (and per path), error, times and bound.
     ``later``: the records of the vit, vit_multi, mnist, mnist_multi,
     adasum_1p3b_multi, pp_tp, pp_tp_multi, engine, engine_multi, elastic,
-    elastic_multi, durable and durable_multi phases by name (launches "not
-    measured" where a phase had too few cards; the elastic and durable
-    phases' are a worker's per attempted step)."""
+    elastic_multi, durable, durable_multi, metrics and metrics_multi phases
+    by name (launches "not measured" where a phase had too few cards; the
+    elastic, durable and metrics phases' are a worker's per attempted
+    step)."""
     kernels = [
         {"name": "flash_fwd", "launches": sl["launches"]["flash_fwd"],
          "max_abs_err": k1["o_max_abs_err"], "ms": k1["kernel_ms"],
@@ -6249,9 +6607,11 @@ def main() -> int:
         zero = phase_zero(fa)
         full_precision_products()
         plan = durable_plan(dev)
-        el, el_final = phase_elastic(fa)
+        el, el_final, el_a = phase_elastic(fa)
+        me = phase_metrics(el_a, el)
         du = phase_durable(plan, el_final)
         el_multi = phase_elastic_multi()
+        me_multi = phase_metrics_multi()
         du_multi = phase_durable_multi(plan)
         gc.collect()
         torch.cuda.empty_cache()
@@ -6308,7 +6668,8 @@ def main() -> int:
                  "adasum_1p3b_multi": phase_adasum_1p3b_multi(), "pp_tp": pt,
                  "pp_tp_multi": pt_multi, "engine": en,
                  "engine_multi": phase_engine_multi(), "elastic": el,
-                 "elastic_multi": el_multi, "durable": du, "durable_multi": du_multi}
+                 "elastic_multi": el_multi, "durable": du, "durable_multi": du_multi,
+                 "metrics": me, "metrics_multi": me_multi}
         phase_adasum_combine(dev)
     finally:
         hvd.shutdown()

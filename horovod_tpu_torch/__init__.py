@@ -20,7 +20,10 @@ The ``horovod.torch`` binding surface (in-place collectives, the
 differentiable all-reduce, the hook ``DistributedOptimizer``) is
 ``horovod_tpu_torch.torch``. Elastic training is ``hvd.elastic``
 (``State``, ``ObjectState``, ``TorchState``, ``@hvd.elastic.run``), launched by
-``python -m horovod_tpu_torch.runner.launch``. Models live in ``horovod_tpu_torch.models``, the training step in
+``python -m horovod_tpu_torch.runner.launch``. ``metrics()`` is the
+telemetry snapshot (the exporters start from HOROVOD_METRICS_PORT and
+HOROVOD_METRICS_FILE, ``common/metrics_export.py``). Models live in
+``horovod_tpu_torch.models``, the training step in
 ``horovod_tpu_torch.parallel``, the kernels in ``horovod_tpu_torch.ops``.
 The package imports torch and never jax, nor anything of ``horovod_tpu``.
 """
@@ -37,6 +40,8 @@ from .common.basics import (
     is_initialized,
     local_rank,
     local_size,
+    metrics,
+    mode,
     mpi_built,
     nccl_built,
     rank,

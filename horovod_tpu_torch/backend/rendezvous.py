@@ -5,8 +5,10 @@ http_client.py:17-45).
 Requests are HMAC-signed with the job secret from HOROVOD_SECRET_KEY when
 one is set (``runner/rendezvous_server.py``). Transport failures retry
 with jittered backoff (``utils/retry.py``); a 403 raises
-``PermissionError`` at once. The JAX client's per-job key namespace
-(HOROVOD_JOB_NAME), for jobs that share one server, waits for ROADMAP A9.
+``PermissionError`` at once. Every attempt counts in the JAX package's
+``horovod_rendezvous_requests_total``. The JAX client's per-job key
+namespace (HOROVOD_JOB_NAME), for jobs that share one server, waits for
+ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -18,6 +20,23 @@ from ..utils.logging import get_logger
 from ..utils.retry import call_with_retry
 
 logger = get_logger()
+
+_request_counter_cache = None
+
+
+def _request_counter():
+    # Cached: a wait polls the KV store at 20 Hz; the registry lookup
+    # happens once, not a poll.
+    global _request_counter_cache
+    if _request_counter_cache is None:
+        from ..common import telemetry
+
+        _request_counter_cache = telemetry.counter(
+            "horovod_rendezvous_requests_total",
+            "HTTP requests issued against the rendezvous server "
+            "(retries included)",
+        )
+    return _request_counter_cache
 
 
 class RendezvousClient:
@@ -40,7 +59,13 @@ class RendezvousClient:
         return http.client.HTTPConnection(self.addr, self.port, timeout=10.0)
 
     def _retry(self, fn, what: str):
-        return call_with_retry(fn, what, retry_on=(OSError, http.client.HTTPException))
+        counter = _request_counter()
+
+        def counted():
+            counter.inc()
+            return fn()
+
+        return call_with_retry(counted, what, retry_on=(OSError, http.client.HTTPException))
 
     def _headers(self, method: str, path: str, body: bytes = b"") -> dict:
         if self.secret_key is None:

@@ -45,6 +45,17 @@ stays usable for the next ``init()``.
 In a launched worker (HOROVOD_RANK or HOROVOD_ELASTIC set) ``init``
 installs the drain plane's handler of HOROVOD_PREEMPT_SIGNAL
 (``common/drain.py``).
+
+The mode is the JAX package's rule: "process" when HOROVOD_RANK is set (a
+launched worker), else "mesh" (one program over ``create_mesh``). The
+engine runs in both (the port's world collectives go through it), but, as
+in the JAX package, process mode lets the engine own the exporters the
+environment asks for (HOROVOD_METRICS_PORT, HOROVOD_METRICS_FILE;
+``common/metrics_export.py``), with its fleet view and ``/status``, while
+mesh mode starts them here on the registry alone. Every init sets the
+``horovod_world_size`` gauge and registers the build identity;
+``metrics()`` is the JAX package's ``hvd.metrics()``; ``shutdown`` stops
+the exporters, so that the next init binds the same port again.
 """
 from __future__ import annotations
 
@@ -60,7 +71,7 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
-from . import env
+from . import env, telemetry
 from .exceptions import NotInitializedError
 
 
@@ -77,6 +88,8 @@ class _State:
     owns_group: bool = False
     store_dir: Optional[str] = None
     engine: Optional[object] = None
+    mode: str = "mesh"
+    exporters: list = dataclasses.field(default_factory=list)
     failed: bool = False
     # The device of this process's first init: a later init() without one
     # (the elastic loop's, after a reset) takes it again.
@@ -168,9 +181,23 @@ def init(device=None, init_method: Optional[str] = None) -> None:
         _state.owns_group = owns
         _state.store_dir = store_dir
         _state.failed = False
+        _state.mode = "process" if os.environ.get(env.RANK) is not None else "mesh"
         _state.engine = _start_engine(rank, size, device, backend)
+        if _state.mode == "process":
+            _state.engine.start_exporters()
+        else:
+            from . import metrics_export
+
+            _state.exporters = metrics_export.start_exporters_from_env(
+                status_fn=lambda: {"rank": _state.rank, "size": _state.size,
+                                   "mode": _state.mode},
+                rank=rank)
         _state.home_device = _state.home_device or device
         _state.initialized = True
+        # The baseline for "the world shrank", on every init (an elastic
+        # re-init too), and the build identity of every scrape.
+        telemetry.gauge("horovod_world_size", "World size after the last (re)init").set(size)
+        telemetry.register_build_info()
     # A launched worker takes the preemption signal as a notice (as the
     # JAX package's init does): an intentional stop (the launcher's
     # teardown, a platform's notice) exits 0 instead of dying on the
@@ -250,6 +277,12 @@ def shutdown() -> None:
         if _state.engine is not None:
             _state.engine.shutdown()
             _state.engine = None
+        for exp in _state.exporters:
+            try:
+                exp.stop()
+            except Exception:  # pragma: no cover - exporter already dead
+                pass
+        _state.exporters = []
         if _state.owns_group and dist.is_initialized():
             dist.destroy_process_group()
         if _state.failed:
@@ -287,6 +320,34 @@ def engine():
     """The eager engine the world collectives go through."""
     _require_init()
     return _state.engine
+
+
+def mode() -> str:
+    """"process" in a launched worker (HOROVOD_RANK set), else "mesh"."""
+    _require_init()
+    return _state.mode
+
+
+def metrics() -> dict:
+    """Snapshot of the telemetry registry (the JAX package's
+    ``hvd.metrics()``): ``{"rank", "size", "mode", "metrics", "status"?,
+    "fleet"?}``. ``metrics`` is the flat name -> value dict (histograms as
+    {count, sum, bounds, counts}); in process mode ``status`` is the
+    engine's live state and, on rank 0, ``fleet`` the cross-rank per-rank,
+    min, max and sum view. Usable before init too: module-level counters
+    (retries, faults) exist regardless."""
+    eng = _state.engine if _state.initialized else None
+    reg = eng.registry if eng is not None else telemetry.default_registry()
+    out = {"rank": _state.rank, "size": _state.size, "mode": _state.mode,
+           "metrics": reg.snapshot()}
+    if eng is not None and _state.mode == "process":
+        status = eng.status()
+        # One fleet snapshot, at the top level.
+        fleet = status.pop("fleet", None)
+        out["status"] = status
+        if fleet is not None:
+            out["fleet"] = fleet
+    return out
 
 
 def _require_init():

@@ -40,8 +40,11 @@ A numpy leaf is written as it is; a torch tensor as a numpy array, one of
 a dtype numpy lacks (bfloat16, the float8 types) as the unsigned integer
 of its width holding its bits (``host_leaf``); the state that loads it
 knows its dtype (``TorchState.load_checkpoint``), so it round-trips
-bitwise. The telemetry, tracing, goodput and events hooks of the JAX
-module wait for ROADMAP A8; ``status()`` keeps the counts.
+bitwise. Writes, bytes, failures, skips, commits and restores, the write
+and commit seconds and the last committed step are the JAX module's
+telemetry series (``horovod_checkpoint_*``); ``status()`` reads the same
+counters, since this manager was made. The tracing, goodput and events
+hooks of the JAX module wait for ROADMAP A8.2 and A8.4.
 """
 from __future__ import annotations
 
@@ -60,6 +63,7 @@ import torch
 from ..utils import atomic_file
 from ..utils.logging import get_logger
 from . import env as env_cfg
+from . import telemetry
 
 logger = get_logger()
 
@@ -376,7 +380,7 @@ class CheckpointManager:
     def __init__(self, directory: str, rank: int = 0, size: int = 1,
                  interval_steps: Optional[int] = None, keep: Optional[int] = None,
                  commit_timeout: Optional[float] = None, rendezvous=None,
-                 fsync: Optional[bool] = None):
+                 fsync: Optional[bool] = None, registry=None):
         self.directory = os.path.abspath(directory)
         self.rank = rank
         self.size = size
@@ -387,11 +391,43 @@ class CheckpointManager:
                                if commit_timeout is None else commit_timeout)
         self.fsync = env_cfg.checkpoint_fsync() if fsync is None else fsync
         self.rendezvous = rendezvous
-        # What the JAX module's metrics count (ROADMAP A8), kept as plain
-        # numbers for status(): writes, bytes, failures, skips, commits,
-        # restores, and the last write's and commit's seconds.
-        self.counts = {"writes": 0, "bytes": 0, "failures": 0, "skipped": 0,
-                       "commits": 0, "restores": 0}
+        if registry is None:
+            registry = telemetry.default_registry()
+        self._m_writes = registry.counter(
+            "horovod_checkpoint_writes_total",
+            "Checkpoint shards durably written by this rank")
+        self._m_bytes = registry.counter(
+            "horovod_checkpoint_bytes_total",
+            "Serialized checkpoint shard bytes written by this rank")
+        self._m_failures = registry.counter(
+            "horovod_checkpoint_failures_total",
+            "Checkpoint shard writes or manifest commits that failed "
+            "(a failed checkpoint is skipped — training never blocks, "
+            "and no manifest ever references a missing shard)")
+        self._m_skipped = registry.counter(
+            "horovod_checkpoint_skipped_total",
+            "Checkpoint snapshots skipped because the previous shard "
+            "write was still in flight (writer backpressure)")
+        self._m_commits = registry.counter(
+            "horovod_checkpoint_commits_total",
+            "Manifests two-phase-committed by the coordinator")
+        self._m_restores = registry.counter(
+            "horovod_checkpoint_restores_total",
+            "States restored from a committed checkpoint")
+        self._m_write_s = registry.histogram(
+            "horovod_checkpoint_write_seconds",
+            "Background shard serialize+write+ack latency")
+        self._m_commit_s = registry.histogram(
+            "horovod_checkpoint_commit_seconds",
+            "Coordinator ack-collection + manifest commit latency")
+        self._m_last_step = registry.gauge(
+            "horovod_checkpoint_last_step",
+            "Step of the last successfully committed checkpoint")
+        self._counted = {"writes": self._m_writes, "bytes": self._m_bytes,
+                         "failures": self._m_failures, "skipped": self._m_skipped,
+                         "commits": self._m_commits, "restores": self._m_restores}
+        self._counts_base = {k: m.value for k, m in self._counted.items()}
+        # The last write's and commit's seconds (status()).
         self.last_write_s: Optional[float] = None
         self.last_commit_s: Optional[float] = None
         self._commit_count = 0
@@ -405,6 +441,12 @@ class CheckpointManager:
         self._stop = False
         self._thread: Optional[threading.Thread] = None
         os.makedirs(self.directory, exist_ok=True)
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        """Writes, bytes, failures, skips, commits and restores since this
+        manager was made (its counters count on across managers)."""
+        return {k: int(m.value - self._counts_base[k]) for k, m in self._counted.items()}
 
     # -- plumbing ------------------------------------------------------
     def _world(self) -> Tuple[int, int]:
@@ -447,7 +489,7 @@ class CheckpointManager:
                          state.checkpoint_trees())
         with self._cond:
             if self._pending is not None:
-                self.counts["skipped"] += 1
+                self._m_skipped.inc()
                 logger.warning("checkpoint at step %d skipped: previous shard write "
                                "still in flight", step)
                 return False
@@ -534,7 +576,7 @@ class CheckpointManager:
             except Exception:
                 # Checkpointing never kills training: counted, and the next
                 # interval tries again.
-                self.counts["failures"] += 1
+                self._m_failures.inc()
                 logger.exception("checkpoint write at step %d failed", snap.step)
             finally:
                 snap.leaves = None
@@ -601,14 +643,15 @@ class CheckpointManager:
                     logger.warning("checkpoint ack via KV failed (%s); the coordinator "
                                    "falls back to the sidecar", e)
         except OSError as e:
-            self.counts["failures"] += 1
+            self._m_failures.inc()
             self._last_error = f"step {snap.step}: {e}"
             logger.error("checkpoint shard write at step %d failed: %s; no ack sent, "
                          "the coordinator will not commit this checkpoint", snap.step, e)
             return
-        self.counts["writes"] += 1
-        self.counts["bytes"] += out.nbytes
+        self._m_writes.inc()
+        self._m_bytes.inc(out.nbytes)
         self.last_write_s = time.perf_counter() - t0
+        self._m_write_s.observe(self.last_write_s)
         self._last_write_step = snap.step
         if snap.rank == 0:
             self._commit(snap)
@@ -671,7 +714,7 @@ class CheckpointManager:
                 reason = ("cancelled by elastic reset" if cancelled else
                           f"no durability ack from ranks {sorted(missing)} within "
                           f"{self.commit_timeout:.0f}s")
-                self.counts["failures"] += 1
+                self._m_failures.inc()
                 self._last_error = f"step {snap.step}: {reason}"
                 logger.error("checkpoint commit at step %d abandoned: %s; the previous "
                              "committed checkpoint remains the restore point",
@@ -699,7 +742,7 @@ class CheckpointManager:
                                           json.dumps(manifest, indent=1, sort_keys=True),
                                           fsync=self.fsync)
         except OSError as e:
-            self.counts["failures"] += 1
+            self._m_failures.inc()
             self._last_error = f"step {snap.step}: manifest: {e}"
             logger.error("checkpoint manifest commit at step %d failed: %s", snap.step, e)
             self._cleanup_attempt(snap.step)
@@ -714,8 +757,10 @@ class CheckpointManager:
             except Exception:
                 pass
         self._last_committed_step = snap.step
-        self.counts["commits"] += 1
+        self._m_commits.inc()
+        self._m_last_step.set(snap.step)
         self.last_commit_s = time.perf_counter() - t0
+        self._m_commit_s.observe(self.last_commit_s)
         logger.info("checkpoint committed at step %d (%d shards)", snap.step, snap.size)
         try:
             self._gc()
@@ -755,14 +800,15 @@ class CheckpointManager:
             try:
                 objects, trees = load_checkpoint_arrays(self.directory, man)
             except (OSError, ValueError, pickle.UnpicklingError) as e:
-                self.counts["failures"] += 1
+                self._m_failures.inc()
                 logger.error("checkpoint at step %d unreadable (%s); falling back to the "
                              "previous complete checkpoint", step, e)
                 continue
             state.load_checkpoint(objects, trees)
             self._commit_count = step
             self._last_committed_step = step
-            self.counts["restores"] += 1
+            self._m_restores.inc()
+            self._m_last_step.set(step)
             purge_newer_than(self.directory, step)
             logger.info("restored checkpoint step %d (written at world size %d, restoring "
                         "at world size %d)", step, man["world_size"], self._world()[1])

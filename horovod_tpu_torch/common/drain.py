@@ -27,9 +27,10 @@ lost, the bound of an unannounced failure. Outside an elastic run loop
 (``managed=False``: a worker of a static launch, the launcher's teardown)
 the handler exits 0 at once, so an intentional stop is never taken for a
 failure. The chaos rule ``preempt`` (``common/fault_injection.py``) sends
-the signal. The events, telemetry and goodput hooks of the JAX module
-(the preemption counter, the drain histogram, the badput buckets, the
-stamp handoff) wait for ROADMAP A8.
+the signal. Notices and the notice-to-drained seconds are the JAX
+module's telemetry series (``horovod_preemptions_total``,
+``horovod_drain_seconds``). Its events and goodput hooks (the badput
+buckets, the stamp handoff) wait for ROADMAP A8.2 and A8.4.
 """
 from __future__ import annotations
 
@@ -42,9 +43,24 @@ from typing import Optional
 
 from ..utils.logging import get_logger
 from . import env as env_cfg
+from . import telemetry
 from .exceptions import WorkerPreempted
 
 logger = get_logger()
+
+
+def _m_preemptions():
+    return telemetry.counter(
+        "horovod_preemptions_total",
+        "Preemption notices (signal or chaos-injected) this worker "
+        "received")
+
+
+def _m_drain_seconds():
+    return telemetry.histogram(
+        "horovod_drain_seconds",
+        "Preemption notice to drained exit: final checkpoint durable, "
+        "stamp released, notice published", min_exp=-4, max_exp=8)
 
 # drain_e<epoch>/<host:spawn_local_rank> -> the notice (JSON), and
 # drain_e<epoch>/any -> a marker: "is anyone draining this epoch?"
@@ -131,6 +147,7 @@ class DrainCoordinator:
             self._reason = reason
             self._t0 = time.monotonic()
             managed = self._managed
+        _m_preemptions().inc()
         grace = env_cfg.drain_grace_seconds()
         if not managed:
             logger.warning("preemption notice (%s) outside an elastic run loop: "
@@ -183,6 +200,10 @@ class DrainCoordinator:
         if t is not None:
             t.cancel()
         self._publish_notice("drained")
+        with self._lock:
+            t0 = self._t0
+        if t0 is not None:
+            _m_drain_seconds().observe(time.monotonic() - t0)
         logger.warning("drained cleanly (%s); exiting", self._reason)
         # The port's own step: abort this world's process groups, so the
         # exit waits on no peer's NCCL communicator; the peers learn of the

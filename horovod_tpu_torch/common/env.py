@@ -1,8 +1,9 @@
 """The environment knobs of the scaled data-parallel path, of the eager
 engine, of the launcher and elastic plane, and of the durability and
-drain planes (counterpart of ``horovod_tpu/utils/env.py:29-62, 136-186,
-196-217, 288-306, 458-506, 576-660, 665-735, 776-795, 975-981``; the
-port's own copy, with the JAX package's defaults).
+drain planes, and of the metrics plane (counterpart of
+``horovod_tpu/utils/env.py:29-62, 136-186, 196-217, 288-306, 435-451,
+458-506, 576-660, 665-735, 776-795, 969-981``; the port's own copy, with
+the JAX package's defaults).
 
 Each function reads the environment when it is called, so a knob set
 between two calls takes effect on the second, as the JAX package's eager
@@ -79,6 +80,20 @@ CHECKPOINT_FSYNC = "HOROVOD_CHECKPOINT_FSYNC"
 DRAIN_GRACE_SECONDS = "HOROVOD_DRAIN_GRACE_SECONDS"
 PREEMPT_SIGNAL = "HOROVOD_PREEMPT_SIGNAL"
 
+# The metrics plane (``common/telemetry.py``, ``common/metrics_export.py``):
+# rank 0's HTTP endpoint (unset or empty: off; 0: an ephemeral port) and
+# its bind address (loopback unless set: the endpoint is unauthenticated),
+# the periodic JSON dump (``{rank}`` in the path: every rank writes its
+# own) and its interval, and how often each rank piggybacks its scalar
+# snapshot on the control plane for rank 0's fleet view (0: never).
+METRICS_PORT = "HOROVOD_METRICS_PORT"
+METRICS_ADDR = "HOROVOD_METRICS_ADDR"
+METRICS_FILE = "HOROVOD_METRICS_FILE"
+METRICS_FILE_INTERVAL = "HOROVOD_METRICS_FILE_INTERVAL"
+METRICS_SYNC_SECONDS = "HOROVOD_METRICS_SYNC_SECONDS"
+
+DEFAULT_METRICS_SYNC_SECONDS = 3.0
+
 DEFAULT_CHECKPOINT_INTERVAL_STEPS = 10
 DEFAULT_CHECKPOINT_KEEP = 3
 DEFAULT_CHECKPOINT_COMMIT_TIMEOUT = 120.0
@@ -110,8 +125,6 @@ UNPORTED = {
     "HOROVOD_AUTOTUNE": ("A6", "the autotuner (engine/parameter_manager.py)"),
     "HOROVOD_HIERARCHICAL_ALLREDUCE": ("A6", "the hierarchical allreduce"),
     "HOROVOD_HIERARCHICAL_ALLGATHER": ("A6", "the hierarchical allgather"),
-    "HOROVOD_METRICS_PORT": ("A8", "the metrics HTTP exporter"),
-    "HOROVOD_METRICS_FILE": ("A8", "the metrics file exporter"),
     "HOROVOD_TRACE_FILE": ("A8", "the tracing plane's merged trace"),
     "HOROVOD_TRACE_DIR": ("A8", "the tracing plane's flight recorder"),
     "HVDRUN_USE_TASK_SERVICE": ("A7", "the task-service launch (runner/service.py)"),
@@ -157,6 +170,12 @@ def check_unported_knobs() -> None:
             raise NotImplementedError(
                 f"{name} is set, but {what} is not ported yet (ROADMAP {item}); "
                 f"unset it to run")
+
+
+def metrics_sync_seconds() -> float:
+    """Interval between each rank's telemetry pushes to rank 0's fleet
+    view; 0 disables cross-rank aggregation."""
+    return _float(METRICS_SYNC_SECONDS, DEFAULT_METRICS_SYNC_SECONDS)
 
 
 def cycle_time_ms() -> float:

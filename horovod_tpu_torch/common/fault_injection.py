@@ -21,9 +21,11 @@ from HOROVOD_RANK; any rank without it):
 Every rule of the JAX grammar parses to the same ``Rule``. The port has
 no transport of its own to hook, so the actions on network I/O (``sever``,
 ``drop``, ``delay``, ``hang``) wait for ROADMAP A7; ``wedge`` waits for
-the liveness plane (A8) and ``killdoor`` for the serving plane (A9).
+the liveness plane (A8.3) and ``killdoor`` for the serving plane (A9).
 Armed, each of them raises ``NotImplementedError`` naming its item, at
-``hvd.init()`` for the environment's rules.
+``hvd.init()`` for the environment's rules. A fired ``preempt``,
+``diskfail`` or ``diskslow`` counts in the JAX package's
+``horovod_faults_injected_total{action=...}``.
 """
 from __future__ import annotations
 
@@ -35,8 +37,17 @@ from typing import Dict, List, Optional
 
 from ..utils.logging import get_logger
 from . import env as env_cfg
+from . import telemetry
 
 logger = get_logger()
+
+
+def _fault_counter(action: str):
+    return telemetry.counter(
+        "horovod_faults_injected_total",
+        "Faults fired by the chaos harness, by action",
+        labels={"action": action},
+    )
 
 ENV_VAR = "HOROVOD_FAULT_INJECT"
 
@@ -195,6 +206,7 @@ class FaultInjector:
     def _fire_preempt(what: str):
         """The notice through the real signal path, as a platform sends it."""
         logger.error("fault injection: preemption notice (%s)", what)
+        _fault_counter("preempt").inc()
         os.kill(os.getpid(), env_cfg.preempt_signal())
 
     # -- triggers --------------------------------------------------------
@@ -245,8 +257,10 @@ class FaultInjector:
                 if r.hits <= r.after:
                     continue
                 if r.action == "diskslow":
+                    _fault_counter("diskslow").inc()
                     sleep_s += r.secs
                 else:
+                    _fault_counter("diskfail").inc()
                     raise InjectedDiskFault(
                         f"fault injection failed disk {op} of {path!r}")
         # Outside the lock: the writer thread's sleep must not hold up

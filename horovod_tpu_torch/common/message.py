@@ -5,8 +5,10 @@ Re-design of the reference's FlatBuffers-based protocol
 (ref: horovod/common/message.h:50-149, horovod/common/wire/message.fbs:18-40):
 a compact length-prefixed binary codec (struct-packed). The layout is the
 JAX package's byte for byte, so both engines speak the same wire format.
-The trailing telemetry field of ``RequestList`` and the trace id of
-``Response`` are carried, and left empty by the port's engine (ROADMAP A8).
+The trailing telemetry field of ``RequestList`` carries a rank's metrics
+push (``common/telemetry.py`` ``encode_push``, the JAX package's JSON);
+the trace id of ``Response`` is stamped and carried, and read by no
+tracing plane until ROADMAP A8.2.
 """
 from __future__ import annotations
 
@@ -120,10 +122,11 @@ class RequestList:
     """(ref: message.h RequestList; shutdown flag at message.h:120-135)
 
     `telemetry` is an optional opaque blob a rank piggybacks on its
-    per-cycle gather (the JAX package's fleet metrics view; the port sends
-    none until ROADMAP A8). It is a TRAILING optional field: decoders that
-    stop after `requests` stay wire-compatible, and this decoder treats a
-    missing tail as None.
+    per-cycle gather: its metrics push for rank 0's fleet view, every
+    HOROVOD_METRICS_SYNC_SECONDS (the span, alert and event batches the JAX
+    package adds to it wait for ROADMAP A8.2 and A8.4). It is a TRAILING
+    optional field: decoders that stop after `requests` stay
+    wire-compatible, and this decoder treats a missing tail as None.
     """
 
     requests: List[Request] = field(default_factory=list)

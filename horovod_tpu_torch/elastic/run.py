@@ -22,8 +22,10 @@ feeds the manager; after every reset the manager re-anchors its commit
 counter on the newest manifest; on the way out its writer finishes. The
 drain plane runs managed (``common/drain.py``): a preemption notice is
 handed over at a commit, and the draining worker leaves through
-``WorkerPreempted``, a ``SystemExit(0)``: a clean exit. The metrics and
-events of a reset and the goodput accounting wait for ROADMAP A8.
+``WorkerPreempted``, a ``SystemExit(0)``: a clean exit. Resets, restores
+and host updates count in the JAX module's telemetry counters
+(``horovod_elastic_*_total``); the events of a reset and the goodput
+accounting wait for ROADMAP A8.2 and A8.4.
 """
 from __future__ import annotations
 
@@ -31,12 +33,24 @@ import functools
 import time
 from typing import Callable, List
 
-from ..common import basics, checkpoint, drain
+from ..common import basics, checkpoint, drain, telemetry
 from ..common.exceptions import HorovodInternalError, HostsUpdatedInterrupt
 from ..utils.logging import get_logger
 from .state import State
 
 logger = get_logger()
+
+# A fleet whose resets climb while its restores stay flat is churning on
+# topology changes; the reverse means workers keep dying mid-step.
+_m_resets = telemetry.counter(
+    "horovod_elastic_resets_total",
+    "Full shutdown+init cycles taken by the elastic run loop")
+_m_restores = telemetry.counter(
+    "horovod_elastic_restores_total",
+    "State restores after a collective failure (worker death)")
+_m_host_updates = telemetry.counter(
+    "horovod_elastic_host_updates_total",
+    "Host add/remove notifications that interrupted training")
 
 # One dict a reset, in order: {"cause", "t_caught" (time.time()),
 # "restore_s", "shutdown_s", "rendezvous_s", "init_s", "sync_s"}.
@@ -51,6 +65,7 @@ def _reset(rec: dict):
     common/elastic.py reset)."""
     from ..backend import elastic_env
 
+    _m_resets.inc()
     t = time.perf_counter()
     basics.shutdown()       # stops the notification server too
     rec["shutdown_s"] = time.perf_counter() - t
@@ -115,6 +130,7 @@ def run_fn(func: Callable, state: State, *args, **kwargs):
                 # fails this collective at once.
                 logger.warning("collective failure (%s)%s; restoring last commit", e,
                                " (peer draining)" if drain.fleet_draining() else "")
+                _m_restores.inc()
                 t = time.perf_counter()
                 state.restore()
                 rec["restore_s"] = time.perf_counter() - t
@@ -123,6 +139,7 @@ def run_fn(func: Callable, state: State, *args, **kwargs):
                 rec = {"cause": "hosts updated", "t_caught": time.time(),
                        "restore_s": 0.0}
                 logger.info("hosts updated; re-initializing")
+                _m_host_updates.inc()
                 skip_sync = e.skip_sync
             reset_log.append(rec)
             _reset(rec)

@@ -11,7 +11,7 @@ durability hooks (``supports_durability``, ``checkpoint_objects``,
 ``checkpoint_trees``, ``load_checkpoint``) hand the manager the last
 commit, never the live attributes. ``TorchState`` (``horovod_tpu_torch/
 torch/elastic.py``) holds a model and its optimizer. The goodput
-accounting of a commit waits for ROADMAP A8.
+accounting of a commit waits for ROADMAP A8.4.
 """
 from __future__ import annotations
 

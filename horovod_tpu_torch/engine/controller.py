@@ -23,11 +23,19 @@ sentence: the prescale/postscale mismatch and the allgather trailing-dims
 mismatch name both ranks' values, and a broadcast whose shapes differ is
 refused (NCCL and gloo broadcast into a buffer of the root's shape on
 every rank; the JAX star backend sends the root's shape instead). The
-coordinator forces a negotiation round when a stall check is due on
-pending tensors, which the JAX package's telemetry rounds do there. The
-wire codec follows the port's ``ops/wire.py`` policy. The fleet
-telemetry, tracing, alert and event piggybacks and the liveness plane's
-abort verdicts (the JAX package's ``_FLAG_ABORT``) wait for ROADMAP A8.
+wire codec follows the port's ``ops/wire.py`` policy.
+
+Every HOROVOD_METRICS_SYNC_SECONDS each rank piggybacks its scalar
+telemetry snapshot (``telemetry.encode_push``) on the request list it
+gathers to rank 0, which folds the blobs into its ``FleetView``; a rank
+overdue for a push raises HAS_UNCACHED, so a cache-only steady state
+still runs one negotiation round an interval (the JAX package's push).
+The coordinator forces such a round too when a stall check is due on
+pending tensors. Rank 0 also keeps the JAX package's straggler gauges
+(the last rank in, and each rank's wait past the first arrival). The
+tracing, alert and event piggybacks wait for ROADMAP A8.2 and A8.4, and
+the liveness plane's abort verdicts (the JAX package's ``_FLAG_ABORT``)
+for A8.3.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from ..common import env as env_cfg
+from ..common import telemetry
 from ..common.message import (
     Request,
     RequestList,
@@ -114,7 +123,7 @@ def _dims(shape) -> str:
 
 class Controller:
     def __init__(self, transport: ControllerTransport, size: int, rank: int,
-                 timeline=None, num_channels: Optional[int] = None):
+                 timeline=None, num_channels: Optional[int] = None, registry=None):
         # Coordinator-side timeline hook: negotiation phases are only
         # observable here (ref: operations.cc:416-429).
         self.timeline = timeline
@@ -122,10 +131,27 @@ class Controller:
         self.size = size
         self.rank = rank
         self.is_coordinator = rank == 0
-        self.response_cache = ResponseCache(env_cfg.cache_capacity())
+        self.registry = registry if registry is not None else telemetry.default_registry()
+        self.response_cache = ResponseCache(env_cfg.cache_capacity(), registry=self.registry)
         self.cache_enabled = env_cfg.cache_enabled()
         self.fusion_threshold = env_cfg.fusion_threshold_bytes()
-        self.stall_inspector = StallInspector(size)
+        self.stall_inspector = StallInspector(size, registry=self.registry)
+        # Cross-rank telemetry (module docstring); 0 disables it. A last
+        # push at 0 makes the first gather carry a snapshot, so the fleet
+        # view exists as soon as the first negotiation completes.
+        self.fleet = telemetry.FleetView(size) if self.is_coordinator else None
+        self._metrics_sync_s = env_cfg.metrics_sync_seconds()
+        self._last_metrics_push = 0.0
+        # Per-tensor request arrivals (coordinator, monotonic ns) for the
+        # straggler gauges.
+        self._arrivals: Dict[str, Dict[int, int]] = {}
+        if self.is_coordinator:
+            self._m_straggler = self.registry.gauge(
+                "horovod_straggler_rank",
+                "Rank whose request arrived last for the most recently "
+                "negotiated collective (-1 before the first)")
+            self._m_straggler.set(-1)
+            self._m_neg_wait: Dict[int, telemetry.Gauge] = {}
         # Channels: fixed when the engine starts (each holds a process
         # group); the coordinator assigns ids below this count.
         self.num_channels = (env_cfg.num_channels() if num_channels is None
@@ -192,11 +218,12 @@ class Controller:
         if self.cache_enabled:
             nwords = (max(self.response_cache.num_bits(), 1) + 63) // 64
             flags = 0
-            # HAS_UNCACHED: the coordinator raises it too when a stall check
-            # is due on pending tensors; in a cache-only steady state no
-            # negotiation would otherwise run the inspector (the JAX
-            # package's telemetry push forces such rounds, ROADMAP A8).
-            if uncached or self._stall_check_due():
+            # HAS_UNCACHED: a rank overdue for a telemetry push raises it
+            # too, and so does the coordinator when a stall check is due
+            # on pending tensors: in a cache-only steady state no
+            # negotiation would otherwise run, and the fleet view would go
+            # stale exactly when the job is busiest.
+            if uncached or self._telemetry_due() or self._stall_check_due():
                 flags |= _FLAG_HAS_UNCACHED
             if shutdown:
                 flags |= _FLAG_SHUTDOWN
@@ -241,13 +268,22 @@ class Controller:
         if any_uncached or not self.cache_enabled:
             self.negotiations += 1
             req_list = RequestList(uncached, shutdown=shutdown)
+            # Attach at half the interval once a gather runs anyway: a rank
+            # drawn into another rank's forced round publishes too and
+            # resets its timer, so the ranks' deadlines coalesce into about
+            # one forced round an interval.
+            if self._telemetry_elapsed() >= self._metrics_sync_s / 2 > 0:
+                self._last_metrics_push = time.monotonic()
+                req_list.telemetry = telemetry.encode_push(self.registry, self.rank)
             gathered = self.transport.gather_bytes(req_list.serialize())
             if self.is_coordinator:
                 negotiated: List[Response] = []
                 ready_names: List[str] = []
                 joined_before = len(self.joined_ranks)
-                for payload in gathered:
+                for peer_rank, payload in enumerate(gathered):
                     rl = RequestList.deserialize(payload)
+                    if rl.telemetry is not None:
+                        self.fleet.ingest(rl.telemetry, rank_hint=peer_rank)
                     shutdown = shutdown or rl.shutdown
                     for req in rl.requests:
                         if req.request_type == RequestType.JOIN:
@@ -418,6 +454,31 @@ class Controller:
             if nbytes >= min_bytes:
                 resp.codec = codec
 
+    def _telemetry_elapsed(self) -> float:
+        return time.monotonic() - self._last_metrics_push
+
+    def _telemetry_due(self) -> bool:
+        return (self._metrics_sync_s > 0
+                and self._telemetry_elapsed() >= self._metrics_sync_s)
+
+    def _note_negotiated(self, name: str):
+        """Straggler attribution for one ready tensor: each rank's wait past
+        the first arrival, and the last rank in."""
+        arr = self._arrivals.pop(name, None)
+        if not arr or len(arr) < 2:
+            return
+        first = min(arr.values())
+        for r, t in arr.items():
+            g = self._m_neg_wait.get(r)
+            if g is None:
+                g = self._m_neg_wait[r] = self.registry.gauge(
+                    "horovod_negotiation_wait_seconds",
+                    "How long the most recent collective's negotiation "
+                    "waited on this rank past the first request arrival",
+                    labels={"rank": str(r)})
+            g.set((t - first) / 1e9)
+        self._m_straggler.set(max(arr, key=arr.get))
+
     def _stall_check_due(self) -> bool:
         insp = self.stall_inspector
         return (self.is_coordinator and insp.enabled and bool(insp.pending)
@@ -447,6 +508,8 @@ class Controller:
         if req.request_rank not in rec.ranks:
             rec.requests.append(req)
             rec.ranks.add(req.request_rank)
+            self._arrivals.setdefault(
+                req.tensor_name, {})[req.request_rank] = time.monotonic_ns()
         self.stall_inspector.record(req.tensor_name, req.request_rank)
         return len(rec.ranks) == self.size - len(self.joined_ranks)
 
@@ -462,6 +525,7 @@ class Controller:
                 name, rec.requests[0].request_type.name
             )
         self.stall_inspector.remove(name)
+        self._note_negotiated(name)
         reqs = rec.requests
         first = reqs[0]
 

@@ -28,7 +28,8 @@ under a batched ``broadcast_parameters``); NCCL documents that as a
 deadlock once a launch waits on the device, for a collective a peer will
 launch only after its own wait. The kernels of the two channels still run
 at once on the device. ``launch_log()`` keeps the order of the last
-launches (sequence, channel, first tensor name).
+launches (sequence, channel, first tensor name); a response enters it when
+it takes its turn, before any of its handles can complete.
 
 On CUDA an enqueue records a ready event on the caller's current stream;
 the channel stream waits on it before it reads the tensor, marks the
@@ -40,10 +41,20 @@ records a done event. ``synchronize`` makes the caller's current stream
 wait on that event and marks the output as used on it; the host never
 waits for the device, and no gradient byte passes through host memory.
 
-The metrics, tracing, goodput, health, alerts and events planes wait for
-ROADMAP A8 and the autotuner for A6; the few counters ``counters()``
-returns (cycles, negotiations, responses, fused tensors, bytes, cache
-hits) are plain integers.
+The engine registers the JAX engine's series in the telemetry registry
+(``common/telemetry.py``; the process default unless it is given one):
+cycle seconds and wake-ups, responses, tensors and bytes a response and a
+response type, the executor, tensor-queue and in-flight depths, the last
+cycle's age, and ``horovod_op_latency_seconds{op=...}`` an executed
+operation. On the CPU an operation is timed on the host clock; on CUDA,
+where the launch returns before the card has finished, by CUDA events
+recorded on the channel's stream around it, read by the background loop
+once the card has passed them (no host wait is added for it).
+``counters()`` reads the same objects, since this engine started. In
+process mode the engine starts the exporters the environment asks for
+(``common/metrics_export.py``) and serves its live state at ``/status``.
+The goodput gauges wait for ROADMAP A8.4, the tracing, health, alerts and
+events planes for A8.2-A8.4, and the autotuner for A6.
 """
 from __future__ import annotations
 
@@ -56,6 +67,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..common import env as env_cfg
+from ..common import telemetry
 from ..common.exceptions import HorovodInternalError
 from ..common.message import Request, RequestType, Response, ResponseType
 from ..common.types import ReduceOp, Status, from_wire_dtype, to_wire_dtype
@@ -194,9 +206,19 @@ class _ChannelExecutor:
         self.engine = engine
         self.channel = channel
         self.queue: "queue_mod.Queue" = queue_mod.Queue()
+        # Tensor names of the response being executed (the /status view).
+        self.current: Optional[List[str]] = None
+        self.gauge = engine.registry.gauge(
+            "horovod_executor_queue_depth",
+            "Responses queued on a channel executor",
+            labels={"channel": str(channel.index)})
+        self.gauge.set_function(self.depth)
         self.thread = threading.Thread(
             target=self._loop, name=f"hvd-exec-{channel.index}", daemon=True)
         self.thread.start()
+
+    def depth(self) -> int:
+        return self.queue.qsize()
 
     def _loop(self):
         eng = self.engine
@@ -208,28 +230,32 @@ class _ChannelExecutor:
             seq, resp = item
             try:
                 # After a fatal error, drain without executing.
-                if eng._await_turn(seq):
+                if eng._await_turn(seq, self.channel, resp):
+                    self.current = list(resp.tensor_names)
                     eng._perform_operation(resp, self.channel)
             except HorovodInternalError as exc:
                 eng._latch_fatal(exc)
             except BaseException as exc:  # pragma: no cover - defensive
                 eng._latch_fatal(HorovodInternalError(str(exc)))
             finally:
-                eng._end_turn(seq, self.channel, resp)
+                self.current = None
+                eng._end_turn(seq)
                 eng._response_done()
 
 
 class Engine:
     def __init__(self, rank: int = 0, size: int = 1,
                  device: Optional[torch.device] = None, transport=None,
-                 channel_groups=None, on_fatal: Optional[Callable[[], None]] = None):
+                 channel_groups=None, on_fatal: Optional[Callable[[], None]] = None,
+                 registry: Optional[telemetry.MetricsRegistry] = None):
         """``transport``: the control plane (``engine/transport.py``);
         ``channel_groups``: one data-plane process group per channel (None
         entries at a world of one); ``on_fatal``: called once, on the thread
         that latched it, when the first fatal error latches (``hvd.init()``
         aborts the world's process groups there, so a collective in flight
         with a dead peer ends on every channel and on the caller's own
-        NCCL path instead of spinning)."""
+        NCCL path instead of spinning); ``registry``: where the series go
+        (the process default when None)."""
         from .transport import LocalTransport
 
         self.rank = rank
@@ -237,15 +263,42 @@ class Engine:
         self.device = device if device is not None else torch.device("cpu")
         self.transport = transport if transport is not None else LocalTransport()
         self._on_fatal = on_fatal
+        self.registry = registry if registry is not None else telemetry.default_registry()
+        self._exporters: list = []
+        self._last_cycle_ts: Optional[float] = None
+        self._m_cycle = self.registry.histogram(
+            "horovod_cycle_seconds",
+            "Engine cycle work duration (sleep excluded)")
+        self._m_responses = self.registry.counter(
+            "horovod_responses_total", "Fused responses executed")
+        self._m_resp_tensors = self.registry.histogram(
+            "horovod_response_tensors",
+            "Tensors per fused response", min_exp=0, max_exp=12)
+        self._m_resp_bytes = self.registry.histogram(
+            "horovod_response_bytes",
+            "Payload bytes per fused response", min_exp=0, max_exp=34)
+        self._m_op_counters: Dict[str, Tuple[telemetry.Counter, telemetry.Counter]] = {}
+        self._m_op_latency: Dict[str, telemetry.Histogram] = {}
+        self._m_wake = {
+            reason: self.registry.counter(
+                "horovod_cycle_wakeups_total",
+                "Background-loop cycle starts by wake reason",
+                labels={"reason": reason})
+            for reason in ("enqueue", "timeout", "spin", "shutdown")
+        }
+        # CUDA (start, end, histogram) triples of launched operations whose
+        # end the card has not yet been seen to pass.
+        self._pending_latency: "collections.deque" = collections.deque()
         groups = list(channel_groups) if channel_groups is not None \
             else [None] * env_cfg.num_channels()
         self.channels = [Channel(i, g, rank, size, self.device)
                          for i, g in enumerate(groups)]
         self.controller: Optional[Controller] = None
         self.op_manager = build_default(size)
-        self.tensor_queue = TensorQueue()
+        self.tensor_queue = TensorQueue(registry=self.registry)
         self.handles = HandleManager()
-        self.timeline = (Timeline() if rank == 0 else Timeline(use_env=False))
+        self.timeline = (Timeline(registry=self.registry) if rank == 0
+                         else Timeline(use_env=False, registry=self.registry))
         self.cycle_time_s = env_cfg.cycle_time_ms() / 1000.0
         self._thread: Optional[threading.Thread] = None
         self._shutdown_requested = threading.Event()
@@ -269,9 +322,23 @@ class Engine:
         self._join_counter = 0
         self._counter_lock = threading.Lock()
         self._fusion_storage: Dict[Tuple[int, torch.dtype], torch.Tensor] = {}
-        self._stats = {"cycles": 0, "responses": 0, "fused_responses": 0,
-                       "tensors": 0, "bytes": 0}
-        self._stats_lock = threading.Lock()
+        # Cycles that carried a negotiated response (the /status view).
+        self.response_cycles = 0
+        # Pull gauges, attached once their state exists; shutdown detaches
+        # them only while this engine still owns them.
+        self._gauge_fns: Dict[str, Callable[[], float]] = {
+            "horovod_tensor_queue_depth": self.tensor_queue.size,
+            "horovod_last_cycle_age_seconds": self._last_cycle_age,
+            "horovod_inflight_responses": lambda: self._inflight,
+        }
+        for name, help_text in (
+                ("horovod_tensor_queue_depth", "Tensors currently pending in the queue"),
+                ("horovod_last_cycle_age_seconds",
+                 "Seconds since the background loop last completed a cycle"),
+                ("horovod_inflight_responses",
+                 "Responses dispatched to channel executors and not yet done")):
+            self.registry.gauge(name, help_text).set_function(self._gauge_fns[name])
+        self._base = self._totals()
 
     # ------------------------------------------------------------------
     def start(self):
@@ -282,6 +349,25 @@ class Engine:
         if self._init_error is not None:
             raise self._init_error
 
+    def start_exporters(self):
+        """Start the exporters the environment asks for, with this engine's
+        fleet view and its ``/status`` (process mode, once ``start``
+        succeeded, so a live engine is always behind them); ``shutdown``
+        stops them."""
+        from ..common import metrics_export
+
+        fleet = self.controller.fleet if self.controller is not None else None
+        self._exporters = metrics_export.start_exporters_from_env(
+            registry=self.registry, fleet=fleet, status_fn=self.status, rank=self.rank)
+
+    def stop_exporters(self):
+        for exp in self._exporters:
+            try:
+                exp.stop()
+            except Exception:  # pragma: no cover - exporter already dead
+                pass
+        self._exporters = []
+
     def _bind_device(self):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -291,7 +377,8 @@ class Engine:
             self._bind_device()
             self.controller = Controller(self.transport, self.size, self.rank,
                                          timeline=self.timeline,
-                                         num_channels=len(self.channels))
+                                         num_channels=len(self.channels),
+                                         registry=self.registry)
             for ch in self.channels:
                 self._executors[ch.index] = _ChannelExecutor(self, ch)
         except BaseException as e:  # surface failures to start()
@@ -321,6 +408,7 @@ class Engine:
                 if ex.thread.is_alive():  # pragma: no cover - wedged op
                     logger.warning("channel %d executor did not exit cleanly",
                                    ex.channel.index)
+            self._harvest_latency(final=True)
             self.timeline.shutdown()
 
     # ------------------------------------------------------------------
@@ -366,18 +454,22 @@ class Engine:
         seq, self._dispatch_seq = self._dispatch_seq, self._dispatch_seq + 1
         ex.queue.put((seq, resp))
 
-    def _await_turn(self, seq: int) -> bool:
-        """Wait until response ``seq`` is the next to launch on this rank.
-        False after a fatal error: the response is drained, not run."""
+    def _await_turn(self, seq: int, chan: Channel, resp: Response) -> bool:
+        """Wait until response ``seq`` is the next to launch on this rank and
+        enter it in the launch log: before it runs, so no handle of it can
+        complete before it is there. False after a fatal error: the
+        response is drained, not run, and not logged."""
         with self._turn_cond:
             while self._turn != seq and self._fatal_error is None:
                 self._turn_cond.wait(0.1)
-        return self._fatal_error is None
+            if self._fatal_error is not None:
+                return False
+            self._launch_log.append((seq, chan.index, resp.tensor_names[0]
+                                     if resp.tensor_names else ""))
+        return True
 
-    def _end_turn(self, seq: int, chan: Channel, resp: Response):
+    def _end_turn(self, seq: int):
         """Pass the turn on to the next response, on whichever channel."""
-        self._launch_log.append((seq, chan.index, resp.tensor_names[0]
-                                 if resp.tensor_names else ""))
         with self._turn_cond:
             self._turn = seq + 1
             self._turn_cond.notify_all()
@@ -394,24 +486,30 @@ class Engine:
                 self._inflight_cond.wait(0.1)
         self._check_fatal()
 
-    def _cycle_wait(self):
+    def _cycle_wait(self) -> str:
         """Coalescing wait before a cycle: until an enqueue, at most the
-        cycle time (a fixed sleep without event-driven cycles)."""
-        if self._shutdown_requested.is_set() or self.cycle_time_s <= 0:
-            return
+        cycle time (a fixed sleep without event-driven cycles). Returns the
+        wake reason."""
+        if self._shutdown_requested.is_set():
+            return "shutdown"
+        if self.cycle_time_s <= 0:
+            return "spin"
         if not self._event_cycles:
             time.sleep(self.cycle_time_s)
-            return
-        self._wake.wait(self.cycle_time_s)
+            return "timeout"
+        woke = self._wake.wait(self.cycle_time_s)
         # Clear before popping messages: an enqueue landing after the pop
         # re-sets it, so the next cycle wakes at once.
         self._wake.clear()
+        return "enqueue" if woke else "timeout"
 
     # ------------------------------------------------------------------
     def _run_loop_once(self) -> bool:
         """(ref: RunLoopOnce, operations.cc:566-616)"""
-        self._cycle_wait()
+        self._m_wake[self._cycle_wait()].inc()
         self._check_fatal()
+        self._harvest_latency()
+        cycle_t0 = time.monotonic()
         self.timeline.mark_cycle()
         messages = self.tensor_queue.pop_messages_from_queue()
         want_shutdown = self._shutdown_requested.is_set()
@@ -420,8 +518,6 @@ class Engine:
                 messages, shutdown=want_shutdown)
         except Exception as exc:
             raise HorovodInternalError(f"engine negotiation failed: {exc}") from exc
-        with self._stats_lock:
-            self._stats["cycles"] += 1
         # Terminal abort verdict (a stall shutdown): latch it as the first
         # cause and die without draining, so every pending handle fails
         # with the diagnosis.
@@ -432,12 +528,18 @@ class Engine:
                     exc = HorovodInternalError(resp.error_message)
                     self._latch_fatal(exc)
                     raise exc
+        if resp_list.responses:
+            self.response_cycles += 1
         for resp in resp_list.responses:
             if resp.response_type in _FENCE_TYPES:
                 self._drain_channels()
                 self._perform_operation(resp, self.channels[0])
             else:
                 self._dispatch(resp)
+        # Cycle work (waits excluded), and the liveness stamp behind the
+        # last-cycle age gauge.
+        self._last_cycle_ts = time.monotonic()
+        self._m_cycle.observe(self._last_cycle_ts - cycle_t0)
         if should_shutdown:
             # Clean shutdown (every rank agreed): in-flight collectives
             # complete before pending handles are finalized.
@@ -475,18 +577,75 @@ class Engine:
         ev.record(chan.stream)
         return ev
 
-    def _count(self, resp: Response, entries: List[TensorTableEntry]):
-        with self._stats_lock:
-            self._stats["responses"] += 1
-            self._stats["tensors"] += len(entries)
-            self._stats["fused_responses"] += len(entries) > 1
-            self._stats["bytes"] += sum(e.tensor.numel() * e.tensor.element_size()
-                                        for e in entries if e.tensor is not None)
+    def _record_response(self, resp_type: ResponseType, ntensors: int, nbytes: int):
+        self._m_responses.inc()
+        self._m_resp_tensors.observe(ntensors)
+        self._m_resp_bytes.observe(nbytes)
+        ent = self._m_op_counters.get(resp_type.name)
+        if ent is None:
+            low = resp_type.name.lower()
+            ent = self._m_op_counters[resp_type.name] = (
+                self.registry.counter(
+                    f"horovod_{low}_tensors_total",
+                    f"Tensors processed by {resp_type.name} responses"),
+                self.registry.counter(
+                    f"horovod_{low}_bytes_total",
+                    f"Input payload bytes moved by {resp_type.name}"),
+            )
+        ent[0].inc(ntensors)
+        ent[1].inc(nbytes)
+
+    def _op_begin(self, chan: Channel, tensor: torch.Tensor):
+        """The start of an operation's latency: a timing event recorded on
+        the channel's stream for a CUDA tensor, else the host clock."""
+        if chan.stream is None or not tensor.is_cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(chan.stream)
+        return ev
+
+    def _op_end(self, op_name: str, chan: Channel, start):
+        """Observe an operation's latency in ``horovod_op_latency_seconds``:
+        at once on the host clock; on CUDA, once the card has passed the end
+        event (``_harvest_latency``)."""
+        h = self._m_op_latency.get(op_name)
+        if h is None:
+            h = self._m_op_latency[op_name] = self.registry.histogram(
+                "horovod_op_latency_seconds",
+                "Data-plane op execution latency by backend implementation",
+                labels={"op": op_name})
+        if isinstance(start, float):
+            h.observe(time.perf_counter() - start)
+            return
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(chan.stream)
+        self._pending_latency.append((start, end, h))
+
+    def _harvest_latency(self, final: bool = False):
+        """Observe the operations the card has finished, in launch order
+        (every cycle, on the background thread; ``final``: past an
+        unfinished one too). Only ``query()``: the host never waits."""
+        q = self._pending_latency
+        while q:
+            start, end, h = q[0]
+            try:
+                done = end.query()
+            except RuntimeError:  # the card's context failed: nothing to time
+                q.clear()
+                return
+            if not done and not final:
+                return
+            q.popleft()
+            if done:
+                h.observe(start.elapsed_time(end) / 1e3)
 
     def _execute_response(self, resp: Response, chan: Channel):
         entries = self.tensor_queue.get_tensor_entries(resp.tensor_names)
         if resp.response_type != ResponseType.ERROR:
-            self._count(resp, entries)
+            self._record_response(
+                resp.response_type, len(entries),
+                sum(e.tensor.numel() * e.tensor.element_size()
+                    for e in entries if e.tensor is not None))
         for e in entries:
             # The op phase opens when execution begins
             # (ref: Timeline::Start, timeline.h:106-110).
@@ -503,24 +662,30 @@ class Engine:
                 for e in entries:
                     op = self.op_manager.select(ResponseType.ALLGATHER,
                                                 device=e.tensor.device.type)
+                    t0 = self._op_begin(chan, e.tensor)
                     with self.timeline.activity(e.tensor_name, op.name):
                         out = op.execute(e.tensor, list(resp.tensor_sizes), chan)
+                    self._op_end(op.name, chan, t0)
                     self._finish(e, Status.OK(), out, self._done_event(chan))
             elif resp.response_type == ResponseType.BROADCAST:
                 self._ready(entries, chan)
                 for e in entries:
                     op = self.op_manager.select(ResponseType.BROADCAST,
                                                 device=e.tensor.device.type)
+                    t0 = self._op_begin(chan, e.tensor)
                     with self.timeline.activity(e.tensor_name, op.name):
                         out = op.execute(e.tensor, e.root_rank, chan)
+                    self._op_end(op.name, chan, t0)
                     self._finish(e, Status.OK(), out, self._done_event(chan))
             elif resp.response_type == ResponseType.ALLTOALL:
                 self._ready(entries, chan)
                 for e in entries:
                     op = self.op_manager.select(ResponseType.ALLTOALL,
                                                 device=e.tensor.device.type)
+                    t0 = self._op_begin(chan, e.tensor)
                     with self.timeline.activity(e.tensor_name, op.name):
                         out, recv_splits = op.execute(e.tensor, e.splits, chan)
+                    self._op_end(op.name, chan, t0)
                     self._finish(e, Status.OK(), (out, recv_splits),
                                  self._done_event(chan))
             elif resp.response_type == ResponseType.BARRIER:
@@ -581,8 +746,10 @@ class Engine:
         if pre != 1.0:
             buf = _scale(buf, pre)
         op = self.op_manager.select(kind, device=buf.device.type)
+        t0 = self._op_begin(chan, buf)
         with self.timeline.activity(name0, op.name):
             red = op.execute(buf, rop, chan, codec)
+        self._op_end(op.name, chan, t0)
         if post != 1.0:
             red = _scale(red, post)
         if shapes is None:
@@ -745,19 +912,81 @@ class Engine:
                                          self._auto_name("barrier", None), "barrier")])[0]
 
     # ------------------------------------------------------------------
+    def _totals(self) -> dict:
+        """The registry's running totals behind ``counters()``."""
+        def value(name: str) -> int:
+            m = self.registry.get(name)
+            return 0 if m is None else int(m.value)
+
+        tensors = self._m_resp_tensors.snapshot()
+        return {"cycles": self._m_cycle.count,
+                "responses": int(self._m_responses.value),
+                # Responses of more than one tensor: all but the first
+                # bucket (at most 1) of the tensors-a-response histogram.
+                "fused_responses": tensors["count"] - tensors["counts"][0],
+                "tensors": int(tensors["sum"]),
+                "bytes": int(self._m_resp_bytes.sum),
+                "cache_hits": value("horovod_response_cache_hits_total"),
+                "cache_misses": value("horovod_response_cache_misses_total"),
+                "stall_warnings": value("horovod_stall_warnings_total")}
+
     def counters(self) -> dict:
         """Cycles run, negotiation rounds, responses executed (fused ones
-        apart), tensors and input bytes they moved, and the response
-        cache's hits and misses, since the engine started."""
-        with self._stats_lock:
-            out = dict(self._stats)
+        apart), tensors and input bytes they moved, the response cache's
+        hits and misses and the stall warnings, since the engine started:
+        the registry's series (which count on across engines) less their
+        values at this engine's start."""
+        now = self._totals()
+        out = {k: v - self._base[k] for k, v in now.items()}
         ctrl = self.controller
         if ctrl is not None:
             out["negotiations"] = ctrl.negotiations
-            out["cache_hits"] = ctrl.response_cache.hits
-            out["cache_misses"] = ctrl.response_cache.misses
-            out["stall_warnings"] = ctrl.stall_inspector.warnings
         return out
+
+    def _last_cycle_age(self) -> float:
+        ts = self._last_cycle_ts
+        return (time.monotonic() - ts) if ts is not None else -1.0
+
+    def status(self) -> dict:
+        """Live state for the ``/status`` view and ``hvd.metrics()``."""
+        st = {
+            "rank": self.rank,
+            "size": self.size,
+            "queue_depth": self.tensor_queue.size(),
+            "pending_tensors": self.tensor_queue.pending_names(),
+            "last_cycle_age_seconds": self._last_cycle_age(),
+            "response_cycles": self.response_cycles,
+            "inflight_responses": self._inflight,
+            "channels": {str(ch): {"queue_depth": ex.depth(),
+                                   "executing": list(ex.current or [])}
+                         for ch, ex in sorted(list(self._executors.items()))},
+        }
+        from ..common import checkpoint as _ckpt
+        from ..optim import zero as _zero
+
+        mgr = _ckpt.current()
+        if mgr is not None:
+            st["checkpoint"] = mgr.status()
+        zero_st = _zero.status_snapshot()
+        if zero_st:
+            st["zero"] = zero_st
+        ctrl = self.controller
+        if ctrl is not None and ctrl.is_coordinator:
+            now = time.monotonic()
+            pending = {}
+            try:
+                for name, (t0, ready) in list(ctrl.stall_inspector.pending.items()):
+                    pending[name] = {
+                        "age_seconds": now - t0,
+                        "ready_ranks": sorted(ready),
+                        "missing_ranks": sorted(set(range(self.size)) - set(ready)),
+                    }
+            except RuntimeError:  # the table changed under us; the next read wins
+                pass
+            st["negotiating"] = pending
+            if ctrl.fleet is not None:
+                st["fleet"] = ctrl.fleet.snapshot()
+        return st
 
     def poll(self, handle: int) -> bool:
         return self.handles.poll(handle)
@@ -776,6 +1005,14 @@ class Engine:
         self._wake.set()
         self._thread.join(timeout=15 if self.failed else 60)
         self._thread = None
+        self.stop_exporters()
+        # Detach the pull gauges, each only while this engine still owns it:
+        # on the process registry they would otherwise pin this engine and
+        # report its frozen state as live after an elastic re-init.
+        for name, fn in self._gauge_fns.items():
+            self.registry.gauge(name).clear_function(fn)
+        for ex in self._executors.values():
+            ex.gauge.clear_function(ex.depth)
         # Let go of the process groups: a gloo group's sockets close only
         # when it is freed (its abort() closes nothing), and that is how
         # peers still blocked on this rank in a failed world learn of the

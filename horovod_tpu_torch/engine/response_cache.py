@@ -8,14 +8,15 @@ tensor short-circuits negotiation only when *every* rank has it queued and
 cached) and OR their invalid bits. Capacity default 1024
 (ref: global_state.h:88), LRU eviction. The cached object is the whole
 negotiated Response, so its channel and wire codec replay with it on every
-rank. ``hits`` and ``misses`` count what the JAX package's telemetry
-counters of those names count (the registry waits for ROADMAP A8).
+rank. Hits, misses and invalidations are the JAX package's telemetry
+counters (``horovod_response_cache_*_total``).
 """
 from __future__ import annotations
 
 import collections
 from typing import Dict, List, Optional, Set, Tuple
 
+from ..common import telemetry
 from ..common.message import Request, Response
 
 
@@ -39,9 +40,18 @@ class CacheState:
 
 
 class ResponseCache:
-    def __init__(self, capacity: int = 1024):
-        self.hits = 0
-        self.misses = 0
+    def __init__(self, capacity: int = 1024, registry=None):
+        if registry is None:
+            registry = telemetry.default_registry()
+        self._m_hits = registry.counter(
+            "horovod_response_cache_hits_total",
+            "Negotiations short-circuited by the response cache")
+        self._m_misses = registry.counter(
+            "horovod_response_cache_misses_total",
+            "Requests with no usable cache entry")
+        self._m_invalid = registry.counter(
+            "horovod_response_cache_invalidations_total",
+            "Cache entries dropped because the request signature changed")
         self.capacity = capacity
         # name -> (bit, key, response)
         self._by_name: Dict[str, Tuple[int, Tuple, Response]] = {}
@@ -53,7 +63,7 @@ class ResponseCache:
     def cached(self, req: Request) -> int:
         ent = self._by_name.get(req.tensor_name)
         if ent is None:
-            self.misses += 1
+            self._m_misses.inc()
             return CacheState.MISS
         bit, key, _ = ent
         if key == _request_key(req):
@@ -64,11 +74,12 @@ class ResponseCache:
             # measures fast-path responses served, not optimistic local
             # lookups.
             return CacheState.HIT
+        self._m_invalid.inc()
         return CacheState.INVALID
 
     def count_hit(self):
         """One response actually served from the cache fast path."""
-        self.hits += 1
+        self._m_hits.inc()
 
     def put(self, req: Request, resp: Response):
         if req.tensor_name in self._by_name:

@@ -5,8 +5,8 @@ horovod/common/stall_inspector.{h,cc}:30-96).
 Warns, with the JAX package's text, when a tensor has been submitted by
 some ranks but is missing on others for more than
 HOROVOD_STALL_CHECK_TIME_SECONDS (default 60); optionally aborts after
-HOROVOD_STALL_SHUTDOWN_TIME_SECONDS. ``warnings`` counts what the JAX
-package's telemetry counter of stall warnings counts.
+HOROVOD_STALL_SHUTDOWN_TIME_SECONDS. Warnings and aborts are the JAX
+package's telemetry counters (``horovod_stall_*_total``).
 """
 from __future__ import annotations
 
@@ -14,14 +14,22 @@ import time
 from typing import Dict, Optional, Set, Tuple
 
 from ..common import env as env_cfg
+from ..common import telemetry
 from ..utils.logging import get_logger
 
 logger = get_logger()
 
 
 class StallInspector:
-    def __init__(self, size: int):
-        self.warnings = 0
+    def __init__(self, size: int, registry=None):
+        if registry is None:
+            registry = telemetry.default_registry()
+        self._m_warnings = registry.counter(
+            "horovod_stall_warnings_total",
+            "Tensors that stalled past the warning threshold")
+        self._m_aborts = registry.counter(
+            "horovod_stall_aborts_total",
+            "Stall-shutdown aborts issued by the coordinator")
         self.size = size
         self.enabled = not env_cfg.stall_check_disabled()
         self.warning_time = env_cfg.stall_check_seconds()
@@ -67,9 +75,10 @@ class StallInspector:
                     age, name, sorted(ready), missing,
                 )
                 self.warned.add(name)
-                self.warnings += 1
+                self._m_warnings.inc()
             if self.shutdown_time > 0 and age > self.shutdown_time:
                 logger.error("Stall shutdown time exceeded for %s; aborting.", name)
+                self._m_aborts.inc()
                 if abort is None:
                     abort = (
                         f"stall shutdown: op {name} waited {age:.0f}s "

@@ -6,8 +6,9 @@ An entry holds the caller's ``torch.Tensor`` on the rank's device. On a
 CUDA tensor it also holds ``ready_event``, recorded on the caller's
 current stream at enqueue: the channel stream that reads the tensor waits
 on it first (ref: ReadyEvent), since a gradient may still be being written
-when its hook enqueues it. The queue's telemetry counters wait for ROADMAP
-A8.
+when its hook enqueues it. Enqueues refused after the engine died and
+entries failed by ``finalize`` count in the JAX package's telemetry
+counters (``horovod_tensor_queue_*_total``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..common import telemetry
 from ..common.message import Request
 from ..common.types import Status
 
@@ -45,7 +47,16 @@ class TensorTableEntry:
 
 
 class TensorQueue:
-    def __init__(self):
+    def __init__(self, registry=None):
+        if registry is None:
+            registry = telemetry.default_registry()
+        self._m_latched = registry.counter(
+            "horovod_tensor_queue_latched_errors_total",
+            "Enqueues rejected because the engine already died "
+            "(terminal status latched)")
+        self._m_aborted = registry.counter(
+            "horovod_tensor_queue_aborted_entries_total",
+            "Pending entries failed by finalize() on engine death")
         self._lock = threading.Lock()
         self._tensor_table: Dict[str, TensorTableEntry] = {}
         self._message_queue: List[Request] = []
@@ -71,6 +82,7 @@ class TensorQueue:
         with self._lock:
             for entry, request in pairs:
                 if self._final_status is not None:
+                    self._m_latched.inc()
                     out.append(self._final_status)
                 elif entry.tensor_name in self._tensor_table:
                     out.append(Status.InvalidArgument(DUPLICATE_NAME_ERROR))
@@ -106,11 +118,21 @@ class TensorQueue:
             names = [n for n in self._tensor_table if n.startswith(prefix)]
             return [self._tensor_table.pop(n) for n in names]
 
+    def size(self) -> int:
+        with self._lock:
+            return len(self._tensor_table)
+
+    def pending_names(self) -> List[str]:
+        """Names of tensors still awaiting a response (for /status)."""
+        with self._lock:
+            return sorted(self._tensor_table)
+
     def finalize(self, status: Status):
         """Abort every pending entry with ``status`` and latch it as the
         terminal state (ref: tensor_queue.cc FinalizeTensorQueue)."""
         with self._lock:
             self._final_status = status
+            self._m_aborted.inc(len(self._tensor_table))
             entries = list(self._tensor_table.values())
             self._tensor_table.clear()
             self._message_queue.clear()

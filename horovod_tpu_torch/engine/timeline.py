@@ -8,7 +8,8 @@ implementation such as NCCL_ALLREDUCE, MEMCPY_OUT_FUSION_BUFFER). Records
 are pushed to a writer thread through a queue so the hot path never
 blocks on file IO. Enabled by HOROVOD_TIMELINE=<file> and written by the
 coordinator only (ref: operations.cc:416-429), in the JAX package's event
-names and layout.
+names and layout. Events a full queue drops count in the JAX package's
+``horovod_trace_events_dropped_total{source="timeline"}``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import time
 from typing import Dict, Optional
 
 from ..common import env as env_cfg
+from ..common import telemetry
 from ..utils import clock
 from ..utils.logging import get_logger
 
@@ -33,7 +35,7 @@ NEGOTIATE = "NEGOTIATE"
 
 class Timeline:
     def __init__(self, filename: Optional[str] = None, use_env: bool = True,
-                 queue_size: int = 1 << 20):
+                 registry=None, queue_size: int = 1 << 20):
         # use_env=False on non-coordinator ranks: only rank 0 writes
         # (ref: operations.cc:416-429).
         if filename is None and use_env:
@@ -51,7 +53,11 @@ class Timeline:
         self._stop = threading.Event()
         # A full writer queue drops events (the hot path must never block
         # on file IO); count them and warn once.
-        self.dropped = 0
+        self._m_dropped = (registry or telemetry.default_registry()).counter(
+            "horovod_trace_events_dropped_total",
+            "Trace events lost before reaching an output (flight-"
+            "recorder ring overwrites, timeline writer-queue drops)",
+            labels={"source": "timeline"})
         self._warned_drop = False
         if self.enabled:
             self._writer = threading.Thread(
@@ -77,7 +83,7 @@ class Timeline:
         try:
             self._q.put_nowait(ev)
         except queue.Full:
-            self.dropped += 1
+            self._m_dropped.inc()
             if not self._warned_drop:
                 self._warned_drop = True
                 logger.warning(
@@ -172,7 +178,7 @@ class Timeline:
                 logger.warning(
                     "timeline writer did not drain %d buffered events "
                     "before shutdown", self._q.qsize())
-            dropped = self.dropped
+            dropped = self._m_dropped.value
             if dropped:
                 logger.warning(
                     "timeline dropped %d events during the run (writer "

@@ -59,6 +59,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from .. import ops
+from ..common import telemetry
 from ..common.types import ReduceOp
 from ..ops import wire
 from ..parallel.mesh import Comm, world_comm
@@ -68,6 +69,21 @@ ELEMENTWISE = (torch.optim.SGD, torch.optim.Adam, torch.optim.AdamW,
 
 _status_lock = threading.Lock()
 _status: dict = {}
+
+
+_STATE_BYTES_HELP = (
+    "Optimizer-state bytes this rank holds: mode=\"sharded\" is the "
+    "measured owned-shard footprint, mode=\"replicated\" is what a "
+    "full-replica optimizer would hold (docs/running.md \"ZeRO sharded "
+    "optimizer state\")")
+
+
+def _set_state_gauges(sharded: int, replicated: int) -> None:
+    """The JAX package's ``horovod_optimizer_state_bytes{mode=...}``."""
+    telemetry.gauge("horovod_optimizer_state_bytes", _STATE_BYTES_HELP,
+                    labels={"mode": "sharded"}).set(int(sharded))
+    telemetry.gauge("horovod_optimizer_state_bytes", _STATE_BYTES_HELP,
+                    labels={"mode": "replicated"}).set(int(replicated))
 
 
 def _note_status(**kw) -> None:
@@ -280,7 +296,9 @@ class ZeroSharder:
                 self.residuals[i] = h - own
             with ops.span("hvd.unflatten"):
                 g.add_updates(full)
-        _note_status(**self.state_bytes())
+        sizes = self.state_bytes()
+        _set_state_gauges(sizes["sharded_state_bytes"], sizes["replicated_state_bytes"])
+        _note_status(**sizes)
 
     # -- state ---------------------------------------------------------------
     def state_bytes(self) -> Dict[str, int]:

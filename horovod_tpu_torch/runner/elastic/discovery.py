@@ -7,8 +7,9 @@ order and a blacklist).
 The blacklist is cooldown-with-escalation: a host's first failure parks it
 for HOROVOD_BLACKLIST_COOLDOWN_SECONDS, a repeat failure for good (0: for
 good at once). A host whose worker announced a drain is quarantined
-instead: excluded for a while, with no strike, never for good. The events
-and metrics of a blacklisting wait for ROADMAP A8.
+instead: excluded for a while, with no strike, never for good. A
+blacklisting counts in the JAX module's
+``horovod_hosts_blacklisted_total``; its event waits for ROADMAP A8.2.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from ...common import env as env_cfg
+from ...common import telemetry
 from ...utils.logging import get_logger
 
 logger = get_logger()
@@ -165,6 +167,10 @@ class HostManager:
             self._blacklist[host] = max(expiry, already or 0.0)
             if already is None:
                 logger.warning("blacklisting host %s %s", host, how)
+                telemetry.counter(
+                    "horovod_hosts_blacklisted_total",
+                    "Hosts blacklisted after worker failures",
+                ).inc()
 
     def is_blacklisted(self, host: str) -> bool:
         with self._lock:

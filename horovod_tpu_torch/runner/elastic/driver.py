@@ -24,7 +24,11 @@ themselves, in ``hvd.elastic.run``). A worker's drain notice
 (``drain_e<E>/<host:slot>``, ``common/drain.py``) quarantines its host
 without a strike; the driver re-meshes as soon as that worker exits,
 with no ready deadline waited out, and its exit is planned, whatever its
-code. The liveness verdicts and recovery metrics wait for ROADMAP A8.
+code. Evictions at the ready deadline, failure-to-re-meshed seconds and
+drain-notice-to-re-meshed seconds are the JAX driver's telemetry series
+(``horovod_elastic_evictions_total``, ``horovod_elastic_recovery_seconds``,
+``horovod_drain_evict_seconds``), in the launcher's process. The liveness
+verdicts wait for ROADMAP A8.3.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 from ...common import env as env_cfg
+from ...common import telemetry
 from ...common.drain import DRAIN_PREFIX
 from ...utils.logging import get_logger
 from ..hosts import HostInfo, SlotInfo, get_host_assignments
@@ -81,6 +86,23 @@ class ElasticDriver:
         # Slots whose worker announced a drain (-> the notice's monotonic
         # time): their exits are planned, never failures or strikes.
         self._draining: Dict[Tuple[str, int], float] = {}
+        # The first unplanned failure since the last activation, and the
+        # first drain notice since then (monotonic), for the histograms.
+        self._failure_t0: Optional[float] = None
+        self._drain_t0: Optional[float] = None
+        self._m_evictions = telemetry.counter(
+            "horovod_elastic_evictions_total",
+            "Reset-barrier slots evicted at the ready deadline "
+            "(worker killed, recorded as failed)")
+        self._m_recovery = telemetry.histogram(
+            "horovod_elastic_recovery_seconds",
+            "Failure detection to re-meshed activation", min_exp=-4,
+            max_exp=10)
+        self._m_drain = telemetry.histogram(
+            "horovod_drain_evict_seconds",
+            "Drain notice to re-meshed activation (the announced-"
+            "preemption fast path — no liveness timeout)", min_exp=-4,
+            max_exp=10)
         rendezvous.put_hook = self._observe_put
 
     def _put(self, key: str, value: bytes):
@@ -192,6 +214,12 @@ class ElasticDriver:
             # A drained slot that lost its assignment is gone for good.
             for key in [k for k in self._draining if k not in new_assignments]:
                 del self._draining[key]
+            if self._failure_t0 is not None:
+                self._m_recovery.observe(time.monotonic() - self._failure_t0)
+                self._failure_t0 = None
+            if self._drain_t0 is not None and not self._draining:
+                self._m_drain.observe(time.monotonic() - self._drain_t0)
+                self._drain_t0 = None
             self._prune_dead_workers()
             for key, slot in new_assignments.items():
                 if key not in self._workers:
@@ -248,12 +276,19 @@ class ElasticDriver:
             logger.error("evicting worker %s:%d: no verdict %.0fs after the reset "
                          "barrier opened (HOROVOD_ELASTIC_READY_TIMEOUT)",
                          host, idx, self._ready_timeout)
+            self._m_evictions.inc()
+            self._note_failure()
             if rec is not None and rec.proc.poll() is None:
                 try:
                     rec.proc.kill()
                 except OSError:  # pragma: no cover - already gone
                     pass
             self.registry.record_failure(host, idx, epoch=reg_epoch)
+
+    def _note_failure(self):
+        with self._lock:
+            if self._failure_t0 is None:
+                self._failure_t0 = time.monotonic()
 
     def _prune_dead_workers(self):
         for key in [k for k, w in self._workers.items() if w.proc.poll() is not None]:
@@ -295,6 +330,7 @@ class ElasticDriver:
         else:
             logger.warning("worker %s:%d exited with %d", host, idx, rc)
             if assigned and not stale:
+                self._note_failure()
                 self.registry.record_failure(host, idx)
 
     def _observe_put(self, key: str, value: bytes):
@@ -345,6 +381,8 @@ class ElasticDriver:
             if key not in self._assignments or key in self._draining:
                 return  # "requested", then "drained": one eviction
             self._draining[key] = time.monotonic()
+            if self._drain_t0 is None:
+                self._drain_t0 = self._draining[key]
             rec = self._workers.get(key)
         logger.warning("drain notice from %s:%d: quarantining the host, re-meshing on its "
                        "exit (announced preemption, no liveness timeout)", host, idx)

@@ -38,6 +38,7 @@ from ..common.basics import (  # noqa: F401  (re-exported API surface)
     is_initialized,
     local_rank,
     local_size,
+    metrics,
     mpi_built,
     nccl_built,
     rank,

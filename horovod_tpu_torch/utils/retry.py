@@ -2,9 +2,9 @@
 ``horovod_tpu/utils/retry.py``; the port's own copy).
 
 The rendezvous client retries its transport failures through it. Jitter
-keeps N workers that lost the same peer from retrying in lockstep. The
-JAX package's retry counter belongs to the metrics plane (ROADMAP A8);
-here the attempts are only logged.
+keeps N workers that lost the same peer from retrying in lockstep. Every
+failed attempt the loop absorbs counts in the JAX package's
+``horovod_retry_attempts_total``.
 """
 from __future__ import annotations
 
@@ -18,6 +18,23 @@ from .logging import get_logger
 logger = get_logger()
 
 T = TypeVar("T")
+
+_retry_counter_cache = None
+
+
+def _retry_counter():
+    # Lazy (the launcher imports utils before anything of common) and
+    # cached: the loop runs inside polling loops and takes no registry
+    # lookup a call.
+    global _retry_counter_cache
+    if _retry_counter_cache is None:
+        from ..common import telemetry
+
+        _retry_counter_cache = telemetry.counter(
+            "horovod_retry_attempts_total",
+            "Failed attempts absorbed by retry loops (connects, rendezvous KV)",
+        )
+    return _retry_counter_cache
 
 
 def backoff_delays(attempts: int, base: float, cap: float):
@@ -47,12 +64,14 @@ def call_with_retry(
     base = env_base if base is None else base
     cap = env_cap if cap is None else cap
     delays = list(backoff_delays(attempts, base, cap)) + [0.0]
+    counter = _retry_counter()
     for attempt, delay in enumerate(delays, 1):
         try:
             return fn()
         except no_retry_on:
             raise
         except retry_on as exc:
+            counter.inc()
             expired = deadline is not None and time.monotonic() + delay > deadline
             if attempt >= attempts or expired:
                 logger.warning("%s failed after %d attempt(s): %s; giving up",

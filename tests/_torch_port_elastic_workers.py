@@ -340,7 +340,12 @@ TOTAL = int(os.environ["TEST_TOTAL_BATCHES"])
 rec = {"pid": os.getpid(), "steps": [], "resume": None}
 path = os.path.join(os.environ["TEST_OUT"], f"{spawn_identity()}.{os.getpid()}")
 
+SERIES = ("horovod_elastic_", "horovod_checkpoint_", "horovod_preemptions_total",
+          "horovod_drain_seconds", "horovod_faults_injected_total")
+
 def dump():
+    rec["metrics"] = {k: v for k, v in hvd.metrics()["metrics"].items()
+                      if k.startswith(SERIES)}
     with open(path + ".tmp", "wb") as f:
         pickle.dump(rec, f)
     os.replace(path + ".tmp", path)

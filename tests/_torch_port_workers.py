@@ -2621,3 +2621,62 @@ def _dropped_optimizer_freed(hvd_torch, torch) -> bool:
     del net, opt
     gc.collect()
     return all(r() is None for r in refs)
+
+
+# ---------------------------------------------------------------------------
+# The metrics plane (tests/test_torch_port_telemetry.py)
+
+def telemetry_ops(eng, rank: int, size: int, as_tensor) -> None:
+    """One sequence of named collectives through either package's engine
+    API (``as_tensor`` makes its tensor from a numpy array): all-reduces one
+    at a time and three in flight together, ragged all-gathers, a broadcast
+    from every root and an all-to-all."""
+    rng = np.random.RandomState(7)
+    for i in range(4):
+        x = rng.randn(3, 4).astype(np.float32) * (rank + 1)
+        eng.synchronize(eng.enqueue_allreduce(as_tensor(x), name=f"ar{i}"))
+    hs = [eng.enqueue_allreduce(as_tensor(np.full(5 + i, rank, np.float32)), name=f"many{i}")
+          for i in range(3)]
+    for h in hs:
+        eng.synchronize(h)
+    for i in range(2):
+        eng.synchronize(eng.enqueue_allgather(
+            as_tensor(np.ones((rank + 1 + i, 3), np.float32)), name=f"ag{i}"))
+    for root in range(size):
+        eng.synchronize(eng.enqueue_broadcast(
+            as_tensor(np.arange(6, dtype=np.int64) * rank), root, name=f"bc{root}"))
+    eng.synchronize(eng.enqueue_alltoall(as_tensor(np.ones((2 * size, 2), np.float32)),
+                                         [2] * size, name="a2a"))
+
+
+def _run_telemetry_world(rank: int, size: int) -> dict:
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    eng = hvd.common.basics.engine()
+    before = eng.registry.snapshot()
+    telemetry_ops(eng, rank, size, torch.from_numpy)
+    return {"before": before, "after": eng.registry.snapshot()}
+
+
+def _run_fleet_world(rank: int, size: int, wait_s: float) -> dict:
+    """Rank r all-gathers (r + 1) * 4 floats three times; once every rank
+    is past them, each reads its own series, and after ``wait_s`` of idle
+    cycles (each pushing its snapshot) rank 0 reads the fleet view."""
+    import time
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    eng = hvd.common.basics.engine()
+    for i in range(3):
+        eng.synchronize(eng.enqueue_allgather(torch.ones((rank + 1) * 4), name=f"fl{i}"))
+    eng.synchronize(eng.enqueue_allreduce(torch.zeros(1), name="past"))
+    own = hvd.metrics()
+    time.sleep(wait_s)
+    fleet = hvd.metrics().get("fleet")
+    eng.synchronize(eng.enqueue_allreduce(torch.zeros(1), name="read"))
+    return {"own": own["metrics"], "mode": own["mode"], "status": own.get("status"),
+            "fleet": fleet}

@@ -464,6 +464,9 @@ def test_kill_all_round_trip_through_the_launcher(tmp_path):
         assert r["resume"] == {"step": step, "batch": step, "size": 2, "digest": digest}
         assert [s[0] for s in r["steps"]] == list(range(step + 1, 16))
         np.testing.assert_array_equal(r["final"], control[0])
+        # One durable restore, no in-memory one, on every rank.
+        assert r["metrics"]["horovod_checkpoint_restores_total"] == 1
+        assert r["metrics"]["horovod_elastic_restores_total"] == 0
     for size in (1, 3):
         root = tmp_path / f"ckpt{size}"
         proc, recs = _launch(tmp_path, f"world{size}", size,

@@ -7,8 +7,10 @@ commit with the checkpoint made durable first; on two gloo workers under
 the port's launcher the drain is handed over at one commit on both ranks,
 the drained worker exits cleanly and the survivor goes on at np=1; and the
 batched ``broadcast_parameters`` launches its collectives in one order on
-both ranks across the engine's channels."""
+both ranks across the engine's channels, each response entered in the
+launch log before any of its handles completes."""
 import signal
+import sys
 import time
 
 import numpy as np
@@ -181,6 +183,36 @@ def test_a_quarantined_host_leaves_and_comes_back_without_a_strike(mod):
     assert mgr.current_hosts == [("a", 1), ("b", 1)] and not mgr.is_blacklisted("b")
 
 
+def test_launch_log_holds_a_response_once_its_handle_completes():
+    """A single-response step read at once, many times over: the last
+    entry of ``launch_log()`` is that response as soon as ``synchronize``
+    returns. A thread switch every microsecond makes the reader run
+    between the completion and any later bookkeeping of the executor: an
+    engine that logs after completing the handle fails this in most
+    steps."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device="cpu")
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        eng = hvd.common.basics.engine()
+        t = torch.ones(4)
+        late = []
+        for i in range(300):
+            hvd.synchronize(hvd.allreduce_async(t, name=f"race{i}"))
+            log = eng.launch_log()
+            if not log or log[-1][2] != f"allreduce.race{i}":
+                late.append(i)
+        assert late == [], f"{len(late)} of 300 steps read the log before its entry"
+        assert [seq for seq, _, _ in eng.launch_log()] == list(range(300))
+    finally:
+        sys.setswitchinterval(interval)
+        hvd.shutdown()
+
+
 def test_batched_broadcast_launches_in_one_order_on_two_ranks(tmp_path):
     """C7: the binding's hook optimizer and the batched broadcast of the
     model's and AdamW's state, 5 times on two gloo ranks: the engine
@@ -216,6 +248,17 @@ def test_drain_hands_over_at_one_commit_on_two_ranks(tmp_path):
     d, s = drained[0], survivors[0]
     assert d["drained_at_commit"] == 4 and d.get("clean_exit") and not d.get("done")
     assert s["drain_seen_at_commit"] == 4 and s["resume"] is None
+    # The metrics plane saw the same: one notice and one drain on rank 1,
+    # one in-memory restore and one reset on the survivor (the coordinator,
+    # which committed the checkpoints of steps 3 and 4), no durable restore.
+    dm, sm = d["metrics"], s["metrics"]
+    assert dm["horovod_preemptions_total"] == 1
+    assert dm['horovod_faults_injected_total{action="preempt"}'] == 1
+    assert dm["horovod_drain_seconds"]["count"] == 1
+    assert sm["horovod_elastic_restores_total"] == 1
+    assert sm["horovod_elastic_resets_total"] == 1
+    assert sm["horovod_checkpoint_commits_total"] >= 2
+    assert sm["horovod_checkpoint_restores_total"] == 0
     assert s["steps"] == [(b, 0, 2) for b in (1, 2, 3)] + [(b, 0, 1) for b in range(5, 9)]
     man = ck.load_manifest(ck.manifest_path(str(ckpt), 4))
     assert man is not None and len(man["shards"]) == 2 and ck.is_complete(str(ckpt), man)

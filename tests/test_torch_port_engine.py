@@ -28,7 +28,8 @@
 * The control plane's gloo transport (gather, broadcast, bitwise word
   all-reduces, barrier) on 3 ranks.
 * A world of one: ``join`` returns 0, the cache serves a steady tensor,
-  and the knobs of unported modules raise naming their ROADMAP item.
+  the knobs of unported modules raise naming their ROADMAP item, and the
+  metrics knobs start the exporters.
 """
 import json
 import logging
@@ -539,7 +540,6 @@ def test_world_of_one_joins_caches_and_writes_the_timeline(one, tmp_path):
 
 @pytest.mark.parametrize("knob,item", [("HOROVOD_AUTOTUNE", "A6"),
                                        ("HOROVOD_HIERARCHICAL_ALLREDUCE", "A6"),
-                                       ("HOROVOD_METRICS_PORT", "A8"),
                                        ("HOROVOD_TRACE_DIR", "A8")])
 def test_unported_knobs_raise_naming_their_roadmap_item(monkeypatch, knob, item):
     import horovod_tpu_torch as hvd
@@ -548,3 +548,36 @@ def test_unported_knobs_raise_naming_their_roadmap_item(monkeypatch, knob, item)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         hvd.init(device="cpu")
     assert not hvd.is_initialized()
+
+
+@pytest.mark.parametrize("knob", ["HOROVOD_METRICS_PORT", "HOROVOD_METRICS_FILE"])
+def test_metrics_knobs_start_the_exporters(monkeypatch, tmp_path, knob):
+    """The metrics knobs run since the metrics plane was ported: ``init``
+    starts the exporter, ``/metrics`` answers (or the file is written), and
+    ``shutdown`` stops it."""
+    import urllib.request
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics, metrics_export
+
+    path = tmp_path / "metrics.json"
+    monkeypatch.setenv(knob, "0" if knob == "HOROVOD_METRICS_PORT" else str(path))
+    hvd.init(device="cpu")
+    try:
+        hvd.allreduce(torch.ones(2), name="knob")
+        exps = basics._state.exporters
+        assert len(exps) == 1
+        if knob == "HOROVOD_METRICS_PORT":
+            assert isinstance(exps[0], metrics_export.MetricsHTTPServer)
+            with urllib.request.urlopen(f"http://127.0.0.1:{exps[0].port}/metrics",
+                                        timeout=10) as r:
+                text = r.read().decode()
+            samples, types, _ = metrics_export.parse_prometheus(text)
+            assert samples["horovod_allreduce_tensors_total"] >= 1
+            assert types["horovod_responses_total"] == "counter"
+    finally:
+        hvd.shutdown()
+    assert basics._state.exporters == []
+    if knob == "HOROVOD_METRICS_FILE":
+        doc = json.loads(path.read_text())
+        assert doc["metrics"]["horovod_allreduce_tensors_total"] >= 1

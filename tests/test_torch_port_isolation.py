@@ -69,6 +69,8 @@ MODULES = [
     "horovod_tpu_torch.torch.optimizer",
     "horovod_tpu_torch.torch.elastic",
     "horovod_tpu_torch.common.fault_injection",
+    "horovod_tpu_torch.common.telemetry",
+    "horovod_tpu_torch.common.metrics_export",
     "horovod_tpu_torch.utils.retry",
     "horovod_tpu_torch.backend",
     "horovod_tpu_torch.backend.rendezvous",
