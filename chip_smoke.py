@@ -3667,6 +3667,187 @@ def phase_tp_sp_multi(controls) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# pp under sp (phases ``pp_sp`` and, with four cards, ``pp_sp_multi``): GPT-2
+# 1.3B at S=8192 over pp=2 x sp=2, ``examples/jax_gpt2_train.py``'s pp x sp
+# mesh (its ``--dp 8 --tp 4 --sp 2 --attn ring --remat`` line, :9-11, with
+# --pp 2 for --tp) cut to one node: ``PipelinedLM``'s stages attending over
+# the rank's sp line, M=2 microbatches of one sequence, the 16,384 tokens a
+# step of phases tp_sp and tp_sp_multi.
+PS_MESH = {"pp": 2, "dp": 1, "sp": 2}
+PS_M = 2
+# K1/K2 at one sequence after Ulysses' head exchange: 16 heads over sp=2.
+PS_KERNEL_SHAPE = (1, TS_S, 8, 128)
+# The four-card variants: model overrides (beside remat and PS_M), steps,
+# the world-1 control of ``tp_sp_controls`` (as TS_VARIANTS name them).
+PS_VARIANTS = {
+    "ps1_ulysses_flash": ({"attn_impl": "ulysses", "sp_use_flash": True}, STEPS, "flash"),
+    "ps2_ring": ({"attn_impl": "ring"}, STEPS, "ring1"),
+    "ps1f_ring_f32": (TS_F32, 1, "f32"),
+}
+# Context, not a gate: (ts2) Ulysses-flash over tp=2 x sp=2 (PERF.md §5,
+# NVIDIA H100 80GB HBM3, 700.00 W).
+PS_CONTEXT_MS = {"ts2_ulysses_flash_tp2_sp2": [374.30, 381.8]}
+
+
+def phase_pp_sp(fa, fb, gen, dev) -> dict:
+    """GPT-2 1.3B at B=2, S=8192, bf16, remat, AdamW through ``PipelinedLM``
+    on a pp=1 x dp=1 x sp=1 mesh, the stage built on the sp line (the
+    positions of its block, the sequence-sharded loss' code): 5 steps whose
+    losses and step-1 gradients must be bitwise those of the model built
+    with no mesh, 48 launches of K1 and 24 of each K2 kernel a step. The
+    attention is flash: on a line of one member Ulysses falls back to dense
+    attention (as in JAX), and Ulysses-flash's attention per head group is
+    flash. Then K1 and the K2 pair at one sequence after Ulysses' head
+    exchange at sp=2, (1, 8192, 8, 128), against their plain versions,
+    timed beside SDPA and the aten flash backward."""
+    import horovod_tpu_torch as hvd
+
+    mesh = hvd.create_mesh({"pp": 1, "dp": 1, "sp": 1})
+    runs = {}
+    for pipelined in (True, False):
+        out = train_pp(hvd, fa, fb, mesh, pipelined, {"remat": True}, keep_grads=True,
+                       batch=(TS_B, TS_S), bare=not pipelined)
+        runs[pipelined] = (out["rec"], flat_by_name(out["grads"]), type(out["model"]).__name__,
+                           out["model"].cfg.n_layers)
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    (rec, flat, kind, n_layers), (bare_rec, bare_flat, bare_kind, _) = runs[True], runs[False]
+    check_launches("pp_sp", rec, flash_launches(n_layers, remat=True))
+    if rec["losses"] != bare_rec["losses"] or not torch.equal(flat, bare_flat):
+        raise AssertionError(f"pp_sp: not bitwise the model with no mesh (losses "
+                             f"{rec['losses']} vs {bare_rec['losses']}, step-1 gradients "
+                             f"{rel_norm(flat, bare_flat)} in relative norm)")
+    rec.update(phase="pp_sp", model=PP_MODEL, models=[kind, bare_kind], bitwise_no_mesh=True,
+               no_mesh_median_step_ms_2_to_5=bare_rec["median_step_ms_2_to_5"])
+    del runs, flat, bare_flat
+    Bn, Sn, Hn, Dn = PS_KERNEL_SHAPE
+    rec["kernels_d128"] = {f"{Bn}x{Sn}x{Hn}": flash_at(fa, gen, dev, Bn, Sn, Hn, Dn)}
+    emit(rec)
+    return rec
+
+
+def pp_sp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
+    """One spawned NCCL rank of ``pp_sp_multi`` on pp=2 x sp=2: each
+    variant's record (the parameters held at their closed form, the exact
+    launches, every line of copies bitwise after its steps); the ranks of
+    sp index 0 write their step-1 gradients by name under ``tmp``."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            recs = {}
+            for name in variants:
+                overrides, steps, _ = PS_VARIANTS[name]
+                mesh = hvd.create_mesh(PS_MESH)
+                out = train_pp(hvd, fa, fb, mesh, True,
+                               {"remat": True, "num_microbatches": PS_M, **overrides},
+                               keep_grads=True, steps=steps, batch=(TS_B, TS_S))
+                rec, model = out["rec"], out["model"]
+                cfg = model.cfg
+                blocks = cfg.n_layers // mesh.shape["pp"] * PS_M
+                check_launches(name, rec, flash_launches(blocks if cfg.sp_use_flash else 0,
+                                                         remat=True))
+                rec["params_closed_form"] = held_closed_form(cfg, mesh, False, True)
+                if rec["params_held"] != rec["params_closed_form"]:
+                    raise AssertionError(f"{name}: {rec['params_held']} parameters held, "
+                                         f"closed form {rec['params_closed_form']}")
+                rec["replicas_bitwise"] = replicas_bitwise(hvd, model, mesh)
+                if not all(rec["replicas_bitwise"].values()):
+                    raise AssertionError(f"{name}: replicas differ: {rec['replicas_bitwise']}")
+                rec["coords"] = dict(mesh.coords)
+                rec["layers"] = [model.layer_range.start, model.layer_range.stop]
+                if mesh.coords["sp"] == 0:
+                    save_grads(tmp, name, mesh.coords, out["grads"])
+                recs[name] = rec
+                del out, model
+                gc.collect()
+                torch.cuda.empty_cache()
+            hvd.barrier()
+            queue.put((rank, recs))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_pp_sp_multi(controls) -> dict:
+    """On four cards: the PS_VARIANTS on one spawned NCCL rank per card
+    (pp=2 x sp=2, M=2 microbatches of one sequence), each against its
+    world-1 control from ``phase_tp_sp`` (the same model, weights and
+    16,384 tokens). Gates, those of ``tp_sp_multi``: step-1 loss within
+    2e-3 relative and the steps' within 1e-2; step-1 gradients, the stages
+    joined to the full model, by ``grad_gates`` (the f32 witness within
+    1e-4 of the f32 control over the whole model and in every tensor, a
+    bf16 variant's e_v at most twice e_1, its control's distance from the
+    f32 control); per rank 2·(24/2)·2 = 48 launches of K1 and 24 of each K2
+    kernel a step with Ulysses-flash, none with the ring; the parameters
+    held at their closed form; every line of copies bitwise. Per rank the
+    step ms, tokens/s and peak memory, beside (ts2) as context (no gain is
+    claimed). Returns the record, with (ps1)'s launches on rank 0 (or "not
+    measured")."""
+    import functools
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    world = PS_MESH["pp"] * PS_MESH["sp"]
+    if cards < world:
+        rec = {"phase": "pp_sp_multi", "cards": cards,
+               "result": f"not measured: needs {world} cards"}
+        emit(rec)
+        return {"launches": rec["result"]}
+    layout = controls["layout"]
+    S, M = PS_MESH["pp"], PS_M
+    rec = {"phase": "pp_sp_multi", "cards": world, "mesh": PS_MESH, "microbatches": M,
+           "bubble": (S - 1) / (M + S - 1), "variants": {},
+           "context_step_ms": PS_CONTEXT_MS, "controls": {
+               name: {k: controls[name][0][k] for k in ("median_step_ms_2_to_5",
+                                                         "peak_mem_gb", "losses")}
+               for name in ("flash", "ring1", "f32")}}
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_cards(functools.partial(pp_sp_rank, variants=list(PS_VARIANTS),
+                                              tmp=tmp), world, timeout=1200)
+        for name, (_, _, kind) in PS_VARIANTS.items():
+            ctrl_rec, ctrl_flat = controls[kind]
+            got = ranks[0][name]
+            grads = joined_grads(tmp, name, got["mesh"], False, layout)
+            v = {"rank0": got, "control": kind,
+                 "by_rank": {k: [r[name][k] for r in ranks] for k in (
+                     "median_step_ms_2_to_5", "tokens_per_s", "peak_mem_gb", "params_held",
+                     "launches_per_step", "layers")}}
+            v["tokens_per_s"] = TS_B * TS_S / (max(v["by_rank"]["median_step_ms_2_to_5"]) / 1e3)
+            v["loss1_rel_err"] = abs(got["losses"][0] - ctrl_rec["losses"][0]) / abs(
+                ctrl_rec["losses"][0])
+            v["loss_max_rel_err"] = max(abs(a - b) / abs(b)
+                                        for a, b in zip(got["losses"], ctrl_rec["losses"]))
+            if v["loss1_rel_err"] > SP_LOSS1_RTOL or v["loss_max_rel_err"] > SP_LOSS_RTOL:
+                failed.append(f"{name}: losses {got['losses']} vs {ctrl_rec['losses']}")
+            gate = {"pp": (ctrl_rec, ctrl_flat), "f32": controls["f32"],
+                    "e_1": rel_norm(ctrl_flat, controls["f32"][1])}
+            fields, bad = grad_gates(name, "f32" if kind == "f32" else "bf16", grads, gate,
+                                     layout)
+            v.update(fields)
+            failed += bad
+            del grads
+            rec["variants"][name] = v
+    emit(rec)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    rec["launches"] = ranks[0]["ps1_ulysses_flash"]["launches"]
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # MoE under tensor parallelism (phases ``tp_moe`` and, with four cards,
 # ``tp_moe_multi``): GPT-2 1.3B with 8 Switch experts in every other block
 # (MOE_CFG, Switch-Base-8's layout; ``examples/jax_gpt2_train.py --model
@@ -6501,11 +6682,11 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm, p
     """The ``kernels`` line from the phases' records: each kernel's
     launches on the GPT-2 slice (and per path), error, times and bound.
     ``later``: the records of the vit, vit_multi, mnist, mnist_multi,
-    adasum_1p3b_multi, pp_tp, pp_tp_multi, engine, engine_multi, elastic,
-    elastic_multi, durable, durable_multi, metrics and metrics_multi phases
-    by name (launches "not measured" where a phase had too few cards; the
-    elastic, durable and metrics phases' are a worker's per attempted
-    step)."""
+    adasum_1p3b_multi, pp_tp, pp_tp_multi, pp_sp, pp_sp_multi, engine,
+    engine_multi, elastic, elastic_multi, durable, durable_multi, metrics
+    and metrics_multi phases by name (launches "not measured" where a phase
+    had too few cards; the elastic, durable and metrics phases' are a
+    worker's per attempted step)."""
     kernels = [
         {"name": "flash_fwd", "launches": sl["launches"]["flash_fwd"],
          "max_abs_err": k1["o_max_abs_err"], "ms": k1["kernel_ms"],
@@ -6556,6 +6737,7 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm, p
         kern["tp_d128"] = d128(tp["kernels_d128"], part)
         kern["tp_sp_d128"] = d128(ts["kernels_d128"], part)
         kern["pp_tp_d128"] = d128(pt["kernels_d128"], part)
+        kern["pp_sp_d128"] = d128(later["pp_sp"]["kernels_d128"], part)
     for kern in kernels:
         kern["launches_sp"] = sp["launches"].get(kern["name"], 0)
         kern["launches_moe"] = moe["launches"].get(kern["name"], 0)
@@ -6655,7 +6837,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         ts, ts_controls = phase_tp_sp(fa, fb, gen, dev)
         phase_tp_sp_multi(ts_controls)
+        ps_multi = phase_pp_sp_multi(ts_controls)
         del ts_controls
+        gc.collect()
+        torch.cuda.empty_cache()
+        ps = phase_pp_sp(fa, fb, gen, dev)
         gc.collect()
         torch.cuda.empty_cache()
         tm, tm_controls = phase_tp_moe(fa, fb)
@@ -6666,7 +6852,7 @@ def main() -> int:
         later = {"vit": phase_vit(fa, fb), "vit_multi": phase_vit_multi(fa, fb),
                  "mnist": phase_mnist(fa, fb), "mnist_multi": phase_mnist_multi(),
                  "adasum_1p3b_multi": phase_adasum_1p3b_multi(), "pp_tp": pt,
-                 "pp_tp_multi": pt_multi, "engine": en,
+                 "pp_tp_multi": pt_multi, "pp_sp": ps, "pp_sp_multi": ps_multi, "engine": en,
                  "engine_multi": phase_engine_multi(), "elastic": el,
                  "elastic_multi": el_multi, "durable": du, "durable_multi": du_multi,
                  "metrics": me, "metrics_multi": me_multi}

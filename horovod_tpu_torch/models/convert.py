@@ -174,7 +174,8 @@ def flax_to_torch(params: Mapping, cfg: TransformerConfig, ep: int = 1,
                   tp_rank: int = 0, dp: int = 1, dp_rank: int = 0) -> Dict[str, torch.Tensor]:
     """With ``stages`` > 1: the ``state_dict`` of ``PipelinedLM`` stage
     ``stage``, the layers ``[stage·L/stages, (stage+1)·L/stages)`` under
-    their global indices, with the embeddings, ``ln_f`` and the head. With
+    their global indices, with the embeddings, ``ln_f`` and the head; sp
+    cuts no parameter, so it loads that stage on every sp rank. With
     ``tp`` > 1: that of ``TransformerLM`` on tp rank ``tp_rank`` (with
     ``stages`` too, that stage's on that tp rank); with
     ``dp`` > 1, that of ``TransformerLM(rules=FSDP_RULES)`` on dp rank

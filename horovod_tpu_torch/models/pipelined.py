@@ -12,24 +12,31 @@ this model's keys, or ``models/convert.flax_to_torch(..., stages=,
 stage=)`` from the JAX tree), and ``init_weights`` draws the same weights
 from one generator as ``TransformerLM`` does.
 
-Inside a stage the JAX model leaves dp and tp to GSPMD; here, with tp > 1,
-the stage's blocks are the tp layers of ``models/transformer.py`` on the
-rank's tp line (``parallel/tensor.py``: H/tp heads and d_ff/tp features a
-rank, the row-parallel sums over tp), the token embedding is the
-vocab-parallel lookup and the head is column-parallel, as in
-``TransformerLM`` under tp. A pp line fixes the dp and tp coordinates, so
-stage s of tp rank t sends to stage s + 1 of tp rank t, and the ranks of a
-tp line run the same microbatches in the same order, each issuing its tp
-sums for microbatch t before its pp send of it (and, in backward, its
-remat recomputation's and the column-parallel input gradients' sums after
-its pp receive).
+Inside a stage the JAX model leaves dp, sp and tp to GSPMD; here, with tp
+> 1, the stage's blocks are the tp layers of ``models/transformer.py`` on
+the rank's tp line (``parallel/tensor.py``: H/tp heads and d_ff/tp
+features a rank, the row-parallel sums over tp), the token embedding is
+the vocab-parallel lookup and the head is column-parallel, as in
+``TransformerLM`` under tp. With sp > 1 the input is this rank's sequence
+block: the positions count from its offset (``sp index · S_local``) and
+each block attends over the rank's sp line through ``_attention_dispatch``
+(the ring, Ulysses, Ulysses through flash, or dense and flash over the
+gathered sequence), as ``TransformerLM`` under sp. A pp line fixes the
+dp, sp and tp coordinates, so stage s of sp index j and tp rank t sends to
+stage s + 1 of the same sp index and tp rank, and the ranks of an sp or
+tp line run the same microbatches in the same order, each issuing its
+ring rotations, Ulysses exchanges, sp gathers and tp sums for microbatch
+t before its pp send of it (and, in backward, its remat recomputation's
+exchanges and sums after its pp receive). Along ep a dense stage is
+replicated: every ep rank runs the same tokens, as the JAX model does.
 
 The forward is the JAX one: embed, ``parallel/pipeline.gpipe`` over the
 stage's blocks (with ``cfg.remat``, each block recomputed in backward),
-``ln_f``, the head, logits in ``cfg.logits_dtype``: with tp > 1 this
-rank's vocabulary shard of them (``shard_range(vocab, tp, rank)``), the
-same on every rank of its pp line. pp combines with dp and tp; sp and ep
-under pp are not ported.
+``ln_f``, the head, logits in ``cfg.logits_dtype``: the rank's (B, S/sp)
+block of them, with tp > 1 its vocabulary shard (``shard_range(vocab, tp,
+rank)``), the same on every rank of its pp line. pp combines with dp, ep,
+sp (under every ``attn_impl``) and tp; sp and tp together under pp, and
+the tied head, are not ported (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -44,12 +51,12 @@ from ..parallel.sharding import PIPELINE_RULES
 from ..parallel.tensor import check_tp_supported, mark_tensor_parallel
 from . import dropout
 from .transformer import (ColumnParallelDense, Embedder, LayerNorm, TransformerBlock,
-                          TransformerConfig, init_param_, run_blocks)
+                          TransformerConfig, init_param_, run_blocks, seq_offset)
 
 
 class _Stage(nn.Module):
     """This rank's blocks, named by their global layer index, on the mesh's
-    tp line."""
+    sp and tp lines."""
 
     def __init__(self, cfg: TransformerConfig, layers: range, device=None, mesh=None):
         super().__init__()
@@ -61,7 +68,8 @@ class _Stage(nn.Module):
 class PipelinedLM(nn.Module):
     """``forward(ids)`` returns the (B, S, vocab) logits (with tp > 1 this
     rank's vocabulary shard of them), the same on every rank of a pp line;
-    ``ids`` is the batch of this rank's dp coordinate. The model is built
+    ``ids`` is the batch of this rank's dp coordinate, with sp > 1 its
+    sequence block, and so are the logits. The model is built
     on ``device``, by default the mesh's (this rank's card, or the CPU of a
     gloo world)."""
 
@@ -79,14 +87,10 @@ class PipelinedLM(nn.Module):
         S = mesh.shape[axis]
         if cfg.n_layers % S != 0:
             raise ValueError(f"n_layers={cfg.n_layers} not divisible by pp={S}")
-        for other in ("sp", "ep"):
-            if mesh.shape.get(other, 1) > 1:
-                raise NotImplementedError(f"PipelinedLM on a mesh with {other} > 1 is not "
-                                          "ported (ROADMAP A3: pp under sp or ep); pp "
-                                          "combines with dp and tp")
-        if cfg.attn_impl in ("ring", "ulysses"):
-            raise NotImplementedError(f"attn_impl={cfg.attn_impl!r} under pp is not ported "
-                                      "(ROADMAP A3: pp under sp or ep)")
+        if mesh.shape.get(cfg.sp_axis, 1) > 1 and mesh.shape.get("tp", 1) > 1:
+            raise NotImplementedError("PipelinedLM on a mesh with sp > 1 and tp > 1 is not "
+                                      "ported (ROADMAP A3: pp x sp x tp); pp combines with "
+                                      "dp, ep, sp and tp, but not with sp and tp at once")
         if cfg.logits_via_embedding:
             raise NotImplementedError("logits_via_embedding under pp is not ported (ROADMAP "
                                       "A3: the tied head on a cut embedding)")
@@ -133,7 +137,7 @@ class PipelinedLM(nn.Module):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         # The JAX stages run their blocks deterministic: no dropout.
         with dropout.deterministic():
-            x = self.embed(ids)
+            x = self.embed(ids, seq_offset(self.cfg, self.mesh, ids.shape[1]))
             x = gpipe(self._stage_fn, self.stack, x, mesh=self.mesh, axis=self.axis,
                       num_microbatches=self.num_microbatches)
             x = self.ln_f(x)

@@ -225,6 +225,13 @@ def _sp_comm(cfg: TransformerConfig, mesh):
     return mesh.comm(cfg.sp_axis)
 
 
+def seq_offset(cfg: TransformerConfig, mesh, s_local: int) -> int:
+    """The global position of this rank's first column: ``sp index ·
+    S_local`` on the model's sp line, 0 without one."""
+    comm = _sp_comm(cfg, mesh)
+    return 0 if comm is None else comm.rank * s_local
+
+
 def _local_attention(cfg: TransformerConfig, q, k, v, mask):
     if cfg.attn_impl == "flash":
         return flash_attention(q, k, v, mask, causal=cfg.causal).to(cfg.dtype)
@@ -739,8 +746,7 @@ class _Transformer(nn.Module):
             init_param_(name, p, generator)
 
     def seq_offset(self, s_local: int) -> int:
-        comm = _sp_comm(self.cfg, self.mesh)
-        return 0 if comm is None else comm.rank * s_local
+        return seq_offset(self.cfg, self.mesh, s_local)
 
     def moe_blocks(self):
         return [layer.moe for layer in self.stack.layers if hasattr(layer, "moe")]

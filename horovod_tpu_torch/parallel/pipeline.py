@@ -26,12 +26,18 @@ produced the input. Each rank keeps every microbatch's graph between
 forward and backward (GPipe's activation memory; ``remat`` cuts it to the
 blocks' inputs) and returns its stage parameters' gradients summed over
 the microbatches. The sends and receives of one rank run in one order on
-every rank of its pp line, so they pair up; where ``stage_fn`` sums over
-another line (the tp sums of ``PipelinedLM``'s stages, and their remat
-recomputation in backward), every rank of that line runs the same
-microbatches in the same order, so those sums pair up too. The profiler
-ranges are
-``hvd.pp.send``, ``hvd.pp.recv``, ``hvd.pp.replicate`` and ``hvd.pp.psum``.
+every rank of its pp line, so they pair up. Where ``stage_fn`` exchanges
+over another line (the tp sums of ``PipelinedLM``'s stages; under sp the
+ring's rotations, Ulysses' all-to-alls or the sp gathers and their
+reduce-scatters; in backward also their remat recomputation), that line
+lies at one pp coordinate and every rank of it runs the same microbatches
+in the same order: microbatch t's exchanges are issued after its pp
+receive and before its pp send, in forward and in backward alike. So every
+rank issues its exchanges on each communicator in one order, and a pp send
+left open while the next microbatch's exchanges start on another
+communicator waits only on a receive its peer has issued or will issue
+next. The profiler ranges are ``hvd.pp.send``, ``hvd.pp.recv``,
+``hvd.pp.replicate`` and ``hvd.pp.psum``.
 """
 from __future__ import annotations
 

@@ -35,7 +35,12 @@ the same on every tp and ep rank, once. Under tp and pp together the
 model is a ``PipelinedLM`` whose stages hold their tp shards: every rank of
 a pp line takes the pipeline's replicated output, its vocabulary shard on
 this rank, and computes the vocab-parallel loss over its own tp line.
-Under tp and sp together
+Under pp and sp together the pipeline's replicated output is this rank's
+sequence block of the logits, and every rank of a pp line computes its
+share of ``lm_loss`` over the global shifted sequence from it (the
+pipeline's backward takes the last stage's cotangent once); the optimizer
+reduces a stage's gradients over its (dp, sp) line, the ranks that hold
+that stage. Under tp and sp together
 ``lm_loss`` is both: the labels of this rank's sequence block are taken
 from the global ids across the sp boundary, and the cross-entropies over
 the tp line's vocabulary shards (``vocab_parallel_token_xent``).
@@ -166,10 +171,13 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``DEFAULT_RULES``): the replicated ones from rank 0, an expert within
     its ("dp", "sp") line, so that every ep rank keeps its own experts, and
     a ``PipelinedLM`` stage's blocks within the line of ranks that hold
-    that stage (under tp a cut block tensor within its dp line, a
-    replicated one within its stage's (dp, tp) line, the embedding's and
-    the head's vocabulary shards within their (pp, dp) line); it returns
-    the initial ``TrainState``.
+    that stage (its (dp, ep, sp) line at its pp coordinate; under tp a cut
+    block tensor within its dp line, a replicated one within its stage's
+    (dp, tp) line, the embedding's and the head's vocabulary shards within
+    their (pp, dp) line); it returns the initial ``TrainState``. The
+    world's broadcasts come first, every rank issuing them in one order;
+    then each line's, which under pp are the stage's own and so run on
+    groups no other stage's ranks belong to.
     ``step_fn(state, inputs, labels)`` takes the global batch, puts the
     model in train mode, runs this rank's cut of it forward and backward,
     adds ``moe_aux_weight`` times the model's MoE auxiliary loss, steps
@@ -187,7 +195,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``shard_seq`` cuts dim 1 over sp; a mesh with sp > 1 needs it, since
     the model then takes this rank's sequence block. With pp > 1 the model
     is a ``PipelinedLM`` on ``mesh``: every rank of a pp line computes the
-    loss of the pipeline's replicated output. With tp > 1 the model
+    loss of the pipeline's replicated output (with sp, its share of the
+    sequence-sharded ``lm_loss`` on its sequence block; with ep, a dense
+    model replicated over ep). With tp > 1 the model
     (``TransformerLM`` or ``PipelinedLM``) is built on ``mesh`` too and
     ``loss_fn`` is ``lm_loss`` or ``softmax_xent``, taken over the
     vocabulary shards on this rank's tp line. Under every mesh the

@@ -86,7 +86,12 @@ over ep and tp and the gate's over ep. ``--pp`` combines with ``--tp``
 (``--model gpt2-1p3b --pp 2 --tp 2 --microbatches 8 --remat``: a pp x dp x
 tp mesh over the world, ``PipelinedLM`` whose stages, embedding and head
 are cut over tp, with ``--microbatches`` M, by default S), and the step
-splits by the ``hvd.pp.*`` and the ``hvd.tp.*`` ranges together.
+splits by the ``hvd.pp.*`` and the ``hvd.tp.*`` ranges together. ``--pp``
+combines with ``--sp``, ``--attn`` and ``--seq`` too (``--model gpt2-1p3b
+--pp 2 --sp 2 --attn ulysses --sp-use-flash --seq 8192 --remat``: a pp x dp
+x sp mesh, each stage's blocks attending over the rank's sp line, B=2 in
+M = S microbatches of one sequence), and the step splits by the
+``hvd.pp.*`` and the ``hvd.sp.*`` ranges together.
 """
 from __future__ import annotations
 

@@ -25,6 +25,9 @@ per-block recomputation (``--remat``).
     torchrun --nproc-per-node 4 -m horovod_tpu_torch.train_gpt2 \\
         --model gpt2-1p3b --seq-len 2048 --batch-size 8 --pp 2 --tp 2 \\
         --attn flash --remat
+    torchrun --nproc-per-node 4 -m horovod_tpu_torch.train_gpt2 \\
+        --model gpt2-1p3b --seq-len 8192 --batch-size 2 --pp 2 --sp 2 \\
+        --attn ulysses --sp-use-flash --remat
 
 One process per card; ``hvd.init()`` reads torchrun's ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR``. ``--batch-size`` is
@@ -37,11 +40,12 @@ layout (``scan_layers``) and the model is ``PipelinedLM`` with S
 microbatches. tp combines with dp, sp and ep under every ``--attn`` and
 with ``--n-experts`` (each expert's d_ff cut over tp; Ulysses needs the
 heads a tp rank holds to split over sp), and with pp (each stage's blocks,
-the embedding and the head cut over tp, ``PipelinedLM``). ``max_len`` is
-the larger of
-the model's and ``--seq-len``, as the JAX script sets it. Rank 0 prints
-each step's loss and tokens/s. ``--device cpu`` runs on gloo (the default
-is the rank's card).
+the embedding and the head cut over tp, ``PipelinedLM``). pp combines with
+sp under every ``--attn`` (each stage's blocks attend over the rank's sp
+line) and with ep (a dense model replicated over it), but not with sp and
+tp together. ``max_len`` is the larger of the model's and ``--seq-len``,
+as the JAX script sets it. Rank 0 prints each step's loss and tokens/s.
+``--device cpu`` runs on gloo (the default is the rank's card).
 """
 from __future__ import annotations
 

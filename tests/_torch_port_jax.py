@@ -1,13 +1,18 @@
 """JAX-side references for tests/test_torch_port_{zero_mesh,fsdp}.py: the
 JAX model of ``_torch_port_workers.zm_config``, its weights drawn with
-numpy, and the JAX ``make_train_step`` on a CPU mesh of the same shape."""
+numpy, and the JAX ``make_train_step`` on a CPU mesh of the same shape;
+``shared``, the session-wide cache of an expensive fixture under xdist
+(tests/test_torch_port_{pp_tp,pp_sp}.py)."""
 import dataclasses
+import os
+import pickle
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import torch
+from filelock import FileLock
 from flax import linen as nn
 from jax.sharding import Mesh
 
@@ -27,6 +32,22 @@ from horovod_tpu_torch.models.convert import flax_to_torch
 F32_LOSS_RTOL = 1e-5
 F32_PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
 BF16_TOL = dict(rtol=5e-2, atol=2e-2)
+
+
+def shared(tmp_path_factory, name: str, make):
+    """``make()``, computed once per session: under xdist the first worker
+    to ask computes it and the others read its pickle."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return make()
+    path = tmp_path_factory.getbasetemp().parent / f"torch_port_{name}.pkl"
+    with FileLock(str(path) + ".lock"):
+        if path.is_file():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        out = make()
+        with open(path, "wb") as f:
+            pickle.dump(out, f)
+    return out
 
 
 def model(dtype: str = "float32") -> TransformerLM:

@@ -3,7 +3,7 @@ tests/test_torch_port_resnet.py, tests/test_torch_port_collectives.py,
 tests/test_torch_port_bert.py, tests/test_torch_port_{zero,adasum,
 sync_bn,overlap}.py, tests/test_torch_port_{sp,moe,mesh,pipeline,tp,tp_sp}.py,
 tests/test_torch_port_{zero_mesh,fsdp}.py, tests/test_torch_port_{vit,
-mnist}.py, tests/test_torch_port_pp_tp.py and
+mnist}.py, tests/test_torch_port_{pp_tp,pp_sp}.py and
 tests/test_torch_port_{engine,binding}.py, in a
 module of their own so spawned ranks import torch and horovod_tpu_torch
 only (no jax, no test module). Each rank returns a dict of numpy arrays
@@ -2212,13 +2212,23 @@ def _run_mnist_world(rank: int, size: int) -> dict:
 # pp=2 x dp=2 x tp=2 (rank 4·p + 2·d + t).
 PPTP_MESH = {"pp": 2, "tp": 2}
 PPDPTP_MESH = {"pp": 2, "dp": 2, "tp": 2}
-# The refusals that stay (ROADMAP A3) -> (mesh, config overrides).
+# The refusals that stay (ROADMAP A3) -> (mesh, config overrides). A mesh
+# larger than the four-rank world is named without groups (``paper_mesh``):
+# the refusal comes before any collective.
 PPTP_RAISES = {
+    "sp_tp": ({"pp": 2, "sp": 2, "tp": 2}, {}),
+    "sp_tp_ring": ({"pp": 2, "sp": 2, "tp": 2}, {"attn_impl": "ring"}),
+    "tied_head": (PPTP_MESH, {"logits_via_embedding": True}),
+}
+# The combinations that raised before pp ran under sp and ep -> (mesh,
+# config overrides): each now runs, and its logits are the rank's part of
+# the JAX PipelinedLM's (ring and Ulysses without an sp line fall back to
+# dense attention, as in JAX).
+PPTP_RUNS = {
     "sp": ({"pp": 2, "sp": 2}, {}),
     "ep": ({"pp": 2, "ep": 2}, {}),
     "ring": (PPTP_MESH, {"attn_impl": "ring"}),
     "ulysses": (PPTP_MESH, {"attn_impl": "ulysses"}),
-    "tied_head": (PPTP_MESH, {"logits_via_embedding": True}),
 }
 PPTP_REMAT_DTYPES = ("float32", "bfloat16")
 
@@ -2244,8 +2254,37 @@ def _pptp_model(torch, mesh, params, dtype: str = "float32", generator=None, **o
     if params is not None:
         model.load_state_dict(flax_to_torch(
             params, cfg, stages=mesh.shape["pp"], stage=mesh.coords["pp"],
-            tp=mesh.shape["tp"], tp_rank=mesh.coords["tp"]))
+            tp=mesh.shape.get("tp", 1), tp_rank=mesh.coords.get("tp", 0)))
     return model
+
+
+def paper_mesh(torch, shape: dict):
+    """A mesh of ``shape`` that names this rank's coordinates (its rank
+    modulo the mesh's size) and holds no communicator: enough for a model
+    that refuses the mesh before its first collective."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.mesh import Mesh, axis_names_in_order, coords_of
+
+    names = axis_names_in_order(shape)
+    n = int(np.prod([shape[a] for a in names]))
+    return Mesh(axis_names=names, shape=dict(shape),
+                coords=coords_of(hvd.rank() % n, names, shape),
+                device=torch.device("cpu"), _comms={})
+
+
+def _pptp_runs(hvd, torch, params) -> dict:
+    """Each PPTP_RUNS case's f32 logits of the whole batch from the JAX
+    tree ``params``, with this rank's coordinates on its mesh."""
+    out = {}
+    for name, (shape, overrides) in PPTP_RUNS.items():
+        mesh = hvd.create_mesh(shape)
+        model = _pptp_model(torch, mesh, params, **overrides)
+        ids = torch.from_numpy(plm_ids())
+        sp, j = mesh.shape.get("sp", 1), mesh.coords.get("sp", 0)
+        with torch.no_grad():
+            logits = model(ids.chunk(sp, dim=1)[j])
+        out[name] = {"coords": dict(mesh.coords), "logits": logits.float().numpy()}
+    return out
 
 
 def _pptp_grads(torch, model, mesh):
@@ -2259,13 +2298,14 @@ def _pptp_grads(torch, model, mesh):
     return loss.detach(), {k: p.grad.clone() for k, p in model.named_parameters()}
 
 
-def _pptp_train(hvd, torch, mesh, params) -> dict:
+def _pptp_train(hvd, torch, mesh, params, **overrides) -> dict:
     """PLM_STEPS Adam(PLM_LR) steps through make_train_step (the plain
-    optimizer, which the step wraps over the dp line) from the JAX tree
-    ``params``: the losses, the parameters and this rank's coordinates."""
+    optimizer, which the step wraps over the ("dp", "sp") line;
+    ``shard_seq``) from the JAX tree ``params``, the config's ``overrides``
+    applied: the losses, the parameters and this rank's coordinates."""
     from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
 
-    model = _pptp_model(torch, mesh, params)
+    model = _pptp_model(torch, mesh, params, **overrides)
     opt = torch.optim.Adam(model.parameters(), lr=PLM_LR)
     init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh, shard_seq=True)
     state = init_fn()
@@ -2297,7 +2337,8 @@ def _pptp_raises(hvd, torch) -> dict:
 
     out = {}
     for name, (shape, overrides) in PPTP_RAISES.items():
-        mesh = hvd.create_mesh(shape)
+        size = int(np.prod(list(shape.values())))
+        mesh = hvd.create_mesh(shape) if size == hvd.size() else paper_mesh(torch, shape)
         out[name] = _raises(lambda: PipelinedLM(plm_config(torch, **overrides), mesh,
                                                 device="cpu"), (NotImplementedError,))
     return out
@@ -2308,8 +2349,8 @@ def _run_pp_tp_world(rank: int, size: int, params_by_dtype, train_params) -> dic
     bf16 and f32, this rank's logits shard of the whole batch; in f32 its
     gradients of the vocab-parallel lm_loss; the model from torch seed 0
     (its state_dict); PLM_STEPS Adam steps from ``train_params``; remat
-    against no remat; the refusals that stay; last, ``train_gpt2 --pp 2
-    --tp 2``."""
+    against no remat; the refusals that stay; the combinations that now
+    run (PPTP_RUNS); last, ``train_gpt2 --pp 2 --tp 2``."""
     import torch
 
     torch.set_num_threads(2)    # four ranks share the host's cores
@@ -2330,6 +2371,7 @@ def _run_pp_tp_world(rank: int, size: int, params_by_dtype, train_params) -> dic
     out["train"] = _pptp_train(hvd, torch, mesh, train_params)
     out["remat"] = _pptp_remat(torch, mesh, params_by_dtype["f32"])
     out["raises"] = _pptp_raises(hvd, torch)
+    out["runs"] = _pptp_runs(hvd, torch, params_by_dtype["f32"])
     from horovod_tpu_torch import train_gpt2
 
     # Last: train_gpt2 shuts the world down when it returns.
@@ -2348,6 +2390,112 @@ def _run_pp_dp_tp_world(rank: int, size: int, train_params) -> dict:
     import horovod_tpu_torch as hvd
 
     return _pptp_train(hvd, torch, hvd.create_mesh(PPDPTP_MESH), train_params)
+
+
+# ---------------------------------------------------------------------------
+# pp under sp and ep (tests/test_torch_port_pp_sp.py): PipelinedLM at the
+# reference's configuration (PLM_*) on pp=2 x sp=2 (rank 2·p + s holds
+# stage p and sp index s), on pp=2 x ep=2 and on pp=2 x dp=2 x sp=2 (rank
+# 4·p + 2·d + s).
+PPSP_MESH = {"pp": 2, "sp": 2}
+PPDPSP_MESH = {"pp": 2, "dp": 2, "sp": 2}
+PPEP_MESH = {"pp": 2, "ep": 2}
+PPSP_ATTNS = ("dense", "flash", "ring", "ulysses", "ulysses_flash")
+PPSP_REMAT = (("ring", "float32"), ("ring", "bfloat16"), ("ulysses_flash", "float32"),
+              ("ulysses_flash", "bfloat16"))
+
+
+def ppsp_overrides(attn: str) -> dict:
+    """The config fields of an attention route ("ulysses_flash": Ulysses
+    through the flash kernels' plain version on the CPU)."""
+    if attn == "ulysses_flash":
+        return {"attn_impl": "ulysses", "sp_use_flash": True}
+    return {"attn_impl": attn}
+
+
+def _ppsp_grads(torch, model, mesh):
+    """One forward and backward of this rank's share of the
+    sequence-sharded lm_loss (``make_train_step``'s, group = the sp line):
+    the loss share and this rank's gradients by name, not yet averaged
+    over sp."""
+    from horovod_tpu_torch.parallel.train import _cut, _lm_loss_sharded
+
+    ids = torch.from_numpy(plm_ids())
+    loss = _lm_loss_sharded(model(_cut(ids, mesh, True)), ids, mesh, mesh.shape["sp"])
+    loss.backward()
+    return loss.detach(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+
+def _ppsp_remat(torch, mesh, params) -> dict:
+    """By (attention, dtype) of PPSP_REMAT: whether the loss share is
+    bitwise, and the gradients' names where remat differs from no remat."""
+    out = {}
+    for attn, dtype in PPSP_REMAT:
+        (l0, g0), (l1, g1) = (_ppsp_grads(torch, _pptp_model(
+            torch, mesh, params, dtype, remat=remat, **ppsp_overrides(attn)), mesh)
+            for remat in (False, True))
+        out[f"{attn}-{dtype}"] = {"loss_bitwise": bool(torch.equal(l0, l1)),
+                                  "differ": sorted(k for k in g0 if not torch.equal(g0[k],
+                                                                                     g1[k]))}
+    return out
+
+
+def _run_pp_sp_world(rank: int, size: int, params, train_params) -> dict:
+    """On pp=2 x sp=2: PipelinedLM from the JAX TransformerLM's weights
+    ``params`` under every PPSP_ATTNS route, in bf16 and f32, this rank's
+    logits block; in f32 its gradients of its share of the sequence-sharded
+    lm_loss; the f32 model's loaded state_dict; the model from torch seed 0;
+    PLM_STEPS Adam steps from ``train_params`` under every route; remat
+    against no remat; then on pp=2 x ep=2 the same steps with dense
+    attention; last, ``train_gpt2 --pp 2 --sp 2 --attn ulysses
+    --sp-use-flash --remat``."""
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.train import _cut
+
+    mesh = hvd.create_mesh(PPSP_MESH)
+    ids = _cut(torch.from_numpy(plm_ids()), mesh, True)     # this rank's sp block
+    out = {"coords": dict(mesh.coords), "logits": {}, "grads": {}, "loss": {}, "train": {}}
+    for attn in PPSP_ATTNS:
+        for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
+            model = _pptp_model(torch, mesh, params, dtype, **ppsp_overrides(attn))
+            with torch.no_grad():
+                out["logits"][f"{attn}-{name}"] = model(ids).float().numpy()
+        loss, grads = _ppsp_grads(torch, _pptp_model(torch, mesh, params,
+                                                     **ppsp_overrides(attn)), mesh)
+        out["loss"][attn] = float(loss)
+        out["grads"][attn] = {k: g.numpy() for k, g in grads.items()}
+    out["loaded"] = {k: v.numpy().copy()
+                     for k, v in _pptp_model(torch, mesh, params).state_dict().items()}
+    init = _pptp_model(torch, mesh, None, generator=torch.Generator().manual_seed(0))
+    out["init"] = {k: v.numpy().copy() for k, v in init.state_dict().items()}
+    for attn in PPSP_ATTNS:
+        out["train"][attn] = _pptp_train(hvd, torch, mesh, train_params,
+                                         **ppsp_overrides(attn))
+    out["remat"] = _ppsp_remat(torch, mesh, params)
+    out["train_ep"] = _pptp_train(hvd, torch, hvd.create_mesh(PPEP_MESH), train_params)
+    from horovod_tpu_torch import train_gpt2
+
+    # Last: train_gpt2 shuts the world down when it returns.
+    out["train_gpt2"] = np.array(train_gpt2.main(
+        ["--model", "gpt2-tiny", "--batch-size", "4", "--seq-len", "32", "--steps", "2",
+         "--pp", "2", "--sp", "2", "--attn", "ulysses", "--sp-use-flash", "--remat",
+         "--device", "cpu"]))
+    return out
+
+
+def _run_pp_dp_sp_world(rank: int, size: int, train_params) -> dict:
+    """On pp=2 x dp=2 x sp=2: PLM_STEPS Adam steps from ``train_params``."""
+    import torch
+
+    torch.set_num_threads(1)    # eight ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+
+    return _pptp_train(hvd, torch, hvd.create_mesh(PPDPSP_MESH), train_params)
 
 
 # ---------------------------------------------------------------------------

@@ -24,9 +24,12 @@ microbatches.
   within 1e-5, the same on every rank, with every line of copies bitwise
   (the tp-replicated tensors on their tp line, the pp-replicated ones on
   their pp line); (e) remat is bitwise no remat (f32 and bf16); the
-  refusals that stay (sp or ep under pp, ring, Ulysses, the tied head)
-  raise ``NotImplementedError`` naming ROADMAP A3; (f) ``train_gpt2 --pp 2
-  --tp 2`` trains.
+  refusals that stay (sp and tp together under pp, the tied head) raise
+  ``NotImplementedError`` naming ROADMAP A3; the combinations that raised
+  until pp ran under sp and ep (pp=2 x sp=2, pp=2 x ep=2, and ring or
+  Ulysses on pp=2 x tp=2, which fall back to dense attention there) give
+  their part of the JAX ``PipelinedLM``'s f32 logits; (f) ``train_gpt2 --pp
+  2 --tp 2`` trains.
 * On the reference's pp=2 x dp=2 x tp=2 (eight ranks, one test: a
   module-scoped world is rebuilt on every xdist worker that draws one of
   its tests): the same 4 steps, the losses of (d) and of JAX, the dp
@@ -38,16 +41,12 @@ Under xdist the JAX reference and the four-rank world are computed once
 per session and shared by the workers through a file (the xdist recipe for
 an expensive fixture).
 """
-import os
-import pickle
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
-from filelock import FileLock
 from flax import linen as nn
 
 from horovod_tpu.models.pipelined import PipelinedLM as JaxPipelinedLM
@@ -60,6 +59,7 @@ from horovod_tpu.parallel.train import make_train_step as jax_make_train_step
 from horovod_tpu.utils.compat import set_mesh
 
 import _torch_port_workers as workers
+from _torch_port_jax import shared as _shared
 from horovod_tpu_torch.models.convert import flax_to_torch, tp_join
 from horovod_tpu_torch.models.transformer import TransformerLM
 from horovod_tpu_torch.parallel.pipeline import stage_layers
@@ -71,22 +71,6 @@ PLM_CFG = dict(vocab_size=128, d_model=32, n_heads=4, n_layers=4, d_ff=64, max_l
 TOL = {"bf16": dict(rtol=5e-2, atol=2e-2), "f32": dict(rtol=1e-5, atol=1e-5)}
 GRAD_TOL = dict(rtol=1e-5, atol=1e-7)
 LOSS_RTOL = 1e-5
-
-
-def _shared(tmp_path_factory, name: str, make):
-    """``make()``, computed once per session: under xdist the first worker
-    to ask computes it and the others read its pickle."""
-    if not os.environ.get("PYTEST_XDIST_WORKER"):
-        return make()
-    path = tmp_path_factory.getbasetemp().parent / f"torch_port_pp_tp_{name}.pkl"
-    with FileLock(str(path) + ".lock"):
-        if path.is_file():
-            with open(path, "rb") as f:
-                return pickle.load(f)
-        out = make()
-        with open(path, "wb") as f:
-            pickle.dump(out, f)
-    return out
 
 
 def _jax_reference() -> dict:
@@ -122,12 +106,12 @@ def _jax_reference() -> dict:
 
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
-    return _shared(tmp_path_factory, "jax", _jax_reference)
+    return _shared(tmp_path_factory, "pp_tp_jax", _jax_reference)
 
 
 @pytest.fixture(scope="module")
 def pp_tp(tmp_path_factory, jax_ref):
-    return _shared(tmp_path_factory, "world4", lambda: workers.spawn_world(
+    return _shared(tmp_path_factory, "pp_tp_world4", lambda: workers.spawn_world(
         4, tmp_path_factory.mktemp("pp_tp"), "_run_pp_tp_world", jax_ref["params"],
         jax_ref["train_params"]))
 
@@ -231,6 +215,20 @@ def test_refusals_that_stay_name_roadmap_a3(pp_tp, case):
     for res in pp_tp:
         msg = res["raises"][case]
         assert msg.startswith("NotImplementedError") and "ROADMAP A3" in msg, msg
+
+
+@pytest.mark.parametrize("case", sorted(workers.PPTP_RUNS))
+def test_combinations_that_ran_into_refusals_give_the_jax_logits(pp_tp, jax_ref, case):
+    want = jax_ref["logits"]["f32"]
+    for res in pp_tp:
+        got = res["runs"][case]
+        coords = got["coords"]
+        sp, tp = (2 if axis in coords else 1 for axis in ("sp", "tp"))
+        S = want.shape[1] // sp
+        s0 = coords.get("sp", 0) * S
+        units = shard_range(PLM_CFG["vocab_size"], tp, coords.get("tp", 0))
+        np.testing.assert_allclose(got["logits"],
+                                   want[:, s0:s0 + S, units.start:units.stop], **TOL["f32"])
 
 
 def test_train_gpt2_pp_tp_on_four_ranks(pp_tp):
