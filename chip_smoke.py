@@ -3028,7 +3028,8 @@ def held_closed_form(cfg, mesh, fsdp: bool, pipelined: bool) -> int:
     kernels at its tp rank's d_ff/tp each (5 d_model of LayerNorms and
     bias); the token embedding and the head (its tp rank's ⌈V/tp⌉-split
     rows each), the positions and ln_f, over dp under FSDP; a pipeline
-    stage's L/pp blocks."""
+    stage's L/pp blocks. sp cuts no parameter: under FSDP on a dp x sp mesh
+    the sp members of a dp index hold the same shard."""
     from horovod_tpu_torch.models.transformer import uses_moe
 
     d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
@@ -3689,7 +3690,7 @@ PS_VARIANTS = {
 PS_CONTEXT_MS = {"ts2_ulysses_flash_tp2_sp2": [374.30, 381.8]}
 
 
-def phase_pp_sp(fa, fb, gen, dev) -> dict:
+def phase_pp_sp(fa, fb, gen, dev) -> tuple:
     """GPT-2 1.3B at B=2, S=8192, bf16, remat, AdamW through ``PipelinedLM``
     on a pp=1 x dp=1 x sp=1 mesh, the stage built on the sp line (the
     positions of its block, the sequence-sharded loss' code): 5 steps whose
@@ -3699,7 +3700,9 @@ def phase_pp_sp(fa, fb, gen, dev) -> dict:
     attention (as in JAX), and Ulysses-flash's attention per head group is
     flash. Then K1 and the K2 pair at one sequence after Ulysses' head
     exchange at sp=2, (1, 8192, 8, 128), against their plain versions,
-    timed beside SDPA and the aten flash backward."""
+    timed beside SDPA and the aten flash backward. Returns the record and
+    the no-mesh run (its record, its step-1 gradients flat in name order),
+    the control of phase ``fsdp_sp``."""
     import horovod_tpu_torch as hvd
 
     mesh = hvd.create_mesh({"pp": 1, "dp": 1, "sp": 1})
@@ -3720,11 +3723,11 @@ def phase_pp_sp(fa, fb, gen, dev) -> dict:
                              f"{rel_norm(flat, bare_flat)} in relative norm)")
     rec.update(phase="pp_sp", model=PP_MODEL, models=[kind, bare_kind], bitwise_no_mesh=True,
                no_mesh_median_step_ms_2_to_5=bare_rec["median_step_ms_2_to_5"])
-    del runs, flat, bare_flat
+    del runs, flat
     Bn, Sn, Hn, Dn = PS_KERNEL_SHAPE
     rec["kernels_d128"] = {f"{Bn}x{Sn}x{Hn}": flash_at(fa, gen, dev, Bn, Sn, Hn, Dn)}
     emit(rec)
-    return rec
+    return rec, (bare_rec, bare_flat)
 
 
 def pp_sp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
@@ -3844,6 +3847,205 @@ def phase_pp_sp_multi(controls) -> dict:
     if failed:
         raise AssertionError("; ".join(failed))
     rec["launches"] = ranks[0]["ps1_ulysses_flash"]["launches"]
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# FSDP under sp (phases ``fsdp_sp`` and, with four cards, ``fsdp_sp_multi``):
+# GPT-2 1.3B at S=8192 under ``FSDP_RULES`` over dp=2 x sp=2, the long-context
+# recipe of ``examples/jax_gpt2_train.py``'s sp mesh (``--sp 2 --attn ring
+# --remat`` at gpt2-1p3b, :9-11) with the parameters, gradients and AdamW
+# moments cut over dp (the JAX "embed" row, ``horovod_tpu/parallel/
+# sharding.py:46-58``) and replicated over sp; the 16,384 tokens a step of
+# phases tp_sp and pp_sp.
+FS_MESH = {"dp": 2, "sp": 2}
+# The four-card variants on dp=2 x sp=2: model overrides (beside remat),
+# steps, the world-1 control of ``tp_sp_controls``, "fsdp" (FSDP_RULES) or
+# "replicated" (DEFAULT_RULES on the same mesh, the yardstick of memory and
+# time), and whether its step-1 gradients are gated. The FSDP and the
+# replicated Ulysses-flash runs take turns (fsdp, replicated, replicated,
+# fsdp); the second turn is timed and gated on its losses and bytes only.
+FS_VARIANTS = {
+    "fs1_ulysses_flash": ({"attn_impl": "ulysses", "sp_use_flash": True}, STEPS, "flash",
+                          "fsdp", True),
+    "r1_ulysses_flash": ({"attn_impl": "ulysses", "sp_use_flash": True}, STEPS, "flash",
+                         "replicated", True),
+    "r1b_ulysses_flash": ({"attn_impl": "ulysses", "sp_use_flash": True}, STEPS, "flash",
+                          "replicated", False),
+    "fs1b_ulysses_flash": ({"attn_impl": "ulysses", "sp_use_flash": True}, STEPS, "flash",
+                           "fsdp", False),
+    "fs2_ring": ({"attn_impl": "ring"}, 2, "ring1", "fsdp", True),
+    "fs1f_ring_f32": (TS_F32, 1, "f32", "fsdp", True),
+}
+
+
+def phase_fsdp_sp(fa, fb, control) -> dict:
+    """GPT-2 1.3B at B=2, S=8192, bf16, remat, AdamW under ``FSDP_RULES`` on
+    a dp=1 x sp=1 mesh, the sp attention's code with its sp line of one
+    member: 5 steps whose losses and step-1 gradients must be bitwise
+    ``control``'s, phase ``pp_sp``'s run of the model built with no mesh;
+    48 launches of K1 and 24 of each K2 kernel a step; the parameter,
+    gradient and optimizer-state bytes at their closed form. The attention
+    is flash, as in phase ``pp_sp``: on a line of one member Ulysses falls
+    back to dense attention (as in JAX), and Ulysses-flash's attention per
+    head group is flash."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.sharding import FSDP_RULES
+
+    ctrl_rec, ctrl_flat = control
+    mesh = hvd.create_mesh({"dp": 1, "sp": 1})
+    out = train_pp(hvd, fa, fb, mesh, False, {"remat": True}, keep_grads=True,
+                   rules=FSDP_RULES, batch=(TS_B, TS_S))
+    rec, model = out["rec"], out["model"]
+    check_launches("fsdp_sp", rec, flash_launches(model.cfg.n_layers, remat=True))
+    flat = flat_by_name(out["grads"])
+    if rec["losses"] != ctrl_rec["losses"] or not torch.equal(flat, ctrl_flat):
+        raise AssertionError(f"fsdp_sp: not bitwise the model with no mesh (losses "
+                             f"{rec['losses']} vs {ctrl_rec['losses']}, step-1 gradients "
+                             f"{rel_norm(flat, ctrl_flat)} in relative norm)")
+    rec["closed_form"] = check_bytes("fsdp_sp", rec, model.cfg, mesh, "fsdp", False)
+    rec.update(phase="fsdp_sp", model=PP_MODEL, bitwise_no_mesh=True,
+               no_mesh_median_step_ms_2_to_5=ctrl_rec["median_step_ms_2_to_5"])
+    del out, model, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+def fsdp_sp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
+    """One spawned NCCL rank of ``fsdp_sp_multi`` on dp=2 x sp=2: each
+    variant's record (the parameter, gradient and optimizer-state bytes at
+    their closed form, the exact launches, every line of copies bitwise
+    after its steps: the sp members of each dp shard, every rank for the
+    uncut tensors); the ranks of sp index 0 write their step-1 gradients
+    by name under ``tmp`` (under DEFAULT_RULES dp index 0's alone)."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+        from horovod_tpu_torch.parallel.sharding import FSDP_RULES
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            recs = {}
+            for name in variants:
+                overrides, steps, _, kind, gated = FS_VARIANTS[name]
+                mesh = hvd.create_mesh(FS_MESH)
+                out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, **overrides},
+                               keep_grads=gated, steps=steps, batch=(TS_B, TS_S),
+                               rules=FSDP_RULES if kind == "fsdp" else None)
+                rec, model = out["rec"], out["model"]
+                cfg = model.cfg
+                check_launches(name, rec, flash_launches(
+                    cfg.n_layers if cfg.sp_use_flash else 0, remat=True))
+                rec["closed_form"] = check_bytes(name, rec, cfg, mesh, kind, False)
+                rec["replicas_bitwise"] = replicas_bitwise(hvd, model, mesh)
+                if not all(rec["replicas_bitwise"].values()):
+                    raise AssertionError(f"{name}: replicas differ: {rec['replicas_bitwise']}")
+                rec["coords"] = dict(mesh.coords)
+                if gated and mesh.coords["sp"] == 0 and (kind == "fsdp"
+                                                         or mesh.coords["dp"] == 0):
+                    save_grads(tmp, name, mesh.coords, out["grads"])
+                recs[name] = rec
+                del out, model
+                gc.collect()
+                torch.cuda.empty_cache()
+            hvd.barrier()
+            queue.put((rank, recs))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_fsdp_sp_multi(controls) -> dict:
+    """On four cards: the FS_VARIANTS on one spawned NCCL rank per card
+    (dp=2 x sp=2, B=1 a dp rank of S=8192 cut over sp), each against its
+    world-1 control from ``tp_sp_controls`` (the same model, weights and
+    16,384 tokens). Gates, those of ``zero_mesh_multi`` and
+    ``pp_sp_multi``: step-1 loss within 2e-3 relative and the steps' within
+    1e-2; step-1 gradients, the dp shards joined to the full model, by
+    ``grad_gates`` (the f32 witness within 1e-4 of the f32 control over the
+    whole model and in every tensor, a bf16 variant's e_v at most twice e_1,
+    its control's distance from the f32 control); per rank 48 launches of
+    K1 and 24 of each K2 kernel a step with Ulysses-flash, none with the
+    ring; the parameter, gradient and optimizer-state bytes at their closed
+    form; every line of copies bitwise; the FSDP run's state bytes and peak
+    memory below the replicated run's on the same mesh. Per rank the step
+    ms, tokens/s and peak memory, the FSDP and the replicated runs in turns.
+    Returns the record, with (fs1)'s launches on rank 0 (or "not
+    measured")."""
+    import functools
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    world = math.prod(FS_MESH.values())
+    if cards < world:
+        rec = {"phase": "fsdp_sp_multi", "cards": cards,
+               "result": f"not measured: needs {world} cards"}
+        emit(rec)
+        return {"launches": rec["result"]}
+    layout = controls["layout"]
+    rec = {"phase": "fsdp_sp_multi", "cards": world, "mesh": FS_MESH, "variants": {},
+           "controls": {name: {k: controls[name][0][k] for k in (
+               "median_step_ms_2_to_5", "peak_mem_gb", "losses")}
+               for name in ("flash", "ring1", "f32")}}
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_cards(functools.partial(fsdp_sp_rank, variants=list(FS_VARIANTS),
+                                              tmp=tmp), world, timeout=1200)
+        for name, (_, _, ctrl, kind, gated) in FS_VARIANTS.items():
+            ctrl_rec, ctrl_flat = controls[ctrl]
+            got = ranks[0][name]
+            v = {"rank0": got, "control": ctrl, "kind": kind,
+                 "by_rank": {k: [r[name][k] for r in ranks] for k in (
+                     "median_step_ms_2_to_5", "tokens_per_s", "peak_mem_gb", "params_held",
+                     "param_bytes", "grad_bytes", "state_bytes", "launches_per_step")}}
+            v["tokens_per_s"] = TS_B * TS_S / (max(v["by_rank"]["median_step_ms_2_to_5"]) / 1e3)
+            v["loss1_rel_err"] = abs(got["losses"][0] - ctrl_rec["losses"][0]) / abs(
+                ctrl_rec["losses"][0])
+            v["loss_max_rel_err"] = max(abs(a - b) / abs(b)
+                                        for a, b in zip(got["losses"], ctrl_rec["losses"]))
+            if v["loss1_rel_err"] > SP_LOSS1_RTOL or v["loss_max_rel_err"] > SP_LOSS_RTOL:
+                failed.append(f"{name}: losses {got['losses']} vs {ctrl_rec['losses']}")
+            if gated:
+                grads = joined_grads(tmp, name, FS_MESH, kind == "fsdp", layout)
+                gate = {"pp": (ctrl_rec, ctrl_flat), "f32": controls["f32"],
+                        "e_1": rel_norm(ctrl_flat, controls["f32"][1])}
+                fields, bad = grad_gates(name, "f32" if ctrl == "f32" else "bf16", grads,
+                                         gate, layout)
+                v.update(fields)
+                failed += bad
+                del grads
+            rec["variants"][name] = v
+    for fsdp, rep in (("fs1_ulysses_flash", "r1_ulysses_flash"),
+                      ("fs1b_ulysses_flash", "r1b_ulysses_flash")):
+        f, r = rec["variants"][fsdp]["by_rank"], rec["variants"][rep]["by_rank"]
+        side = {"variant": rep,
+                "step_ms_ratio": (max(f["median_step_ms_2_to_5"])
+                                  / max(r["median_step_ms_2_to_5"])),
+                "peak_mem_gb_ratio": max(f["peak_mem_gb"]) / max(r["peak_mem_gb"]),
+                "peak_mem_gb_saved": max(r["peak_mem_gb"]) - max(f["peak_mem_gb"]),
+                "state_bytes_ratio": f["state_bytes"][0] / r["state_bytes"][0],
+                "param_bytes_ratio": f["param_bytes"][0] / r["param_bytes"][0],
+                "grad_bytes_ratio": f["grad_bytes"][0] / r["grad_bytes"][0]}
+        rec["variants"][fsdp]["beside_replicated"] = side
+        if (max(f["state_bytes"]) >= min(r["state_bytes"])
+                or max(f["peak_mem_gb"]) >= min(r["peak_mem_gb"])):
+            failed.append(f"{fsdp}: state bytes {f['state_bytes']} and peak memory "
+                          f"{f['peak_mem_gb']} GB not below {rep}'s {r['state_bytes']}, "
+                          f"{r['peak_mem_gb']} GB")
+    emit(rec)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    rec["launches"] = ranks[0]["fs1_ulysses_flash"]["launches"]
     return rec
 
 
@@ -6682,7 +6884,8 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm, p
     """The ``kernels`` line from the phases' records: each kernel's
     launches on the GPT-2 slice (and per path), error, times and bound.
     ``later``: the records of the vit, vit_multi, mnist, mnist_multi,
-    adasum_1p3b_multi, pp_tp, pp_tp_multi, pp_sp, pp_sp_multi, engine,
+    adasum_1p3b_multi, pp_tp, pp_tp_multi, pp_sp, pp_sp_multi, fsdp_sp,
+    fsdp_sp_multi, engine,
     engine_multi, elastic, elastic_multi, durable, durable_multi, metrics
     and metrics_multi phases by name (launches "not measured" where a phase
     had too few cards; the elastic, durable and metrics phases' are a
@@ -6838,10 +7041,13 @@ def main() -> int:
         ts, ts_controls = phase_tp_sp(fa, fb, gen, dev)
         phase_tp_sp_multi(ts_controls)
         ps_multi = phase_pp_sp_multi(ts_controls)
+        fs_multi = phase_fsdp_sp_multi(ts_controls)
         del ts_controls
         gc.collect()
         torch.cuda.empty_cache()
-        ps = phase_pp_sp(fa, fb, gen, dev)
+        ps, ps_control = phase_pp_sp(fa, fb, gen, dev)
+        fs = phase_fsdp_sp(fa, fb, ps_control)
+        del ps_control
         gc.collect()
         torch.cuda.empty_cache()
         tm, tm_controls = phase_tp_moe(fa, fb)
@@ -6852,7 +7058,8 @@ def main() -> int:
         later = {"vit": phase_vit(fa, fb), "vit_multi": phase_vit_multi(fa, fb),
                  "mnist": phase_mnist(fa, fb), "mnist_multi": phase_mnist_multi(),
                  "adasum_1p3b_multi": phase_adasum_1p3b_multi(), "pp_tp": pt,
-                 "pp_tp_multi": pt_multi, "pp_sp": ps, "pp_sp_multi": ps_multi, "engine": en,
+                 "pp_tp_multi": pt_multi, "pp_sp": ps, "pp_sp_multi": ps_multi,
+                 "fsdp_sp": fs, "fsdp_sp_multi": fs_multi, "engine": en,
                  "engine_multi": phase_engine_multi(), "elastic": el,
                  "elastic_multi": el_multi, "durable": du, "durable_multi": du_multi,
                  "metrics": me, "metrics_multi": me_multi}

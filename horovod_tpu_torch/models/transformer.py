@@ -82,8 +82,13 @@ there (``horovod_tpu/parallel/train.py`` cuts the batch over dp and, with
   holds its dp shard of every parameter with a d_model dimension, along
   that dimension, beside its tp cut; each layer gathers the full parameter
   over dp where it uses it (``gathered``), inside the remat block, and the
-  gather's backward reduce-scatters the gradient. FSDP combines with dp
-  and tp; with sp, ep, pp or experts it raises ``NotImplementedError``
+  gather's backward reduce-scatters the gradient. Under sp the shard is
+  replicated over the sp line: the positions of a sequence block index the
+  gathered position table, and every attention route takes q, k and v from
+  the gathered ``attn.qkv`` weight and bias, so each sp member's
+  reduce-scatter carries its block's whole gradient, which the optimizer
+  then sums over sp. FSDP combines with dp, tp and sp; with ep, pp,
+  experts, or sp and tp together, it raises ``NotImplementedError``
   (``check_fsdp_supported``). ``rules`` is ``DEFAULT_RULES`` by default;
   ``PipelinedLM`` holds ``PIPELINE_RULES``.
 """
@@ -105,7 +110,7 @@ from ..common import basics
 from . import dropout
 from ..ops.flash_attention import flash_attention
 from ..parallel.collectives import all_gather, psum, pvary
-from ..parallel.fsdp import check_fsdp_supported, gathered, mark_fsdp
+from ..parallel.fsdp import NOT_PORTED, check_fsdp_supported, gathered, mark_fsdp
 from ..parallel.mesh import Comm
 from ..parallel.sharding import DEFAULT_RULES, FSDP_RULES, mesh_axes
 from ..parallel.tensor import (ColumnParallel, RowParallel, check_tp_supported,
@@ -714,11 +719,11 @@ class _Transformer(nn.Module):
         self.cfg = cfg
         self.mesh = mesh
         self.rules = rules
-        check_tp_supported(cfg, mesh)
         embed = mesh_axes("embed", rules, mesh) if mesh is not None else ()
-        dp = mesh.comm(embed) if embed else Comm(None, 1, 0, (0,))
-        if dp.size > 1:
+        if embed:
             check_fsdp_supported(cfg, mesh)
+        check_tp_supported(cfg, mesh)
+        dp = mesh.comm(embed) if embed else Comm(None, 1, 0, (0,))
         self.embed = Embedder(cfg, device=device, mesh=mesh)
         self.stack = TransformerStack(cfg, device=device, mesh=mesh)
         self.ln_f = LayerNorm(cfg.d_model, cfg, device=device)
@@ -784,8 +789,7 @@ class TransformerEncoder(_Transformer):
                  generator: Optional[torch.Generator] = None, mesh=None,
                  rules=DEFAULT_RULES):
         if rules is FSDP_RULES:
-            raise NotImplementedError(
-                "FSDP_RULES on TransformerEncoder is not ported (ROADMAP A3: FSDP with sp, "
-                "ep, pp, MoE, gradient accumulation or the BERT encoder)")
+            raise NotImplementedError(f"FSDP_RULES on TransformerEncoder is not ported "
+                                      f"({NOT_PORTED})")
         super().__init__(dataclasses.replace(cfg, causal=False), device=device,
                          generator=generator, mesh=mesh, rules=rules)

@@ -39,12 +39,16 @@ On every path a parameter that requires grad but got none on this rank
 counts as a zero gradient, as in Horovod and the JAX package: every rank
 writes the reduced value to every ``.grad``, so the replicas stay equal.
 
-A parameter cut over the line's axes (FSDP, ``parallel/fsdp.py``) has its
-gradient summed over the line in backward, by the reduce-scatter of its
-gather. The optimizer skips the line for it and applies only the op's
-scale (1/n for AVERAGE) and the pre- and postscale; ZeRO, error feedback,
-Adasum, compression and ``backward_passes_per_step`` > 1 refuse such a
-parameter.
+A parameter cut over some of the line's axes (FSDP, ``parallel/fsdp.py``:
+the dp axis of a ("dp", "sp") line) has its gradient summed over its cut's
+line in backward, by the reduce-scatter of its gather. The optimizer sums
+it over the rest of its own line (under sp, the sp members that hold the
+same shard) with SUM all-reduces in buckets of their own, on the hooks'
+schedule beside the others (``_rest``, under the range ``REST_SPAN``;
+none where the cut's line is the whole line), then applies the op's scale
+(1/n for AVERAGE, n the whole line's size) and the pre- and postscale;
+ZeRO, error feedback, Adasum, compression and ``backward_passes_per_step``
+> 1 refuse such a parameter.
 
 ``synchronize()`` is the explicit form of the reduction; a ``step()`` after
 it only steps the inner optimizer. The ranks' gradient signatures (count,
@@ -70,8 +74,12 @@ from ..common import env
 from ..common.exceptions import HorovodInternalError, comm_failures_raise_internal
 from ..common.types import ReduceOp
 from ..ops.compression import Compression
+from ..parallel.fsdp import NOT_PORTED
 from ..parallel.mesh import Comm, current_mesh, resolve_comm
 from . import zero as zero_mod
+
+# The range of the cut gradients' sum over the rest of the line.
+REST_SPAN = "hvd.fsdp.rest_allreduce"
 
 _GRAD_OPS = (ReduceOp.AVERAGE, ReduceOp.SUM, ReduceOp.MIN, ReduceOp.MAX,
              ReduceOp.PRODUCT, ReduceOp.ADASUM)
@@ -130,9 +138,23 @@ def _allreduce_grads(grads: List[torch.Tensor], op: ReduceOp,
     return [comp.decompress(r, ctx) for r, (_, ctx) in zip(red, packed)]
 
 
+@torch.no_grad()
+def _write_grads(params: List[torch.Tensor], reduced: List[torch.Tensor]) -> None:
+    with ops.span("hvd.unflatten"):
+        for p, r in zip(params, reduced):
+            if p.grad is None:
+                p.grad = r.to(p.dtype, copy=True)
+            else:
+                p.grad.copy_(r)
+
+
 class _Bucket:
-    def __init__(self, dtype: torch.dtype):
+    """Gradients reduced in one collective: over the optimizer's line, or
+    (``rest``) cut gradients summed over the rest of it."""
+
+    def __init__(self, dtype: torch.dtype, rest: Optional[Comm] = None):
         self.dtype = dtype
+        self.rest = rest
         self.itemsize = torch.empty(0, dtype=dtype).element_size()
         self.params: List[torch.Tensor] = []
         self.sizes: List[int] = []
@@ -234,8 +256,9 @@ class DistributedOptimizer(torch.optim.Optimizer):
                                        line)
                     if error_feedback and not zero else None)
         self._presummed = {p for p in self._params() if getattr(p, "fsdp", None) is not None}
-        if self._presummed:
-            self._check_presummed(self._comm())
+        # A cut gradient's line still to sum it over, where it has one.
+        self._rest: Dict[torch.Tensor, Comm] = (
+            self._check_presummed(self._comm()) if self._presummed else {})
         self._buckets: Optional[List[_Bucket]] = None
         self._hooks = []
         if (_schedule != "grouped" and not zero and not error_feedback
@@ -310,31 +333,50 @@ class DistributedOptimizer(torch.optim.Optimizer):
         return out
 
     def _reduced(self) -> List[torch.Tensor]:
-        """The parameters whose gradients this optimizer reduces."""
+        """The parameters whose gradients this optimizer reduces over its
+        line."""
         return [p for p in self._params() if p not in self._presummed]
 
+    def _bucketed(self) -> List[torch.Tensor]:
+        """The parameters whose gradients go through the buckets: those
+        reduced over the line, and the cut ones still to be summed over the
+        rest of it."""
+        return [p for p in self._params() if p not in self._presummed or p in self._rest]
+
     # -- parameters whose gradients backward already summed (FSDP) -----------
-    def _check_presummed(self, comm: Comm) -> None:
+    def _check_presummed(self, comm: Comm) -> Dict[torch.Tensor, Comm]:
+        """Each cut parameter's line still to sum its gradient over: the
+        axes of the optimizer's line ``comm`` that its cut's line lacks
+        (none where the two are one line)."""
         if self.op not in (ReduceOp.SUM, ReduceOp.AVERAGE) or self.compression is not None:
             raise ValueError("parameters cut over dp (FSDP_RULES) have their gradients "
                              "reduce-scattered in backward: the op must be SUM or AVERAGE, "
                              "with no compression")
         if self.backward_passes_per_step > 1:
             raise NotImplementedError(
-                "backward_passes_per_step > 1 with parameters cut over dp is not ported "
-                "(ROADMAP A3: FSDP with sp, ep, pp, MoE, gradient accumulation "
-                "or the BERT encoder)")
-        for p in self._presummed:
-            if p.fsdp.comm.ranks != comm.ranks:
+                f"backward_passes_per_step > 1 with parameters cut over dp is not ported "
+                f"({NOT_PORTED})")
+        mesh = self._mesh or current_mesh()
+        rest = {}
+        for p in self._params():
+            cut = getattr(p, "fsdp", None)
+            if cut is None or cut.comm.ranks == comm.ranks:
+                continue
+            own, whole = (None, None) if mesh is None else (mesh.axes_of(cut.comm),
+                                                            mesh.axes_of(comm))
+            if own is None or whole is None or not set(own) < set(whole):
                 raise ValueError(
                     f"a parameter cut over dp has its gradient summed over ranks "
-                    f"{p.fsdp.comm.ranks} in backward; the optimizer reduces over "
-                    f"{comm.ranks}: pass the model's dp line as axis_name")
+                    f"{cut.comm.ranks} in backward; the optimizer reduces over "
+                    f"{comm.ranks}, not a line of the model's mesh that holds them: "
+                    "pass the model's dp line, or its ('dp', 'sp') line, as axis_name")
+            rest[p] = mesh.comm(tuple(a for a in whole if a not in own))
+        return rest
 
     @torch.no_grad()
     def _scale_presummed(self) -> None:
-        """The op's scale and the pre- and postscale on the summed gradients
-        (zeros for a parameter without one)."""
+        """The op's scale and the pre- and postscale on the gradients summed
+        over the whole line (zeros for a parameter without one)."""
         factor = self.prescale_factor * self.postscale_factor
         if self.op == ReduceOp.AVERAGE:
             factor /= self._comm().size
@@ -362,12 +404,13 @@ class DistributedOptimizer(torch.optim.Optimizer):
         comp = self.compression or Compression.none
         threshold = env.fusion_threshold_bytes() if self.fuse else 0
         self._buckets, self._slot = [], {}
-        for p in reversed(self._reduced()):
+        for p in reversed(self._bucketed()):
             dt = comp.compress(torch.empty(0, dtype=p.dtype, device=p.device))[0].dtype
+            rest = self._rest.get(p)
             last = self._buckets[-1] if self._buckets else None
-            if (last is None or last.dtype != dt
+            if (last is None or last.dtype != dt or last.rest != rest
                     or (last.numel + p.numel()) * last.itemsize > threshold):
-                last = _Bucket(dt)
+                last = _Bucket(dt, rest)
                 self._buckets.append(last)
             self._slot[p] = (len(self._buckets) - 1, len(last.params))
             last.add(p)
@@ -375,13 +418,15 @@ class DistributedOptimizer(torch.optim.Optimizer):
         if hooks:
             ref = weakref.ref(self)
             self._hooks = [p.register_post_accumulate_grad_hook(_hook(ref))
-                           for p in self._reduced()]
+                           for p in self._bucketed()]
 
     def _check_bucket_signature(self) -> None:
         # Before the first bucket launches: every rank fires its first hook.
-        if not self._signature_checked and self._buckets:
-            self._check_signature(self._buckets[0].dtype,
-                                  [p.numel() for b in self._buckets for p in b.params])
+        # The line's buckets only: a cut gradient's shard may differ in size
+        # from one cut rank to the next.
+        line = [b for b in self._buckets if b.rest is None]
+        if not self._signature_checked and line:
+            self._check_signature(line[0].dtype, [p.numel() for b in line for p in b.params])
 
     def _reset_buckets(self) -> None:
         for b in self._buckets:
@@ -427,25 +472,29 @@ class DistributedOptimizer(torch.optim.Optimizer):
             b = self._buckets[self._next_launch]
             with ops.span("hvd.flatten"):
                 buf = b.flatten()
-            b.launched = ops._reduce_launch(ops._scale(buf, self.prescale_factor),
-                                            self.op, self.postscale_factor, b.dtype, True,
-                                            self._comm())
+            if b.rest is None:
+                b.launched = ops._reduce_launch(ops._scale(buf, self.prescale_factor),
+                                                self.op, self.postscale_factor, b.dtype,
+                                                True, self._comm())
+            else:   # scaled with the other cut gradients (_scale_presummed)
+                with ops.span(REST_SPAN):
+                    b.launched = ops._reduce_launch(buf, ReduceOp.SUM, 1.0, b.dtype, True,
+                                                    b.rest)
             self._next_launch += 1
 
     @torch.no_grad()
     def _finish_overlap(self) -> bool:
         """Fill what the hooks did not, wait for every bucket and write the
         reduced gradients; False on a pass that only accumulates."""
-        for p in self._reduced():
+        for p in self._bucketed():
             if p not in self._filled and p.grad is not None:
                 self._on_grad(p)
         if self._passes < self.backward_passes_per_step - 1:
             self._passes += 1
             self._filled = set()
             return False
-        self._scale_presummed()
         self._check_bucket_signature()
-        for p in self._reduced():
+        for p in self._bucketed():
             if p not in self._filled:
                 acc = self._acc.pop(p, None)
                 self._filled.add(p)
@@ -466,6 +515,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
                         src.append(val)
                 if dst:
                     torch._foreach_copy_(dst, src)
+        self._scale_presummed()
         self._passes = 0
         self._reset_buckets()
         return True
@@ -500,21 +550,23 @@ class DistributedOptimizer(torch.optim.Optimizer):
         if self._ef:
             self._ef.synchronize()
             return
-        self._scale_presummed()
         params = self._reduced()
-        if not params:
-            return
-        grads = zero_mod._grads(params)
-        self._check_signature(_widest(grads), [g.numel() for g in grads])
-        reduced = _allreduce_grads(grads, self.op, self.prescale_factor,
-                                   self.postscale_factor, self.compression, self.fuse,
-                                   self._comm())
-        with ops.span("hvd.unflatten"):
-            for p, r in zip(params, reduced):
-                if p.grad is None:
-                    p.grad = r.to(p.dtype, copy=True)
-                else:
-                    p.grad.copy_(r)
+        if params:
+            grads = zero_mod._grads(params)
+            self._check_signature(_widest(grads), [g.numel() for g in grads])
+            _write_grads(params, _allreduce_grads(grads, self.op, self.prescale_factor,
+                                                  self.postscale_factor, self.compression,
+                                                  self.fuse, self._comm()))
+        by_line: Dict[tuple, tuple] = {}
+        for p in self._params():
+            if p in self._rest:
+                by_line.setdefault(self._rest[p].ranks, (self._rest[p], []))[1].append(p)
+        for rest, cut in by_line.values():
+            with ops.span(REST_SPAN):
+                summed = _allreduce_grads(zero_mod._grads(cut), ReduceOp.SUM, 1.0, 1.0, None,
+                                          True, rest)
+            _write_grads(cut, summed)
+        self._scale_presummed()
 
     @comm_failures_raise_internal
     def synchronize(self) -> None:

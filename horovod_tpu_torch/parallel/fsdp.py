@@ -19,13 +19,23 @@ only one block's full parameters are alive at a time. The optimizer's
 state follows the shards: AdamW's moments of an FSDP-cut parameter are
 its shard's.
 
+Under sp the layout is the JAX one: a parameter is cut over the dp line
+and replicated over sp, so the sp members of dp index d hold the same
+shard (``flax_to_torch(..., dp=, dp_rank=)`` gives each of them that
+shard). Each sp member's backward reduce-scatters, over its dp line, the
+gradient of its own sequence block; the sum over the sp members that hold
+the same shard is left, and ``DistributedOptimizer``, whose line is
+("dp", "sp"), all-reduces the cut gradients over the rest of its line
+(the sp line) in its buckets before it applies AVERAGE's 1/(dp·sp).
+
 Uneven splits follow ``shard_range`` (the last shard short): each shard is
 padded to ⌈n/dp⌉ for the gather and the padding cut away after it. At a
 dp line of one member nothing is cut and ``gathered`` returns the
-parameter itself, bit for bit. FSDP combines with dp and tp; with sp, ep,
-pp, a Switch-MoE FFN or gradient accumulation, and on the BERT encoder,
-it raises ``NotImplementedError`` naming its ROADMAP item, and it does not
-take ZeRO (the moments are already sharded).
+parameter itself, bit for bit. FSDP combines with dp, tp and sp; with ep,
+pp, a Switch-MoE FFN, gradient accumulation, sp and tp both above one (dp
+x sp x tp, a mesh of eight ranks), and on the BERT encoder, it raises
+``NotImplementedError`` naming its ROADMAP item, and it does not take ZeRO
+(the moments are already sharded).
 """
 from __future__ import annotations
 
@@ -116,20 +126,25 @@ def fsdp_cut(name: str, cfg, comm: Comm) -> Optional[FSDPCut]:
     return FSDPCut("embed", dim, cfg.d_model, comm)
 
 
+# What the refusals name.
+NOT_PORTED = ("ROADMAP A3: FSDP with ep, pp, MoE, gradient accumulation, dp x sp x tp "
+              "or the BERT encoder")
+
+
 def check_fsdp_supported(cfg, mesh) -> None:
     """The combinations this port does not run under an FSDP cut raise
     ``NotImplementedError`` naming their ROADMAP item."""
-    for axis in ("sp", "ep", "pp"):
+    for axis in ("ep", "pp"):
         if mesh.shape.get(axis, 1) > 1:
             raise NotImplementedError(
-                f"FSDP_RULES with {axis}={mesh.shape[axis]} is not ported "
-                "(ROADMAP A3: FSDP with sp, ep, pp, MoE, gradient accumulation "
-                "or the BERT encoder)")
+                f"FSDP_RULES with {axis}={mesh.shape[axis]} is not ported ({NOT_PORTED})")
+    if mesh.shape.get("sp", 1) > 1 and mesh.shape.get("tp", 1) > 1:
+        raise NotImplementedError(
+            f"FSDP_RULES with sp={mesh.shape['sp']} and tp={mesh.shape['tp']} together is "
+            f"not ported ({NOT_PORTED})")
     if cfg.n_experts:
         raise NotImplementedError(
-            f"FSDP_RULES with n_experts={cfg.n_experts} is not ported "
-            "(ROADMAP A3: FSDP with sp, ep, pp, MoE, gradient accumulation "
-            "or the BERT encoder)")
+            f"FSDP_RULES with n_experts={cfg.n_experts} is not ported ({NOT_PORTED})")
 
 
 def mark_fsdp(model: torch.nn.Module, cfg, comm: Comm) -> None:

@@ -170,6 +170,16 @@ class Mesh:
             return Comm(None, 1, 0, (basics.rank(),))
         return self._comms[key]
 
+    def axes_of(self, comm: Comm) -> Optional[Tuple[str, ...]]:
+        """The axes of size above one along which ``comm`` is this rank's
+        line; None for a communicator that is no line of the mesh."""
+        live = tuple(a for a in self.axis_names if self.shape[a] > 1)
+        for k in range(len(live) + 1):
+            for axes in itertools.combinations(live, k):
+                if self.comm(axes).ranks == comm.ranks:
+                    return axes
+        return None
+
     def group(self, axes: Axes):
         """The process group of this rank's line along ``axes`` (None for
         the world's default group or a line of one rank)."""

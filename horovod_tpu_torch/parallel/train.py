@@ -54,7 +54,11 @@ sharded over the data line. JAX stacks the dp shard in front of each
 moment's own tp spec; here each rank's flat buffer already holds only its
 tp shards, so ``DistributedOptimizer(opt, zero=1, axis_name=<the data
 line>)`` is the same layout. ``rules`` is the model's (``FSDP_RULES``: the
-parameters themselves cut over dp, ``parallel/fsdp.py``).
+parameters themselves cut over dp, ``parallel/fsdp.py``). Under
+``FSDP_RULES`` on a dp x sp mesh the cut parameters are replicated over
+sp, and the optimizer, still over the ("dp", "sp") line, sums their
+gradients (already summed over dp by the gathers' reduce-scatters) over
+the sp line before AVERAGE's 1/(dp·sp) (``optim/distributed.py``).
 
 ``dropout=True`` runs a model whose ``forward`` takes ``deterministic``
 with ``deterministic=False`` under the dropout key (``dropout_seed``, the
@@ -190,7 +194,10 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     already reducing over that line (ZeRO there when ``zero=True``); the
     ``TrainState`` holds the one that steps. ``zero=True`` needs a dp axis
     and does not combine with ``FSDP_RULES``. ``rules``, where given, must
-    be the model's ``rules`` (the model is built with them).
+    be the model's ``rules`` (the model is built with them); under
+    ``FSDP_RULES`` with sp > 1 (and ``shard_seq``) each rank's dp shards are
+    its sp line's copies, broadcast within that line at init, and their
+    gradients are summed over sp by the optimizer.
 
     ``shard_seq`` cuts dim 1 over sp; a mesh with sp > 1 needs it, since
     the model then takes this rank's sequence block. With pp > 1 the model

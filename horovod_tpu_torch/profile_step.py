@@ -71,7 +71,13 @@ line, the layout of ``make_train_step(zero=True)``), and ``--fsdp`` builds
 it under ``FSDP_RULES`` (every d_model dimension cut over dp), splitting
 the step further by ``hvd.fsdp.all_gather`` (each parameter gathered at its
 use, again in backward under remat) and ``hvd.fsdp.all_gather.bwd`` (its
-gradient reduce-scattered). ``--tp`` combines with ``--sp``, ``--attn``
+gradient reduce-scattered). ``--fsdp`` combines with ``--sp``, ``--attn``
+and ``--seq`` (FSDP x sp: ``--model gpt2-1p3b --fsdp --sp 2 --attn ulysses
+--sp-use-flash --seq 8192 --remat``, a dp x sp mesh over the world whose
+cut parameters are replicated over sp), and the step splits by the
+``hvd.fsdp.*`` and the ``hvd.sp.*`` ranges together, where
+``hvd.fsdp.rest_allreduce`` is the cut gradients' sum over the sp line
+(the optimizer's buckets of them). ``--tp`` combines with ``--sp``, ``--attn``
 and ``--seq`` (tp x sp: ``--model gpt2-1p3b --tp 2 --sp 2 --attn ring
 --seq 8192 --remat``, the layout of ``examples/jax_gpt2_train.py:9-11``
 cut to one node); at ``--seq`` above 2048 the global batch shrinks to keep

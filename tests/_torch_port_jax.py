@@ -1,4 +1,4 @@
-"""JAX-side references for tests/test_torch_port_{zero_mesh,fsdp}.py: the
+"""JAX-side references for tests/test_torch_port_{zero_mesh,fsdp,fsdp_sp}.py: the
 JAX model of ``_torch_port_workers.zm_config``, its weights drawn with
 numpy, and the JAX ``make_train_step`` on a CPU mesh of the same shape;
 ``shared``, the session-wide cache of an expensive fixture under xdist
@@ -50,10 +50,10 @@ def shared(tmp_path_factory, name: str, make):
     return out
 
 
-def model(dtype: str = "float32") -> TransformerLM:
+def model(dtype: str = "float32", **overrides) -> TransformerLM:
     cfg = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], vocab_size=workers.ZM_VOCAB,
                               d_model=32, n_heads=4, d_ff=64, max_len=workers.ZM_S,
-                              dtype=getattr(jnp, dtype))
+                              dtype=getattr(jnp, dtype), **overrides)
     return TransformerLM(cfg)
 
 
@@ -79,16 +79,18 @@ def mesh(shape: dict) -> Mesh:
 
 
 def train(shape: dict, params, dtype: str = "float32", zero: bool = False,
-          rules=DEFAULT_RULES) -> dict:
+          rules=DEFAULT_RULES, shard_seq: bool = False, **overrides) -> dict:
     """ZM_STEPS AdamW steps of the JAX ``make_train_step`` (plain
-    ``optax.adamw``, ``zero=``, ``rules=``) on a CPU mesh of ``shape`` from
-    ``params``: the losses, the final parameters and the f32 step-1
+    ``optax.adamw``, ``zero=``, ``rules=``, ``shard_seq=``) on a CPU mesh of
+    ``shape`` from ``params``, the model's config ``overrides`` applied (an
+    attention route): the losses, the final parameters and the f32 step-1
     gradients in the port's full layout, and the parameters' shardings."""
-    jmodel = model(dtype)
+    jmodel = model(dtype, **overrides)
     cfg = workers.zm_config(torch, dtype)
     ids = workers.zm_ids()
     tx = optax.adamw(workers.ZM_LR, weight_decay=workers.ZM_WD, eps=workers.ZM_EPS)
-    build = make_train_step(jmodel, tx, lm_loss, mesh=mesh(shape), rules=rules, zero=zero)
+    build = make_train_step(jmodel, tx, lm_loss, mesh=mesh(shape), rules=rules, zero=zero,
+                            shard_seq=shard_seq)
     _, step_fn, shardings = build(jax.random.PRNGKey(0), ids, ids)
     state = jax.device_put(TrainState(step=jnp.zeros((), jnp.int32), params=params,
                                       opt_state=tx.init(params)), shardings)

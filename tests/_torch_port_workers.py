@@ -1854,15 +1854,17 @@ def zm_ids(seed: int = 7) -> np.ndarray:
 
 def _zm_train(hvd, torch, shape: dict, params=None, dtype: str = "float32", *,
               zero: bool = False, fsdp: bool = False, plain: bool = True,
-              shard_seq: bool = False, moe_aux_weight: float = 0.0, **overrides) -> dict:
+              shard_seq: bool = False, moe_aux_weight: float = 0.0, opt_kw=None,
+              per_step: bool = False, **overrides) -> dict:
     """ZM_STEPS AdamW steps of the zm model on a mesh of ``shape`` through
     ``make_train_step`` (``zero=``; ``rules=FSDP_RULES`` with ``fsdp``),
     from the numpy weights ``params`` (each rank loading its cut), or from
     torch seed 0 without them; the optimizer passed plain, or with
     ``plain=False`` as ``DistributedOptimizer`` over the mesh's dp and sp
-    axes. Returns
-    the losses, this rank's coordinates, its state_dict, its optimizer's
-    state bytes and the rank's step-1 gradients by name."""
+    axes (with ``opt_kw``). Returns
+    the losses, this rank's coordinates, its state_dict (with ``per_step``
+    after every step too), its optimizer's state bytes and the rank's
+    step-1 gradients by name."""
     from horovod_tpu_torch.models.convert import flax_to_torch
     from horovod_tpu_torch.models.transformer import TransformerLM
     from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
@@ -1886,20 +1888,23 @@ def _zm_train(hvd, torch, shape: dict, params=None, dtype: str = "float32", *,
     opt = torch.optim.AdamW(model.parameters(), lr=ZM_LR, weight_decay=ZM_WD, eps=ZM_EPS)
     if not plain:
         line = tuple(a for a in ("dp", "sp") if a in mesh.axis_names)
-        opt = hvd.DistributedOptimizer(opt, zero=int(zero), axis_name=line)
+        opt = hvd.DistributedOptimizer(opt, zero=int(zero), axis_name=line, **(opt_kw or {}))
     init_fn, step_fn = make_train_step(model, opt, lm_loss, mesh=mesh, shard_seq=shard_seq,
                                        moe_aux_weight=moe_aux_weight,
                                        **({"zero": True} if zero else {}), **rules)
     state = init_fn()
     ids = torch.from_numpy(zm_ids())
-    losses, grads = [], None
+    losses, grads, by_step = [], None, []
     for _ in range(ZM_STEPS):
         state, loss = step_fn(state, ids, ids)
         losses.append(float(loss))
         if grads is None:
             grads = {k: p.grad.detach().float().numpy().copy()
                      for k, p in model.named_parameters()}
-    return {"losses": np.array(losses), "coords": dict(mesh.coords),
+        if per_step:
+            by_step.append({k: v.detach().float().numpy().copy()
+                            for k, v in model.state_dict().items()})
+    return {"losses": np.array(losses), "coords": dict(mesh.coords), "by_step": by_step,
             "params": {k: v.detach().float().numpy().copy()
                        for k, v in model.state_dict().items()},
             "grads": grads,
@@ -2038,7 +2043,8 @@ def _run_zero_mesh_world(rank: int, size: int, params_f32, params_bf16) -> dict:
 def _fsdp_raises(hvd, torch) -> dict:
     """The combinations FSDP_RULES does not run (and the optimizer's
     gradient accumulation on FSDP-cut parameters, and the BERT encoder),
-    on a world of four."""
+    on a world of four; dp x sp x tp on a mesh of eight named without its
+    communicators (the refusal comes before any collective)."""
     import dataclasses
 
     from horovod_tpu_torch.models.transformer import TransformerEncoder, TransformerLM
@@ -2057,7 +2063,12 @@ def _fsdp_raises(hvd, torch) -> dict:
         hvd.DistributedOptimizer(torch.optim.AdamW(model.parameters()), axis_name="dp",
                                  backward_passes_per_step=2)
 
-    return {"sp": _raises(build({"dp": 2, "sp": 2})),
+    def dp_sp_tp():    # eight ranks: named on a mesh without communicators
+        cfg = zm_config(torch)
+        TransformerLM(cfg, device="cpu", rules=FSDP_RULES,
+                      mesh=paper_mesh(torch, {"dp": 2, "sp": 2, "tp": 2}))
+
+    return {"dp_sp_tp": _raises(dp_sp_tp),
             "ep": _raises(build({"dp": 2, "ep": 2})),
             "pp": _raises(build({"dp": 2, "pp": 2})),
             "moe": _raises(build({"dp": 4}, n_experts=4)),
@@ -2828,3 +2839,56 @@ def _run_fleet_world(rank: int, size: int, wait_s: float) -> dict:
     eng.synchronize(eng.enqueue_allreduce(torch.zeros(1), name="read"))
     return {"own": own["metrics"], "mode": own["mode"], "status": own.get("status"),
             "fleet": fleet}
+
+
+# ---------------------------------------------------------------------------
+# FSDP under sp (tests/test_torch_port_fsdp_sp.py)
+FSDPSP_MESH = {"dp": 2, "sp": 2}
+FSDPSP_ATTNS = PPSP_ATTNS
+# The bf16 route, and the route run on the after-backward (grouped) path.
+FSDPSP_BF16 = "ulysses_flash"
+FSDPSP_GROUPED = "ring"
+
+
+def _run_fsdp_sp_world(rank: int, size: int, params_f32, params_bf16) -> dict:
+    """On dp=2 x sp=2 under FSDP_RULES, with shard_seq, from the numpy
+    weights (each rank loading its dp cut): every route in f32 with the
+    plain AdamW (the parameters after every step) and with a
+    DistributedOptimizer over ("dp", "sp") passed in, FSDPSP_BF16 in bf16,
+    FSDPSP_GROUPED on the after-backward grouped reduction; the model from
+    torch seed 0; the model loaded with this rank's cut of ``params_f32``
+    by ``flax_to_torch(..., dp=, dp_rank=)``."""
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.convert import flax_to_torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel.sharding import FSDP_RULES
+
+    runs = {}
+    for attn in FSDPSP_ATTNS:
+        kw = dict(fsdp=True, shard_seq=True, **ppsp_overrides(attn))
+        runs[attn] = _zm_train(hvd, torch, FSDPSP_MESH, params_f32, per_step=True, **kw)
+        runs[f"{attn}_passed"] = _zm_train(hvd, torch, FSDPSP_MESH, params_f32, plain=False,
+                                           **kw)
+    runs[f"{FSDPSP_BF16}_bf16"] = _zm_train(hvd, torch, FSDPSP_MESH, params_bf16, "bfloat16",
+                                            fsdp=True, shard_seq=True,
+                                            **ppsp_overrides(FSDPSP_BF16))
+    runs[f"{FSDPSP_GROUPED}_grouped"] = _zm_train(
+        hvd, torch, FSDPSP_MESH, params_f32, plain=False, opt_kw={"_schedule": "grouped"},
+        fsdp=True, shard_seq=True, **ppsp_overrides(FSDPSP_GROUPED))
+    mesh = hvd.create_mesh(FSDPSP_MESH)
+    cfg = zm_config(torch)
+    model = TransformerLM(cfg, device="cpu", mesh=mesh, rules=FSDP_RULES,
+                          generator=torch.Generator().manual_seed(0))
+    init = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    model.load_state_dict(flax_to_torch(params_f32, cfg, dp=mesh.shape["dp"],
+                                        dp_rank=mesh.coords["dp"]))
+    # An optimizer whose line does not hold the cut's dp line cannot finish
+    # the cut gradients' sum.
+    off_line = _raises(lambda: hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters()), axis_name="sp"))
+    return {"runs": runs, "coords": dict(mesh.coords), "init": init, "off_line": off_line,
+            "loaded": {k: v.numpy().copy() for k, v in model.state_dict().items()}}
