@@ -3029,7 +3029,10 @@ def held_closed_form(cfg, mesh, fsdp: bool, pipelined: bool) -> int:
     bias); the token embedding and the head (its tp rank's ⌈V/tp⌉-split
     rows each), the positions and ln_f, over dp under FSDP; a pipeline
     stage's L/pp blocks. sp cuts no parameter: under FSDP on a dp x sp mesh
-    the sp members of a dp index hold the same shard."""
+    the sp members of a dp index hold the same shard. Under FSDP a Switch
+    block's LayerNorms and out bias, attention kernels, router and experts
+    are over dp too (the qkv bias whole), on a dp x ep mesh beside the ep
+    slice."""
     from horovod_tpu_torch.models.transformer import uses_moe
 
     d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
@@ -3041,8 +3044,9 @@ def held_closed_form(cfg, mesh, fsdp: bool, pipelined: bool) -> int:
     block = 6 * d // n + (4 * d * d + 2 * d * f) // (tp * n) + (3 * d + f) // tp
     moe = sum(uses_moe(cfg, i) for i in range(blocks))
     f_local = min(f, (r + 1) * -(-f // tp)) - r * -(-f // tp)
-    switch = (5 * d + 4 * d * d // tp + 3 * d // tp + cfg.n_experts * d
-              + 2 * cfg.n_experts // mesh.shape.get("ep", 1) * d * f_local)
+    switch = ((5 * d + 4 * d * d // tp + cfg.n_experts * d
+               + 2 * cfg.n_experts // mesh.shape.get("ep", 1) * d * f_local) // n
+              + 3 * d // tp)
     return ((blocks - moe) * block + moe * switch
             + (2 * rows * d + cfg.max_len * d + 2 * d) // n)
 
@@ -3913,6 +3917,31 @@ def phase_fsdp_sp(fa, fb, control) -> dict:
     return rec
 
 
+def beside_replicated(rec: dict, pairs) -> list:
+    """Each FSDP variant of ``pairs`` (fsdp, replicated) beside the
+    replicated run it took turns with, in its record: the step, peak
+    memory and byte ratios. Returns the failures: the FSDP run's state
+    bytes or peak memory not below the replicated run's."""
+    failed = []
+    for fsdp, rep in pairs:
+        f, r = rec["variants"][fsdp]["by_rank"], rec["variants"][rep]["by_rank"]
+        side = {"variant": rep,
+                "step_ms_ratio": (max(f["median_step_ms_2_to_5"])
+                                  / max(r["median_step_ms_2_to_5"])),
+                "peak_mem_gb_ratio": max(f["peak_mem_gb"]) / max(r["peak_mem_gb"]),
+                "peak_mem_gb_saved": max(r["peak_mem_gb"]) - max(f["peak_mem_gb"]),
+                "state_bytes_ratio": f["state_bytes"][0] / r["state_bytes"][0],
+                "param_bytes_ratio": f["param_bytes"][0] / r["param_bytes"][0],
+                "grad_bytes_ratio": f["grad_bytes"][0] / r["grad_bytes"][0]}
+        rec["variants"][fsdp]["beside_replicated"] = side
+        if (max(f["state_bytes"]) >= min(r["state_bytes"])
+                or max(f["peak_mem_gb"]) >= min(r["peak_mem_gb"])):
+            failed.append(f"{fsdp}: state bytes {f['state_bytes']} and peak memory "
+                          f"{f['peak_mem_gb']} GB not below {rep}'s {r['state_bytes']}, "
+                          f"{r['peak_mem_gb']} GB")
+    return failed
+
+
 def fsdp_sp_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
     """One spawned NCCL rank of ``fsdp_sp_multi`` on dp=2 x sp=2: each
     variant's record (the parameter, gradient and optimizer-state bytes at
@@ -4025,23 +4054,8 @@ def phase_fsdp_sp_multi(controls) -> dict:
                 failed += bad
                 del grads
             rec["variants"][name] = v
-    for fsdp, rep in (("fs1_ulysses_flash", "r1_ulysses_flash"),
-                      ("fs1b_ulysses_flash", "r1b_ulysses_flash")):
-        f, r = rec["variants"][fsdp]["by_rank"], rec["variants"][rep]["by_rank"]
-        side = {"variant": rep,
-                "step_ms_ratio": (max(f["median_step_ms_2_to_5"])
-                                  / max(r["median_step_ms_2_to_5"])),
-                "peak_mem_gb_ratio": max(f["peak_mem_gb"]) / max(r["peak_mem_gb"]),
-                "peak_mem_gb_saved": max(r["peak_mem_gb"]) - max(f["peak_mem_gb"]),
-                "state_bytes_ratio": f["state_bytes"][0] / r["state_bytes"][0],
-                "param_bytes_ratio": f["param_bytes"][0] / r["param_bytes"][0],
-                "grad_bytes_ratio": f["grad_bytes"][0] / r["grad_bytes"][0]}
-        rec["variants"][fsdp]["beside_replicated"] = side
-        if (max(f["state_bytes"]) >= min(r["state_bytes"])
-                or max(f["peak_mem_gb"]) >= min(r["peak_mem_gb"])):
-            failed.append(f"{fsdp}: state bytes {f['state_bytes']} and peak memory "
-                          f"{f['peak_mem_gb']} GB not below {rep}'s {r['state_bytes']}, "
-                          f"{r['peak_mem_gb']} GB")
+    failed += beside_replicated(rec, (("fs1_ulysses_flash", "r1_ulysses_flash"),
+                                      ("fs1b_ulysses_flash", "r1b_ulysses_flash")))
     emit(rec)
     if failed:
         raise AssertionError("; ".join(failed))
@@ -4154,9 +4168,10 @@ def phase_tp_moe(fa, fb) -> tuple:
     tokens must be bitwise equal; 2·L launches of K1 and L of each K2
     kernel a step. Then the full-depth world-1 controls of ``tp_moe_multi``
     (``world1_fwd_bwd``): bf16 with flash, and f32 with dense attention.
-    Returns the record and the controls: "bf16" and "f32" (record, step-1
+    Returns the record, the controls: "bf16" and "f32" (record, step-1
     gradients flat in name order), "layout" and "e_1", the bf16 control's
-    distance from the f32 one."""
+    distance from the f32 one; and the no-mesh run (its record, its step-1
+    gradients flat in name order), the control of phase ``fsdp_moe``."""
     import horovod_tpu_torch as hvd
 
     mesh = full_mesh({})
@@ -4185,12 +4200,12 @@ def phase_tp_moe(fa, fb) -> tuple:
              no_mesh_median_step_ms_2_to_5=bare_rec["median_step_ms_2_to_5"],
              no_mesh_peak_mem_gb=bare_rec["peak_mem_gb"])
     rec.update(r)
-    del runs, flat, bare_flat
+    del runs, flat
     controls = tp_moe_controls(hvd, fa, fb)
     rec.update(control_bf16=controls["bf16"][0], control_f32=controls["f32"][0],
                e_1=controls["e_1"])
     emit(rec)
-    return rec, controls
+    return rec, controls, (bare_rec, bare_flat)
 
 
 def tp_moe_controls(hvd, fa, fb) -> dict:
@@ -4283,7 +4298,9 @@ def phase_tp_moe_multi(controls) -> dict:
     control's; and per rank (``tp_moe_rank``) the exact launches, the
     parameters held at their closed form, the routes bitwise on every tp
     and ep line at every step, the replicas bitwise on every line. Per
-    rank the step ms, tokens/s and peak memory, read on the slowest."""
+    rank the step ms, tokens/s and peak memory, read on the slowest.
+    Returns the record, whose (tm4) losses ``fsdp_moe_multi`` holds its
+    own against."""
     import functools
     import tempfile
 
@@ -4339,6 +4356,215 @@ def phase_tp_moe_multi(controls) -> dict:
     emit(rec)
     if failed:
         raise AssertionError("; ".join(failed))
+    return rec
+
+# ---------------------------------------------------------------------------
+# FSDP with Switch experts and ep (phases ``fsdp_moe`` and, with four cards,
+# ``fsdp_moe_multi``): tp_moe's GPT-2 1.3B with 8 Switch experts (MOE_CFG,
+# Switch-Base-8's layout) at full depth, B=8, S=2048, under ``FSDP_RULES``
+# over dp=2 x ep=2: the router's and each rank's E/ep experts' d_model cut
+# over dp beside every dense parameter's (the JAX "embed" row, placing the
+# router kernel ``P('dp', None)``, ``moe.wi`` ``P('ep', 'dp', None)`` and
+# ``moe.wo`` ``P('ep', None, 'dp')``), the dense parameters and the router
+# replicated over ep.
+FM_MESH = {"dp": 2, "ep": 2}
+# The four-card variants on dp=2 x ep=2: model overrides (beside remat and
+# MOE_CFG), steps, the world-1 control of ``tp_moe_controls``, "fsdp"
+# (FSDP_RULES) or "replicated" (DEFAULT_RULES on the same mesh, the
+# yardstick of memory and time), and whether its step-1 gradients are
+# gated. The FSDP and the replicated runs take turns (fsdp, replicated,
+# replicated, fsdp); the second turn is timed and gated on its losses,
+# dropped tokens, routes and bytes only.
+FM_VARIANTS = {
+    "fm1": ({}, STEPS, "bf16", "fsdp", True),
+    "rm1": ({}, STEPS, "bf16", "replicated", True),
+    "rm1b": ({}, STEPS, "bf16", "replicated", False),
+    "fm1b": ({}, STEPS, "bf16", "fsdp", False),
+    "fm1f": (TP_F32, 1, "f32", "fsdp", True),
+}
+
+
+def phase_fsdp_moe(fa, fb, control) -> dict:
+    """GPT-2 1.3B with 8 Switch experts at TM_DEPTH layers, B=8, S=2048,
+    bf16, flash, remat, AdamW with the auxiliary loss, under ``FSDP_RULES``
+    on a dp=1 x ep=1 x sp=1 x tp=1 mesh (the experts' gathers on a dp line
+    of one member): 5 steps whose losses, dropped tokens and step-1
+    gradients must be bitwise ``control``'s, phase ``tp_moe``'s run of the
+    model built with no mesh; 2·L launches of K1 and L of each K2 kernel a
+    step; the parameter, gradient and optimizer-state bytes at their closed
+    form."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.sharding import FSDP_RULES
+
+    ctrl_rec, ctrl_flat = control
+    mesh = full_mesh({})
+    out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, "n_layers": TM_DEPTH, **MOE_CFG},
+                   keep_grads=True, rules=FSDP_RULES)
+    rec, model = out["rec"], out["model"]
+    check_launches("fsdp_moe", rec, flash_launches(TM_DEPTH, remat=True))
+    flat = flat_by_name(out["grads"])
+    if (rec["losses"] != ctrl_rec["losses"] or not torch.equal(flat, ctrl_flat)
+            or rec["dropped_per_step"] != ctrl_rec["dropped_per_step"]):
+        raise AssertionError(f"fsdp_moe: not bitwise the model with no mesh (losses "
+                             f"{rec['losses']} vs {ctrl_rec['losses']}, dropped "
+                             f"{rec['dropped_per_step']} vs {ctrl_rec['dropped_per_step']}, "
+                             f"step-1 gradients {rel_norm(flat, ctrl_flat)} in relative norm)")
+    rec["closed_form"] = check_bytes("fsdp_moe", rec, model.cfg, mesh, "fsdp", False)
+    rec.update(phase="fsdp_moe", model=PP_MODEL, moe=MOE_CFG, n_layers=TM_DEPTH,
+               bitwise_no_mesh=True,
+               no_mesh_median_step_ms_2_to_5=ctrl_rec["median_step_ms_2_to_5"])
+    del out, model, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+def fsdp_moe_rank(rank: int, size: int, init_file: str, queue, variants, tmp) -> None:
+    """One spawned NCCL rank of ``fsdp_moe_multi`` on dp=2 x ep=2: each
+    variant's record (the exact launches, the parameter, gradient and
+    optimizer-state bytes at their closed form, the routes bitwise on the
+    ep line after every step, every line of copies bitwise after its
+    steps); the ranks write their step-1 gradients by name under ``tmp``,
+    each once: the experts from every ep rank, the rest from ep index 0,
+    every dp shard under FSDP_RULES (dp index 0's alone under
+    DEFAULT_RULES)."""
+    import os
+    import traceback
+
+    os.environ["HOROVOD_RANK"] = str(rank)
+    os.environ["HOROVOD_SIZE"] = str(size)
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.models.convert import EXPERT_PARAMS
+        from horovod_tpu_torch.ops import flash_attention as fa
+        from horovod_tpu_torch.ops import fused_bn_conv as fb
+        from horovod_tpu_torch.parallel.sharding import FSDP_RULES
+
+        full_precision_products()
+        hvd.init(init_method=f"file://{init_file}")
+        try:
+            recs = {}
+            for name in variants:
+                overrides, steps, _, kind, gated = FM_VARIANTS[name]
+                mesh = full_mesh(FM_MESH)
+                routes = []
+                out = train_pp(hvd, fa, fb, mesh, False, {"remat": True, **MOE_CFG, **overrides},
+                               keep_grads=gated, steps=steps,
+                               rules=FSDP_RULES if kind == "fsdp" else None,
+                               each_step=lambda m: routes.append(routes_agree(hvd, m, mesh)))
+                rec, model = out["rec"], out["model"]
+                cfg = model.cfg
+                check_launches(name, rec, flash_launches(
+                    cfg.n_layers if cfg.attn_impl == "flash" else 0, remat=True))
+                rec["closed_form"] = check_bytes(name, rec, cfg, mesh, kind, False)
+                rec["routes_bitwise_by_step"] = routes
+                if not all(routes):
+                    raise AssertionError(f"{name}: routes differ on the ep line: {routes}")
+                rec["replicas_bitwise"] = replicas_bitwise(hvd, model, mesh)
+                if not all(rec["replicas_bitwise"].values()):
+                    raise AssertionError(f"{name}: replicas differ: {rec['replicas_bitwise']}")
+                rec["coords"] = c = dict(mesh.coords)
+                if gated and (kind == "fsdp" or c["dp"] == 0):
+                    save_grads(tmp, name, c, {n: g for n, g in out["grads"].items()
+                                              if n.endswith(EXPERT_PARAMS) or c["ep"] == 0})
+                recs[name] = rec
+                del out, model
+                gc.collect()
+                torch.cuda.empty_cache()
+            hvd.barrier()
+            queue.put((rank, recs))
+        finally:
+            hvd.shutdown()
+    except Exception:  # report to the parent instead of leaving it waiting
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_fsdp_moe_multi(controls, tm_multi) -> dict:
+    """On four cards: the FM_VARIANTS on one spawned NCCL rank per card
+    (dp=2 x ep=2, B=4 a dp rank), each against its full-depth world-1
+    control from ``tp_moe_controls`` (the same model, weights and 16,384
+    tokens) and, for the bf16 variants, against (tm4)'s 5 losses from
+    ``tm_multi``, phase ``tp_moe_multi``'s record. Gates, those of
+    ``tp_moe_multi`` and ``fsdp_sp_multi``: step-1 loss within 2e-3
+    relative of the control's and the 5 within 1e-2 of (tm4)'s; step-1
+    gradients, the dp shards and the ep ranks' experts joined to the full
+    model, by ``grad_gates`` (the f32 witness within 1e-4 of the f32
+    control over the whole model and in every tensor, a bf16 variant's e_v
+    at most twice e_1); step-1 dropped tokens within 0.1% of the control's;
+    per rank 48 launches of K1 and 24 of each K2 kernel a step with flash;
+    the routes bitwise on every ep line at every step; every line of
+    copies bitwise; the parameter, gradient and optimizer-state bytes at
+    their closed form; the FSDP runs' state bytes and peak memory below
+    the replicated runs' on the same mesh. Per rank the step ms, tokens/s
+    and peak memory, the FSDP and the replicated runs in turns. Returns the
+    record, with (fm1)'s launches on rank 0 (or "not measured")."""
+    import functools
+    import glob
+    import os
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    world = math.prod(FM_MESH.values())
+    if cards < world or "variants" not in tm_multi:
+        rec = {"phase": "fsdp_moe_multi", "cards": cards,
+               "result": f"not measured: needs {world} cards"}
+        emit(rec)
+        return {"launches": rec["result"]}
+    layout = controls["layout"]
+    ref = tm_multi["variants"][TM_REFERENCE]["rank0"]["losses"]
+    rec = {"phase": "fsdp_moe_multi", "cards": world, "mesh": FM_MESH, "model": PP_MODEL,
+           "moe": MOE_CFG, "variants": {}, "e_1": controls["e_1"],
+           "reference": {"variant": TM_REFERENCE, "losses": ref},
+           "controls": {k: {f: controls[k][0][f] for f in (
+               "fwd_bwd_ms", "peak_mem_gb", "losses", "dropped_per_step")}
+               for k in ("bf16", "f32")}}
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_cards(functools.partial(fsdp_moe_rank, variants=list(FM_VARIANTS),
+                                              tmp=tmp), world, timeout=1200)
+        for name, (_, _, ctrl, kind, gated) in FM_VARIANTS.items():
+            ctrl_rec = controls[ctrl][0]
+            got = ranks[0][name]
+            v = {"rank0": got, "control": ctrl, "kind": kind,
+                 "by_rank": {k: [r[name][k] for r in ranks] for k in (
+                     "median_step_ms_2_to_5", "tokens_per_s", "peak_mem_gb", "params_held",
+                     "param_bytes", "grad_bytes", "state_bytes", "launches_per_step",
+                     "routes_bitwise_by_step")}}
+            v["tokens_per_s"] = PP_B * PP_S / (max(v["by_rank"]["median_step_ms_2_to_5"]) / 1e3)
+            v["loss1_rel_err"] = abs(got["losses"][0] - ctrl_rec["losses"][0]) / abs(
+                ctrl_rec["losses"][0])
+            if v["loss1_rel_err"] > SP_LOSS1_RTOL:
+                failed.append(f"{name}: step-1 loss {got['losses'][0]} vs "
+                              f"{ctrl_rec['losses'][0]}")
+            if ctrl == "bf16":
+                v["loss_max_rel_err_vs_tm4"] = max(abs(a - b) / abs(b)
+                                                   for a, b in zip(got["losses"], ref))
+                if v["loss_max_rel_err_vs_tm4"] > SP_LOSS_RTOL:
+                    failed.append(f"{name}: losses {got['losses']} vs {TM_REFERENCE}'s {ref}")
+            v["dropped_step1"] = got["dropped_per_step"][0]
+            v["control_dropped_step1"] = ctrl_rec["dropped_per_step"][0]
+            if abs(v["dropped_step1"] - v["control_dropped_step1"]) \
+                    > DROP_RTOL * v["control_dropped_step1"]:
+                failed.append(f"{name}: {v['dropped_step1']} tokens dropped at step 1, "
+                              f"control {v['control_dropped_step1']}")
+            if gated:
+                grads = joined_grads(tmp, name, FM_MESH, kind == "fsdp", layout)
+                for path in glob.glob(f"{tmp}/{name}.*.pt"):   # 17 GB a variant
+                    os.remove(path)
+                fields, bad = grad_gates(name, ctrl, grads, {"pp": controls["bf16"],
+                                                             "f32": controls["f32"],
+                                                             "e_1": controls["e_1"]}, layout)
+                v.update(fields)
+                failed += bad
+                del grads
+                gc.collect()
+            rec["variants"][name] = v
+    failed += beside_replicated(rec, (("fm1", "rm1"), ("fm1b", "rm1b")))
+    emit(rec)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    rec["launches"] = ranks[0]["fm1"]["launches"]
     return rec
 
 
@@ -6885,7 +7111,7 @@ def kernels_line(k1, k2, k34, sl, rn, bert, zero, sp, moe, pp, tp, zm, ts, tm, p
     launches on the GPT-2 slice (and per path), error, times and bound.
     ``later``: the records of the vit, vit_multi, mnist, mnist_multi,
     adasum_1p3b_multi, pp_tp, pp_tp_multi, pp_sp, pp_sp_multi, fsdp_sp,
-    fsdp_sp_multi, engine,
+    fsdp_sp_multi, fsdp_moe, fsdp_moe_multi, engine,
     engine_multi, elastic, elastic_multi, durable, durable_multi, metrics
     and metrics_multi phases by name (launches "not measured" where a phase
     had too few cards; the elastic, durable and metrics phases' are a
@@ -7050,16 +7276,22 @@ def main() -> int:
         del ps_control
         gc.collect()
         torch.cuda.empty_cache()
-        tm, tm_controls = phase_tp_moe(fa, fb)
-        phase_tp_moe_multi(tm_controls)
+        tm, tm_controls, tm_bare = phase_tp_moe(fa, fb)
+        tm_multi = phase_tp_moe_multi(tm_controls)
+        fm_multi = phase_fsdp_moe_multi(tm_controls, tm_multi)
         del tm_controls
+        gc.collect()
+        torch.cuda.empty_cache()
+        fm = phase_fsdp_moe(fa, fb, tm_bare)
+        del tm_bare
         gc.collect()
         torch.cuda.empty_cache()
         later = {"vit": phase_vit(fa, fb), "vit_multi": phase_vit_multi(fa, fb),
                  "mnist": phase_mnist(fa, fb), "mnist_multi": phase_mnist_multi(),
                  "adasum_1p3b_multi": phase_adasum_1p3b_multi(), "pp_tp": pt,
                  "pp_tp_multi": pt_multi, "pp_sp": ps, "pp_sp_multi": ps_multi,
-                 "fsdp_sp": fs, "fsdp_sp_multi": fs_multi, "engine": en,
+                 "fsdp_sp": fs, "fsdp_sp_multi": fs_multi, "fsdp_moe": fm,
+                 "fsdp_moe_multi": fm_multi, "engine": en,
                  "engine_multi": phase_engine_multi(), "elastic": el,
                  "elastic_multi": el_multi, "durable": du, "durable_multi": du_multi,
                  "metrics": me, "metrics_multi": me_multi}

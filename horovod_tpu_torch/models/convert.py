@@ -26,9 +26,11 @@ built and initialised with (``parallel/tensor.tp_cut``), and ``tp_join``
 joins the tp ranks' shards (of parameters or of gradients) back into the
 full model's tensors. Under ``FSDP_RULES``, ``flax_to_torch(..., dp=,
 dp_rank=)`` also cuts each parameter with a d_model dimension
-(``parallel/fsdp.FSDP_PARAMS``) to dp rank ``dp_rank``'s units
+(``parallel/fsdp.FSDP_PARAMS``: with Switch experts the router and, after
+their ep slice, ``wi`` and ``wo`` too) to dp rank ``dp_rank``'s units
 ``shard_range(d_model, dp, dp_rank)`` of it, after the tp cut, and
-``fsdp_join`` joins the dp ranks' shards back.
+``fsdp_join`` joins the dp ranks' shards back (then ``ep_join`` the ep
+ranks' experts).
 
 ``vit_flax_to_torch(params, cfg)`` and ``mnist_flax_to_torch(params, model)``
 do the same for the ViT and the MNIST nets.
@@ -179,7 +181,8 @@ def flax_to_torch(params: Mapping, cfg: TransformerConfig, ep: int = 1,
     ``tp`` > 1: that of ``TransformerLM`` on tp rank ``tp_rank`` (with
     ``stages`` too, that stage's on that tp rank); with
     ``dp`` > 1, that of ``TransformerLM(rules=FSDP_RULES)`` on dp rank
-    ``dp_rank`` (and tp rank ``tp_rank``)."""
+    ``dp_rank`` (and tp rank ``tp_rank``, or ep rank ``ep_rank``: its
+    experts' dp shards)."""
     from ..parallel.pipeline import stage_layers
 
     return _transformer_to_torch(params, cfg, "lm_head", ep, ep_rank,
@@ -263,7 +266,8 @@ def fsdp_join(shards: Sequence[Mapping[str, torch.Tensor]]) -> Dict[str, torch.T
     """The tensors of one tp rank's model from the dp ranks'
     ``state_dict``s (or gradients by name) under ``FSDP_RULES``, in dp rank
     order: each tensor with a d_model dimension joined along it, each other
-    one taken from dp rank 0. ``tp_join`` then joins the tp ranks'."""
+    one taken from dp rank 0. ``tp_join`` then joins the tp ranks', and
+    ``ep_join`` the ep ranks' experts."""
     out = {}
     for key, t in shards[0].items():
         dim = fsdp_dim(key)

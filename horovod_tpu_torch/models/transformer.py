@@ -87,8 +87,13 @@ there (``horovod_tpu/parallel/train.py`` cuts the batch over dp and, with
   gathered position table, and every attention route takes q, k and v from
   the gathered ``attn.qkv`` weight and bias, so each sp member's
   reduce-scatter carries its block's whole gradient, which the optimizer
-  then sums over sp. FSDP combines with dp, tp and sp; with ep, pp,
-  experts, or sp and tp together, it raises ``NotImplementedError``
+  then sums over sp. A ``SwitchMoE`` under FSDP holds its router's and its
+  E/ep experts' dp shard along D and gathers them where it routes and runs
+  the experts (the router through ``Dense``); the gather's reduce-scatter
+  sums each expert's gradient, which covers the slots of the rank's own
+  tokens, over dp, and the optimizer sums it over sp, never over ep.
+  FSDP combines with dp, ep, tp, sp and experts; with pp, experts under
+  tp > 1, or sp and tp together, it raises ``NotImplementedError``
   (``check_fsdp_supported``). ``rules`` is ``DEFAULT_RULES`` by default;
   ``PipelinedLM`` holds ``PIPELINE_RULES``.
 """
@@ -456,11 +461,12 @@ class SwitchMoE(nn.Module):
     def experts(self, expert_in):
         """The experts' output on this rank's tp shard of their d_ff,
         summed over tp (in the compute dtype, each partial product rounded
-        before the sum)."""
+        before the sum). Under FSDP the experts' D is gathered over dp
+        here, inside the remat block."""
         dt = self.cfg.dtype
-        h = torch.einsum("ecd,edf->ecf", expert_in, self.wi.to(dt))
+        h = torch.einsum("ecd,edf->ecf", expert_in, gathered(self.wi).to(dt))
         h = F.gelu(h, approximate="tanh")
-        return psum(torch.einsum("ecf,efd->ecd", h, self.wo.to(dt)), self.tp,
+        return psum(torch.einsum("ecf,efd->ecd", h, gathered(self.wo).to(dt)), self.tp,
                     grad="identity", name="hvd.tp.expert_psum")
 
     def route(self, x):

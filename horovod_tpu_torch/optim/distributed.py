@@ -45,10 +45,11 @@ line in backward, by the reduce-scatter of its gather. The optimizer sums
 it over the rest of its own line (under sp, the sp members that hold the
 same shard) with SUM all-reduces in buckets of their own, on the hooks'
 schedule beside the others (``_rest``, under the range ``REST_SPAN``;
-none where the cut's line is the whole line), then applies the op's scale
-(1/n for AVERAGE, n the whole line's size) and the pre- and postscale;
-ZeRO, error feedback, Adasum, compression and ``backward_passes_per_step``
-> 1 refuse such a parameter.
+none where the cut's line is the whole line: a ("dp",) line beside ep),
+never over ep for a Switch expert (such a line is refused), then applies
+the op's scale (1/n for AVERAGE, n the whole line's size) and the pre- and
+postscale; ZeRO, error feedback, Adasum, compression and
+``backward_passes_per_step`` > 1 refuse such a parameter.
 
 ``synchronize()`` is the explicit form of the reduction; a ``step()`` after
 it only steps the inner optimizer. The ranks' gradient signatures (count,
@@ -370,7 +371,14 @@ class DistributedOptimizer(torch.optim.Optimizer):
                     f"{cut.comm.ranks} in backward; the optimizer reduces over "
                     f"{comm.ranks}, not a line of the model's mesh that holds them: "
                     "pass the model's dp line, or its ('dp', 'sp') line, as axis_name")
-            rest[p] = mesh.comm(tuple(a for a in whole if a not in own))
+            rest_axes = tuple(a for a in whole if a not in own)
+            # The other ep ranks hold other experts: never summed with these.
+            if hasattr(p, "expert_parallel") and "ep" in rest_axes:
+                raise ValueError(
+                    f"a Switch expert cut over dp would have its gradient summed over "
+                    f"{rest_axes}, whose ep members hold other experts: pass the model's "
+                    f"dp line, or its ('dp', 'sp') line, as axis_name")
+            rest[p] = mesh.comm(rest_axes)
         return rest
 
     @torch.no_grad()

@@ -28,14 +28,31 @@ the same shard is left, and ``DistributedOptimizer``, whose line is
 ("dp", "sp"), all-reduces the cut gradients over the rest of its line
 (the sp line) in its buckets before it applies AVERAGE's 1/(dp·sp).
 
+With Switch experts (``models/transformer.py`` ``SwitchMoE``) the router's
+(E, D) weight is cut along D, and each expert tensor, ``moe.wi`` (E/ep, D,
+d_ff) and ``moe.wo`` (E/ep, d_ff, D), along its D, over the dp line alone:
+the JAX placements ``P('dp', None)`` for the router kernel, ``P('ep', 'dp',
+None)`` and ``P('ep', None, 'dp')`` for the experts. The dense parameters
+and the router are replicated over ep, the experts are the rank's ep slice.
+The sums of an expert's gradient: a rank's gradient of its full (gathered)
+experts covers the slots of its own tokens only (the expert input is
+completed by a SUM over (dp, sp), and its cotangent is the rank's own
+slots'); the gather's reduce-scatter sums it over dp, and
+``DistributedOptimizer`` sums it over the rest of its ("dp", "sp") line
+(sp) as for every cut parameter. Nothing sums it over ep, whose members
+hold other experts: an optimizer whose line holds ep refuses an expert
+cut over dp. The router's and the dense parameters' gradients come out
+equal on every ep rank (the tokens and the gate enter the expert region
+through ``pvary`` over ep) and are summed the same way.
+
 Uneven splits follow ``shard_range`` (the last shard short): each shard is
 padded to ⌈n/dp⌉ for the gather and the padding cut away after it. At a
 dp line of one member nothing is cut and ``gathered`` returns the
-parameter itself, bit for bit. FSDP combines with dp, tp and sp; with ep,
-pp, a Switch-MoE FFN, gradient accumulation, sp and tp both above one (dp
-x sp x tp, a mesh of eight ranks), and on the BERT encoder, it raises
-``NotImplementedError`` naming its ROADMAP item, and it does not take ZeRO
-(the moments are already sharded).
+parameter itself, bit for bit. FSDP combines with dp, ep, tp, sp and
+Switch experts; with pp, experts under tp > 1, gradient accumulation, sp
+and tp both above one (dp x sp x tp, a mesh of eight ranks), and on the
+BERT encoder, it raises ``NotImplementedError`` naming its ROADMAP item,
+and it does not take ZeRO (the moments are already sharded).
 """
 from __future__ import annotations
 
@@ -64,6 +81,11 @@ FSDP_PARAMS: Dict[str, int] = {
     "mlp.wi.weight": 1,
     "mlp.wo.weight": 0, "mlp.wo.bias": 0,
     "lm_head.weight": 1,
+    # Switch experts: the router's (E, D) weight, the experts' (E/ep, D,
+    # d_ff) and (E/ep, d_ff, D) kernels.
+    "moe.router.weight": 1,
+    "moe.wi": 1,
+    "moe.wo": 2,
 }
 
 
@@ -127,24 +149,24 @@ def fsdp_cut(name: str, cfg, comm: Comm) -> Optional[FSDPCut]:
 
 
 # What the refusals name.
-NOT_PORTED = ("ROADMAP A3: FSDP with ep, pp, MoE, gradient accumulation, dp x sp x tp "
-              "or the BERT encoder")
+NOT_PORTED = ("ROADMAP A3: FSDP with pp, experts under tp, gradient accumulation, "
+              "dp x sp x tp or the BERT encoder")
 
 
 def check_fsdp_supported(cfg, mesh) -> None:
     """The combinations this port does not run under an FSDP cut raise
     ``NotImplementedError`` naming their ROADMAP item."""
-    for axis in ("ep", "pp"):
-        if mesh.shape.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"FSDP_RULES with {axis}={mesh.shape[axis]} is not ported ({NOT_PORTED})")
+    if mesh.shape.get("pp", 1) > 1:
+        raise NotImplementedError(
+            f"FSDP_RULES with pp={mesh.shape['pp']} is not ported ({NOT_PORTED})")
     if mesh.shape.get("sp", 1) > 1 and mesh.shape.get("tp", 1) > 1:
         raise NotImplementedError(
             f"FSDP_RULES with sp={mesh.shape['sp']} and tp={mesh.shape['tp']} together is "
             f"not ported ({NOT_PORTED})")
-    if cfg.n_experts:
+    if cfg.n_experts and mesh.shape.get("tp", 1) > 1:
         raise NotImplementedError(
-            f"FSDP_RULES with n_experts={cfg.n_experts} is not ported ({NOT_PORTED})")
+            f"FSDP_RULES with n_experts={cfg.n_experts} and tp={mesh.shape['tp']} is not "
+            f"ported ({NOT_PORTED})")
 
 
 def mark_fsdp(model: torch.nn.Module, cfg, comm: Comm) -> None:

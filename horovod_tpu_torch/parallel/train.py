@@ -58,7 +58,13 @@ parameters themselves cut over dp, ``parallel/fsdp.py``). Under
 ``FSDP_RULES`` on a dp x sp mesh the cut parameters are replicated over
 sp, and the optimizer, still over the ("dp", "sp") line, sums their
 gradients (already summed over dp by the gathers' reduce-scatters) over
-the sp line before AVERAGE's 1/(dp·sp) (``optim/distributed.py``).
+the sp line before AVERAGE's 1/(dp·sp) (``optim/distributed.py``). With
+Switch experts under ``FSDP_RULES`` (dp x ep, dp x sp) the router and the
+rank's E/ep experts are cut over dp too and replicated over sp; the
+optimizer's line stays ("dp", "sp"), so an expert's gradient, summed over
+dp by its gather's reduce-scatter, is summed over sp by the optimizer and
+never over ep, and ``moe_aux_weight`` and the dropped-token counts are as
+under ``DEFAULT_RULES``.
 
 ``dropout=True`` runs a model whose ``forward`` takes ``deterministic``
 with ``deterministic=False`` under the dropout key (``dropout_seed``, the

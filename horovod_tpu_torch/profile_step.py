@@ -77,7 +77,11 @@ and ``--seq`` (FSDP x sp: ``--model gpt2-1p3b --fsdp --sp 2 --attn ulysses
 cut parameters are replicated over sp), and the step splits by the
 ``hvd.fsdp.*`` and the ``hvd.sp.*`` ranges together, where
 ``hvd.fsdp.rest_allreduce`` is the cut gradients' sum over the sp line
-(the optimizer's buckets of them). ``--tp`` combines with ``--sp``, ``--attn``
+(the optimizer's buckets of them). ``--fsdp`` combines with ``--n-experts`` and
+``--ep`` too (FSDP with Switch experts: ``--model gpt2-1p3b --fsdp
+--n-experts 8 --ep 2 --remat``, a dp x ep mesh over the world, the router
+and each rank's experts cut over dp beside the dense parameters), where
+``hvd.fsdp.all_gather`` gathers the experts too. ``--tp`` combines with ``--sp``, ``--attn``
 and ``--seq`` (tp x sp: ``--model gpt2-1p3b --tp 2 --sp 2 --attn ring
 --seq 8192 --remat``, the layout of ``examples/jax_gpt2_train.py:9-11``
 cut to one node); at ``--seq`` above 2048 the global batch shrinks to keep

@@ -1,4 +1,4 @@
-"""JAX-side references for tests/test_torch_port_{zero_mesh,fsdp,fsdp_sp}.py: the
+"""JAX-side references for tests/test_torch_port_{zero_mesh,fsdp,fsdp_sp,fsdp_moe}.py: the
 JAX model of ``_torch_port_workers.zm_config``, its weights drawn with
 numpy, and the JAX ``make_train_step`` on a CPU mesh of the same shape;
 ``shared``, the session-wide cache of an expensive fixture under xdist
@@ -57,12 +57,14 @@ def model(dtype: str = "float32", **overrides) -> TransformerLM:
     return TransformerLM(cfg)
 
 
-def numpy_params(seed: int = 0):
-    """The JAX model's parameter tree drawn with numpy: kernels, embeddings
-    and biases normal(0, 0.02), LayerNorm scales 1 + normal(0, 0.1), so a
+def numpy_params(seed: int = 0, **overrides):
+    """The JAX model's parameter tree (the config's ``overrides`` applied:
+    Switch experts) drawn with numpy: kernels, embeddings, experts and
+    biases normal(0, 0.02), LayerNorm scales 1 + normal(0, 0.1), so a
     misplaced bias or a wrong cut shows."""
     ids = workers.zm_ids()
-    shapes = jax.eval_shape(lambda: nn.unbox(model().init(jax.random.PRNGKey(0), ids))["params"])
+    shapes = jax.eval_shape(
+        lambda: nn.unbox(model(**overrides).init(jax.random.PRNGKey(0), ids))["params"])
     rng = np.random.RandomState(seed)
 
     def draw(path, leaf):
@@ -78,32 +80,67 @@ def mesh(shape: dict) -> Mesh:
     return Mesh(np.asarray(jax.devices()[:n]).reshape(tuple(shape.values())), tuple(shape))
 
 
+MOE_FIELDS = ("n_experts", "moe_every", "capacity_factor")
+
+
+def routes(jmodel, params, ids) -> tuple:
+    """Each Switch FFN's expert per token of ``ids`` (b·S + s order) and its
+    dropped tokens, from the flax router's logits."""
+    cfg = jmodel.cfg
+    _, inter = jmodel.apply({"params": params}, jnp.asarray(ids),
+                            capture_intermediates=True, mutable=["intermediates"])
+    C = max(1, int(cfg.capacity_factor * ids.size / cfg.n_experts))
+    stack = inter["intermediates"]["stack"]
+    got, dropped = [], []
+    for layer in sorted((k for k in stack if k.startswith("layer_")),
+                        key=lambda k: int(k[len("layer_"):])):
+        if "moe" in stack[layer]:
+            idx = np.asarray(stack[layer]["moe"]["router"]["__call__"][0]).argmax(-1)
+            got.append(idx.reshape(-1))
+            dropped.append(int(np.maximum(np.bincount(idx.reshape(-1),
+                                                      minlength=cfg.n_experts) - C, 0).sum()))
+    return got, dropped
+
+
 def train(shape: dict, params, dtype: str = "float32", zero: bool = False,
-          rules=DEFAULT_RULES, shard_seq: bool = False, **overrides) -> dict:
+          rules=DEFAULT_RULES, shard_seq: bool = False, moe_aux_weight: float = 0.0,
+          **overrides) -> dict:
     """ZM_STEPS AdamW steps of the JAX ``make_train_step`` (plain
-    ``optax.adamw``, ``zero=``, ``rules=``, ``shard_seq=``) on a CPU mesh of
-    ``shape`` from ``params``, the model's config ``overrides`` applied (an
-    attention route): the losses, the final parameters and the f32 step-1
-    gradients in the port's full layout, and the parameters' shardings."""
+    ``optax.adamw``, ``zero=``, ``rules=``, ``shard_seq=``,
+    ``moe_aux_weight=``) on a CPU mesh of ``shape`` from ``params``, the
+    model's config ``overrides`` applied (an attention route, Switch
+    experts): the losses, the final parameters and the f32 step-1 gradients
+    (of ``lm_loss`` plus the weighted auxiliary loss) in the port's full
+    layout, and the parameters' shardings; with experts, each step's routes
+    and dropped tokens before it (the f32 model with dense attention)."""
     jmodel = model(dtype, **overrides)
-    cfg = workers.zm_config(torch, dtype)
+    moe = {k: v for k, v in overrides.items() if k in MOE_FIELDS}
+    cfg = workers.zm_config(torch, dtype, **overrides)
     ids = workers.zm_ids()
     tx = optax.adamw(workers.ZM_LR, weight_decay=workers.ZM_WD, eps=workers.ZM_EPS)
     build = make_train_step(jmodel, tx, lm_loss, mesh=mesh(shape), rules=rules, zero=zero,
-                            shard_seq=shard_seq)
+                            shard_seq=shard_seq, moe_aux_weight=moe_aux_weight)
     _, step_fn, shardings = build(jax.random.PRNGKey(0), ids, ids)
     state = jax.device_put(TrainState(step=jnp.zeros((), jnp.int32), params=params,
                                       opt_state=tx.init(params)), shardings)
-    f32 = model("float32")
-    grads = jax.grad(lambda p: lm_loss(f32.apply({"params": p}, jnp.asarray(ids)),
-                                       jnp.asarray(ids)))(params)
-    losses = []
+    f32 = model("float32", **moe)
+
+    def objective(p):
+        logits, upd = f32.apply({"params": p}, jnp.asarray(ids), mutable=["losses"])
+        aux = sum(jnp.sum(v) for v in jax.tree.leaves(upd.get("losses", {})))
+        return lm_loss(logits, jnp.asarray(ids)) + moe_aux_weight * aux
+
+    grads = jax.grad(objective)(params)
+    losses, by_step = [], []
     for _ in range(workers.ZM_STEPS):
+        if moe.get("n_experts"):
+            by_step.append(routes(f32, jax.tree.map(np.asarray, state.params), ids))
         state, loss = step_fn(state, ids, ids)
         losses.append(float(loss))
     return {"losses": np.array(losses), "shardings": shardings.params,
             "params": flax_to_torch(jax.tree.map(np.asarray, state.params), cfg),
-            "grads": flax_to_torch(jax.tree.map(np.asarray, grads), cfg)}
+            "grads": flax_to_torch(jax.tree.map(np.asarray, grads), cfg),
+            "routes": [r for r, _ in by_step], "dropped": np.array([d for _, d in by_step])}
 
 
 def assert_params_match(got: dict, want: dict, dtype: str) -> None:
@@ -127,7 +164,7 @@ def torch_shard_shapes(shardings, params) -> dict:
     """Each parameter's shard shape under the JAX shardings, in the port's
     layout (kernels (in..., out...) as (out, in), the qkv bias flat)."""
     # The number of leading "in" dimensions of each kernel.
-    fan_in = {"qkv": 1, "out": 2, "wi": 1, "wo": 1, "lm_head": 1}
+    fan_in = {"qkv": 1, "out": 2, "wi": 1, "wo": 1, "lm_head": 1, "router": 1}
     out = {}
     for (path, sh), (_, leaf) in zip(jax.tree_util.tree_leaves_with_path(shardings),
                                      jax.tree_util.tree_leaves_with_path(params)):

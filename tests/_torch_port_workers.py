@@ -1864,7 +1864,8 @@ def _zm_train(hvd, torch, shape: dict, params=None, dtype: str = "float32", *,
     axes (with ``opt_kw``). Returns
     the losses, this rank's coordinates, its state_dict (with ``per_step``
     after every step too), its optimizer's state bytes and the rank's
-    step-1 gradients by name."""
+    step-1 gradients by name; with Switch experts each step's dropped
+    tokens and this rank's routes."""
     from horovod_tpu_torch.models.convert import flax_to_torch
     from horovod_tpu_torch.models.transformer import TransformerLM
     from horovod_tpu_torch.parallel.train import lm_loss, make_train_step
@@ -1894,10 +1895,13 @@ def _zm_train(hvd, torch, shape: dict, params=None, dtype: str = "float32", *,
                                        **({"zero": True} if zero else {}), **rules)
     state = init_fn()
     ids = torch.from_numpy(zm_ids())
-    losses, grads, by_step = [], None, []
+    losses, grads, by_step, dropped, routes = [], None, [], [], []
     for _ in range(ZM_STEPS):
         state, loss = step_fn(state, ids, ids)
         losses.append(float(loss))
+        if model.moe_blocks():
+            dropped.append([int(d) for d in model.moe_dropped()])
+            routes.append(_routes(model))
         if grads is None:
             grads = {k: p.grad.detach().float().numpy().copy()
                      for k, p in model.named_parameters()}
@@ -1905,6 +1909,7 @@ def _zm_train(hvd, torch, shape: dict, params=None, dtype: str = "float32", *,
             by_step.append({k: v.detach().float().numpy().copy()
                             for k, v in model.state_dict().items()})
     return {"losses": np.array(losses), "coords": dict(mesh.coords), "by_step": by_step,
+            "dropped": np.array(dropped), "routes": routes,
             "params": {k: v.detach().float().numpy().copy()
                        for k, v in model.state_dict().items()},
             "grads": grads,
@@ -2041,10 +2046,11 @@ def _run_zero_mesh_world(rank: int, size: int, params_f32, params_bf16) -> dict:
 
 
 def _fsdp_raises(hvd, torch) -> dict:
-    """The combinations FSDP_RULES does not run (and the optimizer's
-    gradient accumulation on FSDP-cut parameters, and the BERT encoder),
-    on a world of four; dp x sp x tp on a mesh of eight named without its
-    communicators (the refusal comes before any collective)."""
+    """The combinations FSDP_RULES does not run (Switch experts under tp,
+    pp, the optimizer's gradient accumulation on FSDP-cut parameters, and
+    the BERT encoder), on a world of four; dp x sp x tp on a mesh of eight
+    named without its communicators (the refusal comes before any
+    collective)."""
     import dataclasses
 
     from horovod_tpu_torch.models.transformer import TransformerEncoder, TransformerLM
@@ -2069,9 +2075,8 @@ def _fsdp_raises(hvd, torch) -> dict:
                       mesh=paper_mesh(torch, {"dp": 2, "sp": 2, "tp": 2}))
 
     return {"dp_sp_tp": _raises(dp_sp_tp),
-            "ep": _raises(build({"dp": 2, "ep": 2})),
+            "moe_tp": _raises(build({"dp": 2, "tp": 2}, n_experts=4)),
             "pp": _raises(build({"dp": 2, "pp": 2})),
-            "moe": _raises(build({"dp": 4}, n_experts=4)),
             "accumulation": _raises(accumulate),
             "bert": _raises(lambda: TransformerEncoder(
                 zm_config(torch), device="cpu", mesh=hvd.create_mesh({"dp": 4}),
@@ -2892,3 +2897,76 @@ def _run_fsdp_sp_world(rank: int, size: int, params_f32, params_bf16) -> dict:
         torch.optim.AdamW(model.parameters()), axis_name="sp"))
     return {"runs": runs, "coords": dict(mesh.coords), "init": init, "off_line": off_line,
             "loaded": {k: v.numpy().copy() for k, v in model.state_dict().items()}}
+
+
+# ---------------------------------------------------------------------------
+# FSDP with Switch experts and ep (tests/test_torch_port_fsdp_moe.py): the
+# zm model with FSDPMOE_E experts in block 1 (capacity 1.25, aux 0.01).
+FSDPMOE_E, FSDPMOE_AUX = 4, 0.01
+# name -> (mesh, attention route, Switch experts)
+FSDPMOE_CASES = {
+    "dp2_ep2": ({"dp": 2, "ep": 2}, "dense", True),
+    "dp4": ({"dp": 4}, "dense", True),
+    "dp2_sp2": ({"dp": 2, "sp": 2}, "ulysses", True),
+    "dp2_ep2_dense": ({"dp": 2, "ep": 2}, "dense", False),
+}
+# The bf16 case, the case passed a DistributedOptimizer, the case on the
+# after-backward grouped reduction.
+FSDPMOE_BF16, FSDPMOE_PASSED, FSDPMOE_GROUPED = "dp2_ep2", "dp2_ep2", "dp2_sp2"
+
+
+def fsdpmoe_overrides(name: str) -> dict:
+    """A case's config fields beside ``zm_config``'s."""
+    _, attn, moe = FSDPMOE_CASES[name]
+    return {"attn_impl": attn, **({"n_experts": FSDPMOE_E} if moe else {})}
+
+
+def _fsdpmoe_train(hvd, torch, name: str, params, dtype: str = "float32", **kw) -> dict:
+    shape, _, moe = FSDPMOE_CASES[name]
+    return _zm_train(hvd, torch, shape, params, dtype, fsdp=True,
+                     shard_seq=shape.get("sp", 1) > 1,
+                     moe_aux_weight=FSDPMOE_AUX if moe else 0.0, **kw,
+                     **fsdpmoe_overrides(name))
+
+
+def _run_fsdp_moe_world(rank: int, size: int, params_f32, params_bf16, params_dense) -> dict:
+    """Each FSDPMOE_CASES case under FSDP_RULES from the numpy weights
+    (each rank loading its ep slice and dp cut) with the plain AdamW (the
+    parameters after every step); FSDPMOE_PASSED with a DistributedOptimizer
+    over the ("dp", "sp") line passed in, FSDPMOE_GROUPED on the grouped
+    after-backward reduction, FSDPMOE_BF16 in bf16; on {"dp": 2, "ep": 2}
+    the model from torch seed 0, the model loaded by ``flax_to_torch(...,
+    ep=, ep_rank=, dp=, dp_rank=)``, and the optimizers off the cut's line
+    (over ep, and over ("dp", "ep"), which would sum the experts over ep)."""
+    import torch
+
+    torch.set_num_threads(2)    # four ranks share the host's cores
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.convert import flax_to_torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel.sharding import FSDP_RULES
+
+    runs = {}
+    for name, (_, _, moe) in FSDPMOE_CASES.items():
+        runs[name] = _fsdpmoe_train(hvd, torch, name, params_f32 if moe else params_dense,
+                                    per_step=True)
+    runs["passed"] = _fsdpmoe_train(hvd, torch, FSDPMOE_PASSED, params_f32, plain=False)
+    runs["grouped"] = _fsdpmoe_train(hvd, torch, FSDPMOE_GROUPED, params_f32, plain=False,
+                                     opt_kw={"_schedule": "grouped"})
+    runs["bf16"] = _fsdpmoe_train(hvd, torch, FSDPMOE_BF16, params_bf16, "bfloat16")
+    mesh = hvd.create_mesh(FSDPMOE_CASES["dp2_ep2"][0])
+    cfg = zm_config(torch, **fsdpmoe_overrides("dp2_ep2"))
+    model = TransformerLM(cfg, device="cpu", mesh=mesh, rules=FSDP_RULES,
+                          generator=torch.Generator().manual_seed(0))
+    init = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    model.load_state_dict(flax_to_torch(params_f32, cfg, ep=2, ep_rank=mesh.coords["ep"],
+                                        dp=2, dp_rank=mesh.coords["dp"]))
+
+    def off_line(axes):
+        return _raises(lambda: hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters()), axis_name=axes))
+
+    return {"runs": runs, "coords": dict(mesh.coords), "init": init,
+            "loaded": {k: v.numpy().copy() for k, v in model.state_dict().items()},
+            "off_line": {"ep": off_line("ep"), "dp_ep": off_line(("dp", "ep"))}}

@@ -20,12 +20,13 @@ cut (``flax_to_torch(..., dp=, dp_rank=, tp=, tp_rank=)``), 3 AdamW steps:
 * the rule table (``FSDP_RULES`` is the JAX table's rows for the port's
   parameters), the dp cut's uneven split, the gather and its backward at a
   line of one member and over uneven shards;
-* FSDP with ep, pp or experts, with sp and tp together (dp x sp x tp,
-  named on a mesh of eight without its communicators),
+* FSDP with Switch experts under tp, with pp, with sp and tp together
+  (dp x sp x tp, named on a mesh of eight without its communicators),
   ``DistributedOptimizer(backward_passes_per_step=2)`` on FSDP-cut
   parameters, and the BERT encoder under ``FSDP_RULES`` raise
   ``NotImplementedError`` naming ROADMAP A3 (FSDP under sp runs:
-  tests/test_torch_port_fsdp_sp.py).
+  tests/test_torch_port_fsdp_sp.py; with ep and experts:
+  tests/test_torch_port_fsdp_moe.py).
 
 Tolerances as tests/test_torch_port_zero_mesh.py (``_torch_port_jax``).
 """
@@ -138,7 +139,7 @@ def test_fsdp_init_holds_the_world_one_weights(worlds, size):
         assert torch.equal(got[k], v), k
 
 
-@pytest.mark.parametrize("combo", ["dp_sp_tp", "ep", "pp", "moe", "accumulation", "bert"])
+@pytest.mark.parametrize("combo", ["dp_sp_tp", "moe_tp", "pp", "accumulation", "bert"])
 def test_fsdp_combinations_not_ported_raise(worlds, combo):
     for r in worlds["ranks"][4]:
         msg = r["raises"][combo]
